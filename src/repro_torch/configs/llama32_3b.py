@@ -1,0 +1,17 @@
+"""llama3.2-3b [dense] — 28L d=3072 24H (kv=8) ff=8192 v=128256.
+
+Small llama3.  [hf:meta-llama/Llama-3.2-3B; unverified]
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="llama3.2-3b", family="dense",
+    n_layers=28, d_model=3072, n_heads=24, n_kv_heads=8, d_ff=8192,
+    vocab=128256, head_dim=128, rope_theta=500000.0,
+)
+
+SMOKE_CONFIG = ArchConfig(
+    name="llama3.2-3b-smoke", family="dense",
+    n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+    vocab=256, head_dim=16, rope_theta=500000.0,
+)

@@ -1,0 +1,225 @@
+"""The port's kernel paths on the CPU (their plain PyTorch versions) against
+the reference's Pallas kernels in interpret mode and its jnp oracles.
+
+Integer outputs are compared bitwise.  Attention outputs in float32 within
+rtol/atol 3e-5 (summation order differs), in bf16 within 3e-2 (one bf16
+rounding of the inputs), as ``tests/test_kernels.py`` holds the reference.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import sketch as jsk  # noqa: E402
+from repro.kernels.cms_hist import ops as j_hist_ops  # noqa: E402
+from repro.kernels.neoprof_update import neoprof_update as j_ku  # noqa: E402
+from repro.kernels.neoprof_update import ref as j_kref  # noqa: E402
+from repro.kernels.paged_attn import ops as j_pa_ops  # noqa: E402
+from repro.kernels.paged_attn import ref as j_pa_ref  # noqa: E402
+from repro_torch.core import sketch as tsk  # noqa: E402
+from repro_torch.kernels.cms_hist import ops as t_hist_ops  # noqa: E402
+from repro_torch.kernels.neoprof_update import ops as t_np_ops  # noqa: E402
+from repro_torch.kernels.paged_attn import ops as t_pa_ops  # noqa: E402
+
+
+def _random_sketch(rng, depth, width):
+    """A sketch state with live, stale and near-saturated counters."""
+    counts = rng.integers(0, 70, (depth, width)).astype(np.int32)
+    counts[:, :8] = 65533
+    epochs = rng.integers(0, 2, (depth, width)).astype(np.uint8)
+    hot = rng.random((depth, width)) < 0.1
+    seeds = rng.integers(0, width, (depth, jsk.PAGE_ID_BITS)).astype(np.int32)
+    return counts, epochs, hot, seeds
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("width,depth,s", [
+    (1 << 10, 2, 128), (1 << 12, 2, 256), (1 << 12, 3, 512),
+])
+def test_update_plain_matches_pallas_kernel(width, depth, s):
+    rng = np.random.default_rng(width + s)
+    counts, epochs, hot, seeds = _random_sketch(rng, depth, width)
+    ids = rng.integers(-1, 1 << 18, s).astype(np.int32)     # includes padding
+    ids[: s // 8] = ids[s // 8]                               # duplicates
+    cmax = jsk.SketchParams().counter_max
+    out_j = j_ku.sketch_update_pallas(
+        jnp.asarray(counts), jnp.asarray(epochs, jnp.int32),
+        jnp.asarray(hot, jnp.int32), jnp.asarray(ids), jnp.asarray(seeds),
+        jnp.int32(1), cmax, depth=depth, width=width, interpret=True)
+    out_r = j_kref.update_ref(
+        jnp.asarray(counts), jnp.asarray(epochs, jnp.int32),
+        jnp.asarray(hot, jnp.int32), jnp.asarray(ids), jnp.asarray(seeds),
+        jnp.int32(1), cmax)
+    out_t = t_np_ops.sketch_update_kernel(
+        _t(counts), _t(epochs), _t(hot), _t(ids), _t(seeds),
+        torch.tensor(1, dtype=torch.uint8), cmax)
+    for name, a, r, t in zip(["counts", "epochs", "est", "hot_before"],
+                             out_j, out_r, out_t):
+        np.testing.assert_array_equal(t.numpy().astype(np.int32), np.asarray(a),
+                                      err_msg=name)
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(r), err_msg=name)
+
+
+def test_update_plain_matches_ref_at_main_width():
+    """W=16K, S=1024 against the reference's jnp oracle (the Pallas kernel
+    at this size is covered by tests/test_kernels.py)."""
+    rng = np.random.default_rng(14)
+    counts, epochs, hot, seeds = _random_sketch(rng, 2, 1 << 14)
+    ids = rng.integers(-1, 1 << 18, 1024).astype(np.int32)
+    cmax = jsk.SketchParams().counter_max
+    out_r = j_kref.update_ref(
+        jnp.asarray(counts), jnp.asarray(epochs, jnp.int32),
+        jnp.asarray(hot, jnp.int32), jnp.asarray(ids), jnp.asarray(seeds),
+        jnp.int32(0), cmax)
+    out_t = t_np_ops.sketch_update_kernel(
+        _t(counts), _t(epochs), _t(hot), _t(ids), _t(seeds),
+        torch.tensor(0, dtype=torch.uint8), cmax)
+    for a, t in zip(out_r, out_t):
+        np.testing.assert_array_equal(t.numpy().astype(np.int32), np.asarray(a))
+
+
+def test_mark_plain_matches_pallas_kernel():
+    rng = np.random.default_rng(9)
+    _, _, hot, seeds = _random_sketch(rng, 2, 1 << 12)
+    ids = rng.integers(-1, 1 << 18, 256).astype(np.int32)
+    is_hot = rng.random(256) < 0.3
+    out_j = j_ku.sketch_mark_hot_pallas(
+        jnp.asarray(hot, jnp.int32), jnp.asarray(ids),
+        jnp.asarray(is_hot, jnp.int32), jnp.asarray(seeds), depth=2,
+        width=1 << 12, interpret=True)
+    out_r = j_kref.mark_hot_ref(jnp.asarray(hot, jnp.int32), jnp.asarray(ids),
+                                jnp.asarray(is_hot, jnp.int32), jnp.asarray(seeds))
+    out_t = t_np_ops.sketch_mark_hot_kernel(_t(hot), _t(ids), _t(is_hot), _t(seeds))
+    np.testing.assert_array_equal(out_t.numpy().astype(np.int32), np.asarray(out_j))
+    np.testing.assert_array_equal(np.asarray(out_j), np.asarray(out_r))
+
+
+@pytest.mark.parametrize("stale", [False, True])
+def test_hist_plain_matches_pallas_kernel_and_core(stale):
+    sp = jsk.SketchParams(width=1 << 12, depth=2)
+    st = jsk.sketch_init(sp)
+    rng = np.random.default_rng(5)
+    st, _ = jsk.sketch_update(st, jnp.asarray(rng.integers(0, 1 << 16, 4096),
+                                              jnp.int32), jnp.int32(1 << 30), sp)
+    if stale:   # half the row goes stale: it must read as 0
+        st = st._replace(epochs=st.epochs.at[:, ::2].set(7))
+    h_kernel = j_hist_ops.sketch_histogram(st, sp, interpret=True)
+    h_core = jsk.sketch_histogram(st, sp)
+    ts = tsk.SketchState(*[_t(x) for x in st])
+    h_port = t_hist_ops.sketch_histogram(ts, tsk.SketchParams(width=1 << 12))
+    np.testing.assert_array_equal(h_port.numpy(), np.asarray(h_kernel))
+    np.testing.assert_array_equal(np.asarray(h_kernel), np.asarray(h_core))
+
+
+def _attn_inputs(seed, b, h, hkv, dk, dv, p, t, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, dk)).astype(np.float32)
+    kp = rng.standard_normal((b, p, t, hkv, dk)).astype(dtype)
+    vp = rng.standard_normal((b, p, t, hkv, dv)).astype(dtype)
+    lens = rng.integers(0, t + 1, (b, p)).astype(np.int32)
+    lens[:, 0] = np.maximum(lens[:, 0], 1)
+    return q, kp, vp, lens
+
+
+@pytest.mark.parametrize("b,h,hkv,dk,dv,p,t,softcap", [
+    (2, 8, 2, 64, 64, 4, 16, 0.0),
+    (1, 4, 4, 32, 32, 8, 32, 30.0),
+    (3, 8, 1, 576 // 8, 64, 2, 8, 0.0),     # MLA-style dk != dv
+    (2, 16, 8, 128, 128, 4, 64, 0.0),
+])
+def test_paged_attention_plain_matches_pallas_kernel(b, h, hkv, dk, dv, p, t,
+                                                     softcap):
+    q, kp, vp, lens = _attn_inputs(b * h + p, b, h, hkv, dk, dv, p, t)
+    args = [jnp.asarray(x) for x in (q, kp, vp, lens)]
+    o_k = j_pa_ops.paged_attention(*args, softcap=softcap, interpret=True)
+    o_r = j_pa_ref.paged_attention_ref(*args, softcap=softcap)
+    o_t = t_pa_ops.paged_attention(_t(q), _t(kp), _t(vp), _t(lens),
+                                   softcap=softcap)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_k), rtol=3e-5, atol=3e-5)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_r), rtol=3e-5, atol=3e-5)
+
+
+def test_paged_attention_raw_stats_match_pallas_kernel():
+    """(m, l, acc, page_m, page_l), a fully-masked row and page included."""
+    q, kp, vp, lens = _attn_inputs(3, 3, 8, 2, 64, 64, 5, 16)
+    lens[2] = 0
+    lens[0, 3] = 0
+    out_j = j_pa_ops.paged_attention_local_stats(
+        *[jnp.asarray(x) for x in (q, kp, vp, lens)], interpret=True,
+        return_page_stats=True)
+    out_t = t_pa_ops.paged_attention_raw(_t(q), _t(kp), _t(vp), _t(lens),
+                                         return_page_stats=True)
+    for a, t in zip(out_j, out_t):
+        np.testing.assert_allclose(t.numpy(), np.asarray(a), rtol=3e-5, atol=3e-5)
+    assert (out_t[3][0, 3] == -1e30).all() and (out_t[4][0, 3] == 0).all()
+
+
+def test_paged_attention_bf16():
+    import ml_dtypes
+    q, kp, vp, lens = _attn_inputs(0, 2, 8, 2, 64, 64, 4, 16)
+    lens[:] = 16
+    kb, vb = kp.astype(ml_dtypes.bfloat16), vp.astype(ml_dtypes.bfloat16)
+    qb = q.astype(ml_dtypes.bfloat16)
+    o_k = j_pa_ops.paged_attention(jnp.asarray(qb), jnp.asarray(kb),
+                                   jnp.asarray(vb), jnp.asarray(lens),
+                                   interpret=True)
+    # the port's decode feeds the kernel f32 queries over bf16 pages
+    from repro_torch.convert import params_from_jax
+    tb = params_from_jax({"k": kb, "v": vb, "q": qb}, device="cpu")
+    o_t = t_pa_ops.paged_attention(tb["q"].float(), tb["k"], tb["v"], _t(lens))
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_k, np.float32),
+                               rtol=3e-2, atol=3e-2)
+
+
+def test_page_mass_matches_reference():
+    """Head-averaged per-page mass within 1e-6; masked pages exactly 0."""
+    q, kp, vp, lens = _attn_inputs(11, 2, 8, 2, 32, 32, 6, 8)
+    lens[1, 2] = 0
+    args = [jnp.asarray(x) for x in (q, kp, vp, lens)]
+    _, mass_k = j_pa_ops.paged_attention(*args, interpret=True, return_mass=True)
+    mass_r = j_pa_ref.page_mass_ref(args[0], args[1], args[3])
+    _, mass_t = t_pa_ops.paged_attention(_t(q), _t(kp), _t(vp), _t(lens),
+                                         return_mass=True)
+    np.testing.assert_allclose(mass_t.numpy(), np.asarray(mass_k), atol=1e-6)
+    np.testing.assert_allclose(mass_t.numpy(), np.asarray(mass_r), atol=1e-6)
+    assert (mass_t.numpy()[lens == 0] == 0).all()
+    np.testing.assert_allclose(mass_t.sum(-1).numpy(), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("theta", [0, 3, 20])
+def test_ops_sketch_update_matches_core_bitwise(theta):
+    """The kernel-path verb against the reference's core sketch_update, over
+    several blocks and an epoch clear: state and newly_hot bitwise."""
+    sp = jsk.SketchParams(width=1 << 12, depth=2)
+    st_j = jsk.sketch_init(sp)
+    st_t = tsk.sketch_init(tsk.SketchParams(width=1 << 12, depth=2),
+                           _t(st_j.seeds), device="cpu")
+    rng = np.random.default_rng(theta)
+    for block in range(4):
+        ids = np.concatenate([np.full(40, 77), rng.integers(-1, 4000, 216)]
+                             ).astype(np.int32)
+        st_j, hot_j = jsk.sketch_update(st_j, jnp.asarray(ids), jnp.int32(theta), sp)
+        st_t, hot_t = t_np_ops.sketch_update(
+            st_t, _t(ids), torch.tensor(theta, dtype=torch.int32),
+            tsk.SketchParams(width=1 << 12, depth=2))
+        np.testing.assert_array_equal(hot_t.numpy(), np.asarray(hot_j))
+        for name, a, t in zip(jsk.SketchState._fields, st_j, st_t):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(a), err_msg=name)
+        if block == 1:
+            st_j, st_t = jsk.sketch_clear(st_j), tsk.sketch_clear(st_t)
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """No silent fallback: tensors on a device without a kernel path raise."""
+    q = torch.zeros((1, 2, 4), device="meta")
+    kp = torch.zeros((1, 1, 2, 2, 4), device="meta")
+    with pytest.raises(ValueError):
+        t_pa_ops.paged_attention_raw(q, kp, kp, torch.zeros((1, 1), device="meta"))
+    with pytest.raises(ValueError):   # mixed devices
+        t_pa_ops.paged_attention_raw(torch.zeros((1, 2, 4)), kp, kp,
+                                     torch.zeros((1, 1), dtype=torch.int32))
