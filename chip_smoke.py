@@ -8,10 +8,13 @@ Phases, one summary line each:
   2. kernels  — each Hopper kernel against its plain PyTorch version on the
                 card, at the main path's shapes and at edge shapes (integer
                 outputs bitwise; attention within ATOL + RTOL*|ref| in
-                float32, TF32 off), with its device time per call (CUDA
-                events, median of LAUNCHES graph replays, see time_ms), its
-                bound, the plain version's and one library call's device
-                time, and the host's wall time per eager call;
+                float32, TF32 off, for every cluster split of the pages),
+                with its device time per call (CUDA events, median of
+                LAUNCHES graph replays, see time_ms; attention and its SDPA
+                yardstick cold in L2, rotating over COLD_SETS input sets,
+                with the warm figure printed beside), its bound, the plain
+                version's and one library call's device time, and the host's
+                wall time per eager call;
   3. main     — ServeEngine on llama3.2-3b at full width (random weights
                 from a seed) serving a batch of 4 random 1024-token prompts
                 for 64 greedy tokens through the NeoMem loop; every kernel
@@ -19,7 +22,8 @@ Phases, one summary line each:
                 migration and flush bytes > 0, and the sketch must replay
                 bitwise through the plain CPU sketch; then 8 more decode
                 steps under torch.profiler give the device's busy share,
-                its launches per step and the kernels that fill it, and
+                its launches per step, the kernels that fill it and paged
+                attention's share, and
                 decode steps alternate swiglu's activation between F.silu
                 and the reference's op-by-op formula to time the two on
                 one host.
@@ -44,6 +48,7 @@ sys.path.insert(0, str(ROOT / "src"))
 LAUNCHES = 100          # timed calls per measurement (median reported)
 SPIN_CYCLES = 1 << 26   # card clock cycles the timed calls queue behind
 ATOL, RTOL = 1e-4, 1e-4  # attention kernel vs plain version, float32
+COLD_SETS = 6           # attention input sets rotated through (101 MB of K/V > L2)
 # datasheet memory bandwidth (bytes/s) and float32 non-tensor peak (flop/s)
 CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
          ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
@@ -56,37 +61,46 @@ def card_rates(name: str) -> tuple[float, float]:
     raise RuntimeError(f"no datasheet rates for card {name!r}")
 
 
+def _graph(fn):
+    """``fn`` captured once in a CUDA graph (after warm-up on a side
+    stream); returns the graph's replay."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return g.replay
+
+
 def time_ms(fn, n: int = LAUNCHES, graph: bool = True) -> float:
     """Median device time of one call of ``fn``, by CUDA events.
 
     The call is captured once in a CUDA graph; ``n`` replays, each between
     its own event pair, are queued behind a spin kernel, so the card runs
     them back to back and a pair brackets the call's device work, not the
-    host's Python and launch path.  ``graph=False`` queues ``fn`` itself,
-    for a call that synchronises with the host and so cannot be captured
-    (its time then includes the host's)."""
+    host's Python and launch path.  ``fn`` may be a list of calls over
+    distinct inputs: one graph each, replayed round-robin, so that with
+    more input bytes than the 50 MB L2 each call finds its inputs cold, as
+    the main path's layers do.  ``graph=False`` queues ``fn`` itself, for a
+    call that synchronises with the host and so cannot be captured (its
+    time then includes the host's)."""
     import torch
-    run = fn
-    if graph:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            fn()
-        run = g.replay
-    for _ in range(3):
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn]
+    runs = [_graph(f) for f in fns] if graph else fns
+    for run in runs:
         run()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(n)]
     torch.cuda.synchronize()
     torch.cuda._sleep(SPIN_CYCLES)
-    for s, e in ev:
+    for i, (s, e) in enumerate(ev):
         s.record()
-        run()
+        runs[i % len(runs)]()
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in ev)
@@ -128,7 +142,7 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
                                              scale=dk ** -0.5, softcap=softcap)
         torch.cuda.synchronize()
         for name, a, r in zip(("m", "l", "acc", "page_m", "page_l"), out, ref):
-            bad = (a - r).abs() > ATOL + RTOL * r.abs()
+            bad = ~((a - r).abs() <= ATOL + RTOL * r.abs())   # NaN is bad too
             if bool(bad.any()):
                 raise AssertionError(
                     f"paged_attn {name} differs at {(b, h, hkv, dk, dv, p, t, dtype)}:"
@@ -143,32 +157,67 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
         return q, kp, vp, lens, out, ref
 
     rng = np.random.default_rng(0)
+    bf16, f32 = torch.bfloat16, torch.float32
     edge = rng.integers(0, 17, (3, 5))
     edge[2] = 0                                  # a fully masked row
-    case(3, 8, 2, 64, 64, 5, 16, torch.float32, edge)           # empty/partial
-    case(1, 4, 4, 32, 32, 8, 32, torch.float32,
-         rng.integers(1, 33, (1, 8)), softcap=30.0)              # softcap 30
-    case(3, 8, 1, 72, 64, 2, 8, torch.float32, rng.integers(0, 9, (3, 2)))  # dk != dv
-    case(2, 8, 2, 64, 64, 4, 16, torch.bfloat16, np.full((2, 4), 16))       # bf16
+    case(3, 8, 2, 64, 64, 5, 16, f32, edge)      # P=5: cluster of 5, one page each
+    case(1, 4, 4, 32, 32, 8, 32, f32, rng.integers(1, 33, (1, 8)), softcap=30.0)
+    case(3, 8, 1, 72, 64, 2, 8, f32, rng.integers(0, 9, (3, 2)))  # dk != dv
+    case(2, 24, 8, 72, 64, 4, 64, bf16, rng.integers(0, 65, (2, 4)))  # ... in bf16
+    case(2, 8, 2, 64, 64, 4, 16, bf16, np.full((2, 4), 16))           # full pages
+    case(2, 24, 8, 128, 128, 1, 64, bf16, [[64], [0]])          # P=1
+    lens = rng.integers(0, 65, (3, 13))
+    lens[1] = 0                                   # P=13: shares 2,2,2,2,2,1,1,1
+    case(3, 24, 8, 128, 128, 13, 64, bf16, lens)
+    # P=16: rank 3 (pages 6, 7) all masked in row 0; pages of 1 token in row 1
+    lens = np.full((3, 16), 64)
+    lens[0, 6:8] = 0
+    lens[1, ::2] = 1
+    lens[2, 1::3] = 1
+    case(3, 24, 8, 128, 128, 16, 64, bf16, lens)
+    case(2, 24, 8, 128, 128, 16, 64, f32, rng.integers(0, 65, (2, 16)))  # f32 K/V
+    case(2, 8, 2, 36, 36, 6, 16, bf16, rng.integers(0, 17, (2, 6)))  # 72 B rows: plain loads
+    case(4, 24, 8, 128, 128, 64, 64, bf16, rng.integers(0, 65, (4, 64)))  # P=64: max_seq 4096
     # main path: llama3.2-3b decode, B=4, 16 ring slots of 64 tokens, the
     # current slot part-filled
     b, h, hkv, d, p, t = 4, 24, 8, 128, 16, 64
     lens = np.full((b, p), t)
     lens[:, 5] = 37
-    q, kp, vp, lt, out, ref = case(b, h, hkv, d, d, p, t, torch.bfloat16, lens)
-    err = max_err(out, ref)
-    launch = lambda: pa_ops.paged_attention_raw(q, kp, vp, lt,  # noqa: E731
-                                                return_page_stats=True)
-    ms, host = time_ms(launch), host_ms(launch)
+    main = [case(b, h, hkv, d, d, p, t, bf16, lens) for _ in range(COLD_SETS)]
+    err = max(max_err(out, ref) for *_, out, ref in main)
+    sets = [x[:4] for x in main]
+    q, kp, vp, lt = sets[0]
+    calls = [lambda x=x: pa_ops.paged_attention_raw(*x, return_page_stats=True)
+             for x in sets]
+    warm, cold, host = time_ms(calls[0]), time_ms(calls), host_ms(calls[0])
     plain = time_ms(lambda: pa_ref.paged_attention_raw_ref(q, kp, vp, lt,
                                                            scale=d ** -0.5))
+
     # library yardstick: SDPA over the gathered pages with a token mask
-    qs = q.to(torch.bfloat16)[:, :, None, :]
-    ks = kp.repeat_interleave(h // hkv, dim=3).permute(0, 3, 1, 2, 4).reshape(b, h, p * t, d)
-    vs = vp.repeat_interleave(h // hkv, dim=3).permute(0, 3, 1, 2, 4).reshape(b, h, p * t, d)
-    mask = (torch.arange(t, device="cuda")[None, None] < lt[:, :, None]).reshape(b, 1, 1, p * t)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask))
+    def sdpa_call(q, kp, vp, lt):
+        qs = q.to(torch.bfloat16)[:, :, None, :]
+        ks, vs = (x.repeat_interleave(h // hkv, dim=3).permute(0, 3, 1, 2, 4)
+                  .reshape(b, h, p * t, d) for x in (kp, vp))
+        mask = (torch.arange(t, device="cuda")[None, None] < lt[:, :, None]
+                ).reshape(b, 1, 1, p * t)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        return lambda: sdpa(qs, ks, vs, attn_mask=mask)
+    lib_calls = [sdpa_call(*x) for x in sets]
+    lib_warm, lib_cold = time_ms(lib_calls[0]), time_ms(lib_calls)
+    kv_mb = COLD_SETS * kp.numel() * kp.element_size() * 2 / 1e6
+    print(f"kernel paged_attn: device {cold:.4f} ms cold ({COLD_SETS} input sets, "
+          f"{kv_mb:.1f} MB of K/V, round-robin), {warm:.4f} ms warm (one set, L2-"
+          f"resident); SDPA {lib_cold:.4f} ms cold, {lib_warm:.4f} ms warm")
+    # what the time is made of: a graph replay of one tiny kernel (the timing
+    # floor), and the call with every page masked (launch, cluster set-up and
+    # combine, no K/V bytes)
+    tiny = torch.zeros(1, device="cuda")
+    masked = torch.zeros_like(lt)
+    floor = time_ms(tiny.zero_)
+    empty = time_ms(lambda: pa_ops.paged_attention_raw(q, kp, vp, masked,
+                                                       return_page_stats=True))
+    print(f"kernel paged_attn: timing floor {floor:.4f} ms (one tiny kernel per "
+          f"graph replay); every page masked {empty:.4f} ms")
     n_tok = int(lens.sum())
     nbytes = (q.numel() * 4 + n_tok * hkv * 2 * d * 2 + lt.numel() * 4
               + b * h * (2 + d) * 4 + 2 * b * p * h * 4)
@@ -177,8 +226,8 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
     return dict(name="paged_attn", route="cuda",
                 source="src/repro_torch/csrc/paged_attn.cu",
                 replaces="src/repro/kernels/paged_attn/paged_attn.py:34",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib, host_ms=host)
+                max_abs_err=err, ms=cold, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib_cold, host_ms=host)
 
 
 def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
@@ -225,6 +274,25 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
         return (counts, epochs, hot, ids, seeds, cur, is_hot, edges,
                 max_err((*out, mk, hk), (*ref, mr, hr)))
 
+    def mark_case(d, w, s, offset=0):
+        """Mark alone (the update needs a power-of-two width): seeds below
+        512 keep every hash inside a lane; ``offset`` shifts the plane off
+        16-byte alignment.  The old plane must come back unchanged."""
+        buf = torch.rand((d * w + offset,), generator=gen, device="cuda") < 0.1
+        hot = buf[offset:].view(d, w)
+        seeds = torch.randint(0, 512, (d, sk.PAGE_ID_BITS), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        ids = ids_for(s, 1 << 18)
+        is_hot = torch.rand((s,), generator=gen, device="cuda") < 0.5
+        before = hot.clone()
+        mk = np_ops.sketch_mark_hot_kernel(hot, ids, is_hot, seeds)
+        mr = np_ref.mark_hot_ref(hot, ids, is_hot, seeds)
+        torch.cuda.synchronize()
+        if not (torch.equal(mk, mr) and torch.equal(hot, before)):
+            raise AssertionError(f"mark differs at D={d} W={w} S={s} offset={offset}")
+
+    mark_case(3, 1000, 64)                   # plane of 3000 B: a scalar tail
+    mark_case(2, 1 << 14, 16, offset=1)      # unaligned plane: byte copies
     run(2, 4096, 256)                        # padding + duplicates
     run(3, 1024, 512, stale=True)            # stale epochs read 0
     run(2, 4096, 1024, near_max=True)        # saturation at counter_max
@@ -267,6 +335,11 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
     nbytes = d * w * 2 + s * 5 + seeds.numel() * 4
     bms, by = bound_ms(nbytes, d * s * 32, rates)
     launch = lambda: np_ops.sketch_mark_hot_kernel(hot, ids, is_hot, seeds)  # noqa: E731
+    # the library call for the same (out-of-place) function is index_put;
+    # the in-place index_put_ skips the plane's copy and is shown only here
+    in_place = time_ms(lambda: hot_into.index_put_(mark_at, true))
+    print(f"kernel neoprof_mark: in-place index_put_ {in_place:.4f} ms "
+          "(a different function: no copy of the plane)")
     rows.append(dict(
         name="neoprof_mark", route="cuda",
         source="src/repro_torch/csrc/neoprof_update.cu",
@@ -274,7 +347,7 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
         max_abs_err=err, ms=time_ms(launch), host_ms=host_ms(launch),
         plain_ms=time_ms(lambda: np_ref.mark_hot_ref(hot, ids, is_hot, seeds)),
         bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: hot_into.index_put_(mark_at, true))))
+        library_ms=time_ms(lambda: hot.index_put(mark_at, true))))
     live = torch.where(epochs[0] == cur, counts[0], 0)
     nbytes = w * (4 + 1) + edges.numel() * 4 + 64 * 4
     bms, by = bound_ms(nbytes, w * 8, rates)
@@ -399,6 +472,11 @@ def profile_decode(torch, eng, tok, steps: int = 8):
           f"{launches / steps:.1f} device launches/step (kernels and copies)")
     for t, name, count in dev[:8]:
         print(f"profile:   {t / steps / 1e3:8.3f} ms/step  {count // steps:5d}/step  {name[:70]}")
+    attn_us = sum(t for t, name, _ in dev if "paged_attn_kernel" in name)
+    attn_n = sum(count for _, name, count in dev if "paged_attn_kernel" in name)
+    print(f"profile: paged attention {attn_us / steps / 1e3:.3f} ms/step over "
+          f"{attn_n / steps:.1f} launches/step, {100 * attn_us / busy_us:.1f}% of "
+          "device busy time")
     return tok
 
 

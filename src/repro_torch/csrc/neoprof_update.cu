@@ -9,25 +9,33 @@
 // cur count as 0; add the block's bincount, saturate ONCE at counter_max,
 // stamp every tag with cur; return the post-block estimate and the
 // pre-block hot bit of every (lane, element).
-// mark: set the hot bit at the H3 positions of every valid id flagged hot.
+// mark: a new hot plane, the old one with the bit set at the H3 positions
+// of every valid id flagged hot (out of place, like the reference).
 //
-// What bounds it on an H100: bytes, and at the main path's size (D=2,
-// W=16384, S=16) launch latency more than either: the refresh pass reads
-// and writes every counter and tag once (D*W*(4+1+4+1) bytes = 320 KB),
-// while the block itself is S ids.
+// What bounds them on an H100: bytes, and at the main path's size (D=2,
+// W=16384, S=16) launch latency more than either.  The update's refresh
+// pass reads and writes every counter and tag once (D*W*(4+1+4+1) bytes =
+// 320 KB); mark reads and writes the D*W-byte plane once (32 KB), while the
+// block itself is S ids.
 //
-// Design.  The Pallas kernel is a segment-tiled one-hot compare-reduce, a
+// Design.  The Pallas kernels are segment-tiled one-hot compare-reduces, a
 // workaround for the TPU's lack of scatter.  Hopper has integer atomics, so
-// the bincount is an atomicAdd per (lane, id), which is exact and so
-// bitwise deterministic.  The block-synchronous semantics need four ordered
-// phases over the whole sketch — refresh, add (reading hot_before in the
-// same pass), clamp, gather est — and so one cooperative block of 1024
-// threads with __syncthreads between the phases.  Clamping the live value
-// before the add equals clamping live+delta after it, because delta >= 0;
-// the post-add clamp then only touches the entries the block hit.  Mark
-// copies the hot plane, then sets bits (equal writes racing are benign).
+// the update's bincount is an atomicAdd per (lane, id), which is exact and
+// so bitwise deterministic.  Its block-synchronous semantics need four
+// ordered phases over the whole sketch — refresh, add (reading hot_before
+// in the same pass), clamp, gather est — and so one cooperative block of
+// 1024 threads with __syncthreads between the phases.  Clamping the live
+// value before the add equals clamping live+delta after it, because delta
+// >= 0; the post-add clamp then only touches the entries the block hit.
 // One block keeps one SM busy, which is right for W=16K and slow for the
 // paper's W=512K: spreading the refresh over the grid is later work.
+// Mark takes the reference's own decomposition (grid = plane / segment):
+// each block owns one 4 KB segment of the flat D*W plane, copies it with
+// 16-byte vector loads and stores (a byte loop covers a ragged end or an
+// unaligned plane), then hashes the S ids itself with the seeds in shared
+// memory and sets only the bits that fall in its own segment.  No block
+// writes another's segment, so there is no race; 8 blocks at the main size,
+// 256 at W=512K.  Neither kernel has a product to give tensor cores.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,18 +97,32 @@ update_kernel(const int* __restrict__ counts, const uint8_t* __restrict__ epochs
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kMarkThreads = 256;
+constexpr int kMarkSeg = kMarkThreads * 16;   // plane bytes per block
+
+__global__ void __launch_bounds__(kMarkThreads)
 mark_kernel(const uint8_t* __restrict__ hot, const int* __restrict__ ids,
             const uint8_t* __restrict__ is_hot, const int* __restrict__ seeds,
-            uint8_t* __restrict__ out_hot, int D, int W, int S) {
+            uint8_t* __restrict__ out_hot, int D, int W, int S, int vec) {
   __shared__ int seeds_s[8 * kIdBits];
   for (int i = threadIdx.x; i < D * kIdBits; i += blockDim.x) seeds_s[i] = seeds[i];
-  for (int i = threadIdx.x; i < D * W; i += blockDim.x) out_hot[i] = hot[i];
+  const int lo = blockIdx.x * kMarkSeg, hi = min(lo + kMarkSeg, D * W);
+  int tail = lo;                                // first byte the vector copy left
+  if (vec) {
+    const int nv = (hi - lo) / 16;
+    for (int i = threadIdx.x; i < nv; i += blockDim.x)
+      reinterpret_cast<uint4*>(out_hot + lo)[i] =
+          reinterpret_cast<const uint4*>(hot + lo)[i];
+    tail = lo + nv * 16;
+  }
+  for (int i = tail + threadIdx.x; i < hi; i += blockDim.x) out_hot[i] = hot[i];
   __syncthreads();
-  for (int j = threadIdx.x; j < S; j += blockDim.x) {
+  for (int task = threadIdx.x; task < S * D; task += blockDim.x) {
+    const int j = task / D, d = task - j * D;
     const int id = ids[j];
     if (id < 0 || !is_hot[j]) continue;
-    for (int d = 0; d < D; ++d) out_hot[d * W + h3(id, seeds_s + d * kIdBits)] = 1;
+    const int at = d * W + h3(id, seeds_s + d * kIdBits);
+    if (at >= lo && at < hi) out_hot[at] = 1;
   }
 }
 
@@ -124,7 +146,11 @@ extern "C" int neoprof_mark_launch(const uint8_t* hot, const int* ids,
                                    uint8_t* out_hot, int D, int W, int S,
                                    void* stream) {
   if (D > 8) return (int)cudaErrorInvalidValue;
-  mark_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      hot, ids, is_hot, seeds, out_hot, D, W, S);
+  const int n = D * W;
+  const int vec = ((reinterpret_cast<uintptr_t>(hot) |
+                    reinterpret_cast<uintptr_t>(out_hot)) % 16) == 0;
+  mark_kernel<<<(n + kMarkSeg - 1) / kMarkSeg, kMarkThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(hot, ids, is_hot, seeds,
+                                                     out_hot, D, W, S, vec);
   return (int)cudaGetLastError();
 }

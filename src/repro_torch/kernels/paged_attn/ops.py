@@ -18,6 +18,8 @@ from repro_torch.kernels.paged_attn.ref import paged_attention_raw_ref
 __all__ = ["paged_attention_raw", "paged_attention", "page_mass"]
 
 SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block may use
+MAX_GROUP = 8            # query heads per kv head the kernel's registers hold
+MAX_DV = 512             # value width: one column pair per consumer thread
 
 
 def paged_attention_raw(q, k_pages, v_pages, page_lengths, *, scale=None,
@@ -43,6 +45,9 @@ def paged_attention_raw(q, k_pages, v_pages, page_lengths, *, scale=None,
     require(k_pages, "k_pages", k_pages.dtype, (b, p, t, hkv, dk))
     require(v_pages, "v_pages", k_pages.dtype, (b, p, t, hkv, dv))
     require(page_lengths, "page_lengths", torch.int32, (b, p))
+    if h // hkv > MAX_GROUP or dv > MAX_DV:
+        raise ValueError(f"kernel takes <= {MAX_GROUP} query heads per kv head and "
+                         f"dv <= {MAX_DV}, got {h // hkv} and {dv}")
     lib = _lib.lib()
     bf16 = int(k_pages.dtype == torch.bfloat16)
     smem = lib.paged_attn_smem_bytes(bf16, h // hkv, t, dk, dv)

@@ -4,6 +4,8 @@ the reference's Pallas kernels in interpret mode and its jnp oracles.
 Integer outputs are compared bitwise.  Attention outputs in float32 within
 rtol/atol 3e-5 (summation order differs), in bf16 within 3e-2 (one bf16
 rounding of the inputs), as ``tests/test_kernels.py`` holds the reference.
+The cluster-split test holds the Hopper kernel's page split and rank merge
+to 1e-4 + 1e-4*|ref|, the tolerance the kernel is held to on the card.
 """
 import numpy as np
 import pytest
@@ -174,6 +176,74 @@ def test_paged_attention_bf16():
     o_t = t_pa_ops.paged_attention(tb["q"].float(), tb["k"], tb["v"], _t(lens))
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_k, np.float32),
                                rtol=3e-2, atol=3e-2)
+
+
+def _cluster_shares(p):
+    """Page ranges of the C = min(P, 8) cluster ranks, split as
+    ``csrc/paged_attn.cu`` splits them: the first P % C ranks one more."""
+    c = min(p, 8)
+    share, extra = divmod(p, c)
+    starts = [r * share + min(r, extra) for r in range(c)]
+    return [(lo, lo + share + (r < extra)) for r, lo in enumerate(starts)]
+
+
+def _cluster_combine(parts):
+    """Rank 0's merge of the ranks' (m_r, l_r, acc_r), in rank order:
+    m = max m_r, w_r = exp(m_r - m), l = sum l_r w_r, acc = sum acc_r w_r."""
+    m = torch.full_like(parts[0][0], -1e30)
+    for m_r, _, _ in parts:
+        m = torch.maximum(m, m_r)
+    l, acc = torch.zeros_like(m), torch.zeros_like(parts[0][2])
+    for m_r, l_r, acc_r in parts:
+        w = torch.exp(m_r - m)
+        l = l + l_r * w
+        acc = acc + acc_r * w
+    return m, l, acc
+
+
+@pytest.mark.parametrize("p", [1, 5, 13, 16])
+def test_paged_attention_cluster_split_matches_plain_and_pallas(p):
+    """The kernel's arithmetic: the plain version on each cluster rank's
+    share of the pages, merged by the cluster combine, equals the plain
+    version over all pages and the Pallas kernel, in float32 within
+    1e-4 + 1e-4*|ref|; an all-masked share adds exactly 0 and an all-masked
+    row gives m = -1e30, l = 0, acc = 0, with no NaN anywhere."""
+    from repro_torch.kernels.paged_attn.ref import paged_attention_raw_ref
+    b, h, hkv, d, t = 3, 8, 2, 32, 16
+    q, kp, vp, lens = _attn_inputs(100 + p, b, h, hkv, d, d, p, t)
+    shares = _cluster_shares(p)
+    assert shares[0][0] == 0 and shares[-1][1] == p
+    if len(shares) > 1:                     # row 0: rank 1's pages all masked
+        lo, hi = shares[1]
+        lens[0, lo:hi] = 0
+    lens[2] = 0                             # an all-masked row
+    tq, tk, tv, tl = _t(q), _t(kp), _t(vp), _t(lens)
+    parts, pages = [], []
+    for lo, hi in shares:
+        m_r, l_r, acc_r, pm_r, pl_r = paged_attention_raw_ref(
+            tq, tk[:, lo:hi].contiguous(), tv[:, lo:hi].contiguous(),
+            tl[:, lo:hi].contiguous(), scale=d ** -0.5)
+        parts.append((m_r, l_r, acc_r))
+        pages.append((pm_r, pl_r))
+    merged = (*_cluster_combine(parts), torch.cat([x[0] for x in pages], dim=1),
+              torch.cat([x[1] for x in pages], dim=1))
+    whole = paged_attention_raw_ref(tq, tk, tv, tl, scale=d ** -0.5)
+    pallas = j_pa_ops.paged_attention_local_stats(
+        *[jnp.asarray(x) for x in (q, kp, vp, lens)], interpret=True,
+        return_page_stats=True)
+    for name, a, w, j in zip(("m", "l", "acc", "page_m", "page_l"), merged,
+                             whole, pallas):
+        assert not torch.isnan(a).any(), name
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+        np.testing.assert_allclose(a.numpy(), np.asarray(j), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+    m, l, acc = merged[:3]
+    assert (m[2] == -1e30).all() and (l[2] == 0).all() and (acc[2] == 0).all()
+    if len(shares) > 1:   # the masked share's rank contributes exactly 0
+        rest = _cluster_combine([x for r, x in enumerate(parts) if r != 1])
+        for a, r in zip(merged[:3], rest):
+            assert torch.equal(a[0], r[0])
 
 
 def test_page_mass_matches_reference():
