@@ -2,6 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py        # one card
+    python3 chip_smoke.py --sketch-only [--src CHECKOUT]
+                                 # the sketch kernels' phase alone, on this
+                                 # checkout's package or another's
 
 Phases, one summary line each:
   1. device   — the card's name and power limit, then the kernels' build;
@@ -14,7 +17,10 @@ Phases, one summary line each:
                 yardstick cold in L2, rotating over COLD_SETS input sets,
                 with the warm figure printed beside), its bound, the plain
                 version's and one library call's device time, and the host's
-                wall time per eager call;
+                wall time per eager call; the sketch update and histogram
+                also at D=2, S=16 and W=16K and the paper's W=512K, cold
+                (rotating over SKETCH_SETS input sets) and warm, the
+                histogram also on rows shaped like the main path's;
   3. main     — ServeEngine on llama3.2-3b at full width (random weights
                 from a seed) serving a batch of 4 random 1024-token prompts
                 for 64 greedy tokens through the NeoMem loop; every kernel
@@ -33,6 +39,7 @@ and prints no result; with no CUDA device the script exits 2.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -43,12 +50,13 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
 
 LAUNCHES = 100          # timed calls per measurement (median reported)
 SPIN_CYCLES = 1 << 26   # card clock cycles the timed calls queue behind
 ATOL, RTOL = 1e-4, 1e-4  # attention kernel vs plain version, float32
 COLD_SETS = 6           # attention input sets rotated through (101 MB of K/V > L2)
+SKETCH_SETS = 24        # sketch input sets rotated through (151 MB at W=512K > L2)
+PAPER_W = 1 << 19       # the paper's sketch width (Table III: W=512K, D=2)
 # datasheet memory bandwidth (bytes/s) and float32 non-tensor peak (flop/s)
 CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
          ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
@@ -231,22 +239,46 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
 
 
 def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
-    """Update, mark and histogram kernels: edge cases, then main-path shapes."""
+    """Update, mark and histogram kernels: edge cases, then the main path's
+    shapes (timed) and the paper's W=512K (timed cold)."""
     cmax = sk.SketchParams().counter_max
+    edges = torch.as_tensor(sk.hist_edges(), device="cuda")
 
-    def state(d, w, near_max=False, stale=False):
-        lo = cmax - 3 if near_max else 0
-        counts = torch.randint(lo, cmax + 1 if near_max else 50, (d, w),
-                               generator=gen, device="cuda", dtype=torch.int32)
-        epochs = torch.full((d, w), 7, dtype=torch.uint8, device="cuda")
-        if stale:
-            epochs = torch.randint(6, 8, (d, w), generator=gen, device="cuda"
-                                   ).to(torch.uint8)
+    def state(d, w, kind="random", offset=0):
+        """A (D, W) sketch on the card whose current epoch is 7.  ``kind``:
+        random (counters 0..49), near_max (cmax-3..cmax), at_max (all cmax),
+        zero (all 0), mixed (tags 6 or 7), stale (every tag 6), main (as
+        the main path's row 0 looks: 94% of counters 0, the rest 1..8, a
+        tenth of the tags stale).  ``offset`` > 0 shifts every plane off
+        16-byte alignment."""
+        def plane(dtype, fill):
+            return torch.empty((d * w + offset,), dtype=dtype, device="cuda"
+                               )[offset:].view(d, w).copy_(fill)
+        counts = torch.randint(0, 50, (d, w), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        tags = torch.full((d, w), 7, dtype=torch.uint8, device="cuda")
+        if kind == "near_max":
+            counts = counts % 4 + (cmax - 3)
+        elif kind == "at_max":
+            counts.fill_(cmax)
+        elif kind == "zero":
+            counts.zero_()
+        elif kind == "main":
+            counts = torch.where(torch.rand((d, w), generator=gen, device="cuda")
+                                 < 0.06, counts % 8 + 1, 0)
+        if kind == "mixed":
+            tags = torch.randint(6, 8, (d, w), generator=gen, device="cuda"
+                                 ).to(torch.uint8)
+        elif kind == "stale":
+            tags.fill_(6)
+        elif kind == "main":
+            tags[torch.rand((d, w), generator=gen, device="cuda") < 0.1] = 6
         hot = torch.rand((d, w), generator=gen, device="cuda") < 0.1
         seeds = torch.randint(0, w, (d, sk.PAGE_ID_BITS), generator=gen,
                               device="cuda", dtype=torch.int32)
         cur = torch.tensor(7, dtype=torch.uint8, device="cuda")
-        return counts, epochs, hot, seeds, cur
+        return (plane(torch.int32, counts), plane(torch.uint8, tags),
+                plane(torch.bool, hot), seeds, cur)
 
     def ids_for(s, hi, pad=True, dup=True):
         ids = torch.randint(-1 if pad else 0, hi, (s,), generator=gen,
@@ -255,23 +287,23 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
             ids[: s // 4] = ids[0].clamp_min(3)
         return ids
 
-    def run(d, w, s, **kw):
-        counts, epochs, hot, seeds, cur = state(d, w, **kw)
-        ids = ids_for(s, 1 << 18)
+    def run(d, w, s, kind="random", ids=None, offset=0):
+        counts, epochs, hot, seeds, cur = state(d, w, kind, offset)
+        ids = ids_for(s, 1 << 18) if ids is None else ids
         out = np_ops.sketch_update_kernel(counts, epochs, hot, ids, seeds, cur, cmax)
         ref = np_ref.update_ref(counts, epochs, hot, ids, seeds, cur, cmax)
         is_hot = torch.rand((s,), generator=gen, device="cuda") < 0.3
         mk = np_ops.sketch_mark_hot_kernel(hot, ids, is_hot, seeds)
         mr = np_ref.mark_hot_ref(hot, ids, is_hot, seeds)
-        edges = torch.as_tensor(sk.hist_edges(), device="cuda")
         hk = hist_ops.hist_kernel(counts[0], epochs[0], cur, edges)
         hr = hist_ref.hist_ref(counts[0], epochs[0], cur, edges)
         torch.cuda.synchronize()
         for name, a, r in zip(("counts", "epochs", "est", "hot_before", "mark",
                                "hist"), (*out, mk, hk), (*ref, mr, hr)):
             if a.dtype != r.dtype or not torch.equal(a, r):
-                raise AssertionError(f"{name} differs at D={d} W={w} S={s} {kw}")
-        return (counts, epochs, hot, ids, seeds, cur, is_hot, edges,
+                raise AssertionError(f"{name} differs at D={d} W={w} S={s} "
+                                     f"{kind} offset={offset}")
+        return (counts, epochs, hot, ids, seeds, cur, is_hot,
                 max_err((*out, mk, hk), (*ref, mr, hr)))
 
     def mark_case(d, w, s, offset=0):
@@ -294,8 +326,15 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
     mark_case(3, 1000, 64)                   # plane of 3000 B: a scalar tail
     mark_case(2, 1 << 14, 16, offset=1)      # unaligned plane: byte copies
     run(2, 4096, 256)                        # padding + duplicates
-    run(3, 1024, 512, stale=True)            # stale epochs read 0
-    run(2, 4096, 1024, near_max=True)        # saturation at counter_max
+    run(3, 1024, 512, "mixed")               # W below one update segment
+    run(2, 4096, 1)                          # one id
+    run(2, 4096, 64, ids=torch.full((64,), -1, dtype=torch.int32, device="cuda"))
+    run(2, 1 << 14, 1024, "near_max")        # duplicates saturate at counter_max
+    run(2, 4096, 256, "at_max")              # every counter at counter_max
+    run(2, 4096, 256, "stale")               # a fully stale sketch reads 0
+    run(2, 4096, 256, "zero")                # an all-zero row
+    run(2, 4096, 256, offset=1)              # planes off 16-byte alignment
+    run(2, PAPER_W, 1024, "main")            # the paper's width
     # the ops-level verb against the core's plain sketch_update
     sp = sk.SketchParams(width=1 << 12)
     st = sk.sketch_init(sp, device="cuda")
@@ -307,17 +346,19 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
             if not torch.equal(a, r):
                 raise AssertionError("ops.sketch_update != core.sketch_update")
         st = st_k
+    if not torch.equal(hist_ops.sketch_histogram(st, sp), sk.sketch_histogram(st, sp)):
+        raise AssertionError("ops.sketch_histogram != core.sketch_histogram")
+
     # main path: D=2, W=16384, one ring's 16 page ids per block
     d, w, s = 2, 1 << 14, 16
-    counts, epochs, hot, ids, seeds, cur, is_hot, edges, err = run(d, w, s)
+    counts, epochs, hot, ids, seeds, cur, is_hot, err = run(d, w, s)
     rows = []
     args = (counts, epochs, hot, ids, seeds, cur, cmax)
     lane = torch.arange(d, device="cuda")[:, None].expand(d, s)
     h_idx = sk.h3_hash(torch.where(ids >= 0, ids, 0), seeds).long()
     acc_into = counts.clone()
     ones = (ids >= 0).to(torch.int32).expand(d, s)
-    nbytes = d * w * (4 + 1) * 2 + d * s * (1 + 4 + 4) + s * 4 + seeds.numel() * 4
-    bms, by = bound_ms(nbytes, d * s * 40, rates)
+    bms, by = bound_ms(*update_work(d, w, s, seeds), rates)
     launch = lambda: np_ops.sketch_update_kernel(*args)  # noqa: E731
     rows.append(dict(
         name="neoprof_update", route="cuda",
@@ -348,9 +389,7 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
         plain_ms=time_ms(lambda: np_ref.mark_hot_ref(hot, ids, is_hot, seeds)),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: hot.index_put(mark_at, true))))
-    live = torch.where(epochs[0] == cur, counts[0], 0)
-    nbytes = w * (4 + 1) + edges.numel() * 4 + 64 * 4
-    bms, by = bound_ms(nbytes, w * 8, rates)
+    bms, by = bound_ms(*hist_work(w, edges), rates)
     launch = lambda: hist_ops.hist_kernel(counts[0], epochs[0], cur, edges)  # noqa: E731
     rows.append(dict(
         name="cms_hist", route="cuda", source="src/repro_torch/csrc/cms_hist.cu",
@@ -358,11 +397,70 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
         ms=time_ms(launch), host_ms=host_ms(launch),
         plain_ms=time_ms(lambda: hist_ref.hist_ref(counts[0], epochs[0], cur, edges)),
         bound_ms=bms, bound_by=by,
-        # bincount sizes its output from the input's max, read on the host
-        library_ms=time_ms(lambda: torch.bincount(
-            torch.bucketize(live, edges, right=True) - 1, minlength=64),
-            graph=False)))
+        library_ms=hist_library_ms(torch, counts[0], epochs[0], cur, edges)))
+    floor = time_ms(torch.zeros(1, device="cuda").zero_)
+    print(f"kernel sketch: timing floor {floor:.4f} ms (one tiny kernel per graph replay)")
+
+    def timed(w, d=2, s=16):
+        """Update and histogram at D=2, width ``w``, S=16, cold in L2
+        (rotating over SKETCH_SETS input sets) and warm (one set), beside
+        their bounds and library calls; the histogram also on rows shaped
+        like the main path's."""
+        sets = []
+        for _ in range(SKETCH_SETS):
+            c, e, h, sd, cu = state(d, w)
+            sets.append((c, e, h, ids_for(s, 1 << 18), sd, cu))
+        mb = SKETCH_SETS * d * w * (4 + 1 + 1) / 1e6
+        upd = [lambda x=x: np_ops.sketch_update_kernel(*x, cmax) for x in sets]
+        counts, epochs, hot, ids, seeds, cur = sets[0]
+        lane = torch.arange(d, device="cuda")[:, None].expand(d, s)
+        h_idx = sk.h3_hash(torch.where(ids >= 0, ids, 0), seeds).long()
+        ones = (ids >= 0).to(torch.int32).expand(d, s)
+        acc_into = counts.clone()
+        lib = time_ms(lambda: acc_into.index_put_((lane, h_idx), ones, accumulate=True))
+        bms, by = bound_ms(*update_work(d, w, s, seeds), rates)
+        print(f"kernel neoprof_update at D={d} W={w} S={s}: device "
+              f"{time_ms(upd):.4f} ms cold ({SKETCH_SETS} input sets, {mb:.1f} MB, "
+              f"round-robin), {time_ms(upd[0]):.4f} ms warm; bound {bms:.6f} ms "
+              f"by {by}; index_put_ accumulate {lib:.4f} ms warm")
+        hist = [lambda x=x: hist_ops.hist_kernel(x[0][0], x[1][0], x[5], edges)
+                for x in sets]
+        main_like = [state(1, w, "main") for _ in range(SKETCH_SETS)]
+        hist_main = [lambda x=x: hist_ops.hist_kernel(x[0][0], x[1][0], x[4], edges)
+                     for x in main_like]
+        bms, by = bound_ms(*hist_work(w, edges), rates)
+        lib = hist_library_ms(torch, counts[0], epochs[0], cur, edges)
+        print(f"kernel cms_hist at W={w}: device {time_ms(hist):.4f} ms cold, "
+              f"{time_ms(hist[0]):.4f} ms warm (counters uniform in 0..49); "
+              f"main-path-like rows (94% zero, 10% of tags stale) "
+              f"{time_ms(hist_main):.4f} ms cold, {time_ms(hist_main[0]):.4f} ms "
+              f"warm; bound {bms:.6f} ms by {by}; bucketize + bincount {lib:.4f} ms")
+
+    timed(1 << 14)
+    timed(PAPER_W)
     return rows
+
+
+def update_work(d, w, s, seeds):
+    """Bytes and integer operations of one update call: every counter and
+    tag read and written once, the hot bit read and est/hot_before written
+    per (lane, id), the ids and seeds read; ~40 operations per (lane, id)."""
+    return (d * w * (4 + 1) * 2 + d * s * (1 + 4 + 4) + s * 4 + seeds.numel() * 4,
+            d * s * 40)
+
+
+def hist_work(w, edges):
+    """Bytes and operations of one histogram call: row 0's counters and tags
+    read once, the edges read and 64 bins written; ~8 operations a counter."""
+    return w * (4 + 1) + edges.numel() * 4 + 64 * 4, w * 8
+
+
+def hist_library_ms(torch, counts_row0, epochs_row0, cur, edges):
+    """``bucketize`` + ``bincount`` on the live row, eager: ``bincount`` sizes
+    its output from the input's max, read on the host."""
+    live = torch.where(epochs_row0 == cur, counts_row0, 0)
+    return time_ms(lambda: torch.bincount(
+        torch.bucketize(live, edges, right=True) - 1, minlength=64), graph=False)
 
 
 # -- phase 3: the main path at full width -----------------------------------------
@@ -523,6 +621,13 @@ def _leaves(tree):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sketch-only", action="store_true",
+                    help="run the sketch kernels' checks and timings only")
+    ap.add_argument("--src", type=Path, default=ROOT,
+                    help="checkout whose src/repro_torch to run (default: this one)")
+    args = ap.parse_args()
+    sys.path.insert(0, str(args.src.resolve() / "src"))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -551,15 +656,18 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s into {_lib.library_path().name}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_attention(torch, pa_ops, pa_ref, rates, gen)]
+    rows = [] if args.sketch_only else [check_attention(torch, pa_ops, pa_ref,
+                                                        rates, gen)]
     rows += check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen)
     for r in rows:
         print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, device "
               f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms), "
               f"host {r['host_ms']:.4f} ms per eager call, on {smi}")
-    print("PHASE kernels: all four match their plain versions "
+    print(f"PHASE kernels: all {len(rows)} match their plain versions "
           f"(integer outputs bitwise, attention within {ATOL}+{RTOL}*|ref|)")
+    if args.sketch_only:
+        return 0
 
     counters = (pa_ops.paged_attention_raw, np_ops.sketch_update_kernel,
                 np_ops.sketch_mark_hot_kernel, hist_ops.hist_kernel)

@@ -8,47 +8,134 @@
 // kernel applies the same clip.
 //
 // What bounds it on an H100: bytes (W counters and W tags read once, 80 KB
-// at W=16384) and, at that size, launch latency.
+// at W=16384, 2.6 MB at the paper's W=512K) and, at both sizes, launch
+// latency more than either.
 //
 // Design.  The Pallas kernel compares each segment against all 64 bin edges
-// (a dense (Wseg x 64) compare-reduce, the TPU's way round a scatter).
-// Here each thread finds its counter's bin by binary search over the edges
-// held in shared memory and adds one to a shared 64-bin histogram with an
-// atomic; integer atomics make the result exact.  One block walks the whole
-// row, so it can write the 64 bins itself and needs no zeroed output and no
-// second pass; a row of the paper's W=512K would want the grid split with a
-// global atomic reduce instead.
+// (a dense (Wseg x 64) compare-reduce, the TPU's way round a scatter) and
+// carries the sum across its sequential grid.  Here the row is split over
+// the grid: a block of 256 threads takes a chunk of 1024 counters, four per
+// thread, read as one 16-byte load of counters and one 4-byte word of tags
+// (a warp's tag loads cover 128 contiguous bytes; a scalar loop takes a row
+// that is not aligned), so 16 blocks at W=16K and 512 at W=512K.  Four
+// values a thread rather than sixteen keeps each thread's chain of lookups
+// and atomics short, which is what the time depends on at these sizes.
+// A value is its own bin while it and the next value are edges equal to
+// their index (hist_edges makes edges 0..17 so: the exact small counts
+// where the hot threshold lives).  A thread whose four values are not all
+// such takes a branchless binary search over the edges in shared memory
+// (padded to 128 with INT_MAX) for each, which the compiler interleaves.
+// Most counters of a real row read 0 (never hit, or a stale tag), so bin-0
+// hits are counted in a register and summed per warp with one reduction
+// instead of serialising on one shared atomic; other bins go to a per-warp
+// sub-histogram.  Each block adds its non-zero bins into an accumulator in
+// device memory with global atomics, and the last block to finish (a
+// ticket counter after a fence) moves the sums into the output and leaves
+// the accumulator and the ticket at zero for the next call.  So one kernel
+// writes the whole output: the caller zeroes nothing, and a CUDA graph
+// holds one node.  The accumulator is a __device__ variable (zero when the
+// module loads, one per device), so calls on one device must not overlap:
+// the port issues them all on one stream.  Integer sums are exact in any
+// order, so the result is bitwise deterministic.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kVals = 4;                 // counters per thread
+constexpr int kChunk = kThreads * kVals;  // counters per block
 constexpr int kBins = 64;
+constexpr int kPadded = 128;             // edges padded for the search
+
+__device__ int g_acc[kBins + 1];   // per-bin sums, then the ticket; 0 at rest
+
+// number of edges <= v (searchsorted side="right") minus one, clipped
+__device__ __forceinline__ int search(int v, const int* edges_s) {
+  int pos = 0;
+#pragma unroll
+  for (int step = kPadded / 2; step > 0; step >>= 1)
+    if (edges_s[pos + step - 1] <= v) pos += step;
+  return min(max(pos - 1, 0), kBins - 1);
+}
+
+// live values -> bins in place; values below the edges' identity prefix
+// (less one) are their own bins
+template <int N>
+__device__ __forceinline__ void to_bins(int (&v)[N], const int* edges_s, int exact) {
+  bool fast = true;
+#pragma unroll
+  for (int k = 0; k < N; ++k) fast = fast && v[k] >= 0 && v[k] < exact - 1;
+  if (fast) return;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int s = search(v[k], edges_s);
+    v[k] = v[k] >= 0 && v[k] < exact - 1 ? v[k] : s;
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const int* __restrict__ counts, const uint8_t* __restrict__ epochs,
             const uint8_t* __restrict__ cur_epoch, const int* __restrict__ edges,
-            int* __restrict__ out, int W) {
-  __shared__ int edges_s[kBins + 1];
-  __shared__ int hist_s[kBins];
-  for (int i = threadIdx.x; i <= kBins; i += blockDim.x) edges_s[i] = edges[i];
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) hist_s[i] = 0;
-  __syncthreads();
-  const uint8_t cur = *cur_epoch;
-  for (int i = threadIdx.x; i < W; i += blockDim.x) {
-    const int live = epochs[i] == cur ? counts[i] : 0;
-    // number of edges <= live (searchsorted side="right")
-    int lo = 0, hi = kBins + 1;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (edges_s[mid] <= live) lo = mid + 1; else hi = mid;
-    }
-    const int bin = min(max(lo - 1, 0), kBins - 1);
-    atomicAdd(hist_s + bin, 1);
+            int* __restrict__ out, int W, int vec) {
+  __shared__ int edges_s[kPadded];
+  __shared__ int sub_s[kWarps][kBins];
+  __shared__ int exact_s;   // index of the first edge that is not its index
+  __shared__ bool last_s;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int i = t; i < kPadded; i += kThreads) edges_s[i] = i <= kBins ? edges[i] : INT32_MAX;
+  for (int i = t; i < kWarps * kBins; i += kThreads) (&sub_s[0][0])[i] = 0;
+  if (warp == 0) {
+    const unsigned a = __ballot_sync(~0u, edges[lane] != lane);
+    const unsigned b = __ballot_sync(~0u, edges[lane + 32] != lane + 32);
+    if (lane == 0)
+      exact_s = a ? __ffs(a) - 1 : b ? 31 + __ffs(b) : edges[kBins] != kBins ? kBins : kBins + 1;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) out[i] = hist_s[i];
+  const int exact = exact_s;
+  const uint8_t cur = *cur_epoch;
+  int zeros = 0;                          // this thread's bin-0 hits
+  auto count = [&](int bin) {
+    if (bin == 0) ++zeros; else atomicAdd(&sub_s[warp][bin], 1);
+  };
+  const int lo = blockIdx.x * kChunk, hi = min(lo + kChunk, W);
+  if (vec) {                              // W % 4 == 0: whole groups only
+    for (int g = lo / kVals + t; g < hi / kVals; g += kThreads) {
+      const int4 c = __ldg(reinterpret_cast<const int4*>(counts) + g);
+      const unsigned tg = __ldg(reinterpret_cast<const unsigned*>(epochs) + g);
+      int v[kVals] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int k = 0; k < kVals; ++k)
+        if (((tg >> (8 * k)) & 0xff) != cur) v[k] = 0;
+      to_bins(v, edges_s, exact);
+#pragma unroll
+      for (int k = 0; k < kVals; ++k) count(v[k]);
+    }
+  } else {
+    for (int i = lo + t; i < hi; i += kThreads) {
+      int v[1] = {epochs[i] == cur ? counts[i] : 0};
+      to_bins(v, edges_s, exact);
+      count(v[0]);
+    }
+  }
+  zeros = __reduce_add_sync(~0u, zeros);
+  if (lane == 0) sub_s[warp][0] = zeros;  // bin 0 takes no atomics
+  __syncthreads();
+  if (t < kBins) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += sub_s[w][t];
+    if (sum) atomicAdd(g_acc + t, sum);
+  }
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last_s = atomicAdd(g_acc + kBins, 1) == gridDim.x - 1;
+  __syncthreads();
+  if (last_s) {                           // every block's sums are in g_acc
+    if (t < kBins) out[t] = atomicExch(g_acc + t, 0);
+    if (t == 0) g_acc[kBins] = 0;
+  }
 }
 
 }  // namespace
@@ -56,7 +143,10 @@ hist_kernel(const int* __restrict__ counts, const uint8_t* __restrict__ epochs,
 extern "C" int cms_hist_launch(const int* counts_row0, const uint8_t* epochs_row0,
                                const uint8_t* cur_epoch, const int* edges,
                                int* out, int W, void* stream) {
-  hist_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      counts_row0, epochs_row0, cur_epoch, edges, out, W);
+  const int vec = W % kVals == 0 && reinterpret_cast<uintptr_t>(counts_row0) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(epochs_row0) % 4 == 0;
+  hist_kernel<<<(W + kChunk - 1) / kChunk, kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      counts_row0, epochs_row0, cur_epoch, edges, out, W, vec);
   return (int)cudaGetLastError();
 }

@@ -14,34 +14,47 @@
 //
 // What bounds them on an H100: bytes, and at the main path's size (D=2,
 // W=16384, S=16) launch latency more than either.  The update's refresh
-// pass reads and writes every counter and tag once (D*W*(4+1+4+1) bytes =
-// 320 KB); mark reads and writes the D*W-byte plane once (32 KB), while the
-// block itself is S ids.
+// reads and writes every counter and tag once (D*W*(4+1+4+1) bytes =
+// 320 KB, 10.5 MB at the paper's W=512K); mark reads and writes the
+// D*W-byte plane once (32 KB), while the block itself is S ids.
 //
 // Design.  The Pallas kernels are segment-tiled one-hot compare-reduces, a
-// workaround for the TPU's lack of scatter.  Hopper has integer atomics, so
-// the update's bincount is an atomicAdd per (lane, id), which is exact and
-// so bitwise deterministic.  Its block-synchronous semantics need four
-// ordered phases over the whole sketch — refresh, add (reading hot_before
-// in the same pass), clamp, gather est — and so one cooperative block of
-// 1024 threads with __syncthreads between the phases.  Clamping the live
-// value before the add equals clamping live+delta after it, because delta
-// >= 0; the post-add clamp then only touches the entries the block hit.
-// One block keeps one SM busy, which is right for W=16K and slow for the
-// paper's W=512K: spreading the refresh over the grid is later work.
-// Mark takes the reference's own decomposition (grid = plane / segment):
-// each block owns one 4 KB segment of the flat D*W plane, copies it with
-// 16-byte vector loads and stores (a byte loop covers a ragged end or an
-// unaligned plane), then hashes the S ids itself with the seeds in shared
-// memory and sets only the bits that fall in its own segment.  No block
-// writes another's segment, so there is no race; 8 blocks at the main size,
-// 256 at W=512K.  Neither kernel has a product to give tensor cores.
+// workaround for the TPU's lack of scatter; both take the reference's own
+// decomposition here: the grid runs over segments of the flat D*W plane and
+// every (lane, id) lands in exactly one segment.
+// Update: a block of 256 threads owns a segment of one lane (never two:
+// a lane narrower than a segment is one short segment) of 2048 entries, or
+// 4096 once the plane holds more than 256 segments of 2048: 16 blocks at
+// the main size, 256 at W=512K.  It (1) reads its counters and tags with 16-byte
+// loads (a scalar loop where a plane is not 16-byte aligned), keeps the
+// live values clamped at counter_max in shared memory and stamps the tags
+// with cur; (2) H3-hashes every id for its own lane with the lane's seeds
+// in shared memory and adds one with a shared-memory atomic for each valid
+// id whose position falls in the segment; (3) saturates and writes the
+// segment's counters out with 16-byte stores; (4) hashes the ids again and
+// writes est and hot_before for every (lane, id) in the segment.  Each
+// (lane, id) so has exactly one owner block; a padding id (-1, hashed as
+// 0) is owned by the block holding position h3(0) = 0 of the lane, the
+// lane's first, which writes its 0s.  No block touches another's entries,
+// so there is no cooperative launch, global atomic or grid-wide barrier.
+// The bincount is added once on top of the clamped live value and then
+// saturated: the same as clamping live+delta, since delta >= 0.  Outputs
+// are out of place, and shared-memory integer atomics keep every result
+// bitwise.  Hashing all S ids in every block costs S*30 XOR-selects per
+// block and pass; at the largest S that chip_smoke.py sends (1024) that is
+// ~240 per thread over both passes, small beside the segment's loads, so
+// the ids are not hashed once up front.
+// Mark: each block owns one 4 KB segment of the flat D*W plane, copies it
+// with 16-byte vector loads and stores (a byte loop covers a ragged end or
+// an unaligned plane), then hashes the S ids itself with the seeds in
+// shared memory and sets only the bits that fall in its own segment; 8
+// blocks at the main size, 256 at W=512K.  Neither kernel has a product to
+// give tensor cores.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
 constexpr int kIdBits = 30;  // PAGE_ID_BITS
 
 __device__ __forceinline__ int h3(int id, const int* seeds_lane) {
@@ -52,48 +65,85 @@ __device__ __forceinline__ int h3(int id, const int* seeds_lane) {
   return h;
 }
 
+constexpr int kThreads = 256;
+constexpr int kSegMin = 2048, kSegMax = 4096;   // entries of one lane per block
+
 __global__ void __launch_bounds__(kThreads)
 update_kernel(const int* __restrict__ counts, const uint8_t* __restrict__ epochs,
               const uint8_t* __restrict__ hot, const int* __restrict__ ids,
               const int* __restrict__ seeds, const uint8_t* __restrict__ cur_epoch,
               int* __restrict__ out_counts, uint8_t* __restrict__ out_epochs,
-              int* __restrict__ est, int* __restrict__ hot_before, int D, int W,
-              int S, int counter_max) {
-  __shared__ int seeds_s[8 * kIdBits];
-  for (int i = threadIdx.x; i < D * kIdBits; i += blockDim.x) seeds_s[i] = seeds[i];
+              int* __restrict__ est, int* __restrict__ hot_before, int W, int S,
+              int counter_max, int seg, int vec) {
+  __shared__ int seeds_s[kIdBits];
+  __shared__ __align__(16) int cnt_s[kSegMax];
+  const int per_lane = (W + seg - 1) / seg;
+  const int d = blockIdx.x / per_lane;
+  const int lo = (blockIdx.x - d * per_lane) * seg;   // lane-local start
+  const int len = min(seg, W - lo);
+  const size_t base = (size_t)d * W + lo;
+  if (threadIdx.x < kIdBits) seeds_s[threadIdx.x] = seeds[d * kIdBits + threadIdx.x];
   const uint8_t cur = *cur_epoch;
-  const int n = D * W;
-  // 1. refresh: live (clamped) values back, every tag stamped
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int live = epochs[i] == cur ? counts[i] : 0;
-    out_counts[i] = min(live, counter_max);
-    out_epochs[i] = cur;
-  }
-  __syncthreads();
-  // 2. add the block's bincount; read the pre-block hot bits
-  for (int j = threadIdx.x; j < S; j += blockDim.x) {
-    const int id = ids[j];
-    const bool valid = id >= 0;
-    for (int d = 0; d < D; ++d) {
-      const int h = h3(valid ? id : 0, seeds_s + d * kIdBits);
-      if (valid) atomicAdd(out_counts + d * W + h, 1);
-      hot_before[d * S + j] = valid ? (int)hot[d * W + h] : 0;
+  // 1. live values, clamped, into shared memory; every tag stamped
+  if (vec) {                                   // len % 16 == 0
+    const unsigned c4 = cur * 0x01010101u;
+    const uint4 stamp = make_uint4(c4, c4, c4, c4);
+    for (int g = threadIdx.x; g < len / 16; g += kThreads) {
+      int4 c[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        c[q] = __ldg(reinterpret_cast<const int4*>(counts + base) + 4 * g + q);
+      const uint4 tg = __ldg(reinterpret_cast<const uint4*>(epochs + base) + g);
+      const uint8_t* tv = reinterpret_cast<const uint8_t*>(&tg);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int* cv = reinterpret_cast<const int*>(&c[q]);
+        int4 live;
+        int* lv = reinterpret_cast<int*>(&live);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) lv[k] = tv[4 * q + k] == cur ? min(cv[k], counter_max) : 0;
+        reinterpret_cast<int4*>(cnt_s)[4 * g + q] = live;
+      }
+      reinterpret_cast<uint4*>(out_epochs + base)[g] = stamp;
+    }
+  } else {
+    for (int i = threadIdx.x; i < len; i += kThreads) {
+      cnt_s[i] = epochs[base + i] == cur ? min(counts[base + i], counter_max) : 0;
+      out_epochs[base + i] = cur;
     }
   }
   __syncthreads();
-  // 3. saturate the touched entries once
-  for (int j = threadIdx.x; j < S; j += blockDim.x) {
+  // 2. the block's bincount, for the ids that fall in this segment
+  for (int j = threadIdx.x; j < S; j += kThreads) {
     const int id = ids[j];
     if (id < 0) continue;
-    for (int d = 0; d < D; ++d)
-      atomicMin(out_counts + d * W + h3(id, seeds_s + d * kIdBits), counter_max);
+    const int at = h3(id, seeds_s) - lo;
+    if (at >= 0 && at < len) atomicAdd(cnt_s + at, 1);
   }
   __syncthreads();
-  // 4. post-block estimate per (lane, element)
-  for (int j = threadIdx.x; j < S; j += blockDim.x) {
+  // 3. saturate and store the segment
+  if (vec) {
+    for (int v = threadIdx.x; v < len / 4; v += kThreads) {
+      int4 x = reinterpret_cast<const int4*>(cnt_s)[v];
+      x = make_int4(min(x.x, counter_max), min(x.y, counter_max),
+                    min(x.z, counter_max), min(x.w, counter_max));
+      reinterpret_cast<int4*>(out_counts + base)[v] = x;
+    }
+  } else {
+    for (int i = threadIdx.x; i < len; i += kThreads)
+      out_counts[base + i] = min(cnt_s[i], counter_max);
+  }
+  // 4. est and hot_before of the (lane, id) this block owns
+  for (int j = threadIdx.x; j < S; j += kThreads) {
     const int id = ids[j];
-    for (int d = 0; d < D; ++d)
-      est[d * S + j] = id >= 0 ? out_counts[d * W + h3(id, seeds_s + d * kIdBits)] : 0;
+    if (id < 0) {
+      if (lo == 0) est[d * S + j] = hot_before[d * S + j] = 0;
+      continue;
+    }
+    const int at = h3(id, seeds_s) - lo;
+    if (at < 0 || at >= len) continue;
+    est[d * S + j] = min(cnt_s[at], counter_max);
+    hot_before[d * S + j] = hot[base + at];
   }
 }
 
@@ -134,10 +184,16 @@ extern "C" int neoprof_update_launch(const int* counts, const uint8_t* epochs,
                                      int* out_counts, uint8_t* out_epochs,
                                      int* est, int* hot_before, int D, int W,
                                      int S, int counter_max, void* stream) {
-  if (D > 8) return (int)cudaErrorInvalidValue;
-  update_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int seg = kSegMin;
+  while (seg < kSegMax && (long long)D * W > 256LL * seg) seg *= 2;
+  const int vec = W % 16 == 0 && ((reinterpret_cast<uintptr_t>(counts) |
+                                   reinterpret_cast<uintptr_t>(epochs) |
+                                   reinterpret_cast<uintptr_t>(out_counts) |
+                                   reinterpret_cast<uintptr_t>(out_epochs)) % 16) == 0;
+  update_kernel<<<D * ((W + seg - 1) / seg), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
       counts, epochs, hot, ids, seeds, cur_epoch, out_counts, out_epochs, est,
-      hot_before, D, W, S, counter_max);
+      hot_before, W, S, counter_max, seg, vec);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
 """Sketch histogram through the Hopper histogram unit (``csrc/cms_hist.cu``)."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import sketch as sk
@@ -12,7 +14,9 @@ from repro_torch.kernels.dispatch import kernel_device, require
 
 def hist_kernel(counts_row0, epochs_row0, cur_epoch, edges):
     """(W,) int32 counters + (W,) uint8 tags + () uint8 epoch + (65,) int32
-    edges -> (64,) int32 histogram of the live counters."""
+    edges -> (64,) int32 histogram of the live counters.  On CUDA, calls on
+    one device must not run concurrently: the kernel reduces through one
+    accumulator per device (``csrc/cms_hist.cu``)."""
     if kernel_device(counts_row0, epochs_row0, cur_epoch, edges) == "cpu":
         return hist_ref(counts_row0, epochs_row0, cur_epoch, edges)
     w = counts_row0.shape[0]
@@ -32,8 +36,15 @@ def hist_kernel(counts_row0, epochs_row0, cur_epoch, edges):
 hist_kernel.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def device_edges(counter_bits: int, device: torch.device) -> torch.Tensor:
+    """``core.sketch.hist_edges(counter_bits)`` as an int32 tensor on
+    ``device``, built and copied there once; every caller shares it, and the
+    kernel only reads it."""
+    return torch.as_tensor(sk.hist_edges(counter_bits), device=device)
+
+
 def sketch_histogram(state: SketchState, params: SketchParams) -> torch.Tensor:
     """Drop-in for ``core.sketch.sketch_histogram`` through the kernel."""
-    edges = torch.as_tensor(sk.hist_edges(params.counter_bits),
-                            device=state.counts.device)
+    edges = device_edges(params.counter_bits, state.counts.device)
     return hist_kernel(state.counts[0], state.epochs[0], state.cur_epoch, edges)

@@ -5,7 +5,9 @@ Integer outputs are compared bitwise.  Attention outputs in float32 within
 rtol/atol 3e-5 (summation order differs), in bf16 within 3e-2 (one bf16
 rounding of the inputs), as ``tests/test_kernels.py`` holds the reference.
 The cluster-split test holds the Hopper kernel's page split and rank merge
-to 1e-4 + 1e-4*|ref|, the tolerance the kernel is held to on the card.
+to 1e-4 + 1e-4*|ref|, the tolerance the kernel is held to on the card; the
+emulations of the sketch update's segment-owned grid and the histogram's
+block partials are held bitwise.
 """
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import sketch as jsk  # noqa: E402
+from repro.kernels.cms_hist import cms_hist as j_hist_k  # noqa: E402
 from repro.kernels.cms_hist import ops as j_hist_ops  # noqa: E402
 from repro.kernels.neoprof_update import neoprof_update as j_ku  # noqa: E402
 from repro.kernels.neoprof_update import ref as j_kref  # noqa: E402
@@ -116,6 +119,164 @@ def test_hist_plain_matches_pallas_kernel_and_core(stale):
     h_port = t_hist_ops.sketch_histogram(ts, tsk.SketchParams(width=1 << 12))
     np.testing.assert_array_equal(h_port.numpy(), np.asarray(h_kernel))
     np.testing.assert_array_equal(np.asarray(h_kernel), np.asarray(h_core))
+
+
+def _update_segment_owned(counts, epochs, hot, ids, seeds, cur, cmax, seg):
+    """``csrc/neoprof_update.cu::update_kernel``'s decomposition in plain
+    torch: one block per segment of ``seg`` entries of one lane (a lane
+    narrower than ``seg`` is one short segment).  Each block takes the live
+    values clamped at cmax, adds the valid ids that hash into its segment,
+    saturates, stamps the tags and writes est/hot_before for the
+    (lane, id) it owns; each lane's first block owns the padding ids.
+    Returns the four outputs and how many blocks wrote each (lane, id)."""
+    d, w = counts.shape
+    s = ids.shape[0]
+    out = (torch.full_like(counts, -7), torch.zeros_like(epochs),
+           torch.full((d, s), -7, dtype=torch.int32),
+           torch.full((d, s), -7, dtype=torch.int32))
+    owners = torch.zeros((d, s), dtype=torch.int32)
+    h = tsk.h3_hash(torch.where(ids >= 0, ids, 0), seeds)
+    for lane in range(d):
+        for lo in range(0, w, seg):
+            hi = min(lo + seg, w)
+            cnt = torch.where(epochs[lane, lo:hi] == cur,
+                              counts[lane, lo:hi].clamp_max(cmax), 0)
+            at = h[lane] - lo
+            mine = (ids >= 0) & (at >= 0) & (at < hi - lo)
+            pos = at[mine].long()
+            cnt = cnt.index_add(0, pos, torch.ones(len(pos), dtype=torch.int32))
+            cnt = cnt.clamp_max(cmax)
+            out[0][lane, lo:hi] = cnt
+            out[1][lane, lo:hi] = cur
+            out[2][lane, mine] = cnt[pos]
+            out[3][lane, mine] = hot[lane, lo:hi][pos].to(torch.int32)
+            owners[lane] += mine.to(torch.int32)
+            if lo == 0:
+                pad = ids < 0
+                out[2][lane, pad] = 0
+                out[3][lane, pad] = 0
+                owners[lane] += pad.to(torch.int32)
+    return out, owners
+
+
+@pytest.fixture(scope="module")
+def update_case():
+    """D=3, W=4096, 257 ids with padding and duplicates over a sketch with
+    stale, live and near-saturated counters; the Pallas kernel's outputs."""
+    rng = np.random.default_rng(31)
+    depth, width = 3, 1 << 12
+    counts, epochs, hot, seeds = _random_sketch(rng, depth, width)
+    ids = rng.integers(-1, 1 << 18, 257).astype(np.int32)
+    ids[:40] = ids[40]
+    ids[41:45] = -1
+    cmax = jsk.SketchParams().counter_max
+    pallas = j_ku.sketch_update_pallas(
+        jnp.asarray(counts), jnp.asarray(epochs, jnp.int32),
+        jnp.asarray(hot, jnp.int32), jnp.asarray(ids), jnp.asarray(seeds),
+        jnp.int32(1), cmax, depth=depth, width=width, interpret=True)
+    return (counts, epochs, hot, ids, seeds, cmax), [np.asarray(x) for x in pallas]
+
+
+@pytest.mark.parametrize("seg", [2048, 1000, 1024, 8192])
+def test_update_segment_owned_matches_plain_and_pallas(update_case, seg):
+    """The update kernel's arithmetic: segments of 2048 entries (the
+    kernel's at the main size) and 1024, which divide W, 1000, which does
+    not, and 8192, wider than W, give the plain version's and the Pallas
+    kernel's outputs bitwise, and every (lane, id) has exactly one owner
+    block."""
+    (counts, epochs, hot, ids, seeds, cmax), pallas = update_case
+    args = (_t(counts), _t(epochs), _t(hot), _t(ids), _t(seeds),
+            torch.tensor(1, dtype=torch.uint8), cmax)
+    emulated, owners = _update_segment_owned(*args, seg=seg)
+    plain = t_np_ops.sketch_update_kernel(*args)
+    assert (owners == 1).all()
+    for name, e, p, j in zip(["counts", "epochs", "est", "hot_before"],
+                             emulated, plain, pallas):
+        assert e.dtype == p.dtype and torch.equal(e, p), name
+        np.testing.assert_array_equal(e.numpy().astype(np.int32), j, err_msg=name)
+
+
+def _hist_block_partial(counts_row0, epochs_row0, cur, edges, chunk, acc):
+    """``csrc/cms_hist.cu``'s decomposition in plain torch: the row split
+    into blocks of ``chunk`` counters.  In a block, a live value below the
+    edges' identity prefix less one is its own bin and any other goes
+    through a binary search over the 65 edges (clipped to the bins); the
+    kernel searches all four values of a thread once one of them needs it,
+    which the check below makes immaterial.  Bin-0 hits are counted apart
+    from the rest.  Each block adds its bins into the accumulator ``acc``
+    (64 sums and a ticket) and the last block moves the sums out and leaves
+    ``acc`` zeroed."""
+    e = edges.tolist()
+    exact = next((i for i, x in enumerate(e) if x != i), len(e))
+    w = counts_row0.shape[0]
+    n_blocks = -(-w // chunk)
+    out = None
+    for lo in range(0, w, chunk):
+        live = torch.where(epochs_row0[lo:lo + chunk] == cur,
+                           counts_row0[lo:lo + chunk], 0)
+        left = torch.zeros_like(live)
+        right = torch.full_like(live, len(e))
+        while bool((left < right).any()):
+            go = left < right
+            mid = (left + right) // 2
+            le = edges[mid.clamp_max(len(e) - 1).long()] <= live
+            left = torch.where(go & le, mid + 1, left)
+            right = torch.where(go & ~le, mid, right)
+        searched = (left - 1).clamp(0, 63)
+        fast = (live >= 0) & (live < exact - 1)
+        assert torch.equal(searched[fast], live[fast])
+        bins = torch.where(fast, live, searched)
+        part = torch.bincount(bins[bins != 0].long(), minlength=64).to(torch.int32)
+        part[0] = int((bins == 0).sum())
+        acc[:64] += part
+        acc[64] += 1
+        if int(acc[64]) == n_blocks:
+            out = acc[:64].clone()
+            acc.zero_()
+    return out
+
+
+@pytest.mark.parametrize("chunk", [1024, 1000, 512, 8192])
+def test_hist_block_partial_matches_plain_and_pallas(chunk):
+    """The histogram kernel's arithmetic: blocks of 1024 counters (the
+    kernel's) and 512, which divide W, 1000, which does not, and 8192, wider
+    than W, give the plain version's and the Pallas kernel's histogram
+    bitwise, on a row of zeros, stale tags, every edge and its neighbours,
+    and counter_max; two calls in a row through one accumulator agree and
+    leave it at zero."""
+    rng = np.random.default_rng(chunk)
+    width = 1 << 12
+    cmax = jsk.SketchParams().counter_max
+    edges = jsk.hist_edges()
+    values = np.concatenate([edges, edges - 1, edges + 1, [cmax] * 32])
+    counts = np.where(rng.random(width) < 0.8, 0,
+                      rng.choice(np.clip(values, 0, cmax), width)).astype(np.int32)
+    epochs = rng.integers(0, 2, width).astype(np.uint8)
+    epochs[: width // 8] = 1                      # a run of live tags
+    cur = torch.tensor(1, dtype=torch.uint8)
+    acc = torch.zeros(65, dtype=torch.int32)
+    args = (_t(counts), _t(epochs), cur, _t(edges))
+    emulated = _hist_block_partial(*args, chunk, acc)
+    assert torch.equal(_hist_block_partial(*args, chunk, acc), emulated)
+    assert not acc.any()
+    plain = t_hist_ops.hist_kernel(*args)
+    pallas = j_hist_k.hist_pallas(jnp.asarray(counts), jnp.asarray(epochs, jnp.int32),
+                                  jnp.int32(1), jnp.asarray(edges), width=width,
+                                  interpret=True)
+    assert torch.equal(emulated, plain)
+    np.testing.assert_array_equal(emulated.numpy(), np.asarray(pallas))
+    assert int(emulated.sum()) == width
+
+
+@pytest.mark.parametrize("counter_bits", [8, 12, 16])
+def test_histogram_edges_cached_and_equal_reference(counter_bits):
+    """``sketch_histogram`` reads its edges from one cached tensor per
+    (counter_bits, device), equal to the reference's ``hist_edges``."""
+    cpu = torch.device("cpu")
+    edges = t_hist_ops.device_edges(counter_bits, cpu)
+    assert edges is t_hist_ops.device_edges(counter_bits, cpu)
+    assert edges.dtype == torch.int32
+    np.testing.assert_array_equal(edges.numpy(), jsk.hist_edges(counter_bits))
 
 
 def _attn_inputs(seed, b, h, hkv, dk, dv, p, t, dtype=np.float32):
