@@ -28,15 +28,11 @@
 // Most counters of a real row read 0 (never hit, or a stale tag), so bin-0
 // hits are counted in a register and summed per warp with one reduction
 // instead of serialising on one shared atomic; other bins go to a per-warp
-// sub-histogram.  Each block adds its non-zero bins into an accumulator in
-// device memory with global atomics, and the last block to finish (a
-// ticket counter after a fence) moves the sums into the output and leaves
-// the accumulator and the ticket at zero for the next call.  So one kernel
-// writes the whole output: the caller zeroes nothing, and a CUDA graph
-// holds one node.  The accumulator is a __device__ variable (zero when the
-// module loads, one per device), so calls on one device must not overlap:
-// the port issues them all on one stream.  Integer sums are exact in any
-// order, so the result is bitwise deterministic.
+// sub-histogram.  The launcher zeroes the output with cudaMemsetAsync on
+// the kernel's stream, so the caller zeroes nothing and no state outlives
+// a call; each block then adds its non-zero bins into the output with
+// global atomics.  Integer sums are exact in any order, so the result is
+// bitwise deterministic.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,8 +44,6 @@ constexpr int kVals = 4;                 // counters per thread
 constexpr int kChunk = kThreads * kVals;  // counters per block
 constexpr int kBins = 64;
 constexpr int kPadded = 128;             // edges padded for the search
-
-__device__ int g_acc[kBins + 1];   // per-bin sums, then the ticket; 0 at rest
 
 // number of edges <= v (searchsorted side="right") minus one, clipped
 __device__ __forceinline__ int search(int v, const int* edges_s) {
@@ -82,8 +76,19 @@ hist_kernel(const int* __restrict__ counts, const uint8_t* __restrict__ epochs,
   __shared__ int edges_s[kPadded];
   __shared__ int sub_s[kWarps][kBins];
   __shared__ int exact_s;   // index of the first edge that is not its index
-  __shared__ bool last_s;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int lo = blockIdx.x * kChunk, hi = min(lo + kChunk, W);
+  // with whole groups (vec: W % 4 == 0) a thread owns at most one; its
+  // loads go out before the edge table is ready, so both round trips overlap
+  const int g = lo / kVals + t;
+  const bool mine = vec && g < hi / kVals;
+  int4 c = make_int4(0, 0, 0, 0);
+  unsigned tg = 0;
+  if (mine) {
+    c = __ldg(reinterpret_cast<const int4*>(counts) + g);
+    tg = __ldg(reinterpret_cast<const unsigned*>(epochs) + g);
+  }
+  const uint8_t cur = *cur_epoch;
   for (int i = t; i < kPadded; i += kThreads) edges_s[i] = i <= kBins ? edges[i] : INT32_MAX;
   for (int i = t; i < kWarps * kBins; i += kThreads) (&sub_s[0][0])[i] = 0;
   if (warp == 0) {
@@ -94,25 +99,19 @@ hist_kernel(const int* __restrict__ counts, const uint8_t* __restrict__ epochs,
   }
   __syncthreads();
   const int exact = exact_s;
-  const uint8_t cur = *cur_epoch;
   int zeros = 0;                          // this thread's bin-0 hits
   auto count = [&](int bin) {
     if (bin == 0) ++zeros; else atomicAdd(&sub_s[warp][bin], 1);
   };
-  const int lo = blockIdx.x * kChunk, hi = min(lo + kChunk, W);
-  if (vec) {                              // W % 4 == 0: whole groups only
-    for (int g = lo / kVals + t; g < hi / kVals; g += kThreads) {
-      const int4 c = __ldg(reinterpret_cast<const int4*>(counts) + g);
-      const unsigned tg = __ldg(reinterpret_cast<const unsigned*>(epochs) + g);
-      int v[kVals] = {c.x, c.y, c.z, c.w};
+  if (mine) {
+    int v[kVals] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-      for (int k = 0; k < kVals; ++k)
-        if (((tg >> (8 * k)) & 0xff) != cur) v[k] = 0;
-      to_bins(v, edges_s, exact);
+    for (int k = 0; k < kVals; ++k)
+      if (((tg >> (8 * k)) & 0xff) != cur) v[k] = 0;
+    to_bins(v, edges_s, exact);
 #pragma unroll
-      for (int k = 0; k < kVals; ++k) count(v[k]);
-    }
-  } else {
+    for (int k = 0; k < kVals; ++k) count(v[k]);
+  } else if (!vec) {
     for (int i = lo + t; i < hi; i += kThreads) {
       int v[1] = {epochs[i] == cur ? counts[i] : 0};
       to_bins(v, edges_s, exact);
@@ -126,15 +125,7 @@ hist_kernel(const int* __restrict__ counts, const uint8_t* __restrict__ epochs,
     int sum = 0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) sum += sub_s[w][t];
-    if (sum) atomicAdd(g_acc + t, sum);
-  }
-  __threadfence();
-  __syncthreads();
-  if (t == 0) last_s = atomicAdd(g_acc + kBins, 1) == gridDim.x - 1;
-  __syncthreads();
-  if (last_s) {                           // every block's sums are in g_acc
-    if (t < kBins) out[t] = atomicExch(g_acc + t, 0);
-    if (t == 0) g_acc[kBins] = 0;
+    if (sum) atomicAdd(out + t, sum);
   }
 }
 
@@ -143,10 +134,12 @@ hist_kernel(const int* __restrict__ counts, const uint8_t* __restrict__ epochs,
 extern "C" int cms_hist_launch(const int* counts_row0, const uint8_t* epochs_row0,
                                const uint8_t* cur_epoch, const int* edges,
                                int* out, int W, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(out, 0, kBins * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
   const int vec = W % kVals == 0 && reinterpret_cast<uintptr_t>(counts_row0) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(epochs_row0) % 4 == 0;
-  hist_kernel<<<(W + kChunk - 1) / kChunk, kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
+  hist_kernel<<<(W + kChunk - 1) / kChunk, kThreads, 0, s>>>(
       counts_row0, epochs_row0, cur_epoch, edges, out, W, vec);
   return (int)cudaGetLastError();
 }

@@ -23,9 +23,8 @@
 // decomposition here: the grid runs over segments of the flat D*W plane and
 // every (lane, id) lands in exactly one segment.
 // Update: a block of 256 threads owns a segment of one lane (never two:
-// a lane narrower than a segment is one short segment) of 2048 entries, or
-// 4096 once the plane holds more than 256 segments of 2048: 16 blocks at
-// the main size, 256 at W=512K.  It (1) reads its counters and tags with 16-byte
+// a lane narrower than a segment is one short segment) of 2048 entries:
+// 16 blocks at the main size, 512 at W=512K.  It (1) reads its counters and tags with 16-byte
 // loads (a scalar loop where a plane is not 16-byte aligned), keeps the
 // live values clamped at counter_max in shared memory and stamps the tags
 // with cur; (2) H3-hashes every id for its own lane with the lane's seeds
@@ -66,7 +65,7 @@ __device__ __forceinline__ int h3(int id, const int* seeds_lane) {
 }
 
 constexpr int kThreads = 256;
-constexpr int kSegMin = 2048, kSegMax = 4096;   // entries of one lane per block
+constexpr int kSeg = 2048;   // entries of one lane per block
 
 __global__ void __launch_bounds__(kThreads)
 update_kernel(const int* __restrict__ counts, const uint8_t* __restrict__ epochs,
@@ -74,13 +73,13 @@ update_kernel(const int* __restrict__ counts, const uint8_t* __restrict__ epochs
               const int* __restrict__ seeds, const uint8_t* __restrict__ cur_epoch,
               int* __restrict__ out_counts, uint8_t* __restrict__ out_epochs,
               int* __restrict__ est, int* __restrict__ hot_before, int W, int S,
-              int counter_max, int seg, int vec) {
+              int counter_max, int vec) {
   __shared__ int seeds_s[kIdBits];
-  __shared__ __align__(16) int cnt_s[kSegMax];
-  const int per_lane = (W + seg - 1) / seg;
+  __shared__ __align__(16) int cnt_s[kSeg];
+  const int per_lane = (W + kSeg - 1) / kSeg;
   const int d = blockIdx.x / per_lane;
-  const int lo = (blockIdx.x - d * per_lane) * seg;   // lane-local start
-  const int len = min(seg, W - lo);
+  const int lo = (blockIdx.x - d * per_lane) * kSeg;   // lane-local start
+  const int len = min(kSeg, W - lo);
   const size_t base = (size_t)d * W + lo;
   if (threadIdx.x < kIdBits) seeds_s[threadIdx.x] = seeds[d * kIdBits + threadIdx.x];
   const uint8_t cur = *cur_epoch;
@@ -184,16 +183,14 @@ extern "C" int neoprof_update_launch(const int* counts, const uint8_t* epochs,
                                      int* out_counts, uint8_t* out_epochs,
                                      int* est, int* hot_before, int D, int W,
                                      int S, int counter_max, void* stream) {
-  int seg = kSegMin;
-  while (seg < kSegMax && (long long)D * W > 256LL * seg) seg *= 2;
   const int vec = W % 16 == 0 && ((reinterpret_cast<uintptr_t>(counts) |
                                    reinterpret_cast<uintptr_t>(epochs) |
                                    reinterpret_cast<uintptr_t>(out_counts) |
                                    reinterpret_cast<uintptr_t>(out_epochs)) % 16) == 0;
-  update_kernel<<<D * ((W + seg - 1) / seg), kThreads, 0,
+  update_kernel<<<D * ((W + kSeg - 1) / kSeg), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       counts, epochs, hot, ids, seeds, cur_epoch, out_counts, out_epochs, est,
-      hot_before, W, S, counter_max, seg, vec);
+      hot_before, W, S, counter_max, vec);
   return (int)cudaGetLastError();
 }
 

@@ -14,9 +14,7 @@ from repro_torch.kernels.dispatch import kernel_device, require
 
 def hist_kernel(counts_row0, epochs_row0, cur_epoch, edges):
     """(W,) int32 counters + (W,) uint8 tags + () uint8 epoch + (65,) int32
-    edges -> (64,) int32 histogram of the live counters.  On CUDA, calls on
-    one device must not run concurrently: the kernel reduces through one
-    accumulator per device (``csrc/cms_hist.cu``)."""
+    edges -> (64,) int32 histogram of the live counters."""
     if kernel_device(counts_row0, epochs_row0, cur_epoch, edges) == "cpu":
         return hist_ref(counts_row0, epochs_row0, cur_epoch, edges)
     w = counts_row0.shape[0]

@@ -180,7 +180,7 @@ def update_case():
 @pytest.mark.parametrize("seg", [2048, 1000, 1024, 8192])
 def test_update_segment_owned_matches_plain_and_pallas(update_case, seg):
     """The update kernel's arithmetic: segments of 2048 entries (the
-    kernel's at the main size) and 1024, which divide W, 1000, which does
+    kernel's) and 1024, which divide W, 1000, which does
     not, and 8192, wider than W, give the plain version's and the Pallas
     kernel's outputs bitwise, and every (lane, id) has exactly one owner
     block."""
@@ -196,21 +196,19 @@ def test_update_segment_owned_matches_plain_and_pallas(update_case, seg):
         np.testing.assert_array_equal(e.numpy().astype(np.int32), j, err_msg=name)
 
 
-def _hist_block_partial(counts_row0, epochs_row0, cur, edges, chunk, acc):
+def _hist_block_partial(counts_row0, epochs_row0, cur, edges, chunk, out):
     """``csrc/cms_hist.cu``'s decomposition in plain torch: the row split
     into blocks of ``chunk`` counters.  In a block, a live value below the
     edges' identity prefix less one is its own bin and any other goes
     through a binary search over the 65 edges (clipped to the bins); the
     kernel searches all four values of a thread once one of them needs it,
     which the check below makes immaterial.  Bin-0 hits are counted apart
-    from the rest.  Each block adds its bins into the accumulator ``acc``
-    (64 sums and a ticket) and the last block moves the sums out and leaves
-    ``acc`` zeroed."""
+    from the rest.  ``out`` is zeroed first, as the launcher's memset does,
+    and each block adds its bins into it."""
     e = edges.tolist()
     exact = next((i for i, x in enumerate(e) if x != i), len(e))
     w = counts_row0.shape[0]
-    n_blocks = -(-w // chunk)
-    out = None
+    out.zero_()
     for lo in range(0, w, chunk):
         live = torch.where(epochs_row0[lo:lo + chunk] == cur,
                            counts_row0[lo:lo + chunk], 0)
@@ -228,11 +226,7 @@ def _hist_block_partial(counts_row0, epochs_row0, cur, edges, chunk, acc):
         bins = torch.where(fast, live, searched)
         part = torch.bincount(bins[bins != 0].long(), minlength=64).to(torch.int32)
         part[0] = int((bins == 0).sum())
-        acc[:64] += part
-        acc[64] += 1
-        if int(acc[64]) == n_blocks:
-            out = acc[:64].clone()
-            acc.zero_()
+        out += part
     return out
 
 
@@ -242,8 +236,8 @@ def test_hist_block_partial_matches_plain_and_pallas(chunk):
     kernel's) and 512, which divide W, 1000, which does not, and 8192, wider
     than W, give the plain version's and the Pallas kernel's histogram
     bitwise, on a row of zeros, stale tags, every edge and its neighbours,
-    and counter_max; two calls in a row through one accumulator agree and
-    leave it at zero."""
+    and counter_max; an output that held other values (``torch.empty``
+    gives no zeros) is overwritten, and a second call into it agrees."""
     rng = np.random.default_rng(chunk)
     width = 1 << 12
     cmax = jsk.SketchParams().counter_max
@@ -254,11 +248,10 @@ def test_hist_block_partial_matches_plain_and_pallas(chunk):
     epochs = rng.integers(0, 2, width).astype(np.uint8)
     epochs[: width // 8] = 1                      # a run of live tags
     cur = torch.tensor(1, dtype=torch.uint8)
-    acc = torch.zeros(65, dtype=torch.int32)
+    out = torch.full((64,), -7, dtype=torch.int32)
     args = (_t(counts), _t(epochs), cur, _t(edges))
-    emulated = _hist_block_partial(*args, chunk, acc)
-    assert torch.equal(_hist_block_partial(*args, chunk, acc), emulated)
-    assert not acc.any()
+    emulated = _hist_block_partial(*args, chunk, out).clone()
+    assert torch.equal(_hist_block_partial(*args, chunk, out), emulated)
     plain = t_hist_ops.hist_kernel(*args)
     pallas = j_hist_k.hist_pallas(jnp.asarray(counts), jnp.asarray(epochs, jnp.int32),
                                   jnp.int32(1), jnp.asarray(edges), width=width,
