@@ -29,13 +29,27 @@ Phases, one summary line each:
                 attention's share, and
                 decode steps alternate swiglu's activation between F.silu
                 and the reference's op-by-op formula to time the two on
-                one host.
+                one host;
+  4. lanes    — the unified Scheduler over 4 continuous-batching lanes of
+                the same model (traffic_bench.py's SERVE_KW shape at full
+                width, the embeddings resource read in-step through its
+                placement table) serving a seeded two-tenant zipf-hot mmpp
+                trace to completion through all four kernels; every request
+                must finish with its max_new tokens, the report must add
+                up, a request must have been preempted and resumed, bytes
+                must have moved for both resources, every step's logits
+                must be finite and its active lanes' page mass sum to 1,
+                both sketches must replay bitwise through the plain CPU
+                sketch, and the schedule (steps, preemptions, each
+                request's admission and finish) must equal the same trace's
+                on the CPU at the smoke config.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.  Any failure raises (exit != 0)
 and prints no result; with no CUDA device the script exits 2.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -54,6 +68,18 @@ ATOL, RTOL = 1e-4, 1e-4  # attention kernel vs plain version, float32
 COLD_SETS = 6           # attention input sets rotated through (101 MB of K/V > L2)
 SKETCH_SETS = 24        # sketch input sets rotated through (151 MB at W=512K > L2)
 PAPER_W = 1 << 19       # the paper's sketch width (Table III: W=512K, D=2)
+# PHASE lanes: traffic_bench.py's SERVE_KW shape at llama3.2-3b full width
+# (4 lanes, 6 KV segments, the embeddings resource; 128256 / 64 = 2004 vocab
+# pages), a 48-step two-tenant zipf-hot mmpp trace, 32-token prefill chunks
+LANE_SERVE = dict(max_seq=256, paged=True, page_t=16, hot_slots=8,
+                  migration_interval=8, resources=["embeddings"],
+                  embed_hot_slots=64, embed_quota=64, kv_quota=16,
+                  kv_tier_slots=16, kv_mass_threshold=0.01, lanes=4,
+                  kv_segments=6)
+LANE_SCHED = dict(prefill_chunk=32, preempt_patience=4)
+LANE_TENANTS = (("interactive", 2.0, 0.22, (16, 49), (8, 33)),
+                ("batch", 1.0, 0.12, (64, 161), (16, 49)))
+LANE_TRACE = dict(kind="zipf-hot", n_steps=48, seed=0, arrival="mmpp")
 # datasheet memory bandwidth (bytes/s) and float32 non-tensor peak (flop/s)
 CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
          ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
@@ -183,6 +209,15 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
     case(2, 24, 8, 128, 128, 16, 64, f32, rng.integers(0, 65, (2, 16)))  # f32 K/V
     case(2, 8, 2, 36, 36, 6, 16, bf16, rng.integers(0, 17, (2, 6)))  # 72 B rows: plain loads
     case(4, 24, 8, 128, 128, 64, 64, bf16, rng.integers(0, 65, (4, 64)))  # P=64: max_seq 4096
+    # the lane phase's shape: 4 lanes over 8 slots of 16 tokens — an empty
+    # (reset or idle) lane, one with only a part-filled current slot, a
+    # wrapped full ring, a ragged one
+    lens = np.zeros((4, 8), int)
+    lens[1, 5] = 7
+    lens[2] = 16
+    lens[2, 3] = 9
+    lens[3] = rng.integers(0, 17, 8)
+    case(4, 24, 8, 128, 128, 8, 16, bf16, lens)
     # main path: llama3.2-3b decode, B=4, 16 ring slots of 64 tokens, the
     # current slot part-filled
     b, h, hkv, d, p, t = 4, 24, 8, 128, 16, 64
@@ -333,6 +368,11 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
     run(2, 4096, 256, "zero")                # an all-zero row
     run(2, 4096, 256, offset=1)              # planes off 16-byte alignment
     run(2, PAPER_W, 1024, "main")            # the paper's width
+    for s_lane in (32, 128):                 # the lane phase's blocks: mostly padding
+        ids = torch.randint(0, 2004, (s_lane,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        pad = torch.rand((s_lane,), generator=gen, device="cuda") < 0.75
+        run(2, 1 << 14, s_lane, ids=torch.where(pad, -1, ids))
     # the ops-level verb against the core's plain sketch_update
     sp = sk.SketchParams(width=1 << 12)
     st = sk.sketch_init(sp, device="cuda")
@@ -463,12 +503,10 @@ def hist_library_ms(torch, counts_row0, epochs_row0, cur, edges):
 
 # -- phase 3: the main path at full width -----------------------------------------
 
-def main_path(torch, counters):
+def draw_params(torch):
+    """llama3.2-3b at full width, random bf16 weights from seed 0."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import sketch as sk
     from repro_torch.models.transformer import init_params
-    from repro_torch.serve.engine import ServeConfig, ServeEngine
-
     cfg = get_config("llama3.2-3b")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
@@ -476,10 +514,12 @@ def main_path(torch, counters):
     n_params = sum(x.numel() for x in _leaves(params))
     print(f"main: llama3.2-3b full width, {n_params / 1e9:.3f} B params bf16 "
           f"drawn in {time.perf_counter() - t0:.1f} s")
-    eng = ServeEngine(cfg, params, ServeConfig(
-        max_seq=4096, paged=True, page_t=64, hot_slots=16, migration_interval=8))
-    h = eng.daemon["kv"]
-    blocks = []          # (ids, theta, epoch) of every block the sketch took
+    return cfg, params
+
+
+def record_blocks(h) -> list:
+    """Record every block a resource's sketch takes: (ids, theta, epoch)."""
+    blocks = []
     observe = h.mem.observe
 
     def recording(state, pages, **kw):
@@ -487,6 +527,34 @@ def main_path(torch, counters):
                        int(state.prof.sketch.cur_epoch)))
         return observe(state, pages, **kw)
     h.mem.observe = recording
+    return blocks
+
+
+def replay_sketch(torch, h, blocks) -> None:
+    """Replay recorded blocks through the plain sketch on the CPU; the
+    card's sketch must come out bitwise equal."""
+    from repro_torch.core import sketch as sk
+    sp = h.mem.pp.sketch
+    dev_sk = h.state.prof.sketch
+    st = sk.sketch_init(sp, dev_sk.seeds.cpu(), device="cpu")
+    for ids, theta, epoch in blocks:
+        while int(st.cur_epoch) != epoch:
+            st = sk.sketch_clear(st)
+        st, _ = sk.sketch_update(st, ids, torch.tensor(theta, dtype=torch.int32), sp)
+    while int(st.cur_epoch) != int(dev_sk.cur_epoch):
+        st = sk.sketch_clear(st)
+    for name in ("counts", "epochs", "hot", "n_seen"):
+        if not torch.equal(getattr(st, name), getattr(dev_sk, name).cpu()):
+            raise AssertionError(f"{h.name} sketch replay: {name} differs")
+
+
+def main_path(torch, counters, cfg, params):
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_seq=4096, paged=True, page_t=64, hot_slots=16, migration_interval=8))
+    h = eng.daemon["kv"]
+    blocks = record_blocks(h)
 
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, (4, 1024))
@@ -517,19 +585,7 @@ def main_path(torch, counters):
         raise AssertionError(f"page mass sums {sums.tolist()} != 1")
     if not (stats["migration_bytes"] > 0 and stats["flush_bytes"] > 0):
         raise AssertionError(f"no bytes moved: {stats}")
-    # replay the recorded blocks through the plain sketch on the CPU
-    sp = h.mem.pp.sketch
-    dev_sk = h.state.prof.sketch
-    st = sk.sketch_init(sp, dev_sk.seeds.cpu(), device="cpu")
-    for ids, theta, epoch in blocks:
-        while int(st.cur_epoch) != epoch:
-            st = sk.sketch_clear(st)
-        st, _ = sk.sketch_update(st, ids, torch.tensor(theta, dtype=torch.int32), sp)
-    while int(st.cur_epoch) != int(dev_sk.cur_epoch):
-        st = sk.sketch_clear(st)
-    for name in ("counts", "epochs", "hot", "n_seen"):
-        if not torch.equal(getattr(st, name), getattr(dev_sk, name).cpu()):
-            raise AssertionError(f"sketch replay: {name} differs")
+    replay_sketch(torch, h, blocks)
     print(f"main: sketch replay of {len(blocks)} blocks bitwise equal")
     print(f"main: prefill {prefill_s:.3f} s for 4x1024 tokens; decode "
           f"{4 * 63 / decode_s:.2f} tokens/s, {1e3 * decode_s / 63:.2f} ms/step")
@@ -607,6 +663,157 @@ def silu_ab(torch, eng, tok, steps: int = 8, rounds: int = 5):
                   for k, v in times.items()), wins, 2 * rounds))
 
 
+# -- phase 4: the lane substrate and the scheduler ------------------------------
+
+def run_lanes(cfg, params, device, on_engine=None):
+    """The lane phase's trace through the port's Scheduler on ``device``;
+    ``on_engine(eng)`` runs between building the engine and the trace.
+    Returns (engine, scheduler, trace, wall seconds of the replay)."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.sched import SchedConfig, Scheduler, Tenant
+    from repro_torch.workloads import TenantProfile, make_trace, play
+    profiles = tuple(TenantProfile(*p) for p in LANE_TENANTS)
+    eng = ServeEngine(cfg, params, ServeConfig(
+        **dict(LANE_SERVE, resources=tuple(LANE_SERVE["resources"]))),
+        device=device)
+    if on_engine is not None:
+        on_engine(eng)
+    sched = Scheduler(eng, [Tenant(p.name, p.weight) for p in profiles],
+                      SchedConfig(**LANE_SCHED))
+    trace = make_trace(vocab=cfg.vocab, tenants=profiles, **LANE_TRACE)
+    t0 = time.perf_counter()
+    play(trace, sched)
+    return eng, sched, trace, time.perf_counter() - t0
+
+
+def lane_schedule(sched) -> dict:
+    """What greedy scheduling decides, which no token value can change."""
+    return {"steps": sched.step_count, "preemptions": sched.preemptions,
+            "queued_peak": sched.queued_peak,
+            "requests": [[r.rid, r.admitted_step, r.finished_step, r.preemptions]
+                         for r in sorted(sched.finished, key=lambda r: r.rid)]}
+
+
+def cpu_lane_schedule() -> dict:
+    """The lane phase's schedule from the port on the CPU, at the smoke
+    config (seconds); the trace's arrivals are drawn for the smoke
+    vocabulary, the same steps, tenants and lengths as at full width."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_smoke_config("llama3.2-3b")
+    _, sched, _, _ = run_lanes(cfg, init_params(cfg, seed=0, device="cpu"), "cpu")
+    return lane_schedule(sched)
+
+
+def lanes_path(torch, counters, cfg, params, smi):
+    """PHASE lanes: the multi-tenant trace at full width on the card."""
+    from repro_torch.models import decode as dec
+    checked = {"steps": 0}
+    blocks = {}
+
+    def instrument(eng):
+        for name in ("kv", "embeddings"):
+            blocks[name] = record_blocks(eng.daemon[name])
+        advance, prefill_lane = eng.advance_lanes, eng.prefill_lane
+
+        def checked_advance(tokens, active, segments):
+            logits = advance(tokens, active, segments)
+            act = np.asarray(active, bool)
+            sums = eng._last_kv_mass.sum(dim=1).cpu().numpy()[act]
+            if not (np.isfinite(logits).all() and (np.abs(sums - 1) < 1e-4).all()):
+                raise AssertionError(f"lane step: non-finite logits or page "
+                                     f"mass sums {sums.tolist()} != 1")
+            checked["steps"] += 1
+            return logits
+
+        def checked_prefill(lane, tokens, segment, chunk=None):
+            logits = prefill_lane(lane, tokens, segment, chunk)
+            if not np.isfinite(logits).all():
+                raise AssertionError("lane chunk: non-finite logits")
+            return logits
+        eng.advance_lanes, eng.prefill_lane = checked_advance, checked_prefill
+        for c in counters:
+            c.launches = 0
+
+    eng, sched, trace, wall_s = run_lanes(cfg, params, "cuda", instrument)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never launched on the lane path: {launches}")
+    rep = sched.report()
+    reqs = sched.finished
+    if not (rep["completed"] == rep["submitted"] == len(trace.arrivals)
+            and rep["tokens"] == sum(len(r.out) for r in reqs)):
+        raise AssertionError(f"report does not add up: {rep}")
+    for r in reqs:
+        if len(r.out) != r.max_new or not all(0 <= t < cfg.vocab for t in r.out):
+            raise AssertionError(f"request {r.rid}: {len(r.out)} tokens of "
+                                 f"{r.max_new}, or one out of the vocabulary")
+    if not (rep["preemptions"] >= 1 and any(r.preemptions for r in reqs)):
+        raise AssertionError("no request was preempted and resumed")
+    res = rep["resources"]
+    if not (res["kv"]["migration_bytes"] > 0 and res["kv"]["flush_bytes"] > 0
+            and res["embeddings"]["migration_bytes"] > 0):
+        raise AssertionError(f"no bytes moved: {res}")
+    for name, recorded in blocks.items():
+        replay_sketch(torch, eng.daemon[name], recorded)
+    print(f"lanes: sketch replay of {len(blocks['kv'])} kv and "
+          f"{len(blocks['embeddings'])} embeddings blocks bitwise equal; "
+          f"{checked['steps']} lane steps with finite logits and unit page mass")
+    t0 = time.perf_counter()
+    cpu = cpu_lane_schedule()
+    card = lane_schedule(sched)
+    if card != cpu:
+        raise AssertionError(f"the card's schedule differs from the CPU's:\n"
+                             f"{card}\n{cpu}")
+    print(f"lanes: schedule equal to the CPU run at the smoke config "
+          f"({time.perf_counter() - t0:.1f} s): {len(reqs)} requests, "
+          f"{rep['steps']} steps, {rep['preemptions']} preemption(s)")
+    gather_ms, dense_ms = embed_gather_ms(torch, dec, eng, params)
+    decode_s = rep["clock"]["decode_s"]
+    print(f"lanes: {rep['steps']} scheduler steps in {wall_s:.2f} s wall; "
+          f"{rep['tokens']} tokens, {rep['tokens'] / decode_s:.2f} tokens/s on "
+          f"the decode clock ({decode_s:.2f} s) on {smi}")
+    print(f"lanes: TTFT p50 {rep['ttft_ms']['p50']:.1f} ms, p99 "
+          f"{rep['ttft_ms']['p99']:.1f} ms; TPOT p50 {rep['tpot_ms']['p50']:.1f} ms, "
+          f"p99 {rep['tpot_ms']['p99']:.1f} ms; {rep['preemptions']} preemption(s); "
+          "kv hit rate " + ", ".join(f"{n} {t['kv_hit_rate']:.3f}"
+                                     for n, t in rep["tenants"].items())
+          + f" on {smi}")
+    for name, row in res.items():
+        print(f"lanes: {name} tier_stats " + json.dumps(
+            {k: v for k, v in row.items() if isinstance(v, int)}) + f" on {smi}")
+    print("lanes: launches " + json.dumps(launches) + f" on {smi}")
+    print(f"lanes: embedding gather through the placement table {gather_ms:.3f} ms "
+          f"per step (4 tokens, wall, synchronised; dense table gather "
+          f"{dense_ms:.3f} ms) on {smi}")
+    return launches, rep
+
+
+def embed_gather_ms(torch, dec, eng, params, n: int = 50) -> tuple[float, float]:
+    """Wall ms of one step's embedding read at the lane shape, through the
+    tiered store (placement lookup, pinned-host staging copy for slow rows)
+    and, beside it, the dense table gather; medians of ``n`` synchronised
+    calls on the final placement."""
+    tok = torch.as_tensor(np.arange(4) * 997 % eng.cfg.vocab, device=eng.device)[:, None]
+    tiered = eng._tier_reads()
+    if not torch.equal(dec._embed_tokens(params, tok, tiered),
+                       dec._embed_tokens(params, tok, None)):
+        raise AssertionError("the tiered embedding read differs from the table's")
+
+    def wall(fn):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    return (wall(lambda: dec._embed_tokens(params, tok, tiered)),
+            wall(lambda: dec._embed_tokens(params, tok, None)))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -659,9 +866,16 @@ def main() -> int:
 
     counters = (pa_ops.paged_attention_raw, np_ops.sketch_update_kernel,
                 np_ops.sketch_mark_hot_kernel, hist_ops.hist_kernel)
-    launches, e2e = main_path(torch, counters)
+    cfg, params = draw_params(torch)
+    launches, e2e = main_path(torch, counters, cfg, params)
     print(f"PHASE main: ok, {e2e['decode_tokens_per_s']:.2f} decode tokens/s "
           f"on {smi}")
+    gc.collect()                       # the main engine's ring and stores
+    torch.cuda.empty_cache()
+    lane_launches, rep = lanes_path(torch, counters, cfg, params, smi)
+    print(f"PHASE lanes: ok, {rep['completed']} requests, "
+          f"{rep['tokens'] / rep['clock']['decode_s']:.2f} tokens/s on the "
+          f"decode clock, launches {json.dumps(lane_launches)} on {smi}")
     by_name = {"paged_attn": "paged_attention_raw",
                "neoprof_update": "sketch_update_kernel",
                "neoprof_mark": "sketch_mark_hot_kernel",

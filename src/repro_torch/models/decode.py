@@ -6,16 +6,25 @@ reference's):
 
   * paged attn blocks ... {"k_pages","v_pages"}: (G, B, n_slots, T, Hkv, dh)
                           + {"page_len": (G, B, n_slots), "cur_slot": (G, B)}
-  * "pos" ............... () int32 lockstep position
+  * "pos" ............... () int32 lockstep position, or (B,) per-lane
+                          positions (continuous batching, DESIGN.md §9)
 
 The ring IS the NeoMem fast tier; the slow tier (full history) is the KV
 resource's store, managed by the serve engine and the daemon between steps.
 Where the reference scans over layer groups and prompt tokens, the port
 runs Python loops, and it updates the cache IN PLACE (the page tensors are
 the bulk of device memory; nothing else holds the old values).
+
+Lane masks: where the reference computes a new cache for every lane and
+``merge_cache`` keeps the old leaves of the inactive ones, the port's
+writes are conditional on the mask — an inactive lane's pages, ``page_len``,
+``cur_slot`` and ``pos`` stay bitwise unchanged and the ring is never
+copied.  Its logits and mass are computed on the unchanged ring and are
+not to be read.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -24,6 +33,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_norm, apply_rope, embed_apply,
                                        logits_apply, mlp_apply)
 from repro_torch.models.transformer import check_dense
+from repro_torch.tiering.migrate import lookup_rows as _tier_lookup_rows
 
 
 def _take(tree, g: int):
@@ -33,9 +43,39 @@ def _take(tree, g: int):
     return tree[g]
 
 
+def _pos_col(pos: torch.Tensor, b: int) -> torch.Tensor:
+    """Decode positions as a (B, 1) column: ``pos`` is the scalar lockstep
+    counter or a (B,) vector of per-lane positions."""
+    return pos.reshape(-1, 1).expand(b, 1)
+
+
+def _embed_tokens(params, token, tiered):
+    """Token embedding, served from the NeoMem tiered store when bound.
+
+    With a ``tiered["embeddings"]`` view ({"fast", "slow", "page_slot",
+    "rows_per_page"}) each token's vocab row-block is gathered through the
+    placement table (:func:`repro_torch.tiering.migrate.lookup_rows`): the
+    fast-buffer copy when promoted, the slow store otherwise — bitwise the
+    table's row either way (the tiers are inclusive).  On the card the slow
+    store is pinned host memory, so the gather goes through a staging copy."""
+    tv = (tiered or {}).get("embeddings")
+    if tv is None:
+        return embed_apply(params["embed"], token)
+    rpp = tv["rows_per_page"]
+    rows = _tier_lookup_rows(tv["fast"], tv["slow"], tv["page_slot"],
+                             torch.div(token, rpp, rounding_mode="floor"),
+                             scale=tv.get("scale"))          # (B, 1, rpp, d)
+    r = torch.remainder(token, rpp)[..., None, None]
+    return torch.take_along_dim(rows, r, dim=-2)[..., 0, :]
+
+
 def init_paged_cache(cfg: ArchConfig, batch: int, n_slots: int, page_t: int,
-                     dtype=torch.bfloat16, *, device="cuda"):
-    """NeoMem fast-tier paged cache for every attention block."""
+                     dtype=torch.bfloat16, per_lane_pos: bool = False, *,
+                     device="cuda"):
+    """NeoMem fast-tier paged cache for every attention block.
+
+    ``per_lane_pos=True`` makes ``pos`` a (batch,) vector so each batch row
+    (a continuous-batching lane) advances on its own (DESIGN.md §9)."""
     check_dense(cfg)
     g, hkv, dh = cfg.n_groups, cfg.n_kv_heads, cfg.head_dim
 
@@ -51,26 +91,39 @@ def init_paged_cache(cfg: ArchConfig, batch: int, n_slots: int, page_t: int,
                                     device=device),
         }
     return {"blocks": [one() for _ in cfg.pattern],
-            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+            "pos": torch.zeros((batch,) if per_lane_pos else (),
+                               dtype=torch.int32, device=device)}
 
 
 def _append_attend_local(kp, vp, plen, cur_slot, k_new, v_new, q_eff, *,
-                         scale, softcap, page_t, collect_mass):
+                         scale, softcap, page_t, collect_mass, active=None):
     """Page append + flash-decode attention over one group's ring, in place.
 
     ``kp``/``vp`` (B, S, T, Hkv, d), ``plen`` (B, S) and ``cur_slot`` (B,)
     are updated in place: the new K/V goes to the current slot's next
     position, and a slot that fills advances ``cur_slot`` onto the next slot
-    with its length zeroed.  Returns (o (B, H, dv) f32, mass (B, S) or None).
+    with its length zeroed.  ``active`` (B,) bool limits every write to the
+    active rows (an inactive row writes its slot's old contents back).
+    Returns (o (B, H, dv) f32, mass (B, S) or None).
     """
     b, n_slots = plen.shape
     bidx = torch.arange(b, device=plen.device)
     cs = cur_slot.long()
     off = plen[bidx, cs]
-    kp[bidx, cs, off.long()] = k_new.to(kp.dtype)
-    vp[bidx, cs, off.long()] = v_new.to(vp.dtype)
-    plen[bidx, cs] = off + 1
+    at = off.long()
+    k_new, v_new = k_new.to(kp.dtype), v_new.to(vp.dtype)
+    grow = 1
+    if active is not None:
+        keep = active[:, None, None]
+        k_new = torch.where(keep, k_new, kp[bidx, cs, at])
+        v_new = torch.where(keep, v_new, vp[bidx, cs, at])
+        grow = active.to(plen.dtype)
+    kp[bidx, cs, at] = k_new
+    vp[bidx, cs, at] = v_new
+    plen[bidx, cs] = off + grow
     full = off + 1 >= page_t
+    if active is not None:
+        full = full & active
     new_slot = torch.where(full, (cur_slot + 1) % n_slots, cur_slot)
     advanced = full & (new_slot != cur_slot)
     slots = torch.arange(n_slots, device=plen.device)
@@ -84,14 +137,14 @@ def _append_attend_local(kp, vp, plen, cur_slot, k_new, v_new, q_eff, *,
 
 
 def _paged_attn_block(p, cfg: ArchConfig, x_t, cache, pos, page_t: int,
-                      collect_mass: bool = False):
+                      collect_mass: bool = False, active=None):
     """One decoder block over the paged ring (GQA branch of the reference's
     ``_paged_attn_block``).  Returns (x_t, mass or None)."""
     h = apply_norm(cfg.norm, p["ln1"], x_t)
     b = x_t.shape[0]
     q, k, v = attn._proj_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                              cfg.head_dim)
-    pos_b = pos.reshape(1, 1).expand(b, 1)
+    pos_b = _pos_col(pos, b)
     if cfg.rope_theta > 0:
         q = apply_rope(q, pos_b, cfg.rope_theta)
         k = apply_rope(k, pos_b, cfg.rope_theta)
@@ -99,7 +152,8 @@ def _paged_attn_block(p, cfg: ArchConfig, x_t, cache, pos, page_t: int,
     o, mass = _append_attend_local(
         cache["k_pages"], cache["v_pages"], cache["page_len"], cache["cur_slot"],
         k[:, 0], v[:, 0], q[:, 0].float().contiguous(), scale=scale,
-        softcap=cfg.attn_softcap, page_t=page_t, collect_mass=collect_mass)
+        softcap=cfg.attn_softcap, page_t=page_t, collect_mass=collect_mass,
+        active=active)
     x_t = x_t + o.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x_t.dtype) \
         @ p["attn"]["wo"]
     y = mlp_apply(p["ffn"], apply_norm(cfg.norm, p["ln2"], x_t), cfg.mlp)
@@ -108,7 +162,8 @@ def _paged_attn_block(p, cfg: ArchConfig, x_t, cache, pos, page_t: int,
 
 def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
                       return_streams: bool = False,
-                      collect_mass: bool | None = None):
+                      collect_mass: bool | None = None, tiered=None,
+                      active=None):
     """One decode step over the NeoMem fast tier (hot pages only).
 
     ``token`` (B, 1) int.  Returns ``(logits (B, 1, V) f32, cache)`` and,
@@ -116,25 +171,31 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     (G, n_attn, B, n_slots) kernel-exported per-page softmax mass of every
     attention position (``"router"`` is None: the dense family has none).
     ``collect_mass`` (default: follow ``return_streams``) gates the
-    kernel's page-stats export.  The cache is updated in place.
+    kernel's page-stats export.  ``tiered`` serves the token embedding
+    through the tiered store (:func:`_embed_tokens`).  ``active`` (B,) bool
+    masks whole lanes: an inactive lane's cache leaves stay bitwise
+    unchanged (needs per-lane positions).  The cache is updated in place.
     """
     check_dense(cfg)
     collect_mass = return_streams if collect_mass is None else collect_mass
     pos = cache["pos"]
-    x = embed_apply(params["embed"], token)
+    if active is not None and pos.dim() == 0:
+        raise ValueError("a lane mask needs per-lane positions "
+                         "(init_paged_cache(per_lane_pos=True))")
+    x = _embed_tokens(params, token, tiered)
     masses = []
     for g in range(cfg.n_groups):
         group = []
         for i, _kind in enumerate(cfg.pattern):
             x, mass = _paged_attn_block(_take(params["blocks"][i], g), cfg, x,
                                         _take(cache["blocks"][i], g), pos,
-                                        page_t, collect_mass)
+                                        page_t, collect_mass, active)
             if mass is not None:
                 group.append(mass)
         masses.append(group)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = logits_apply(params["embed"], x, cfg.final_softcap)
-    cache["pos"] = pos + 1
+    cache["pos"] = pos + (1 if active is None else active.to(pos.dtype))
     if not return_streams:
         return logits, cache
     kv_mass = (torch.stack([torch.stack(gm) for gm in masses])
@@ -143,22 +204,45 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
 
 
 def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
+                  valid=None, active=None, tiered=None,
                   collect_mass: bool = False):
     """Prefill a (B, C) prompt chunk through the paged ring, one token
     column at a time — each step IS :func:`decode_step_paged`, so the ring
     after the chunk equals C streaming calls.
 
-    Returns ``(last logits (B, V) f32, cache, streams)``; streams stacks the
-    per-step ``kv_mass`` on a leading chunk axis, (C, G, n_attn, B, S).
+    ``valid`` (B, C) bool marks real tokens (False = ragged-tail padding, a
+    no-op step for that lane) and ``active`` (B,) bool masks whole lanes;
+    both are host arrays.  A column that is padding for every lane is
+    skipped.  Returns ``(last valid logits (B, V) f32, cache, streams)``;
+    streams stacks the per-step ``kv_mass`` on a leading chunk axis,
+    (C, G, n_attn, B, S), zeros for a skipped column.
     """
     tokens = torch.as_tensor(tokens)
-    last, kv_mass = None, []
-    for c in range(tokens.shape[1]):
+    b, c = tokens.shape
+    step_act = None
+    if valid is not None or active is not None:
+        step_act = (np.ones((b, c), bool) if valid is None
+                    else np.asarray(valid, bool))
+        if active is not None:
+            step_act = step_act & np.asarray(active, bool)[:, None]
+    last = torch.zeros((b, cfg.vocab), dtype=torch.float32,
+                       device=tokens.device)
+    kv_mass = []
+    for col in range(c):
+        act = None
+        if step_act is not None:
+            if not step_act[:, col].any():
+                kv_mass.append(None)
+                continue
+            act = torch.as_tensor(step_act[:, col], device=tokens.device)
         logits, cache, streams = decode_step_paged(
-            cfg, params, cache, tokens[:, c:c + 1], page_t=page_t,
-            return_streams=True, collect_mass=collect_mass)
-        last = logits[:, -1].float()
-        if streams["kv_mass"] is not None:
-            kv_mass.append(streams["kv_mass"])
-    return last, cache, {"router": None,
-                         "kv_mass": torch.stack(kv_mass) if kv_mass else None}
+            cfg, params, cache, tokens[:, col:col + 1], page_t=page_t,
+            return_streams=True, collect_mass=collect_mass, tiered=tiered,
+            active=act)
+        step = logits[:, -1].float()
+        last = step if act is None else torch.where(act[:, None], step, last)
+        kv_mass.append(streams["kv_mass"])
+    ran = [m for m in kv_mass if m is not None]
+    stacked = (torch.stack([torch.zeros_like(ran[0]) if m is None else m
+                            for m in kv_mass]) if ran else None)
+    return last, cache, {"router": None, "kv_mass": stacked}

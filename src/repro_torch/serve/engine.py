@@ -1,22 +1,31 @@
-"""Serving engine: paged prefill + decode with the NeoMem-tiered KV cache.
+"""Serving engine: paged prefill + decode with NeoMem-tiered resources.
 
-Port of ``repro/serve/engine.py`` in single-request paged mode, the main
-path of DESIGN.md §10:
+Port of ``repro/serve/engine.py`` in paged mode (DESIGN.md §9, §10), with
+two serving modes over one machinery:
 
-  * ``prefill(tokens)`` — the prompt streams through the paged ring in
-    ring-capacity chunks; each chunk's pages are flushed down to the KV
-    slow store before the ring can wrap over them;
-  * ``step(token)`` — one decode step for the batch, lockstep;
-  * NeoMem — per step the paged-attention kernel's per-page softmax mass
-    becomes the "kv" page stream (``KVPagesResource``), NeoProf's sketch
-    takes it, and every ``migration_interval`` steps the daemon ticks:
-    hot pages are promoted with 2Q and their bytes move between the
-    pinned-host slow store and the device fast buffer.
+  * single-request (``prefill``/``step``/``generate``) — one batched
+    prompt decoded lockstep, scalar position; the prompt streams through
+    the paged ring in ring-capacity chunks, each chunk's pages flushed down
+    to the KV slow store before the ring can wrap over them;
+  * continuous-batching lanes (``ServeConfig.lanes > 0``) — the batch
+    becomes independent decode lanes with per-lane positions, driven one
+    token per lane per ``advance_lanes`` call (or one chunk of one lane's
+    prompt per ``prefill_lane`` call) by the request scheduler
+    (serve/sched.py); the KV slow store is carved into per-request
+    segments, and lanes reset/preempt/resume mid-flight, bitwise.
 
-``ServeConfig`` holds the fields this path reads.  Lane mode, the
-embeddings and experts resources and in-step tier reads are not yet
-ported: a ``ServeConfig`` that asks for one raises, as does
-``paged=False``.
+NeoMem: per step the paged-attention kernel's per-page softmax mass becomes
+the "kv" page stream (``KVPagesResource``) and the token column the
+"embeddings" stream (``EmbedRowsResource``); NeoProf's sketch takes both,
+and every ``migration_interval`` steps the daemon ticks for every resource
+under one quota budget: hot pages are promoted with 2Q and their bytes move
+between the pinned-host slow store and the device fast buffer.  With
+``jit_tier_reads`` the step itself reads its embedding rows through the
+embeddings placement table (``tiering/migrate.py::lookup_rows``).
+
+Features of the reference that wait for later slices raise
+``NotImplementedError``: dense (``paged=False``) serving, the experts
+resource, KV reuse and the asynchronous data plane.
 """
 from __future__ import annotations
 
@@ -32,7 +41,8 @@ from repro_torch.serve.clock import TickClock
 from repro_torch.tiering.daemon import NeoMemDaemon
 from repro_torch.tiering.memory import DaemonParams
 from repro_torch.tiering.resource import ResourceSpec
-from repro_torch.tiering.resources import KVPagesResource
+from repro_torch.tiering.resources import (EMBED_ROWS_PER_PAGE,
+                                           EmbedRowsResource, KVPagesResource)
 
 
 @dataclasses.dataclass
@@ -42,28 +52,44 @@ class ServeConfig:
     hot_slots: int = 16
     paged: bool = False
     migration_interval: int = 8     # decode steps between daemon ticks
+    # tiered resources to register ("kv" is implied by paged=True)
+    resources: tuple[str, ...] = ()
     kv_quota: int = 64
     kv_mass_threshold: float = 0.02
+    embed_hot_slots: int = 64       # hot vocab row-blocks kept on the device
+    embed_quota: int = 64
+    embed_rows_per_page: int = 0    # vocab rows per page (0 -> package default)
+    # Continuous-batching lane mode (serve/sched.py, DESIGN.md §9): the
+    # batch becomes `lanes` independent decode lanes with per-lane
+    # positions; the KV slow store is carved into `kv_segments` per-request
+    # address spaces of max_seq // page_t pages each.
+    lanes: int = 0                  # decode lanes (0 = single-request mode)
+    kv_segments: int = 0            # slow-store KV segments (0 -> lanes)
+    kv_tier_slots: int = 0          # kv fast-tier slots (0 -> hot_slots)
+    # read embedding rows in-step through the tiered store (off = the
+    # dense table)
+    jit_tier_reads: bool = True
     # reference features that wait for later slices: any value but the
     # default here raises in ServeEngine
-    resources: tuple[str, ...] = ()
-    lanes: int = 0
-    jit_tier_reads: bool = False
+    reuse_pages: int = 0
+    async_migration: bool = False
 
 
 _NOT_YET_PORTED = {
     "paged": (lambda s: not s.paged, "dense (paged=False) serving"),
-    "resources": (lambda s: bool(s.resources), "the embeddings/experts resources"),
-    "lanes": (lambda s: s.lanes > 0, "lane mode"),
-    "jit_tier_reads": (lambda s: s.jit_tier_reads, "in-step tier reads"),
+    "resources": (lambda s: "experts" in s.resources, "the experts resource"),
+    "reuse_pages": (lambda s: s.reuse_pages > 0, "content-addressed KV reuse"),
+    "async_migration": (lambda s: s.async_migration,
+                        "the asynchronous data plane"),
 }
 
 
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, scfg: ServeConfig, *,
                  device="cuda", sketch_seeds: torch.Tensor | None = None):
-        """``sketch_seeds`` are the KV sketch's (D, 30) H3 seeds (default:
-        drawn from a generator seeded with 0)."""
+        """``sketch_seeds`` are every resource's (D, 30) H3 seeds (default:
+        drawn from a generator seeded with 0), as the reference seeds every
+        resource's sketch from one key."""
         for field, (asks, what) in _NOT_YET_PORTED.items():
             if asks(scfg):
                 raise NotImplementedError(
@@ -73,36 +99,95 @@ class ServeEngine:
         self.params = params
         self.scfg = scfg
         self.device = torch.device(device)
+        self._embed_rpp = scfg.embed_rows_per_page or EMBED_ROWS_PER_PAGE
         self.daemon = NeoMemDaemon(DaemonParams(), device=self.device)
         self._register_resources(sketch_seeds)
         self.cache = None
         self._clock = TickClock(scfg.migration_interval)
         self._decode_s = 0.0            # decode wall time
         self._last_kv_mass = None       # (B, n_slots) kernel mass, post-step
-        # ring slot -> (page id, fill) at its last flush (change tracking)
+        # (lane, slot) -> (page id, fill) at its last flush (change
+        # tracking; single-request mode uses lane 0)
         self._kv_flushed: dict[tuple[int, int], tuple[int, int]] = {}
+        n = max(scfg.lanes, 1)
+        self._lane_active = np.zeros(n, bool)
+        self._lane_segments = np.full(n, -1, np.int32)
+        # per-lane page table (local page -> global store page, -1 = the
+        # private affine default segment * pages_per_seq + local) and the
+        # locals whose slow row holds a complete page; without KV reuse
+        # every table entry stays -1
+        self._lane_pages = np.full((n, self.pages_per_seq), -1, np.int64)
+        self._lane_full = np.zeros((n, self.pages_per_seq), bool)
 
     def _register_resources(self, seeds) -> None:
         cfg, scfg = self.cfg, self.scfg
-        row_shape = (cfg.n_groups, scfg.page_t, cfg.n_kv_heads, 2 * cfg.head_dim)
-        spec = ResourceSpec(
-            "kv", n_pages=self.pages_per_seq, hot_slots=scfg.hot_slots,
-            quota_pages=scfg.kv_quota, row_shape=row_shape,
-            row_dtype="bfloat16")
-        handle = self.daemon.register(
-            KVPagesResource(spec, mass_threshold=scfg.kv_mass_threshold),
-            seeds=seeds)
-        # the slow tier starts as zero scratch, in host memory when the
-        # engine runs on the card; pages are flushed down as the ring fills
-        payload = torch.zeros((spec.n_pages,) + row_shape, dtype=torch.bfloat16,
-                              pin_memory=self.device.type == "cuda")
-        handle.bind_data(payload, initially_valid=False)
+        pinned = self.device.type == "cuda"
+        for kind in sorted(set(scfg.resources) | {"kv"}):
+            if kind == "kv":
+                # lane mode: the slow store is carved into per-request
+                # segments, each a max_seq-worth of logical pages
+                n_segments = scfg.kv_segments or scfg.lanes or 1
+                row_shape = (cfg.n_groups, scfg.page_t, cfg.n_kv_heads,
+                             2 * cfg.head_dim)
+                spec = ResourceSpec(
+                    "kv", n_pages=n_segments * self.pages_per_seq,
+                    hot_slots=scfg.kv_tier_slots or scfg.hot_slots,
+                    quota_pages=scfg.kv_quota, row_shape=row_shape,
+                    row_dtype="bfloat16")
+                res = KVPagesResource(spec,
+                                      mass_threshold=scfg.kv_mass_threshold)
+                # the slow tier starts as zero scratch, in host memory when
+                # the engine runs on the card; pages are flushed down as
+                # the ring fills
+                payload = torch.zeros((spec.n_pages,) + row_shape,
+                                      dtype=torch.bfloat16, pin_memory=pinned)
+            elif kind == "embeddings":
+                payload = self._embed_payload(self._embed_rpp)
+                spec = ResourceSpec(
+                    "embeddings", n_pages=payload.shape[0],
+                    hot_slots=scfg.embed_hot_slots,
+                    quota_pages=scfg.embed_quota,
+                    row_shape=tuple(payload.shape[1:]),
+                    row_dtype=str(payload.dtype).split(".")[-1])
+                res = EmbedRowsResource(spec, rows_per_page=self._embed_rpp)
+            else:
+                raise KeyError(f"unknown serve resource kind {kind!r}")
+            handle = self.daemon.register(res, seeds=seeds)
+            # the KV store starts un-witnessed; the embedding rows are
+            # valid from step 0
+            handle.bind_data(payload, initially_valid=(kind != "kv"))
 
-    # -- public API -----------------------------------------------------------
+    def _embed_payload(self, rows_per_page: int) -> torch.Tensor:
+        """(n_pages, rows_per_page, d) vocab row-blocks of the live table."""
+        table = self.params["embed"]["table"]
+        v, d = table.shape
+        n_pages = -(-v // rows_per_page)
+        pad = n_pages * rows_per_page - v
+        if pad:
+            table = torch.cat([table, table.new_zeros((pad, d))])
+        return table.reshape(n_pages, rows_per_page, d)
+
+    def _tier_reads(self) -> dict:
+        """Tier views for the in-step read path: ``{"fast", "slow",
+        "page_slot", "rows_per_page"}`` for the embeddings, rebuilt each
+        step so migration epochs are picked up.  Empty when
+        ``jit_tier_reads`` is off or no embeddings resource is registered;
+        the KV ring needs no view (it IS the fast tier, in-cache)."""
+        if not self.scfg.jit_tier_reads or "embeddings" not in self.daemon:
+            return {}
+        view = self.daemon["embeddings"].tier_view()
+        view["rows_per_page"] = self._embed_rpp
+        return {"embeddings": view}
+
+    # -- single-request mode ----------------------------------------------------
     @property
     def pages_per_seq(self) -> int:
-        """Logical KV pages of one max_seq sequence."""
+        """Logical KV pages per request segment (= per max_seq sequence)."""
         return self.scfg.max_seq // self.scfg.page_t
+
+    @property
+    def lane_mode(self) -> bool:
+        return self.scfg.lanes > 0
 
     @property
     def _chunk_cap(self) -> int:
@@ -110,13 +195,20 @@ class ServeEngine:
         slot it may be mid-filling, so no unflushed page is overwritten."""
         return max((self.scfg.hot_slots - 1) * self.scfg.page_t, 1)
 
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                               device=self.device)
+
     def prefill(self, tokens: np.ndarray) -> np.ndarray:
+        if self.lane_mode:
+            raise ValueError("lane mode serves through prefill_lane/"
+                             "advance_lanes (the request scheduler), not "
+                             "prefill/generate")
         b, s = tokens.shape
         self.cache = dec.init_paged_cache(self.cfg, b, self.scfg.hot_slots,
                                           self.scfg.page_t, device=self.device)
         self._kv_flushed.clear()
-        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                                 device=self.device)
+        tokens = self._tokens(tokens)
         logits = None
         for off in range(0, s, self._chunk_cap):
             logits = self._prefill_chunk(tokens[:, off:off + self._chunk_cap])
@@ -124,12 +216,14 @@ class ServeEngine:
 
     def _prefill_chunk(self, tok: torch.Tensor) -> torch.Tensor:
         """One paged prefill chunk: advance the ring, observe the chunk's
-        summed kernel mass once, flush its pages, tick the daemon for the
-        chunk's worth of steps.  Returns the (B, V) last logits."""
+        streams once, flush its pages, tick the daemon for the chunk's
+        worth of steps.  Returns the (B, V) last logits."""
         n = tok.shape[1]
         logits, self.cache, streams = dec.prefill_paged(
             self.cfg, self.params, self.cache, tok, page_t=self.scfg.page_t,
-            collect_mass=True)
+            tiered=self._tier_reads(), collect_mass=True)
+        if "embeddings" in self.daemon:
+            self.daemon.observe("embeddings", tok.to(torch.int32))
         _, ids = self._kv_page_stream()
         # (C, G, n_attn, B, S) averaged over groups, positions and lockstep
         # rows, summed over the chunk (DESIGN.md §10)
@@ -140,9 +234,7 @@ class ServeEngine:
         return logits
 
     def step(self, token: np.ndarray) -> np.ndarray:
-        tok = torch.as_tensor(np.asarray(token), dtype=torch.long,
-                              device=self.device)[:, None]
-        logits = self._advance(tok)
+        logits = self._advance(self._tokens(token)[:, None])
         return logits[:, -1].argmax(-1).cpu().numpy()
 
     def generate(self, prompt: np.ndarray, n_tokens: int) -> np.ndarray:
@@ -153,15 +245,14 @@ class ServeEngine:
             out.append(nxt)
         return np.stack(out, axis=1)
 
-    # -- decode + NeoMem observation/cadence ----------------------------------
     def _advance(self, tok: torch.Tensor) -> torch.Tensor:
-        """One decode step: the paged body, the tiering stream, the cadence."""
+        """One decode step: the paged body, the tiering streams, the cadence."""
         t0 = time.perf_counter()
         logits, self.cache, streams = dec.decode_step_paged(
             self.cfg, self.params, self.cache, tok, page_t=self.scfg.page_t,
-            return_streams=True)
+            return_streams=True, tiered=self._tier_reads())
         self._set_kv_mass(streams)
-        self._observe()
+        self._observe(tok)
         self._maybe_tick()
         self._decode_s += time.perf_counter() - t0
         return logits
@@ -169,15 +260,221 @@ class ServeEngine:
     def _set_kv_mass(self, streams: dict) -> None:
         """Hold the step's (B, n_slots) page mass: the (G, n_attn, B, S)
         stream averaged over layer groups and attention positions."""
-        km = streams.get("kv_mass")
-        self._last_kv_mass = km.mean(dim=(0, 1)) if km is not None else None
+        self._last_kv_mass = streams["kv_mass"].mean(dim=(0, 1))
 
-    def _observe(self) -> None:
+    def _observe(self, tok: torch.Tensor) -> None:
+        if "embeddings" in self.daemon:
+            self.daemon.observe("embeddings", tok.to(torch.int32))
         _, ids = self._kv_page_stream()
         # batch rows advance in lockstep over the same page ids, so the row
         # mean is the device's aggregate view of the step's attention mass
         self.daemon.observe("kv", self._last_kv_mass.mean(dim=0), ids)
 
+    # -- continuous-batching lane mode (serve/sched.py, DESIGN.md §9) ---------
+    def start_lanes(self) -> None:
+        """Initialise the lane substrate: ``lanes`` independent decode lanes
+        over one paged ring with per-lane positions.  No prompt — the
+        scheduler feeds prompt tokens through :meth:`advance_lanes` or
+        :meth:`prefill_lane`."""
+        scfg = self.scfg
+        if not self.lane_mode:
+            raise ValueError("start_lanes requires ServeConfig.lanes > 0")
+        self.cache = dec.init_paged_cache(self.cfg, scfg.lanes, scfg.hot_slots,
+                                          scfg.page_t, per_lane_pos=True,
+                                          device=self.device)
+        self._kv_flushed.clear()
+        self._lane_active[:] = False
+        self._lane_segments[:] = -1
+        self._lane_pages[:] = -1
+        self._lane_full[:] = False
+
+    def advance_lanes(self, tokens, active, segments) -> np.ndarray:
+        """One continuous-batching decode step for ALL lanes at once.
+
+        ``tokens`` (L,) — each lane's next token (a prompt token while it
+        prefills, its last sampled token while it decodes, don't-care for
+        inactive lanes, whose cache never changes and whose streams are
+        masked out).  ``active`` (L,) bool, ``segments`` (L,) int — the
+        lane's slow-store KV segment (-1 = none).  Returns the last-position
+        logits (L, vocab) f32 on the host: reading them back is the step's
+        end, so a card's step is timed to its completion."""
+        if not self.lane_mode:
+            raise ValueError("advance_lanes requires ServeConfig.lanes > 0")
+        if self.cache is None:
+            self.start_lanes()
+        t0 = time.perf_counter()
+        self._lane_active = np.asarray(active, bool).copy()
+        self._lane_segments = np.asarray(segments, np.int32).copy()
+        tokens = np.asarray(tokens, np.int32)
+        logits, self.cache, streams = dec.decode_step_paged(
+            self.cfg, self.params, self.cache, self._tokens(tokens)[:, None],
+            page_t=self.scfg.page_t, return_streams=True,
+            tiered=self._tier_reads(),
+            active=torch.as_tensor(self._lane_active, device=self.device))
+        self._set_kv_mass(streams)
+        self._observe_lanes(tokens)
+        self._maybe_tick()
+        out = logits[:, -1].float().cpu().numpy()
+        self._decode_s += time.perf_counter() - t0
+        return out
+
+    def prefill_lane(self, lane: int, tokens, segment: int,
+                     chunk: int | None = None) -> np.ndarray:
+        """Chunked prefill of ONE lane's prompt through the paged ring
+        (DESIGN.md §11), ``chunk`` tokens at a time, every other lane
+        frozen by the lane mask (bitwise equal to token-at-a-time
+        streaming).  Per chunk the lane's freshly filled ring pages are
+        flushed down to its slow-store ``segment``, the chunk's streams are
+        observed once and the daemon cadence advances by the chunk length.
+        Returns the last prompt position's logits (vocab,) f32."""
+        if not self.lane_mode:
+            raise ValueError("prefill_lane requires ServeConfig.lanes > 0")
+        if self.cache is None:
+            self.start_lanes()
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        if tokens.size == 0:
+            raise ValueError("prefill_lane needs at least one token")
+        chunk = min(chunk or tokens.size, self._chunk_cap)
+        self._lane_segments[lane] = segment
+        active = np.zeros(self.scfg.lanes, bool)
+        active[lane] = True
+        logits = None
+        for off in range(0, tokens.size, chunk):
+            logits = self._prefill_lane_chunk(lane, tokens[off:off + chunk],
+                                              chunk, active)
+        return logits
+
+    def _prefill_lane_chunk(self, lane: int, piece: np.ndarray, chunk: int,
+                            active: np.ndarray) -> np.ndarray:
+        """One lane chunk: a ragged piece is padded to the chunk width with
+        valid=False no-op steps, as the reference pads its scan."""
+        n = piece.size
+        tok = np.zeros((self.scfg.lanes, chunk), np.int32)
+        tok[lane, :n] = piece
+        valid = np.zeros((self.scfg.lanes, chunk), bool)
+        valid[lane, :n] = True
+        logits, self.cache, streams = dec.prefill_paged(
+            self.cfg, self.params, self.cache, self._tokens(tok),
+            page_t=self.scfg.page_t, valid=valid, active=active,
+            tiered=self._tier_reads(), collect_mass=True)
+        self._lane_active = active.copy()
+        self._observe_lane_chunk(tok, valid, streams, active)
+        self._flush_kv_lanes(lanes=[lane])
+        self._maybe_tick(n)
+        return logits[lane].cpu().numpy()
+
+    def _observe_lane_chunk(self, tok: np.ndarray, valid: np.ndarray,
+                            streams: dict, active: np.ndarray) -> None:
+        """Feed one chunk's streams in ONE observation batch per resource,
+        other lanes (and tail padding) masked to -1."""
+        if "embeddings" in self.daemon:
+            self.daemon.observe("embeddings", self._ids(np.where(valid, tok, -1)))
+        gids = self._kv_lane_stream(active=active)
+        # per-step (C, G, n_attn, L, S) kernel mass: averaged over groups
+        # and positions, summed over the chunk's valid steps — the bulk
+        # analogue of the one-step stream advance_lanes feeds
+        per_step = streams["kv_mass"].mean(dim=(1, 2))               # (C, L, S)
+        w = torch.as_tensor(valid.T, dtype=per_step.dtype, device=self.device)
+        agg = (per_step * w[:, :, None]).sum(dim=0)                  # (L, S)
+        self._observe_kv_lanes(agg, gids)
+
+    def _observe_lanes(self, tokens: np.ndarray) -> None:
+        """Feed the tiering streams with inactive lanes masked to -1 pads."""
+        if "embeddings" in self.daemon:
+            self.daemon.observe("embeddings",
+                                self._ids(np.where(self._lane_active, tokens, -1)))
+        gids = self._kv_lane_stream()
+        self._observe_kv_lanes(self._last_kv_mass, gids)
+
+    def _observe_kv_lanes(self, mass: torch.Tensor, gids: np.ndarray) -> None:
+        """The per-lane kernel mass, masked to the live lanes' segment-mapped
+        pages (the mask the gids carry), as one flat "kv" block."""
+        g = self._ids(gids)
+        self.daemon.observe("kv", torch.where(g >= 0, mass.float(), 0.0).reshape(-1),
+                            g.reshape(-1))
+
+    def _ids(self, ids: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(ids), dtype=torch.int32,
+                               device=self.device)
+
+    def reset_lane(self, lane: int) -> None:
+        """Return a lane to its initial state for a fresh admission: ring
+        bookkeeping and position back to zero, the dense family's initial
+        ring state (page payloads may stay — ``page_len`` masks them)."""
+        for entry in self.cache["blocks"]:
+            for k, v in entry.items():
+                if k not in ("k_pages", "v_pages"):
+                    v[:, lane] = 0
+        self.cache["pos"][lane] = 0
+        self._invalidate_lane_flush(lane)
+        self._lane_pages[lane] = -1
+        self._lane_full[lane] = False
+
+    def preempt_lane(self, lane: int) -> dict:
+        """Evict a lane's request so the lane can serve someone else.
+
+        The lane's resident ring pages are force-flushed down to its KV
+        slow-store segment (an exact snapshot of the ring), and what the KV
+        payload does not carry — the ring bookkeeping and the position, and
+        the pages of attention positions beyond the representative entry —
+        is snapshotted to the host in the returned residual.
+        :meth:`resume_lane` restores it bitwise."""
+        self._flush_kv_lanes(lanes=[lane], force=True)
+        residual = {"pos": int(self.cache["pos"][lane]),
+                    "segment": int(self._lane_segments[lane]),
+                    "pages": self._lane_pages[lane].copy(),
+                    "full": self._lane_full[lane].copy(),
+                    "blocks": []}
+        rep = self._paged_entry()
+        for entry in self.cache["blocks"]:
+            skip = ("k_pages", "v_pages") if entry is rep else ()
+            residual["blocks"].append(
+                {k: v[:, lane].to("cpu", copy=True) for k, v in entry.items()
+                 if k not in skip})
+        return residual
+
+    def resume_lane(self, lane: int, residual: dict) -> int:
+        """Re-install a preempted request into a lane: the residual is
+        restored and the representative entry's resident ring pages are
+        gathered back through the tiered KV store (fast-tier copy when
+        promoted, slow-tier fallback — bitwise either way).  Returns the
+        number of ring pages gathered back up."""
+        for entry, snap in zip(self.cache["blocks"], residual["blocks"]):
+            for k, v in snap.items():
+                entry[k][:, lane] = v.to(self.device)
+        self.cache["pos"][lane] = residual["pos"]
+        self._invalidate_lane_flush(lane)
+        self._lane_pages[lane] = residual["pages"]
+        self._lane_full[lane] = residual["full"]
+        segment = residual["segment"]
+        self._lane_segments[lane] = segment
+        if segment < 0:
+            return 0
+        entry = self._paged_entry()
+        plen = entry["page_len"][0, lane].cpu().numpy()[None]        # (1, S)
+        cur = entry["cur_slot"][0, lane].cpu().numpy()[None]         # (1,)
+        local = self._ring_page_ids(plen, cur, np.asarray([residual["pos"]]),
+                                    self.scfg.page_t)[0]
+        slots = np.flatnonzero(local >= 0)
+        if slots.size == 0:
+            return 0
+        tabled = self._lane_pages[lane, local[slots]]
+        gids = np.where(tabled >= 0, tabled,
+                        segment * self.pages_per_seq + local[slots])
+        rows = self.daemon["kv"].read_rows(gids).movedim(0, 1)  # (G, n, T, hkv, 2d)
+        at = torch.as_tensor(slots, device=self.device)
+        dk = self.cfg.head_dim
+        entry["k_pages"][:, lane, at] = rows[..., :dk].to(entry["k_pages"].dtype)
+        entry["v_pages"][:, lane, at] = rows[..., dk:].to(entry["v_pages"].dtype)
+        for i, s in enumerate(slots):
+            self._kv_flushed[(lane, int(s))] = (int(gids[i]), int(plen[0, s]))
+        return int(slots.size)
+
+    def _invalidate_lane_flush(self, lane: int) -> None:
+        for key in [k for k in self._kv_flushed if k[0] == lane]:
+            del self._kv_flushed[key]
+
+    # -- the ring and the KV data plane ---------------------------------------
     def _paged_entry(self) -> dict:
         """The representative paged-attention cache entry (first in pattern)."""
         return self.cache["blocks"][0]
@@ -211,7 +508,28 @@ class ServeEngine:
         plen, cur, pos = self._ring_view()
         ids = self._ring_page_ids(plen, cur, pos, self.scfg.page_t)[0]
         return (torch.as_tensor(plen[0], dtype=torch.float32, device=self.device),
-                torch.as_tensor(ids, dtype=torch.int32, device=self.device))
+                self._ids(ids))
+
+    def _kv_lane_stream(self, active: np.ndarray | None = None) -> np.ndarray:
+        """Lane mode: the (L, S) global page ids of the "kv" stream — each
+        lane's resident ring pages mapped into its slow-store segment's
+        address space; lanes outside ``active`` (default: the live mask)
+        are -1.  The observed mass is the kernel's."""
+        plen, cur, pos = self._ring_view()
+        local = self._ring_page_ids(plen, cur, pos, self.scfg.page_t)
+        act = self._lane_active if active is None else np.asarray(active, bool)
+        return self._map_gids(local, act)
+
+    def _map_gids(self, local: np.ndarray, act: np.ndarray) -> np.ndarray:
+        """Resolve (L, S) local page ids to global store page ids through
+        the per-lane page table (entries win; the rest map to the private
+        ``segment * pages_per_seq + local``); invalid lanes/slots are -1."""
+        seg = self._lane_segments[:, None].astype(np.int64)
+        affine = seg * self.pages_per_seq + local
+        lanes = np.arange(local.shape[0])[:, None]
+        tabled = self._lane_pages[lanes, np.maximum(local, 0)]
+        gids = np.where(tabled >= 0, tabled, affine)
+        return np.where((local >= 0) & act[:, None] & (seg >= 0), gids, -1)
 
     def _flush_kv_slow(self) -> None:
         """Flush the ring's changed pages down to the KV data plane (slow
@@ -232,6 +550,40 @@ class ServeEngine:
         for slot in np.flatnonzero(ids >= 0):
             self._kv_flushed[(0, int(slot))] = (int(ids[slot]), int(fill[slot]))
 
+    def _flush_kv_lanes(self, lanes=None, force: bool = False) -> None:
+        """Lane-mode KV flush: each flushed lane's resident ring pages go
+        down to its slow-store segment (real per-lane payloads).  ``lanes``
+        defaults to the live mask; pages unchanged since their last flush
+        are skipped unless ``force`` — preemption forces a full flush so
+        the segment is an exact snapshot of the ring.  (The reference's
+        copy-on-write branch for shared pool pages comes with KV reuse.)"""
+        plen, cur, pos = self._ring_view()
+        local = self._ring_page_ids(plen, cur, pos, self.scfg.page_t)
+        if lanes is None:
+            act = self._lane_active
+        else:
+            act = np.zeros(self.scfg.lanes, bool)
+            act[np.asarray(lanes, int)] = True
+        gids = self._map_gids(local, act)            # (L, S)
+        fill = np.where(gids >= 0, plen, 0).astype(np.int64)
+        ids = gids.copy()
+        if not force:
+            for lane, slot in np.argwhere(ids >= 0):
+                if self._kv_flushed.get((int(lane), int(slot))) == (
+                        int(gids[lane, slot]), int(fill[lane, slot])):
+                    ids[lane, slot] = -1
+        if not (ids >= 0).any():
+            return
+        entry = self._paged_entry()
+        self.daemon["kv"].write_pages(ids.reshape(-1), entry["k_pages"],
+                                      entry["v_pages"])
+        for lane, slot in np.argwhere(ids >= 0):
+            self._kv_flushed[(int(lane), int(slot))] = (
+                int(gids[lane, slot]), int(fill[lane, slot]))
+            if fill[lane, slot] >= self.scfg.page_t:
+                # witness: this local's slow row holds the complete page
+                self._lane_full[lane, local[lane, slot]] = True
+
     @property
     def step_count(self) -> int:
         """Engine steps so far (decode steps + prefilled prompt positions)."""
@@ -241,7 +593,10 @@ class ServeEngine:
         """Advance the step counter by ``n`` and run one daemon tick per
         migration-interval boundary crossed, flushing the KV ring first."""
         for _ in range(self._clock.advance(n)):
-            self._flush_kv_slow()
+            if self.lane_mode:
+                self._flush_kv_lanes()
+            else:
+                self._flush_kv_slow()
             self.daemon.tick()
 
     # -- telemetry ------------------------------------------------------------

@@ -35,6 +35,7 @@ class ResourceSpec:
     quota_pages: int = 64         # promotions per migration interval
     sketch_width: int = 1 << 14
     sketch_depth: int = 2
+    stream_cap: int = 1 << 14     # max page ids fed to NeoProf per step
     touch_cap: int = 4096         # max page ids fed to tier accounting per step
     row_shape: tuple | None = None   # payload shape of ONE page (data plane)
     row_dtype: str = "bfloat16"      # payload dtype name (a torch dtype)

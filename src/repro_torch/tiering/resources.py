@@ -1,13 +1,23 @@
-"""The built-in tiered resources the port serves: paged KV (DESIGN.md §3.2).
+"""The built-in tiered resources the port serves: paged KV and vocab rows
+(DESIGN.md §3.2, §3.3).
 
-Port of ``repro/tiering/resources.py``, ``KVPagesResource`` only; the
-expert and embedding resources are not yet ported.
+Port of ``repro/tiering/resources.py``; the experts resource comes with the
+MoE archs.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.tiering.resource import ResourceSpec, StreamResource, register_resource
+
+EMBED_ROWS_PER_PAGE = 64
+
+
+def _subsample(pages: torch.Tensor, cap: int) -> torch.Tensor:
+    """Deterministic stride subsampling to the NeoProf line-rate block size."""
+    if pages.shape[0] > cap:
+        pages = pages[:: pages.shape[0] // cap][:cap]
+    return pages
 
 
 @register_resource("kv")
@@ -29,3 +39,19 @@ class KVPagesResource(StreamResource):
         total = torch.clamp_min(page_mass.sum(), 1e-30)
         keep = page_mass / total >= self.mass_threshold
         return torch.where(keep, page_ids.to(torch.int32), -1).reshape(-1)
+
+
+@register_resource("embeddings")
+class EmbedRowsResource(StreamResource):
+    """Vocab tables: the access stream is the model's own input, a token's
+    page its row-block ``token // rows_per_page`` (-1 tokens stay -1)."""
+
+    def __init__(self, spec: ResourceSpec,
+                 rows_per_page: int = EMBED_ROWS_PER_PAGE):
+        super().__init__(spec)
+        self.rows_per_page = rows_per_page
+
+    def encode_stream(self, tokens: torch.Tensor) -> torch.Tensor:
+        pages = torch.div(tokens.reshape(-1), self.rows_per_page,
+                          rounding_mode="floor").to(torch.int32)
+        return _subsample(pages, self.spec.stream_cap)
