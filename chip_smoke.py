@@ -42,10 +42,28 @@ Phases, one summary line each:
                 both sketches must replay bitwise through the plain CPU
                 sketch, and the schedule (steps, preemptions, each
                 request's admission and finish) must equal the same trace's
-                on the CPU at the smoke config.
-The line before the last is a JSON object with every kernel's numbers; the
-last line is {"ok": true, "device": {...}}.  Any failure raises (exit != 0)
-and prints no result; with no CUDA device the script exits 2.
+                on the CPU at the smoke config;
+  5. reuse    — traffic_bench.py's kv_reuse arm at full width: an agentic
+                multi-turn trace over 4 lanes with the content-addressed KV
+                pool (32 pages, substring matching, 8-token chunks) and
+                every slow store int8 at rest, greedy; sampled int8 rows
+                must equal their CPU encoding bitwise, every byte meter be
+                whole wire rows (N + 4 B), the pool must hit and its
+                refcounts drain, the logits, page mass and sketches pass
+                as in PHASE lanes, and the schedule and reuse counters
+                equal the CPU run's at the smoke config;
+  6. disagg   — traffic_bench.py's disagg arm at full width: a prefill
+                worker engine attached to a 2-lane decode engine serving a
+                prefill-heavy mmpp trace, sampled at temperature 0.8 and
+                top-p 0.9 on the card; every draw is recomputed on the CPU
+                (keys and threefry bits bitwise, tokens equal except at a
+                near-tie within 1e-5), no hand-off install may be refused,
+                and the schedule and hand-offs must equal the CPU run's at
+                the smoke config.
+The line before the last is a JSON object with every kernel's numbers (its
+launches in PHASE main, and per phase); the last line is {"ok": true,
+"device": {...}}.  Any failure raises (exit != 0) and prints no result;
+with no CUDA device the script exits 2.
 """
 from __future__ import annotations
 
@@ -80,6 +98,30 @@ LANE_SCHED = dict(prefill_chunk=32, preempt_patience=4)
 LANE_TENANTS = (("interactive", 2.0, 0.22, (16, 49), (8, 33)),
                 ("batch", 1.0, 0.12, (64, 161), (16, 49)))
 LANE_TRACE = dict(kind="zipf-hot", n_steps=48, seed=0, arrival="mmpp")
+# PHASE reuse: traffic_bench.py's kv_reuse arm (SERVE_KW, REUSE_TENANTS,
+# REUSE_TRACE_KW, REUSE_PAGES, REUSE_CHUNK, REUSE_STEPS) at full width, the
+# slow stores int8 at rest, greedy
+REUSE_SERVE = dict(max_seq=64, paged=True, page_t=4, hot_slots=6,
+                   migration_interval=4, resources=["embeddings"],
+                   embed_hot_slots=6, embed_quota=8, embed_rows_per_page=8,
+                   kv_quota=16, kv_tier_slots=12, kv_mass_threshold=0.01,
+                   lanes=4, kv_segments=6, reuse_pages=32, slow_codec="int8")
+REUSE_SCHED = dict(preempt_patience=24, seed=0, prefill_chunk=8,
+                   reuse_match="substring")
+REUSE_TENANTS = (("agent-a", 1.0, 0.2, (3, 6), (3, 5)),
+                 ("agent-b", 1.0, 0.2, (3, 6), (3, 5)))
+REUSE_TRACE = dict(kind="agentic", n_steps=224, seed=0, turn_gap=16, sys_len=12,
+                   n_convs=2, work_len=4, max_total=56)
+# PHASE disagg: traffic_bench.py's disagg arm (DISAGG_KW, 3 lanes of which
+# 1 prefills, 6 segments, 16-token chunks) at full width over a prefill-heavy
+# mmpp trace cut from DISAGG_STEPS = 240 to 100 steps, sampled at
+# temperature 0.8, top-p 0.9
+DISAGG_SERVE = dict(max_seq=56, paged=True, page_t=4, hot_slots=6,
+                    migration_interval=4, kv_quota=16, kv_tier_slots=12,
+                    kv_mass_threshold=0.01, lanes=2, kv_segments=6)
+DISAGG_SCHED = dict(preempt_patience=24, seed=0, prefill_chunk=16,
+                    prefill_lanes=1, temperature=0.8, top_p=0.9)
+DISAGG_TRACE = dict(kind="prefill-heavy", n_steps=100, seed=0, arrival="mmpp")
 # datasheet memory bandwidth (bytes/s) and float32 non-tensor peak (flop/s)
 CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
          ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
@@ -218,6 +260,22 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
     lens[2, 3] = 9
     lens[3] = rng.integers(0, 17, 8)
     case(4, 24, 8, 128, 128, 8, 16, bf16, lens)
+    # the reuse and disagg phases' shape: 4 lanes over 6 slots of 4 tokens
+    # (TMA boxes 4 rows high, a cluster of 6) — an empty lane, one with only
+    # a part-filled current slot, a wrapped full ring, a ragged one; timed
+    # cold over enough input sets to exceed the L2
+    lens = np.zeros((4, 6), int)
+    lens[1, 2] = 3
+    lens[2] = 4
+    lens[2, 4] = 1
+    lens[3] = rng.integers(0, 5, 6)
+    q, kp, vp, lt = case(4, 24, 8, 128, 128, 6, 4, bf16, lens)[:4]
+    n_sets = -(-2 * 50 * 2 ** 20 // (2 * kp.numel() * kp.element_size()))
+    t4_cold = time_ms([lambda x=(q, torch.randn_like(kp), torch.randn_like(vp), lt):
+                       pa_ops.paged_attention_raw(*x, return_page_stats=True)
+                       for _ in range(n_sets)])
+    print(f"kernel paged_attn at P=6 T=4 (the reuse and disagg phases): device "
+          f"{t4_cold:.4f} ms cold ({n_sets} input sets, round-robin)")
     # main path: llama3.2-3b decode, B=4, 16 ring slots of 64 tokens, the
     # current slot part-filled
     b, h, hkv, d, p, t = 4, 24, 8, 128, 16, 64
@@ -665,25 +723,36 @@ def silu_ab(torch, eng, tok, steps: int = 8, rounds: int = 5):
 
 # -- phase 4: the lane substrate and the scheduler ------------------------------
 
-def run_lanes(cfg, params, device, on_engine=None):
-    """The lane phase's trace through the port's Scheduler on ``device``;
-    ``on_engine(eng)`` runs between building the engine and the trace.
+def run_trace(cfg, params, device, serve, sched_kw, trace_kw, profiles=None,
+              on_sched=None):
+    """A seeded trace through the port's Scheduler on ``device``: ``serve``
+    and ``sched_kw`` configure the engine and the scheduler, ``profiles``
+    the tenants (None: the trace kind's own); ``on_sched(sched)`` runs
+    between building the scheduler (and its engines) and the trace.
     Returns (engine, scheduler, trace, wall seconds of the replay)."""
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.serve.sched import SchedConfig, Scheduler, Tenant
     from repro_torch.workloads import TenantProfile, make_trace, play
-    profiles = tuple(TenantProfile(*p) for p in LANE_TENANTS)
+    kw = dict(trace_kw)
+    if profiles is not None:
+        kw["tenants"] = tuple(TenantProfile(*p) for p in profiles)
+    trace = make_trace(vocab=cfg.vocab, **kw)
     eng = ServeEngine(cfg, params, ServeConfig(
-        **dict(LANE_SERVE, resources=tuple(LANE_SERVE["resources"]))),
+        **dict(serve, resources=tuple(serve.get("resources", ())))),
         device=device)
-    if on_engine is not None:
-        on_engine(eng)
-    sched = Scheduler(eng, [Tenant(p.name, p.weight) for p in profiles],
-                      SchedConfig(**LANE_SCHED))
-    trace = make_trace(vocab=cfg.vocab, tenants=profiles, **LANE_TRACE)
+    sched = Scheduler(eng, [Tenant(t.name, t.weight) for t in trace.tenants],
+                      SchedConfig(**sched_kw))
+    if on_sched is not None:
+        on_sched(sched)
     t0 = time.perf_counter()
     play(trace, sched)
     return eng, sched, trace, time.perf_counter() - t0
+
+
+def run_lanes(cfg, params, device, on_sched=None):
+    """The lane phase's trace through the port's Scheduler on ``device``."""
+    return run_trace(cfg, params, device, LANE_SERVE, LANE_SCHED, LANE_TRACE,
+                     LANE_TENANTS, on_sched)
 
 
 def lane_schedule(sched) -> dict:
@@ -694,61 +763,177 @@ def lane_schedule(sched) -> dict:
                          for r in sorted(sched.finished, key=lambda r: r.rid)]}
 
 
+def _smoke_cpu():
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_smoke_config("llama3.2-3b")
+    return cfg, init_params(cfg, seed=0, device="cpu")
+
+
 def cpu_lane_schedule() -> dict:
     """The lane phase's schedule from the port on the CPU, at the smoke
     config (seconds); the trace's arrivals are drawn for the smoke
     vocabulary, the same steps, tenants and lengths as at full width."""
-    from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.models.transformer import init_params
-    cfg = get_smoke_config("llama3.2-3b")
-    _, sched, _, _ = run_lanes(cfg, init_params(cfg, seed=0, device="cpu"), "cpu")
+    _, sched, _, _ = run_lanes(*_smoke_cpu(), "cpu")
     return lane_schedule(sched)
+
+
+def _pages(nbytes: int, row: int) -> int:
+    """Bytes as whole wire rows (a width-free count)."""
+    if nbytes % row:
+        raise AssertionError(f"{nbytes} bytes are not whole rows of {row} B")
+    return nbytes // row
+
+
+def reuse_schedule(eng, sched) -> dict:
+    """What the reuse phase's schedule is, which no token value changes:
+    steps, each request's admission, finish and token steps, and the reuse
+    store's integer counters; the pool's refcounts must have drained."""
+    stats = eng.reuse_stats()
+    if stats["shared_refs"] != 0 or any(eng.reuse.ref.values()):
+        raise AssertionError(f"pool refcounts did not drain: {stats}")
+    return {"steps": sched.step_count, "preemptions": sched.preemptions,
+            "requests": [[r.rid, r.admitted_step, r.finished_step, r.preemptions,
+                          r.token_steps]
+                         for r in sorted(sched.finished, key=lambda r: r.rid)],
+            "reuse": {k: v for k, v in stats.items() if isinstance(v, int)}}
+
+
+def disagg_schedule(eng, sched) -> dict:
+    """The disaggregation phase's schedule: steps, each request's steps,
+    and the hand-offs, their bytes counted in wire rows (the row size
+    depends on the width)."""
+    row = eng.daemon["kv"].mem.row_bytes
+    rep = sched.report()
+    return {"steps": sched.step_count, "preemptions": sched.preemptions,
+            "requests": [[r.rid, r.admitted_step, r.finished_step, r.preemptions,
+                          r.token_steps]
+                         for r in sorted(sched.finished, key=lambda r: r.rid)],
+            "handoff": {"count": rep["handoff"]["count"],
+                        "pages_out": _pages(rep["handoff"]["bytes_out"], row),
+                        "pages_in": _pages(rep["handoff"]["bytes_in"], row),
+                        "depth_peak": rep["handoff"]["depth_peak"]}}
+
+
+def reuse_rows(eng) -> dict:
+    """Rows each resource migrated and flushed (bytes over its wire row)."""
+    stats = eng.tier_stats()
+    return {name: {k: _pages(stats[name][k], h.mem.row_bytes)
+                   for k in ("migration_bytes", "flush_bytes")}
+            for name, h in eng.daemon.resources.items()}
+
+
+def run_reuse(cfg, params, device, on_sched=None, codec="int8"):
+    return run_trace(cfg, params, device, dict(REUSE_SERVE, slow_codec=codec),
+                     REUSE_SCHED, REUSE_TRACE, REUSE_TENANTS, on_sched)
+
+
+def run_disagg(cfg, params, device, on_sched=None):
+    return run_trace(cfg, params, device, DISAGG_SERVE, DISAGG_SCHED,
+                     DISAGG_TRACE, None, on_sched)
+
+
+def cpu_reuse(codec: str = "int8") -> tuple[dict, dict]:
+    """The reuse phase's trace through the port on the CPU at the smoke
+    config under ``codec``: its schedule (admission matching reads only the
+    trace's tokens) and the rows each resource moved."""
+    eng, sched, _, _ = run_reuse(*_smoke_cpu(), "cpu", codec=codec)
+    return reuse_schedule(eng, sched), reuse_rows(eng)
+
+
+def cpu_reuse_schedule() -> dict:
+    return cpu_reuse()[0]
+
+
+def cpu_disagg_schedule() -> dict:
+    """The disaggregation phase's schedule from the port on the CPU at the
+    smoke config: no step depends on a sampled token's value."""
+    eng, sched, _, _ = run_disagg(*_smoke_cpu(), "cpu")
+    return disagg_schedule(eng, sched)
+
+
+def check_lane_steps(eng, checked) -> None:
+    """Every lane step of ``eng`` must return finite logits and, for its
+    active lanes, page mass summing to 1; every chunk finite logits."""
+    advance, prefill_lane = eng.advance_lanes, eng.prefill_lane
+
+    def checked_advance(tokens, active, segments):
+        logits = advance(tokens, active, segments)
+        act = np.asarray(active, bool)
+        sums = eng._last_kv_mass.sum(dim=1).cpu().numpy()[act]
+        if not (np.isfinite(logits).all() and (np.abs(sums - 1) < 1e-4).all()):
+            raise AssertionError(f"lane step: non-finite logits or page "
+                                 f"mass sums {sums.tolist()} != 1")
+        checked["steps"] += 1
+        return logits
+
+    def checked_prefill(lane, tokens, segment, chunk=None):
+        logits = prefill_lane(lane, tokens, segment, chunk)
+        if not np.isfinite(logits).all():
+            raise AssertionError("lane chunk: non-finite logits")
+        checked["chunks"] += 1
+        return logits
+    eng.advance_lanes, eng.prefill_lane = checked_advance, checked_prefill
+
+
+def zero_counts(counters) -> None:
+    for c in counters:
+        c.launches = 0
+
+
+def read_counts(torch, counters, phase: str) -> dict:
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never launched in PHASE {phase}: {launches}")
+    return launches
+
+
+def print_serving(rep, wall_s, phase, smi) -> None:
+    decode_s = rep["clock"]["decode_s"]
+    print(f"{phase}: {rep['steps']} scheduler steps in {wall_s:.2f} s wall; "
+          f"{rep['completed']} requests, {rep['tokens']} tokens, "
+          f"{rep['tokens'] / decode_s:.2f} tokens/s on the decode clock "
+          f"({decode_s:.2f} s; prefill clock {rep['clock']['prefill_s']:.2f} s, "
+          f"hand-off clock {rep['clock']['handoff_s']:.2f} s) on {smi}")
+    print(f"{phase}: TTFT p50 {rep['ttft_ms']['p50']:.1f} ms, p99 "
+          f"{rep['ttft_ms']['p99']:.1f} ms; TPOT p50 {rep['tpot_ms']['p50']:.1f} ms, "
+          f"p99 {rep['tpot_ms']['p99']:.1f} ms; {rep['preemptions']} preemption(s); "
+          "kv hit rate " + ", ".join(f"{n} {t['kv_hit_rate']:.3f}"
+                                     for n, t in rep["tenants"].items())
+          + f" on {smi}")
+    for name, row in rep["resources"].items():
+        print(f"{phase}: {name} tier_stats " + json.dumps(
+            {k: v for k, v in row.items() if isinstance(v, int)}) + f" on {smi}")
+
+
+def check_report(rep, reqs, n_arrivals, vocab) -> None:
+    if not (rep["completed"] == rep["submitted"] == n_arrivals
+            and rep["tokens"] == sum(len(r.out) for r in reqs)):
+        raise AssertionError(f"report does not add up: {rep}")
+    for r in reqs:
+        if len(r.out) != r.max_new or not all(0 <= t < vocab for t in r.out):
+            raise AssertionError(f"request {r.rid}: {len(r.out)} tokens of "
+                                 f"{r.max_new}, or one out of the vocabulary")
 
 
 def lanes_path(torch, counters, cfg, params, smi):
     """PHASE lanes: the multi-tenant trace at full width on the card."""
     from repro_torch.models import decode as dec
-    checked = {"steps": 0}
+    checked = {"steps": 0, "chunks": 0}
     blocks = {}
 
-    def instrument(eng):
+    def instrument(sched):
         for name in ("kv", "embeddings"):
-            blocks[name] = record_blocks(eng.daemon[name])
-        advance, prefill_lane = eng.advance_lanes, eng.prefill_lane
-
-        def checked_advance(tokens, active, segments):
-            logits = advance(tokens, active, segments)
-            act = np.asarray(active, bool)
-            sums = eng._last_kv_mass.sum(dim=1).cpu().numpy()[act]
-            if not (np.isfinite(logits).all() and (np.abs(sums - 1) < 1e-4).all()):
-                raise AssertionError(f"lane step: non-finite logits or page "
-                                     f"mass sums {sums.tolist()} != 1")
-            checked["steps"] += 1
-            return logits
-
-        def checked_prefill(lane, tokens, segment, chunk=None):
-            logits = prefill_lane(lane, tokens, segment, chunk)
-            if not np.isfinite(logits).all():
-                raise AssertionError("lane chunk: non-finite logits")
-            return logits
-        eng.advance_lanes, eng.prefill_lane = checked_advance, checked_prefill
-        for c in counters:
-            c.launches = 0
+            blocks[name] = record_blocks(sched.eng.daemon[name])
+        check_lane_steps(sched.eng, checked)
+        zero_counts(counters)
 
     eng, sched, trace, wall_s = run_lanes(cfg, params, "cuda", instrument)
-    torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel never launched on the lane path: {launches}")
+    launches = read_counts(torch, counters, "lanes")
     rep = sched.report()
     reqs = sched.finished
-    if not (rep["completed"] == rep["submitted"] == len(trace.arrivals)
-            and rep["tokens"] == sum(len(r.out) for r in reqs)):
-        raise AssertionError(f"report does not add up: {rep}")
-    for r in reqs:
-        if len(r.out) != r.max_new or not all(0 <= t < cfg.vocab for t in r.out):
-            raise AssertionError(f"request {r.rid}: {len(r.out)} tokens of "
-                                 f"{r.max_new}, or one out of the vocabulary")
+    check_report(rep, reqs, len(trace.arrivals), cfg.vocab)
     if not (rep["preemptions"] >= 1 and any(r.preemptions for r in reqs)):
         raise AssertionError("no request was preempted and resumed")
     res = rep["resources"]
@@ -770,23 +955,212 @@ def lanes_path(torch, counters, cfg, params, smi):
           f"({time.perf_counter() - t0:.1f} s): {len(reqs)} requests, "
           f"{rep['steps']} steps, {rep['preemptions']} preemption(s)")
     gather_ms, dense_ms = embed_gather_ms(torch, dec, eng, params)
-    decode_s = rep["clock"]["decode_s"]
-    print(f"lanes: {rep['steps']} scheduler steps in {wall_s:.2f} s wall; "
-          f"{rep['tokens']} tokens, {rep['tokens'] / decode_s:.2f} tokens/s on "
-          f"the decode clock ({decode_s:.2f} s) on {smi}")
-    print(f"lanes: TTFT p50 {rep['ttft_ms']['p50']:.1f} ms, p99 "
-          f"{rep['ttft_ms']['p99']:.1f} ms; TPOT p50 {rep['tpot_ms']['p50']:.1f} ms, "
-          f"p99 {rep['tpot_ms']['p99']:.1f} ms; {rep['preemptions']} preemption(s); "
-          "kv hit rate " + ", ".join(f"{n} {t['kv_hit_rate']:.3f}"
-                                     for n, t in rep["tenants"].items())
-          + f" on {smi}")
-    for name, row in res.items():
-        print(f"lanes: {name} tier_stats " + json.dumps(
-            {k: v for k, v in row.items() if isinstance(v, int)}) + f" on {smi}")
+    print_serving(rep, wall_s, "lanes", smi)
     print("lanes: launches " + json.dumps(launches) + f" on {smi}")
     print(f"lanes: embedding gather through the placement table {gather_ms:.3f} ms "
           f"per step (4 tokens, wall, synchronised; dense table gather "
           f"{dense_ms:.3f} ms) on {smi}")
+    return launches, rep
+
+
+def check_int8_encoding(torch, eng, checked, n_embed: int = 64) -> None:
+    """Hold the int8 slow stores to a CPU ``encode_rows("int8")`` of the same
+    native rows, bitwise: a sample of the embedding store as bound (its
+    table rows), and the first two rows of every KV flush as written."""
+    from repro_torch.tiering import codec as codec_lib
+    from repro_torch.tiering import migrate
+
+    def same(mem, ids, rows, by_reciprocal):
+        q, sc = codec_lib.encode_rows("int8", rows.cpu(), by_reciprocal=by_reciprocal)
+        if not (torch.equal(mem.buffers.slow[ids], q)
+                and torch.equal(mem.buffers.scale[ids], sc)):
+            raise AssertionError(f"{mem.spec.name}: slow rows {ids.tolist()} differ "
+                                 "from the CPU int8 encoding of their native rows")
+        checked["encoded"] += len(ids)
+
+    emb = eng.daemon["embeddings"].mem
+    pages = np.random.default_rng(0).choice(emb.tp.num_pages,
+                                            min(n_embed, emb.tp.num_pages), replace=False)
+    same(emb, pages, eng._embed_payload(eng._embed_rpp)[torch.as_tensor(pages)], False)
+    kv = eng.daemon["kv"].mem
+    write_pages = kv.write_pages
+
+    def checked_write(state, page_ids, k_pages, v_pages):
+        ids = np.asarray(torch.as_tensor(page_ids).cpu()).reshape(-1)
+        at = np.flatnonzero(ids >= 0)[:2]
+        rows = migrate.pages_to_rows(k_pages, v_pages)[
+            torch.as_tensor(at, device=k_pages.device)].cpu()
+        n = write_pages(state, page_ids, k_pages, v_pages)
+        if at.size:
+            same(kv, ids[at], rows, True)       # the flush path's arithmetic
+        return n
+    kv.write_pages = checked_write
+
+
+def reuse_path(torch, counters, cfg, params, smi):
+    """PHASE reuse: the agentic multi-turn trace over the content-addressed
+    KV pool, int8 slow stores, at full width on the card."""
+    checked = {"steps": 0, "chunks": 0, "encoded": 0}
+    blocks = {}
+
+    def instrument(sched):
+        eng = sched.eng
+        for name in ("kv", "embeddings"):
+            blocks[name] = record_blocks(eng.daemon[name])
+        check_lane_steps(eng, checked)
+        check_int8_encoding(torch, eng, checked)
+        zero_counts(counters)
+
+    eng, sched, trace, wall_s = run_reuse(cfg, params, "cuda", instrument)
+    launches = read_counts(torch, counters, "reuse")
+    rep = sched.report()
+    check_report(rep, sched.finished, len(trace.arrivals), cfg.vocab)
+    card = reuse_schedule(eng, sched)
+    stats = eng.reuse_stats()
+    if not (stats["page_hits"] > 0 and stats["tokens_saved"] > 0
+            and stats["published"] > 0):
+        raise AssertionError(f"the reuse pool was not used: {stats}")
+    wire = {}
+    for name, h in eng.daemon.resources.items():
+        n = int(np.prod(h.mem.buffers.slow.shape[1:]))
+        if not (h.mem.codec == "int8" and h.mem.row_bytes == n + 4):
+            raise AssertionError(f"{name}: not an int8 store of {n} + 4 B rows")
+        wire[name] = (n + 4, 2 * n)
+    rows = reuse_rows(eng)            # raises unless bytes are whole wire rows
+    for name, recorded in blocks.items():
+        replay_sketch(torch, eng.daemon[name], recorded)
+    print(f"reuse: sketch replay of {len(blocks['kv'])} kv and "
+          f"{len(blocks['embeddings'])} embeddings blocks bitwise equal; "
+          f"{checked['steps']} lane steps and {checked['chunks']} chunks with finite "
+          f"logits and unit page mass; {checked['encoded']} int8 slow rows equal "
+          "to their CPU encoding")
+    t0 = time.perf_counter()
+    cpu, _ = cpu_reuse("int8")
+    if card != cpu:
+        raise AssertionError(f"the card's schedule differs from the CPU's:\n"
+                             f"{card}\n{cpu}")
+    _, none_rows = cpu_reuse("none")
+    print(f"reuse: schedule and reuse counters equal to the CPU run at the smoke "
+          f"config ({time.perf_counter() - t0:.1f} s with the none-codec CPU run): "
+          f"{len(sched.finished)} requests, {rep['steps']} steps; reuse "
+          + json.dumps({k: v for k, v in stats.items() if isinstance(v, int)})
+          + f", shared mass share {stats['shared_mass_share']:.4f}")
+    print_serving(rep, wall_s, "reuse", smi)
+    for name, (int8_row, native_row) in wire.items():
+        r, nr = rows[name], none_rows[name]
+        print(f"reuse: {name} int8 wire rows of {int8_row} B (native {native_row} B): "
+              f"{r['migration_bytes']} migrated, {r['flush_bytes']} flushed = "
+              f"{rep['resources'][name]['migration_bytes']} + "
+              f"{rep['resources'][name]['flush_bytes']} B on {smi}; the none codec on "
+              f"the CPU run of the same trace: {nr['migration_bytes']} migrated, "
+              f"{nr['flush_bytes']} flushed = "
+              f"{(nr['migration_bytes'] + nr['flush_bytes']) * native_row} B at this "
+              "width's native rows")
+    print("reuse: launches " + json.dumps(launches) + f" on {smi}")
+    return launches, rep
+
+
+def check_draws(torch, draws, folds, sched) -> int:
+    """Recompute every draw of the card on the CPU: the folded keys and the
+    threefry bits bitwise, the tokens equal except where the top two
+    perturbed scores lie within 1e-5 (CUDA's and the CPU's log may part by
+    an ulp).  Returns the count of such near-ties."""
+    from repro_torch.models import decode as dec
+    from repro_torch.models import prng
+    for keys, idx, out in folds:
+        if not torch.equal(prng.fold_in(keys, idx), out):
+            raise AssertionError("a key folded on the card differs from the CPU's")
+    master = prng.prng_key(sched.scfg.seed)
+    for r in sched.finished:
+        if not torch.equal(r.key.cpu(), prng.fold_in(master, r.rid)):
+            raise AssertionError(f"request {r.rid}: key differs from the CPU's")
+    near = 0
+    for logits, keys, bits, tokens in draws:
+        if not torch.equal(prng.random_bits(keys, logits.shape[-1]), bits):
+            raise AssertionError("threefry bits on the card differ from the CPU's")
+        kw = dict(temperature=sched.scfg.temperature, top_p=sched.scfg.top_p)
+        want = dec.sample_tokens(logits, keys, **kw)
+        scores = prng.gumbel(keys, logits.shape[-1]) + dec.nucleus_logits(logits, **kw)
+        top2 = scores.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) < 1e-5
+        near += int(tie.sum())
+        if not bool(((want == tokens) | tie).all()):
+            raise AssertionError(f"sampled tokens {tokens.tolist()} differ from the "
+                                 f"CPU's {want.tolist()} away from a near-tie")
+    return near
+
+
+def disagg_path(torch, counters, cfg, params, smi):
+    """PHASE disagg: a prefill-heavy trace through a prefill worker engine
+    attached to the decode engine, sampled at temperature 0.8 and top-p
+    0.9, at full width on the card."""
+    from repro_torch.models import decode as dec
+    from repro_torch.models import prng
+    checked = {"steps": 0, "chunks": 0, "refused": 0}
+    blocks = {}
+    draws, folds = [], []
+    sample, fold = dec.sample_tokens, dec.fold_lane_keys
+
+    def recorded_sample(logits, keys, **kw):
+        out = sample(logits, keys, **kw)
+        draws.append((logits.cpu(), keys.cpu(),
+                      prng.random_bits(keys, logits.shape[-1]).cpu(), out.cpu()))
+        return out
+
+    def recorded_fold(keys, idx):
+        out = fold(keys, idx)
+        folds.append((keys.cpu(), torch.as_tensor(idx).cpu(), out.cpu()))
+        return out
+
+    def instrument(sched):
+        blocks["kv"] = record_blocks(sched.eng.daemon["kv"])
+        check_lane_steps(sched.eng, checked)
+        check_lane_steps(sched.peng, checked)
+        resident = sched.eng.segment_resident
+
+        def counted(residual):
+            ok = resident(residual)
+            checked["refused"] += not ok
+            return ok
+        sched.eng.segment_resident = counted
+        zero_counts(counters)
+
+    dec.sample_tokens, dec.fold_lane_keys = recorded_sample, recorded_fold
+    try:
+        eng, sched, trace, wall_s = run_disagg(cfg, params, "cuda", instrument)
+    finally:
+        dec.sample_tokens, dec.fold_lane_keys = sample, fold
+    launches = read_counts(torch, counters, "disagg")
+    rep = sched.report()
+    check_report(rep, sched.finished, len(trace.arrivals), cfg.vocab)
+    if checked["refused"]:
+        raise AssertionError(f"segment_resident refused {checked['refused']} "
+                             "hand-off installs")
+    card = disagg_schedule(eng, sched)
+    replay_sketch(torch, eng.daemon["kv"], blocks["kv"])
+    t0 = time.perf_counter()
+    near = check_draws(torch, draws, folds, sched)
+    print(f"disagg: {len(draws)} sampling calls, {sum(d[3].numel() for d in draws)} "
+          f"draws: keys and threefry bits bitwise the CPU's, tokens equal but at "
+          f"{near} near-tie(s) within 1e-5 ({time.perf_counter() - t0:.1f} s); "
+          f"sketch replay of {len(blocks['kv'])} kv blocks bitwise equal; "
+          f"{checked['steps']} decode steps and {checked['chunks']} prefill chunks "
+          "with finite logits and unit page mass")
+    t0 = time.perf_counter()
+    cpu = cpu_disagg_schedule()
+    if card != cpu:
+        raise AssertionError(f"the card's schedule differs from the CPU's:\n"
+                             f"{card}\n{cpu}")
+    ho = rep["handoff"]
+    print(f"disagg: schedule and hand-offs equal to the CPU run at the smoke "
+          f"config ({time.perf_counter() - t0:.1f} s): {len(sched.finished)} "
+          f"requests, {rep['steps']} steps, {ho['count']} hand-offs, "
+          f"{ho['bytes_out']} B out and {ho['bytes_in']} B in "
+          f"({card['handoff']['pages_out']} and {card['handoff']['pages_in']} pages "
+          f"of {eng.daemon['kv'].mem.row_bytes} B), depth peak {ho['depth_peak']}, "
+          "no install refused")
+    print_serving(rep, wall_s, "disagg", smi)
+    print("disagg: launches " + json.dumps(launches) + f" on {smi}")
     return launches, rep
 
 
@@ -870,20 +1244,27 @@ def main() -> int:
     launches, e2e = main_path(torch, counters, cfg, params)
     print(f"PHASE main: ok, {e2e['decode_tokens_per_s']:.2f} decode tokens/s "
           f"on {smi}")
-    gc.collect()                       # the main engine's ring and stores
-    torch.cuda.empty_cache()
-    lane_launches, rep = lanes_path(torch, counters, cfg, params, smi)
-    print(f"PHASE lanes: ok, {rep['completed']} requests, "
-          f"{rep['tokens'] / rep['clock']['decode_s']:.2f} tokens/s on the "
-          f"decode clock, launches {json.dumps(lane_launches)} on {smi}")
+    phases = {"main": launches}
+    for phase, path in (("lanes", lanes_path), ("reuse", reuse_path),
+                        ("disagg", disagg_path)):
+        gc.collect()                   # the previous phase's rings and stores
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phases[phase], rep = path(torch, counters, cfg, params, smi)
+        print(f"PHASE {phase}: ok in {time.perf_counter() - t0:.1f} s, "
+              f"{rep['completed']} requests, "
+              f"{rep['tokens'] / rep['clock']['decode_s']:.2f} tokens/s on the "
+              f"decode clock, launches {json.dumps(phases[phase])} on {smi}")
     by_name = {"paged_attn": "paged_attention_raw",
                "neoprof_update": "sketch_update_kernel",
                "neoprof_mark": "sketch_mark_hot_kernel",
                "cms_hist": "hist_kernel"}
     for r in rows:
         r["launches"] = launches[by_name[r["name"]]]
+        r["phase_launches"] = {p: n[by_name[r["name"]]] for p, n in phases.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "phase_launches")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

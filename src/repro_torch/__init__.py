@@ -6,6 +6,10 @@ package keeps the reference's module paths and public layouts so the tests
 can hold the two against each other; it imports ``torch`` and ``numpy`` and
 nothing of JAX or of the reference package.
 
+It serves the dense paged-KV path: single-request and lane mode, the
+multi-tenant scheduler (unified or with disaggregated prefill), sampling,
+the slow-store codecs and content-addressed KV reuse.
+
 Entry points (``ServeEngine``, ``init_params``, ``neoprof_init``,
 ``tier_init``, ...) run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.  On the card every kernel wrapper launches its CUDA

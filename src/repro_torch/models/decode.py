@@ -21,6 +21,11 @@ writes are conditional on the mask — an inactive lane's pages, ``page_len``,
 ``cur_slot`` and ``pos`` stay bitwise unchanged and the ring is never
 copied.  Its logits and mass are computed on the unchanged ring and are
 not to be read.
+
+Also here, as in the reference: ``install_pages``, which fast-forwards one
+lane over complete KV pages from the reuse pool (in place, that lane
+only), and the lane sampler (``fold_lane_keys``, ``sample_tokens``) over
+the threefry port in :mod:`repro_torch.models.prng`.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import prng
 from repro_torch.models.layers import (apply_norm, apply_rope, embed_apply,
                                        logits_apply, mlp_apply)
 from repro_torch.models.transformer import check_dense
@@ -246,3 +252,81 @@ def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
     stacked = (torch.stack([torch.zeros_like(ran[0]) if m is None else m
                             for m in kv_mass]) if ran else None)
     return last, cache, {"router": None, "kv_mass": stacked}
+
+
+# ---------------------------------------------------------------------------
+# content-addressed page install (cross-request KV reuse, DESIGN.md §12)
+# ---------------------------------------------------------------------------
+
+def reuse_eligible(cfg: ArchConfig) -> bool:
+    """True when a lane's whole per-position decode state is carried by the
+    KV slow store alone — the precondition for fast-forwarding a fresh lane
+    over slow-store pages (DESIGN.md §12): one attention position in the
+    pattern, no recurrent blocks, no dense prologue."""
+    recurrent = any(k in ("mamba", "mlstm", "slstm") for k in cfg.pattern)
+    prologue = bool(cfg.moe and cfg.moe.n_dense_prologue)
+    return len(cfg.pattern) == 1 and not recurrent and not prologue
+
+
+def install_pages(cache, lane: int, slot_ids, rows: torch.Tensor, *, dk: int,
+                  page_t: int, new_pos: int) -> None:
+    """Fast-forward one lane's ring to ``new_pos`` by installing complete KV
+    pages, in place: ``rows`` (G, n, T, hkv, dk+dv) [K | V] payload for
+    ring slots ``slot_ids``.  Bitwise equal to streaming the same tokens:
+    installed slots hold full pages and the new current slot's fill is
+    zeroed (at a page boundary ``cur_slot`` has already advanced onto an
+    empty slot).  Only the lane's own slots and counters are written."""
+    entry = cache["blocks"][0]
+    n_slots = entry["page_len"].shape[-1]
+    slots = torch.as_tensor(np.asarray(slot_ids), dtype=torch.long,
+                            device=entry["page_len"].device)
+    entry["k_pages"][:, lane, slots] = rows[..., :dk].to(entry["k_pages"].dtype)
+    entry["v_pages"][:, lane, slots] = rows[..., dk:].to(entry["v_pages"].dtype)
+    entry["page_len"][:, lane, slots] = page_t
+    cur = (new_pos // page_t) % n_slots
+    entry["cur_slot"][:, lane] = cur
+    entry["page_len"][:, lane, cur] = 0
+    cache["pos"][lane] = new_pos
+
+
+# ---------------------------------------------------------------------------
+# sampling — temperature / nucleus over the lane substrate (DESIGN.md §9)
+# ---------------------------------------------------------------------------
+
+def fold_lane_keys(keys: torch.Tensor, idx) -> torch.Tensor:
+    """Per-lane key derivation: fold each lane's (2,) request key with its
+    emitted-token index (``jax.random.fold_in`` over the lanes)."""
+    return prng.fold_in(keys, idx)
+
+
+def nucleus_logits(logits: torch.Tensor, *, temperature: float,
+                   top_p: float = 1.0) -> torch.Tensor:
+    """The float32 scores a draw takes: ``logits`` tempered — multiplied by
+    the float32 reciprocal of ``temperature``, as XLA compiles the
+    reference's division by a constant — and, with ``top_p < 1``,
+    nucleus-filtered: the smallest prefix of descending-probability tokens
+    whose mass reaches ``top_p`` stays (the top-1 token always does), the
+    rest is -inf."""
+    inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(
+        temperature, dtype=torch.float32)
+    scaled = logits.float() * inv.to(logits.device)
+    if top_p < 1.0:
+        desc = torch.sort(scaled, dim=-1, descending=True).values
+        probs = torch.softmax(desc, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = cum - probs < top_p              # mass BEFORE this token
+        cutoff = torch.where(keep, desc, torch.inf).amin(dim=-1, keepdim=True)
+        scaled = torch.where(scaled >= cutoff, scaled, -torch.inf)
+    return scaled
+
+
+def sample_tokens(logits: torch.Tensor, keys: torch.Tensor, *,
+                  temperature: float = 0.0, top_p: float = 1.0) -> torch.Tensor:
+    """Per-lane token sampling: (L, V) logits and (L, 2) threefry keys.
+    ``temperature <= 0`` is the exact argmax (keys unused); otherwise
+    ``jax.random.categorical``'s draw over :func:`nucleus_logits`, bit for
+    bit in its random bits."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    return prng.categorical(keys, nucleus_logits(logits, temperature=temperature,
+                                                 top_p=top_p))

@@ -23,9 +23,23 @@ between the pinned-host slow store and the device fast buffer.  With
 ``jit_tier_reads`` the step itself reads its embedding rows through the
 embeddings placement table (``tiering/migrate.py::lookup_rows``).
 
+Lane mode also serves, as the reference does:
+
+  * the slow-store codecs (``ServeConfig.slow_codec``, DESIGN.md §14):
+    every resource's slow store at rest in its wire format, int8 rows and
+    their scales crossing the link as stored and decoded on the device;
+  * content-addressed KV reuse (``reuse_pages``, DESIGN.md §12): a shared
+    pool of pages above the private segments, admission-matched pages
+    installed without a forward pass, finished requests published into
+    the pool, and a copy-on-write ring that never writes a shared page
+    back;
+  * disaggregated prefill/decode (``attach_to``, DESIGN.md §13): a worker
+    engine over the owner's daemon, stores and reuse pool, handing
+    finished prefills over through the slow store.
+
 Features of the reference that wait for later slices raise
 ``NotImplementedError``: dense (``paged=False``) serving, the experts
-resource, KV reuse and the asynchronous data plane.
+resource and the asynchronous data plane.
 """
 from __future__ import annotations
 
@@ -35,11 +49,13 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.cache import KVReuseStore
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import decode as dec
 from repro_torch.serve.clock import TickClock
 from repro_torch.tiering.daemon import NeoMemDaemon
 from repro_torch.tiering.memory import DaemonParams
+from repro_torch.tiering.migrate import segment_page_ids
 from repro_torch.tiering.resource import ResourceSpec
 from repro_torch.tiering.resources import (EMBED_ROWS_PER_PAGE,
                                            EmbedRowsResource, KVPagesResource)
@@ -69,16 +85,20 @@ class ServeConfig:
     # read embedding rows in-step through the tiered store (off = the
     # dense table)
     jit_tier_reads: bool = True
-    # reference features that wait for later slices: any value but the
-    # default here raises in ServeEngine
+    # slow-store wire format of every resource (tiering/codec.py, DESIGN.md
+    # §14): "none" native rows, "fp32" full precision, "int8" per-row
+    # symmetric quantization decoded on the device
+    slow_codec: str = "none"
+    # content-addressed KV reuse (repro_torch.cache, DESIGN.md §12): shared
+    # pool pages appended to the KV slow store; lane mode only, 0 = off
     reuse_pages: int = 0
+    # a reference feature that waits for a later slice: True raises
     async_migration: bool = False
 
 
 _NOT_YET_PORTED = {
     "paged": (lambda s: not s.paged, "dense (paged=False) serving"),
     "resources": (lambda s: "experts" in s.resources, "the experts resource"),
-    "reuse_pages": (lambda s: s.reuse_pages > 0, "content-addressed KV reuse"),
     "async_migration": (lambda s: s.async_migration,
                         "the asynchronous data plane"),
 }
@@ -86,22 +106,50 @@ _NOT_YET_PORTED = {
 
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, scfg: ServeConfig, *,
-                 device="cuda", sketch_seeds: torch.Tensor | None = None):
+                 device="cuda", sketch_seeds: torch.Tensor | None = None,
+                 attach_to: "ServeEngine | None" = None):
         """``sketch_seeds`` are every resource's (D, 30) H3 seeds (default:
         drawn from a generator seeded with 0), as the reference seeds every
-        resource's sketch from one key."""
+        resource's sketch from one key.
+
+        ``attach_to`` builds a WORKER engine over another engine's tiered
+        store (DESIGN.md §13): the daemon, every resource handle and the
+        reuse pool are shared with ``attach_to``.  Only the lane count may
+        differ (preemption residuals move between the two engines' lanes),
+        and the worker never ticks the shared daemon."""
         for field, (asks, what) in _NOT_YET_PORTED.items():
             if asks(scfg):
                 raise NotImplementedError(
                     f"ServeConfig.{field}={getattr(scfg, field)!r}: {what} is "
                     "not yet ported to repro_torch")
+        if scfg.reuse_pages:
+            if not scfg.lanes:
+                raise ValueError(
+                    "reuse_pages requires lane mode (ServeConfig.lanes > 0)")
+            if not dec.reuse_eligible(cfg):
+                raise ValueError(f"arch {cfg.name!r} is not reuse-eligible")
         self.cfg = cfg
         self.params = params
         self.scfg = scfg
         self.device = torch.device(device)
         self._embed_rpp = scfg.embed_rows_per_page or EMBED_ROWS_PER_PAGE
-        self.daemon = NeoMemDaemon(DaemonParams(), device=self.device)
-        self._register_resources(sketch_seeds)
+        self._daemon_owner = attach_to is None
+        if attach_to is not None:
+            self._check_attach_geometry(attach_to)
+            self.daemon = attach_to.daemon
+            self.reuse = attach_to.reuse
+            self.reuse_mass = attach_to.reuse_mass
+        else:
+            self.daemon = NeoMemDaemon(DaemonParams(), device=self.device)
+            self._register_resources(sketch_seeds)
+            # the shared pool's page ids sit above every private segment
+            self.reuse = None
+            self.reuse_mass = {"shared": 0.0, "total": 0.0}
+            if scfg.reuse_pages:
+                self.reuse = KVReuseStore(
+                    scfg.reuse_pages,
+                    base_gid=(scfg.kv_segments or scfg.lanes) * self.pages_per_seq,
+                    page_t=scfg.page_t)
         self.cache = None
         self._clock = TickClock(scfg.migration_interval)
         self._decode_s = 0.0            # decode wall time
@@ -119,6 +167,22 @@ class ServeEngine:
         self._lane_pages = np.full((n, self.pages_per_seq), -1, np.int64)
         self._lane_full = np.zeros((n, self.pages_per_seq), bool)
 
+    def _check_attach_geometry(self, owner: "ServeEngine") -> None:
+        """A worker must agree with its owner on every field that shapes the
+        shared store or a lane's cache: only ``lanes`` may differ."""
+        if not (self.lane_mode and owner.lane_mode):
+            raise ValueError("attach_to requires lane mode on both engines")
+        mine = dataclasses.asdict(self.scfg)
+        theirs = dataclasses.asdict(owner.scfg)
+        mine.pop("lanes"), theirs.pop("lanes")
+        diff = [k for k in mine if mine[k] != theirs[k]]
+        if diff:
+            raise ValueError(
+                f"attached engine geometry differs from owner on {diff} — "
+                "only ServeConfig.lanes may differ between workers")
+        if self.device != owner.device:
+            raise ValueError("an attached engine runs on its owner's device")
+
     def _register_resources(self, seeds) -> None:
         cfg, scfg = self.cfg, self.scfg
         pinned = self.device.type == "cuda"
@@ -130,10 +194,11 @@ class ServeEngine:
                 row_shape = (cfg.n_groups, scfg.page_t, cfg.n_kv_heads,
                              2 * cfg.head_dim)
                 spec = ResourceSpec(
-                    "kv", n_pages=n_segments * self.pages_per_seq,
+                    "kv", n_pages=n_segments * self.pages_per_seq
+                    + scfg.reuse_pages,
                     hot_slots=scfg.kv_tier_slots or scfg.hot_slots,
                     quota_pages=scfg.kv_quota, row_shape=row_shape,
-                    row_dtype="bfloat16")
+                    row_dtype="bfloat16", slow_codec=scfg.slow_codec)
                 res = KVPagesResource(spec,
                                       mass_threshold=scfg.kv_mass_threshold)
                 # the slow tier starts as zero scratch, in host memory when
@@ -148,7 +213,8 @@ class ServeEngine:
                     hot_slots=scfg.embed_hot_slots,
                     quota_pages=scfg.embed_quota,
                     row_shape=tuple(payload.shape[1:]),
-                    row_dtype=str(payload.dtype).split(".")[-1])
+                    row_dtype=str(payload.dtype).split(".")[-1],
+                    slow_codec=scfg.slow_codec)
                 res = EmbedRowsResource(spec, rows_per_page=self._embed_rpp)
             else:
                 raise KeyError(f"unknown serve resource kind {kind!r}")
@@ -390,8 +456,9 @@ class ServeEngine:
         """The per-lane kernel mass, masked to the live lanes' segment-mapped
         pages (the mask the gids carry), as one flat "kv" block."""
         g = self._ids(gids)
-        self.daemon.observe("kv", torch.where(g >= 0, mass.float(), 0.0).reshape(-1),
-                            g.reshape(-1))
+        mass = torch.where(g >= 0, mass.float(), 0.0)
+        self._count_shared_mass(mass, gids)
+        self.daemon.observe("kv", mass.reshape(-1), g.reshape(-1))
 
     def _ids(self, ids: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids), dtype=torch.int32,
@@ -474,6 +541,124 @@ class ServeEngine:
         for key in [k for k in self._kv_flushed if k[0] == lane]:
             del self._kv_flushed[key]
 
+    # -- disaggregated prefill/decode hand-off (DESIGN.md §13) ----------------
+    def _kv_split_width(self) -> int:
+        """Last-axis K width inside a concatenated [K | V] payload row."""
+        return self.cfg.head_dim
+
+    def handoff_lane(self, lane: int) -> dict:
+        """Producer side: detach a finished prefill from its lane.  A
+        preemption (the force-flush writes every resident ring page down to
+        the request's segment, the residual carries the rest) that also
+        meters ``handoff_bytes``: the whole consumed prefix's pages at the
+        KV store's wire row size."""
+        residual = self.preempt_lane(lane)
+        n_pages = -(-residual["pos"] // self.scfg.page_t)
+        residual["handoff_bytes"] = n_pages * self.daemon["kv"].mem.row_bytes
+        return residual
+
+    def segment_resident(self, residual: dict) -> bool:
+        """Consumer-side admission gate: is every page of the hand-off's
+        consumed prefix (the final, possibly partial, one included)
+        write-witnessed in the slow store?  Shared pool pages count through
+        the request's copy-on-write page table."""
+        if residual["segment"] < 0:
+            return True
+        gids = segment_page_ids(residual["segment"], residual["pos"],
+                                self.scfg.page_t, self.pages_per_seq,
+                                table=residual.get("pages"))
+        return bool(self.daemon["kv"].pages_written(gids).all())
+
+    def install_handoff(self, lane: int, residual: dict) -> int:
+        """Consumer side: install a prefilled request into a decode lane,
+        its ring window gathered back through the placement table (fast
+        copy when promoted, slow store otherwise).  Refuses a segment the
+        producer has not fully flushed.  Returns the gathered bytes."""
+        if not self.segment_resident(residual):
+            raise RuntimeError(
+                f"segment {residual['segment']} not fully resident — "
+                "hand-off installed before the prefill flush completed")
+        return self.resume_lane(lane, residual) * self.daemon["kv"].mem.row_bytes
+
+    # -- content-addressed KV reuse (repro_torch.cache, DESIGN.md §12) --------
+    def install_lane_pages(self, lane: int, run: dict[int, int]
+                           ) -> tuple[int, int]:
+        """Fast-forward a lane over one CONSECUTIVE run of admission-matched
+        pages: the run's ring-window tail is installed from the shared pool
+        (read through the placement table, decoded on the device) and the
+        lane's position jumps past the run, no forward pass.  Installed
+        slots are marked clean — copy-on-write: the ring never writes a
+        shared page back.  Returns the pool reads' (fast, slow) split."""
+        if self.reuse is None:
+            raise ValueError("install_lane_pages requires reuse_pages > 0")
+        locals_ = np.asarray(sorted(run), np.int64)
+        if locals_.size == 0:
+            return 0, 0
+        if not np.all(np.diff(locals_) == 1):
+            raise ValueError("install run must be consecutive local pages")
+        gids = np.asarray([run[int(j)] for j in locals_], np.int64)
+        n_slots, page_t = self.scfg.hot_slots, self.scfg.page_t
+        sel, gsel = locals_[-n_slots:], gids[-n_slots:]
+        h = self.daemon["kv"]
+        _, hit = h.lookup(self._ids(gsel))
+        fast_n = int(hit.sum())
+        rows = h.read_rows(gsel).movedim(0, 1)      # (G, n, T, hkv, dk+dv)
+        new_pos = int(locals_[-1] + 1) * page_t
+        dec.install_pages(self.cache, lane, sel % n_slots, rows,
+                          dk=self._kv_split_width(), page_t=page_t,
+                          new_pos=new_pos)
+        self._lane_pages[lane, locals_] = gids
+        cur = (new_pos // page_t) % n_slots
+        for j, g in zip(sel % n_slots, gsel):
+            if int(j) != cur:                        # cur slot was re-zeroed
+                self._kv_flushed[(lane, int(j))] = (int(g), page_t)
+        self.reuse.note_consumed(locals_.size)
+        return fast_n, int(gsel.size - fast_n)
+
+    def publish_lane(self, lane: int, tokens) -> int:
+        """Publish a finishing request's complete KV pages into the shared
+        pool: force-flush the lane, index every full page of its token
+        stream whose slow row is witnessed complete, and copy the NEW
+        pages' wire-format rows segment -> pool.  Returns the pages
+        newly published."""
+        if self.reuse is None:
+            return 0
+        toks = np.asarray(tokens).ravel()
+        pos = int(self.cache["pos"][lane])
+        n_pages = min(toks.size, pos) // self.scfg.page_t
+        if n_pages <= 0 or self._lane_segments[lane] < 0:
+            return 0
+        self._flush_kv_lanes(lanes=[lane], force=True)
+        witness = self._lane_full[lane] | (self._lane_pages[lane] >= 0)
+        new = self.reuse.publish(toks, n_pages, mask=witness)
+        if not new:
+            return 0
+        seg = int(self._lane_segments[lane])
+        src = [int(self._lane_pages[lane, j]) if self._lane_pages[lane, j] >= 0
+               else seg * self.pages_per_seq + j for j, _ in new]
+        self.daemon["kv"].copy_rows(np.asarray(src, np.int64),
+                                    np.asarray([g for _, g in new], np.int64))
+        return len(new)
+
+    def _count_shared_mass(self, mass: torch.Tensor, gids: np.ndarray) -> None:
+        """Accumulate the observed mass landing on shared pool pages against
+        that on all resident pages (the shared-page mass share)."""
+        if self.reuse is None:
+            return
+        m = mass.cpu().numpy().astype(np.float64)
+        self.reuse_mass["total"] += float(m[gids >= 0].sum())
+        self.reuse_mass["shared"] += float(m[gids >= self.reuse.base_gid].sum())
+
+    def reuse_stats(self) -> dict | None:
+        """The reuse store's counters and the shared-page mass share."""
+        if self.reuse is None:
+            return None
+        row = self.reuse.stats()
+        total = self.reuse_mass["total"]
+        row["shared_mass_share"] = (self.reuse_mass["shared"] / total
+                                    if total > 0 else 0.0)
+        return row
+
     # -- the ring and the KV data plane ---------------------------------------
     def _paged_entry(self) -> dict:
         """The representative paged-attention cache entry (first in pattern)."""
@@ -555,8 +740,13 @@ class ServeEngine:
         down to its slow-store segment (real per-lane payloads).  ``lanes``
         defaults to the live mask; pages unchanged since their last flush
         are skipped unless ``force`` — preemption forces a full flush so
-        the segment is an exact snapshot of the ring.  (The reference's
-        copy-on-write branch for shared pool pages comes with KV reuse.)"""
+        the segment is an exact snapshot of the ring.
+
+        Copy-on-write over shared pool pages (DESIGN.md §12): a slot holding
+        a CLEAN shared page (installed, fill unchanged) is never written
+        back, even under ``force``.  A slot whose shared mapping went stale
+        (the ring wrote into it) forks: its page-table entry reverts to the
+        lane's private segment page and the payload flushes there."""
         plen, cur, pos = self._ring_view()
         local = self._ring_page_ids(plen, cur, pos, self.scfg.page_t)
         if lanes is None:
@@ -566,12 +756,22 @@ class ServeEngine:
             act[np.asarray(lanes, int)] = True
         gids = self._map_gids(local, act)            # (L, S)
         fill = np.where(gids >= 0, plen, 0).astype(np.int64)
+        base = self.reuse.base_gid if self.reuse is not None else None
         ids = gids.copy()
-        if not force:
-            for lane, slot in np.argwhere(ids >= 0):
-                if self._kv_flushed.get((int(lane), int(slot))) == (
-                        int(gids[lane, slot]), int(fill[lane, slot])):
-                    ids[lane, slot] = -1
+        for lane, slot in np.argwhere(ids >= 0):
+            key = (int(lane), int(slot))
+            state = (int(gids[lane, slot]), int(fill[lane, slot]))
+            if base is not None and gids[lane, slot] >= base:
+                if self._kv_flushed.get(key) == state:
+                    ids[lane, slot] = -1             # clean shared page: CoW
+                    continue
+                lp = int(local[lane, slot])          # dirty: private fork
+                self._lane_pages[lane, lp] = -1
+                priv = int(self._lane_segments[lane]) * self.pages_per_seq + lp
+                ids[lane, slot] = gids[lane, slot] = priv
+                state = (priv, int(fill[lane, slot]))
+            if not force and self._kv_flushed.get(key) == state:
+                ids[lane, slot] = -1
         if not (ids >= 0).any():
             return
         entry = self._paged_entry()
@@ -591,8 +791,14 @@ class ServeEngine:
 
     def _maybe_tick(self, n: int = 1) -> None:
         """Advance the step counter by ``n`` and run one daemon tick per
-        migration-interval boundary crossed, flushing the KV ring first."""
-        for _ in range(self._clock.advance(n)):
+        migration-interval boundary crossed, flushing the KV ring first.
+        An attached worker never ticks the shared daemon: the cadence is
+        the owner's, and the worker's pages flush per chunk and at
+        hand-off."""
+        ticks = self._clock.advance(n)
+        if not self._daemon_owner:
+            return
+        for _ in range(ticks):
             if self.lane_mode:
                 self._flush_kv_lanes()
             else:

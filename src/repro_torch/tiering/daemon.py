@@ -128,6 +128,12 @@ class ResourceHandle:
         n = self.mem.write_pages(self.state, page_ids, k_pages, v_pages)
         self.stats.flush_bytes += n * self.mem.row_bytes
 
+    def copy_rows(self, src_ids, dst_ids) -> None:
+        """Store-to-store page copy in the wire format (the content-addressed
+        publish verb); bytes metered as flush traffic."""
+        n = self.mem.copy_rows(self.state, src_ids, dst_ids)
+        self.stats.flush_bytes += n * self.mem.row_bytes
+
     def hit_rate(self) -> float:
         return self.mem.hit_rate(self.state, self.stats)
 

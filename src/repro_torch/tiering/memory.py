@@ -12,7 +12,9 @@ through pure functions:
 
 The host keeps the overflow queue of hot pages awaiting quota (a numpy
 FIFO), the :class:`~repro_torch.tiering.stats.TierStats` accumulator and,
-once payload is bound, the :class:`~repro_torch.tiering.migrate.TierBuffers`.
+once payload is bound, the :class:`~repro_torch.tiering.migrate.TierBuffers`
+in the resource's slow-tier wire format (:mod:`repro_torch.tiering.codec`);
+``row_bytes`` and every byte meter count wire bytes.
 The reference's asynchronous plane (issue/commit epochs) is not yet ported.
 """
 from __future__ import annotations
@@ -83,6 +85,10 @@ def observe(state: TieredMemoryState, pages: torch.Tensor,
                            wr_bytes=wr_bytes, budget_bytes=budget_bytes)
     tier = tiering.touch(state.tier, pages if touch_pages is None else touch_pages)
     return state._replace(prof=prof, tier=tier)
+
+
+def _ids_np(page_ids) -> np.ndarray:
+    return np.asarray(torch.as_tensor(page_ids).cpu(), np.int64).reshape(-1)
 
 
 def lookup(state: TieredMemoryState, page_ids: torch.Tensor):
@@ -191,23 +197,26 @@ class TieredMemory:
         """Placement-table gather over the bound buffers, slow fallback."""
         self._require_data()
         return migrate_lib.lookup_rows(self.buffers.fast, self.buffers.slow,
-                                       state.tier.page_slot, page_ids)
+                                       state.tier.page_slot, page_ids,
+                                       scale=self.buffers.scale)
 
     def tier_view(self, state: TieredMemoryState) -> dict:
-        """``{"fast", "slow", "page_slot", "scale"}`` for in-step readers."""
+        """``{"fast", "slow", "page_slot", "scale"}`` for in-step readers
+        (``scale`` is None except under the ``int8`` codec)."""
         self._require_data()
         return {"fast": self.buffers.fast, "slow": self.buffers.slow,
                 "page_slot": state.tier.page_slot, "scale": self.buffers.scale}
 
     def read_rows(self, state: TieredMemoryState, page_ids,
                   slots: torch.Tensor | None = None) -> torch.Tensor:
-        """Serve page payloads: fast-tier copy on hit, slow-tier fallback."""
+        """Serve page payloads: fast-tier copy on hit, slow-tier fallback
+        (decoded on the device from its wire format)."""
         self._require_data()
         ids = torch.as_tensor(page_ids, dtype=torch.long, device=self.device)
         if slots is None:
             slots = self.lookup_slots(state, ids)
         return migrate_lib.read_rows(self.buffers.fast, self.buffers.slow,
-                                     slots, ids)
+                                     slots, ids, scale=self.buffers.scale)
 
     def write_rows(self, state: TieredMemoryState, page_ids, rows) -> int:
         """Refresh page payloads in both tiers; returns the rows written."""
@@ -228,8 +237,20 @@ class TieredMemory:
                                                k_pages, v_pages, codec=self.codec)
         return self._mark_written(page_ids)
 
+    def copy_rows(self, state: TieredMemoryState, src_ids, dst_ids) -> int:
+        """Duplicate page payloads store to store in their wire format (the
+        content-addressed publish verb); returns the pages copied."""
+        self._require_data()
+        src, dst = _ids_np(src_ids), _ids_np(dst_ids)
+        self.buffers = migrate_lib.copy_rows(self.buffers, src, dst,
+                                             self.lookup_slots(state, dst))
+        valid = (src >= 0) & (dst >= 0)
+        if self.written is not None:
+            self.written[dst[valid]] = True
+        return int(valid.sum())
+
     def _mark_written(self, page_ids) -> int:
-        ids = np.asarray(torch.as_tensor(page_ids).cpu())
+        ids = _ids_np(page_ids)
         ids = ids[ids >= 0]
         if self.written is not None and ids.size:
             self.written[ids] = True

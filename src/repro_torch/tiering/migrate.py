@@ -1,25 +1,30 @@
 """The migration data plane: real byte movement behind ``apply_migration``.
 
-Port of ``repro/tiering/migrate.py`` (synchronous plane, ``none`` codec).
-A resource that binds payload data gets a :class:`TierBuffers` set
-(DESIGN.md §8):
+Port of ``repro/tiering/migrate.py`` (synchronous plane).  A resource that
+binds payload data gets a :class:`TierBuffers` set (DESIGN.md §8):
 
-  * ``fast``: ``(num_slots, *row_shape)`` — promoted copies, on the device;
-  * ``slow``: ``(num_pages, *row_shape)`` — the full backing store.  For a
-    CUDA resource it lives in pinned host memory (the slow tier of
-    DESIGN.md §7, as the reference's ``pinned_host`` memory kind); on the
-    CPU the split is logical.  Rows cross between the two with
-    ``.to(device, non_blocking=True)`` from pinned staging buffers.
+  * ``fast``: ``(num_slots, *row_shape)`` — promoted copies, on the device,
+    always in the resource's native dtype;
+  * ``slow``: ``(num_pages, *row_shape)`` — the full backing store in the
+    resource's wire format (:mod:`repro_torch.tiering.codec`, DESIGN.md
+    §14).  For a CUDA resource it lives in pinned host memory (the slow
+    tier of DESIGN.md §7, as the reference's ``pinned_host`` memory kind);
+    on the CPU the split is logical;
+  * ``scale``: ``(num_pages,)`` float32 per-row scales under the ``int8``
+    codec (``None`` otherwise), beside the payload in the same memory.
 
-Each daemon epoch applies one copy (:func:`migrate`): victims are written
-back to their old slow pages, then the promoted pages land in the freed
-fast slots.  Unlike the reference's donated functional copies, the verbs
-here update both buffers IN PLACE (the fast buffer is the only copy the
-device holds) and return the same :class:`TierBuffers`.
+Rows cross the link as they are stored: a slow read moves the payload
+(and its scales) to the device through a pinned staging buffer and decodes
+there; a write or a demotion encodes on the device and moves the wire
+format down.  Each daemon epoch applies one copy (:func:`migrate`):
+victims are re-encoded back to their old slow pages, then the promoted
+pages are decoded into the freed fast slots.  Unlike the reference's
+donated functional copies, the verbs update the buffers IN PLACE (the
+fast buffer is the only copy the device holds) and return the same
+:class:`TierBuffers`.
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
@@ -32,13 +37,17 @@ class TierBuffers(NamedTuple):
     """Payload buffers for one resource: fast copies over a slow store."""
 
     fast: torch.Tensor   # (num_slots, *row_shape) — native dtype, device
-    slow: torch.Tensor   # (num_pages, *row_shape) — full store, slow tier
-    scale: torch.Tensor | None = None   # int8 codec only (not yet ported)
+    slow: torch.Tensor   # (num_pages, *row_shape) — full store, wire format
+    scale: torch.Tensor | None = None   # (num_pages,) float32 — int8 only
 
 
 def row_bytes(buffers: TierBuffers) -> int:
-    """WIRE bytes of one page row (the migration byte unit)."""
-    return math.prod(buffers.slow.shape[1:]) * buffers.slow.element_size()
+    """WIRE bytes of one page row (the migration byte unit): the stored
+    dtype's bytes, plus the float32 scale under the ``int8`` codec."""
+    n = buffers.slow[0].numel() * buffers.slow.element_size()
+    if buffers.scale is not None:
+        n += buffers.scale.element_size()
+    return n
 
 
 def place_slow(x: torch.Tensor, device) -> torch.Tensor:
@@ -52,12 +61,34 @@ def place_slow(x: torch.Tensor, device) -> torch.Tensor:
 
 def init_buffers(slow_data: torch.Tensor, num_slots: int, codec: str = "none",
                  *, device="cuda") -> TierBuffers:
-    """Build the buffer set around an existing (native-dtype) payload."""
-    payload, scale = codec_lib.encode_rows(codec, slow_data)
+    """Build the buffer set around a native-dtype payload: the store is
+    encoded to the codec's wire format where the payload lies, and placed
+    in the slow tier with its scales."""
+    payload, scale = codec_lib.encode_store(codec, slow_data)
     slow = place_slow(payload, device)
+    if scale is not None:
+        scale = place_slow(scale, device)
     fast = torch.zeros((num_slots,) + tuple(slow.shape[1:]),
                        dtype=slow_data.dtype, device=device)
     return TierBuffers(fast=fast, slow=slow, scale=scale)
+
+
+def segment_page_ids(segment: int, n_tokens: int, page_t: int,
+                     pages_per_seq: int,
+                     table: np.ndarray | None = None) -> np.ndarray:
+    """Global page ids of a request's first ``n_tokens`` worth of KV pages:
+    ``ceil(n_tokens / page_t)`` pages of its segment from ``segment *
+    pages_per_seq`` on, the final (possibly partial) page included.
+    ``table`` is the lane's copy-on-write page-table row (local page ->
+    pool gid, -1 = private): shared pool pages resolve through it, as the
+    read path does (DESIGN.md §12/§13)."""
+    n_pages = -(-max(n_tokens, 0) // page_t)
+    local = np.arange(min(n_pages, pages_per_seq), dtype=np.int64)
+    gids = segment * pages_per_seq + local
+    if table is not None:
+        tabled = np.asarray(table, np.int64)[local]
+        gids = np.where(tabled >= 0, tabled, gids)
+    return gids
 
 
 def _host(x) -> np.ndarray:
@@ -67,56 +98,80 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _slow_gather(slow: torch.Tensor, ids: np.ndarray, device) -> torch.Tensor:
-    """Gather slow rows and move them to ``device``: through a pinned
-    staging buffer and an asynchronous copy when the store is pinned."""
-    idx = torch.as_tensor(ids, dtype=torch.long)
-    if not slow.is_pinned():
-        return slow[idx.to(slow.device)].to(device)
-    rows = torch.empty((len(ids),) + tuple(slow.shape[1:]), dtype=slow.dtype,
-                       pin_memory=True)
-    torch.index_select(slow, 0, idx, out=rows)
-    return rows.to(device, non_blocking=True)
+def _scale_at(scale: torch.Tensor | None, ids: np.ndarray):
+    """Per-row scales for a gathered id batch (None under scale-less codecs)."""
+    return None if scale is None else _gather(scale, ids)
 
 
-def _slow_scatter(slow: torch.Tensor, ids: np.ndarray,
-                  rows: torch.Tensor) -> None:
-    """Write rows into the slow store (blocking device-to-host copy)."""
-    idx = torch.as_tensor(ids, dtype=torch.long, device=slow.device)
-    slow[idx] = rows.to(slow.device, slow.dtype)
+def _gather(store: torch.Tensor, ids: np.ndarray) -> torch.Tensor:
+    """Rows ``ids`` of a slow-tier tensor, still in the slow tier: into a
+    pinned staging buffer when the store is pinned."""
+    idx = torch.as_tensor(ids, dtype=torch.long).reshape(-1)
+    if not store.is_pinned():
+        return store[idx.to(store.device)]
+    rows = torch.empty((idx.numel(),) + tuple(store.shape[1:]),
+                       dtype=store.dtype, pin_memory=True)
+    return torch.index_select(store, 0, idx, out=rows)
+
+
+def _slow_rows(slow: torch.Tensor, scale: torch.Tensor | None,
+               ids: np.ndarray, device, out_dtype) -> torch.Tensor:
+    """Slow rows ``ids`` moved to ``device`` in their wire format (payload
+    and scales, asynchronously from pinned staging) and decoded there."""
+    payload = _gather(slow, ids).to(device, non_blocking=True)
+    sc = _scale_at(scale, ids)
+    if sc is not None:
+        sc = sc.to(device, non_blocking=True)
+    return codec_lib.decode_rows(payload, sc, out_dtype)
+
+
+def _scatter(store: torch.Tensor, ids: np.ndarray, rows: torch.Tensor) -> None:
+    """Write rows into a slow-tier tensor (blocking device-to-host copy)."""
+    idx = torch.as_tensor(ids, dtype=torch.long, device=store.device)
+    store[idx] = rows.to(store.device, store.dtype)
+
+
+def _store_rows(buffers: TierBuffers, ids: np.ndarray, rows: torch.Tensor,
+                codec: str) -> None:
+    """Encode native rows where they lie and write the wire format (payload
+    and scales) to slow pages ``ids`` — the reference's jitted write path,
+    hence the scale by the reciprocal of 127."""
+    payload, sc = codec_lib.encode_rows(codec, rows, by_reciprocal=True)
+    _scatter(buffers.slow, ids, payload)
+    if buffers.scale is not None:
+        _scatter(buffers.scale, ids, sc)
 
 
 def migrate(buffers: TierBuffers, promoted, victims, evicted,
             codec: str = "none") -> tuple[TierBuffers, int, int]:
-    """Apply one promotion batch: ``promoted[i]`` is copied into fast slot
+    """Apply one promotion batch: ``promoted[i]`` is decoded into fast slot
     ``victims[i]`` after the slot's previous occupant ``evicted[i]`` is
-    written back (-1 = no-op lane everywhere).  Returns the buffers and
-    the promoted / demoted row counts actually moved."""
+    re-encoded back down (-1 = no-op lane everywhere).  Returns the
+    buffers and the promoted / demoted row counts actually moved."""
     codec_lib.check_codec(codec)
     promoted, victims, evicted = _host(promoted), _host(victims), _host(evicted)
     ok = (promoted >= 0) & (victims >= 0)
     ev_ok = ok & (evicted >= 0)
-    fast, slow = buffers.fast, buffers.slow
+    fast = buffers.fast
     # gather the promoted rows BEFORE the write-back (a page promoted in this
     # batch is never also evicted in it, but the order documents it)
-    up = codec_lib.decode_rows(_slow_gather(slow, promoted[ok], fast.device),
-                               None, fast.dtype)
+    up = _slow_rows(buffers.slow, buffers.scale, promoted[ok], fast.device,
+                    fast.dtype)
     slots_ev = torch.as_tensor(victims[ev_ok], dtype=torch.long, device=fast.device)
-    down, _ = codec_lib.encode_rows(codec, fast[slots_ev])
-    _slow_scatter(slow, evicted[ev_ok], down)
+    _store_rows(buffers, evicted[ev_ok], fast[slots_ev], codec)
     fast[torch.as_tensor(victims[ok], dtype=torch.long, device=fast.device)] = up
     return buffers, int(ok.sum()), int(ev_ok.sum())
 
 
 def read_rows(fast: torch.Tensor, slow: torch.Tensor, slots: torch.Tensor,
               page_ids: torch.Tensor, scale=None) -> torch.Tensor:
-    """Serve a batch of page reads: fast copy when resident, slow fallback.
-    Rows for invalid page ids (< 0) read slow page 0 — callers mask them."""
+    """Serve a batch of page reads: fast copy when resident, slow fallback
+    decoded on the device.  Rows for invalid page ids (< 0) read slow page
+    0 — callers mask them."""
     slots = slots.to(fast.device).long()
     hit = slots >= 0
     safe = _host(torch.where(page_ids >= 0, page_ids, 0)).reshape(-1)
-    slow_rows = codec_lib.decode_rows(
-        _slow_gather(slow, safe, fast.device), scale, fast.dtype)
+    slow_rows = _slow_rows(slow, scale, safe, fast.device, fast.dtype)
     slow_rows = slow_rows.reshape(tuple(slots.shape) + tuple(fast.shape[1:]))
     mask = hit.reshape(tuple(hit.shape) + (1,) * (fast.dim() - 1))
     return torch.where(mask, fast[torch.where(hit, slots, 0)], slow_rows)
@@ -134,13 +189,12 @@ def lookup_rows(fast: torch.Tensor, slow: torch.Tensor,
 def write_rows(buffers: TierBuffers, page_ids, slots, rows: torch.Tensor,
                codec: str = "none") -> TierBuffers:
     """Refresh page payloads in BOTH tiers: the slow store always takes the
-    write, promoted pages (``slots[i] >= 0``) get their fast copy refreshed
-    too.  -1 page ids are dropped lanes."""
+    write, encoded to the wire format; promoted pages (``slots[i] >= 0``)
+    get their native fast copy refreshed too.  -1 page ids are dropped."""
     ids, slots = _host(page_ids), _host(slots)
     keep = ids >= 0
-    keep_t = torch.as_tensor(keep, device=rows.device)
-    payload, _ = codec_lib.encode_rows(codec, rows[keep_t])
-    _slow_scatter(buffers.slow, ids[keep], payload)
+    _store_rows(buffers, ids[keep], rows[torch.as_tensor(keep, device=rows.device)],
+                codec)
     hot = keep & (slots >= 0)
     fast = buffers.fast
     fast[torch.as_tensor(slots[hot], dtype=torch.long, device=fast.device)] = \
@@ -148,8 +202,9 @@ def write_rows(buffers: TierBuffers, page_ids, slots, rows: torch.Tensor,
     return buffers
 
 
-def _pages_to_rows(k_pages: torch.Tensor, v_pages: torch.Tensor) -> torch.Tensor:
-    # ring layout (G, L, S, T, hkv, d) -> page-row layout (L*S, G, T, hkv, d)
+def pages_to_rows(k_pages: torch.Tensor, v_pages: torch.Tensor) -> torch.Tensor:
+    """Ring layout (G, L, S, T, hkv, d) -> page-row layout (L*S, G, T, hkv,
+    dk+dv): the [K | V] rows the KV store holds."""
     rows = torch.cat([k_pages, v_pages], dim=-1).movedim(0, 2)
     return rows.reshape((-1,) + tuple(rows.shape[2:]))
 
@@ -160,4 +215,28 @@ def write_pages(buffers: TierBuffers, page_ids, slots, k_pages, v_pages,
     the tier store; ``page_ids`` is the (L*S,) slot -> page map (-1 =
     unchanged/dropped slot), ``slots`` its placement lookup."""
     return write_rows(buffers, page_ids, slots,
-                      _pages_to_rows(k_pages, v_pages), codec=codec)
+                      pages_to_rows(k_pages, v_pages), codec=codec)
+
+
+def copy_rows(buffers: TierBuffers, src_ids, dst_ids, dst_slots) -> TierBuffers:
+    """Duplicate page payloads store to store — the content-addressed
+    publish verb (DESIGN.md §12).  The wire format travels verbatim (payload
+    and scale, no decode and re-encode), so a publish costs the stored
+    bytes; destinations currently promoted (``dst_slots[i] >= 0``) get
+    their fast copy refreshed, decoded on the device.  -1 in either id
+    array drops that pair."""
+    src, dst, dslot = _host(src_ids), _host(dst_ids), _host(dst_slots)
+    valid = (src >= 0) & (dst >= 0)
+    src, dst, dslot = src[valid], dst[valid], dslot[valid]
+    rows = _gather(buffers.slow, src)          # gathered BEFORE the scatter
+    sc = _scale_at(buffers.scale, src)
+    _scatter(buffers.slow, dst, rows)
+    if sc is not None:
+        _scatter(buffers.scale, dst, sc)
+    hot = dslot >= 0
+    if hot.any():
+        fast = buffers.fast
+        fast[torch.as_tensor(dslot[hot], dtype=torch.long, device=fast.device)] = \
+            _slow_rows(buffers.slow, buffers.scale, dst[hot], fast.device,
+                       fast.dtype)
+    return buffers

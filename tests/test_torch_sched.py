@@ -423,15 +423,6 @@ def test_embed_encode_stream_matches_reference(cap):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("field,value", [("prefill_lanes", 1),
-                                         ("temperature", 0.8)])
-def test_scheduler_refuses_features_not_yet_ported(port_params, field, value):
-    eng = _lane_engine(port_params)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_sched.Scheduler(eng, [t_sched.Tenant("a")],
-                          t_sched.SchedConfig(**{field: value}))
-
-
 # -- lifecycle fuzz (the invariants of tests/test_sched.py, unified mode) --------
 
 def _check_invariants(sched, reqs):

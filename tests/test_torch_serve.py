@@ -298,7 +298,7 @@ def _flatten(tree, prefix=""):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("resources", ("experts",)), ("reuse_pages", 4), ("async_migration", True),
+    ("resources", ("experts",)), ("async_migration", True),
     ("paged", False),
 ])
 def test_engine_refuses_features_not_yet_ported(field, value):
