@@ -17,7 +17,9 @@ Phases, one summary line each:
                 wall time per eager call; the sketch update and histogram
                 also at D=2, S=16 and W=16K and the paper's W=512K, cold
                 (rotating over SKETCH_SETS input sets) and warm, the
-                histogram also on rows shaped like the main path's;
+                histogram also on rows shaped like the main path's; and
+                update, mark and histogram at the simulator's blocks
+                (S=2048 at W=16K, S=16384 at W=512K), bitwise and timed;
   3. main     — ServeEngine on llama3.2-3b at full width (random weights
                 from a seed) serving a batch of 4 random 1024-token prompts
                 for 64 greedy tokens through the NeoMem loop; every kernel
@@ -59,11 +61,35 @@ Phases, one summary line each:
                 (keys and threefry bits bitwise, tokens equal except at a
                 near-tie within 1e-5), no hand-off install may be refused,
                 and the schedule and hand-offs must equal the CPU run's at
-                the smoke config.
+                the smoke config;
+  7. fill     — ServeConfig.kv_mass_source="fill" at full width: one
+                request (2 x 30 prompt tokens, 16 new) and the lane phase's
+                configuration without embeddings over a 16-step cut of its
+                trace, the kv stream fed each page's fill and no page mass
+                exported; the kv integers (reads, promotions, rows migrated
+                and flushed, placement table, θ trace) and the lane schedule
+                must equal the CPU run's at the smoke config;
+  8. sim      — the paper's evaluation path: fig11_main_speedup.py's grid
+                (8 workloads x 6 methods, benchmarks/common.py's scale)
+                through the port's tiering simulator on the card, every
+                result (counts, θ and error traces exactly; modeled runtime
+                and bandwidth trace within SIM_RUNTIME_RTOL / SIM_BW_ATOL)
+                equal to a CPU run of the port on the same blocks; prints
+                the modeled geomean speedups, neomem's hit rates and the
+                card's wall ms per block;
+  9. sim-paper — gups at the paper's scale (4M pages, W=512K, blocks of
+                16384) through all six methods on the card: hits must sum
+                to the accesses, promotions stay within the quota, and
+                neomem's sketch over its last clear interval (recorded in a
+                second neomem run, equal to the timed one) must replay
+                bitwise on the CPU; prints ms per block, a profile of 16
+                neomem blocks (device busy share, top kernels) and the
+                cost of the sketch's O(S^2) first-occurrence dedup.
 The line before the last is a JSON object with every kernel's numbers (its
-launches in PHASE main, and per phase); the last line is {"ok": true,
-"device": {...}}.  Any failure raises (exit != 0) and prints no result;
-with no CUDA device the script exits 2.
+launches in PHASE main, and per phase: the simulator phases launch no
+attention); the last line is {"ok": true, "device": {...}}.  Any failure
+raises (exit != 0) and prints no result; with no CUDA device the script
+exits 2.
 """
 from __future__ import annotations
 
@@ -122,6 +148,33 @@ DISAGG_SERVE = dict(max_seq=56, paged=True, page_t=4, hot_slots=6,
 DISAGG_SCHED = dict(preempt_patience=24, seed=0, prefill_chunk=16,
                     prefill_lanes=1, temperature=0.8, top_p=0.9)
 DISAGG_TRACE = dict(kind="prefill-heavy", n_steps=100, seed=0, arrival="mmpp")
+# PHASE fill: ServeConfig.kv_mass_source="fill" at full width, the kv stream
+# fed each ring page's fill and the attention kernel's mass export off: one
+# request of 2 x 30 prompt tokens and 16 new ones (test_torch_sched.py's
+# single-request shape, kv alone), then the lane phase's configuration
+# without the embeddings resource over a 16-step cut of its trace.  No kv
+# decision reads a token's value, so every integer is the CPU's at the smoke
+# config.
+FILL_SINGLE = dict(paged=True, page_t=4, hot_slots=6, migration_interval=4,
+                   kv_quota=16, max_seq=64, kv_mass_source="fill")
+FILL_PROMPT = (2, 30, 16)          # batch, prompt tokens, new tokens
+FILL_LANES = dict(LANE_SERVE, resources=[], kv_mass_source="fill")
+FILL_TRACE = dict(LANE_TRACE, n_steps=16)
+# PHASE sim: fig11_main_speedup.py's grid at benchmarks/common.py's scale
+# (N_PAGES, BLOCK, N_BLOCKS, FAST_RATIO, SIM_KW, METHODS; stream seed 11)
+SIM_WORKLOADS = ("deathstar", "pagerank", "xsbench", "gups", "silo", "btree",
+                 "bwaves", "roms")
+SIM_METHODS = ("neomem", "pebs", "tpp", "autonuma", "pte-scan", "first-touch")
+SIM_STREAM = dict(n_pages=4096, block=2048, n_blocks=240, seed=11)
+SIM_KW = dict(fast_ratio=1 / 3, quota_pages=128, sketch_width=1 << 14,
+              migration_interval=1, threshold_update_period=4, clear_interval=16)
+SIM_RUNTIME_RTOL, SIM_BW_ATOL = 1e-12, 1e-6   # card vs CPU: modeled runtime, bw trace
+# PHASE sim-paper: gups at the paper's scale, 4M pages of 4 KB and the sketch
+# at D=2, W=512K (Table III), blocks of 16384 ids; run_sim's defaults
+# otherwise (quota 256, Algorithm 1 every 8 blocks, a clear every 64)
+PAPER_STREAM = dict(n_pages=1 << 22, block=1 << 14, n_blocks=256, seed=11)
+PAPER_KW = dict(fast_ratio=1 / 3, sketch_width=PAPER_W, sketch_depth=2)
+PAPER_QUOTA = 256
 # datasheet memory bandwidth (bytes/s) and float32 non-tensor peak (flop/s)
 CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
          ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
@@ -469,8 +522,7 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
     sel = is_hot & (ids >= 0)
     mark_at = (lane[:, sel], h_idx[:, sel])
     true = torch.tensor(True, device="cuda")
-    nbytes = d * w * 2 + s * 5 + seeds.numel() * 4
-    bms, by = bound_ms(nbytes, d * s * 32, rates)
+    bms, by = bound_ms(*mark_work(d, w, s, seeds), rates)
     launch = lambda: np_ops.sketch_mark_hot_kernel(hot, ids, is_hot, seeds)  # noqa: E731
     # the library call for the same (out-of-place) function is index_put;
     # the in-place index_put_ skips the plane's copy and is shown only here
@@ -497,17 +549,31 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
     floor = time_ms(torch.zeros(1, device="cuda").zero_)
     print(f"kernel sketch: timing floor {floor:.4f} ms (one tiny kernel per graph replay)")
 
-    def timed(w, d=2, s=16):
-        """Update and histogram at D=2, width ``w``, S=16, cold in L2
+    def block_ids(s, n_pages):
+        """A neomem block of the simulator: the slow tier's misses (here
+        two thirds of the block, uniform over ``n_pages``) first, -1 after."""
+        ids = torch.full((s,), -1, dtype=torch.int32, device="cuda")
+        n = 2 * s // 3
+        ids[:n] = torch.randint(0, n_pages, (n,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+        return ids
+
+    def timed(w, d=2, s=16, make_ids=None):
+        """Update, mark and histogram at D=2, width ``w``, ``s`` ids a block
+        (``make_ids()``, default padded ids with duplicates), cold in L2
         (rotating over SKETCH_SETS input sets) and warm (one set), beside
         their bounds and library calls; the histogram also on rows shaped
         like the main path's."""
         sets = []
         for _ in range(SKETCH_SETS):
             c, e, h, sd, cu = state(d, w)
-            sets.append((c, e, h, ids_for(s, 1 << 18), sd, cu))
+            ids = make_ids() if make_ids else ids_for(s, 1 << 18)
+            sets.append((c, e, h, ids, sd, cu))
         mb = SKETCH_SETS * d * w * (4 + 1 + 1) / 1e6
         upd = [lambda x=x: np_ops.sketch_update_kernel(*x, cmax) for x in sets]
+        flags = [torch.rand((s,), generator=gen, device="cuda") < 0.3 for _ in sets]
+        mark = [lambda x=x, f=f: np_ops.sketch_mark_hot_kernel(x[2], x[3], f, x[4])
+                for x, f in zip(sets, flags)]
         counts, epochs, hot, ids, seeds, cur = sets[0]
         lane = torch.arange(d, device="cuda")[:, None].expand(d, s)
         h_idx = sk.h3_hash(torch.where(ids >= 0, ids, 0), seeds).long()
@@ -519,6 +585,10 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
               f"{time_ms(upd):.4f} ms cold ({SKETCH_SETS} input sets, {mb:.1f} MB, "
               f"round-robin), {time_ms(upd[0]):.4f} ms warm; bound {bms:.6f} ms "
               f"by {by}; index_put_ accumulate {lib:.4f} ms warm")
+        bms, by = bound_ms(*mark_work(d, w, s, seeds), rates)
+        print(f"kernel neoprof_mark at D={d} W={w} S={s}: device "
+              f"{time_ms(mark):.4f} ms cold, {time_ms(mark[0]):.4f} ms warm; "
+              f"bound {bms:.6f} ms by {by}")
         hist = [lambda x=x: hist_ops.hist_kernel(x[0][0], x[1][0], x[5], edges)
                 for x in sets]
         main_like = [state(1, w, "main") for _ in range(SKETCH_SETS)]
@@ -534,6 +604,12 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
 
     timed(1 << 14)
     timed(PAPER_W)
+    # the simulator's blocks, bitwise and timed: PHASE sim's S=2048 at
+    # W=16K and PHASE sim-paper's S=16384 at the paper's W=512K
+    for w, s, n_pages in ((1 << 14, SIM_STREAM["block"], SIM_STREAM["n_pages"]),
+                          (PAPER_W, PAPER_STREAM["block"], PAPER_STREAM["n_pages"])):
+        run(2, w, s, "main", ids=block_ids(s, n_pages))
+        timed(w, s=s, make_ids=lambda s=s, n=n_pages: block_ids(s, n))
     return rows
 
 
@@ -543,6 +619,12 @@ def update_work(d, w, s, seeds):
     per (lane, id), the ids and seeds read; ~40 operations per (lane, id)."""
     return (d * w * (4 + 1) * 2 + d * s * (1 + 4 + 4) + s * 4 + seeds.numel() * 4,
             d * s * 40)
+
+
+def mark_work(d, w, s, seeds):
+    """Bytes and operations of one mark call: the hot plane read and written
+    once, the ids, flags and seeds read; ~32 operations per (lane, id)."""
+    return d * w * 2 + s * 5 + seeds.numel() * 4, d * s * 32
 
 
 def hist_work(w, edges):
@@ -588,22 +670,29 @@ def record_blocks(h) -> list:
     return blocks
 
 
-def replay_sketch(torch, h, blocks) -> None:
-    """Replay recorded blocks through the plain sketch on the CPU; the
-    card's sketch must come out bitwise equal."""
+def replay_sketch(torch, sp, blocks, end, start=None, what="sketch") -> None:
+    """Replay recorded blocks (ids, θ, epoch) through the plain sketch on
+    the CPU from ``start`` (default: a zeroed sketch on ``end``'s seeds);
+    the card's sketch ``end`` must come out bitwise equal."""
     from repro_torch.core import sketch as sk
-    sp = h.mem.pp.sketch
-    dev_sk = h.state.prof.sketch
-    st = sk.sketch_init(sp, dev_sk.seeds.cpu(), device="cpu")
+    st = (sk.sketch_init(sp, end.seeds.cpu(), device="cpu") if start is None
+          else start._replace(**{f: getattr(start, f).cpu() for f in start._fields}))
     for ids, theta, epoch in blocks:
-        while int(st.cur_epoch) != epoch:
+        while int(st.cur_epoch) != int(epoch):
             st = sk.sketch_clear(st)
-        st, _ = sk.sketch_update(st, ids, torch.tensor(theta, dtype=torch.int32), sp)
-    while int(st.cur_epoch) != int(dev_sk.cur_epoch):
+        st, _ = sk.sketch_update(st, ids.cpu(),
+                                 torch.tensor(int(theta), dtype=torch.int32), sp)
+    while int(st.cur_epoch) != int(end.cur_epoch):
         st = sk.sketch_clear(st)
-    for name in ("counts", "epochs", "hot", "n_seen"):
-        if not torch.equal(getattr(st, name), getattr(dev_sk, name).cpu()):
-            raise AssertionError(f"{h.name} sketch replay: {name} differs")
+    for name in ("counts", "epochs", "hot", "cur_epoch", "n_seen"):
+        if not torch.equal(getattr(st, name), getattr(end, name).cpu()):
+            raise AssertionError(f"{what} replay: {name} differs")
+
+
+def replay_resource(torch, h, blocks) -> None:
+    """A resource's recorded blocks replayed from its zeroed sketch."""
+    replay_sketch(torch, h.mem.pp.sketch, blocks, h.state.prof.sketch,
+                  what=f"{h.name} sketch")
 
 
 def main_path(torch, counters, cfg, params):
@@ -643,7 +732,7 @@ def main_path(torch, counters, cfg, params):
         raise AssertionError(f"page mass sums {sums.tolist()} != 1")
     if not (stats["migration_bytes"] > 0 and stats["flush_bytes"] > 0):
         raise AssertionError(f"no bytes moved: {stats}")
-    replay_sketch(torch, h, blocks)
+    replay_resource(torch, h, blocks)
     print(f"main: sketch replay of {len(blocks)} blocks bitwise equal")
     print(f"main: prefill {prefill_s:.3f} s for 4x1024 tokens; decode "
           f"{4 * 63 / decode_s:.2f} tokens/s, {1e3 * decode_s / 63:.2f} ms/step")
@@ -653,6 +742,18 @@ def main_path(torch, counters, cfg, params):
     silu_ab(torch, eng, tok)
     return launches, dict(prefill_s=prefill_s, decode_tokens_per_s=4 * 63 / decode_s,
                           ms_per_step=1e3 * decode_s / 63)
+
+
+def device_rows(torch, prof) -> list:
+    """A profile's device-side rows (kernels, copies) as (device us, name,
+    count), largest first; the aten rows that launched them carry the same
+    time again and are left out."""
+    events = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    return sorted(((getattr(e, key), e.key, e.count) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and getattr(e, key) > 0), reverse=True)
 
 
 def profile_decode(torch, eng, tok, steps: int = 8):
@@ -666,14 +767,7 @@ def profile_decode(torch, eng, tok, steps: int = 8):
             tok = eng.step(tok)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    # device-side rows only (kernels, copies); the aten rows that launched
-    # them carry the same time again
-    dev = sorted(((getattr(e, key), e.key, e.count) for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and getattr(e, key) > 0), reverse=True)
+    dev = device_rows(torch, prof)
     busy_us = sum(t for t, _, _ in dev)
     launches = sum(count for _, _, count in dev)
     print(f"profile: {steps} decode steps, wall {wall_us / steps / 1e3:.2f} ms/step, "
@@ -852,6 +946,45 @@ def cpu_disagg_schedule() -> dict:
     return disagg_schedule(eng, sched)
 
 
+def kv_integers(eng) -> dict:
+    """The kv resource's integer telemetry, bytes as wire rows, with its
+    placement table and θ trace."""
+    h = eng.daemon["kv"]
+    row = eng.tier_stats()["kv"]
+    out = {k: int(row[k]) for k in ("fast_reads", "slow_reads", "promoted",
+                                    "demoted", "ping_pong", "migration_epochs")}
+    out.update({k: _pages(int(row[k]), h.mem.row_bytes)
+                for k in ("migration_bytes", "flush_bytes")})
+    out["page_slot"] = h.state.tier.page_slot.cpu().tolist()
+    out["theta"] = [int(t) for t in h.stats.theta_trace]
+    return out
+
+
+def run_fill(cfg, params, device) -> tuple:
+    """PHASE fill's drive on ``device``: the single request, then the lane
+    trace.  Returns ({"single": kv integers, "lanes": schedule and kv
+    integers}, both engines, the lane scheduler, its trace)."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    eng = ServeEngine(cfg, params, ServeConfig(**FILL_SINGLE), device=device)
+    b, n, new = FILL_PROMPT
+    tokens = eng.generate(np.random.default_rng(0).integers(0, cfg.vocab, (b, n)),
+                          new)
+    if not (tokens.shape == (b, new) and (tokens >= 0).all()
+            and (tokens < cfg.vocab).all()):
+        raise AssertionError(f"fill: tokens of shape {tokens.shape} or out of "
+                             f"the vocabulary")
+    lane_eng, sched, trace, _ = run_trace(cfg, params, device, FILL_LANES, LANE_SCHED,
+                                      FILL_TRACE, LANE_TENANTS)
+    return ({"single": kv_integers(eng),
+             "lanes": dict(lane_schedule(sched), kv=kv_integers(lane_eng))},
+            [eng, lane_eng], sched, trace)
+
+
+def cpu_fill() -> dict:
+    """PHASE fill's integers from the port on the CPU at the smoke config."""
+    return run_fill(*_smoke_cpu(), "cpu")[0]
+
+
 def check_lane_steps(eng, checked) -> None:
     """Every lane step of ``eng`` must return finite logits and, for its
     active lanes, page mass summing to 1; every chunk finite logits."""
@@ -881,10 +1014,12 @@ def zero_counts(counters) -> None:
         c.launches = 0
 
 
-def read_counts(torch, counters, phase: str) -> dict:
+def read_counts(torch, counters, phase: str, required=None) -> dict:
+    """Every counter's launches; each kernel of ``required`` (default: all)
+    must have launched."""
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
-    if not all(launches.values()):
+    if not all(c.launches for c in (counters if required is None else required)):
         raise AssertionError(f"a kernel never launched in PHASE {phase}: {launches}")
     return launches
 
@@ -941,7 +1076,7 @@ def lanes_path(torch, counters, cfg, params, smi):
             and res["embeddings"]["migration_bytes"] > 0):
         raise AssertionError(f"no bytes moved: {res}")
     for name, recorded in blocks.items():
-        replay_sketch(torch, eng.daemon[name], recorded)
+        replay_resource(torch, eng.daemon[name], recorded)
     print(f"lanes: sketch replay of {len(blocks['kv'])} kv and "
           f"{len(blocks['embeddings'])} embeddings blocks bitwise equal; "
           f"{checked['steps']} lane steps with finite logits and unit page mass")
@@ -960,6 +1095,41 @@ def lanes_path(torch, counters, cfg, params, smi):
     print(f"lanes: embedding gather through the placement table {gather_ms:.3f} ms "
           f"per step (4 tokens, wall, synchronised; dense table gather "
           f"{dense_ms:.3f} ms) on {smi}")
+    return launches, rep
+
+
+def fill_path(torch, counters, cfg, params, smi):
+    """PHASE fill: kv_mass_source="fill" at full width on the card, every
+    integer held to the CPU run at the smoke config."""
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    card, engines, sched, trace = run_fill(cfg, params, "cuda")
+    wall_s = time.perf_counter() - t0
+    launches = read_counts(torch, counters, "fill")
+    if any(e._last_kv_mass is not None for e in engines):
+        raise AssertionError("fill: the attention kernel exported page mass")
+    rep = sched.report()
+    check_report(rep, sched.finished, len(trace.arrivals), cfg.vocab)
+    for arm in ("single", "lanes"):
+        kv = card[arm]["kv"] if arm == "lanes" else card[arm]
+        if not (kv["migration_bytes"] > 0 and kv["flush_bytes"] > 0):
+            raise AssertionError(f"fill {arm}: no rows moved: {kv}")
+    t0 = time.perf_counter()
+    cpu = cpu_fill()
+    if card != cpu:
+        raise AssertionError(f"fill: the card's integers differ from the CPU's:\n"
+                             f"{card}\n{cpu}")
+    one, lanes = card["single"], card["lanes"]
+    print(f"fill: integers equal to the CPU run at the smoke config "
+          f"({time.perf_counter() - t0:.1f} s): single request {one['promoted']} "
+          f"promoted, {one['migration_bytes']} rows migrated, {one['flush_bytes']} "
+          f"flushed, hits {one['fast_reads']}/{one['fast_reads'] + one['slow_reads']}; "
+          f"lanes {len(lanes['requests'])} requests in {lanes['steps']} steps, "
+          f"{lanes['kv']['promoted']} promoted, {lanes['kv']['migration_bytes']} "
+          f"rows migrated, {lanes['kv']['flush_bytes']} flushed, theta "
+          f"{lanes['kv']['theta']}; no page mass exported")
+    print(f"fill: both arms in {wall_s:.2f} s wall on {smi}")
+    print("fill: launches " + json.dumps(launches) + f" on {smi}")
     return launches, rep
 
 
@@ -1028,7 +1198,7 @@ def reuse_path(torch, counters, cfg, params, smi):
         wire[name] = (n + 4, 2 * n)
     rows = reuse_rows(eng)            # raises unless bytes are whole wire rows
     for name, recorded in blocks.items():
-        replay_sketch(torch, eng.daemon[name], recorded)
+        replay_resource(torch, eng.daemon[name], recorded)
     print(f"reuse: sketch replay of {len(blocks['kv'])} kv and "
           f"{len(blocks['embeddings'])} embeddings blocks bitwise equal; "
           f"{checked['steps']} lane steps and {checked['chunks']} chunks with finite "
@@ -1137,7 +1307,7 @@ def disagg_path(torch, counters, cfg, params, smi):
         raise AssertionError(f"segment_resident refused {checked['refused']} "
                              "hand-off installs")
     card = disagg_schedule(eng, sched)
-    replay_sketch(torch, eng.daemon["kv"], blocks["kv"])
+    replay_resource(torch, eng.daemon["kv"], blocks["kv"])
     t0 = time.perf_counter()
     near = check_draws(torch, draws, folds, sched)
     print(f"disagg: {len(draws)} sampling calls, {sum(d[3].numel() for d in draws)} "
@@ -1162,6 +1332,234 @@ def disagg_path(torch, counters, cfg, params, smi):
     print_serving(rep, wall_s, "disagg", smi)
     print("disagg: launches " + json.dumps(launches) + f" on {smi}")
     return launches, rep
+
+
+# -- phases 8 and 9: the paper's evaluation path (the tiering simulator) -------
+
+def sim_blocks(workload: str, stream: dict) -> list:
+    from repro_torch.core.simulator import WORKLOADS
+    return list(WORKLOADS[workload](**stream))
+
+
+def timed_stream(blocks, marks: dict):
+    """Yield ``blocks``, noting in ``marks["first"]`` when the first is
+    pulled: run_sim pulls it after its init sweep, which ends in a sync."""
+    marks["first"] = time.perf_counter()
+    yield from blocks
+
+
+def sim_outcome(res) -> dict:
+    """A SimResult as plain values: its counts, θ and error traces (which
+    must match exactly on any device), modeled runtime and bandwidth trace."""
+    return {"fast_hits": res.fast_hits, "slow_hits": res.slow_hits,
+            "promoted": res.promoted, "ping_pong": res.ping_pong,
+            "theta": [t["theta"] for t in res.trace if "theta" in t],
+            "err": [t["err"] for t in res.trace if "err" in t],
+            "runtime": res.runtime,
+            "bw": [t["bw"] for t in res.trace if "bw" in t]}
+
+
+def sim_mismatch(a: dict, b: dict) -> str | None:
+    """What two outcomes disagree on (None if nothing): counts and traces
+    exactly, runtime within SIM_RUNTIME_RTOL, bw within SIM_BW_ATOL."""
+    for k in ("fast_hits", "slow_hits", "promoted", "ping_pong", "theta", "err"):
+        if a[k] != b[k]:
+            return f"{k}: {a[k]} != {b[k]}"
+    if abs(a["runtime"] - b["runtime"]) > SIM_RUNTIME_RTOL * abs(b["runtime"]):
+        return f"runtime: {a['runtime']!r} != {b['runtime']!r}"
+    if len(a["bw"]) != len(b["bw"]) or any(
+            abs(x - y) > SIM_BW_ATOL for x, y in zip(a["bw"], b["bw"])):
+        return f"bw: {a['bw']} != {b['bw']}"
+    return None
+
+
+def run_sim_grid(device, stream=SIM_STREAM) -> dict:
+    """fig11's grid through the port's run_sim on ``device``: {(workload,
+    method): (SimResult, wall ms per block after the init sweep)}."""
+    from repro_torch.core.simulator import run_sim
+    out = {}
+    for wl in SIM_WORKLOADS:
+        blocks = sim_blocks(wl, stream)
+        for m in SIM_METHODS:
+            marks = {}
+            res = run_sim(m, timed_stream(blocks, marks), n_pages=stream["n_pages"],
+                          collect_trace=True, device=device, **SIM_KW)
+            out[wl, m] = (res, (time.perf_counter() - marks["first"]) * 1e3
+                          / len(blocks))
+    return out
+
+
+def cpu_sim_grid(n_blocks: int = SIM_STREAM["n_blocks"]) -> dict:
+    """PHASE sim's grid from the port on the CPU at ``n_blocks`` blocks:
+    {workload: {method: sim_outcome}}."""
+    grid = run_sim_grid("cpu", dict(SIM_STREAM, n_blocks=n_blocks))
+    return {wl: {m: sim_outcome(grid[wl, m][0]) for m in SIM_METHODS}
+            for wl in SIM_WORKLOADS}
+
+
+def sim_path(torch, counters, smi) -> dict:
+    """PHASE sim: fig11's 8 workloads x 6 methods on the card, every
+    result held to a CPU run of the port on the same blocks and seeds."""
+    from repro_torch.core.simulator import geomean_speedup
+    zero_counts(counters)
+    grid = run_sim_grid("cuda")
+    launches = read_counts(torch, counters, "sim", counters[1:])
+    t0 = time.perf_counter()
+    cpu = cpu_sim_grid()
+    for (wl, m), (res, _) in grid.items():
+        bad = sim_mismatch(sim_outcome(res), cpu[wl][m])
+        if bad:
+            raise AssertionError(f"sim {wl}/{m}: the card's run differs from the "
+                                 f"CPU's: {bad}")
+    print(f"sim: all {len(grid)} results equal to the CPU run of the same blocks "
+          f"({time.perf_counter() - t0:.1f} s): counts and the theta/error traces "
+          f"exactly, runtime within {SIM_RUNTIME_RTOL} relative, bw within "
+          f"{SIM_BW_ATOL}")
+    def runtimes(m):
+        return [grid[wl, m][0].runtime for wl in SIM_WORKLOADS]
+    print("sim: modeled (MemModel runtime, the same on any device) geomean "
+          "speedup of neomem over " + ", ".join(
+              f"{m} {geomean_speedup(runtimes(m), runtimes('neomem')):.3f}x"
+              for m in SIM_METHODS if m != "neomem"))
+    print("sim: neomem hit rate " + ", ".join(
+        f"{wl} {grid[wl, 'neomem'][0].hit_rate:.3f}" for wl in SIM_WORKLOADS))
+    ms = {m: [grid[wl, m][1] for wl in SIM_WORKLOADS] for m in SIM_METHODS}
+    print("sim: wall ms per block on the card (mean over the 8 workloads, min-max) "
+          + ", ".join(f"{m} {statistics.mean(v):.3f} ({min(v):.3f}-{max(v):.3f})"
+                      for m, v in ms.items()) + f" on {smi}")
+    print("sim: launches " + json.dumps(launches) + f" on {smi}")
+    return launches
+
+
+def record_sketch_intervals() -> tuple[dict, callable]:
+    """Record every TieredMemory's sketch between clears: the sketch as the
+    interval starts, each block's (ids, θ, epoch) as device tensors (no
+    host sync), and the sketch as the clear ends it.  Returns the record
+    ({"last": (start, blocks, end)} of the latest complete interval) and a
+    function that undoes the patch."""
+    from repro_torch.tiering.memory import TieredMemory
+    profile, clear = TieredMemory.profile, TieredMemory.clear
+    rec = {"start": None, "blocks": [], "last": None}
+
+    def snap(sk):
+        return sk._replace(**{f: getattr(sk, f).clone() for f in sk._fields})
+
+    def recording_profile(self, state, pages, **kw):
+        if rec["start"] is None:
+            rec["start"] = snap(state.prof.sketch)
+        rec["blocks"].append((pages.clone(), state.prof.theta.clone(),
+                              state.prof.sketch.cur_epoch.clone()))
+        return profile(self, state, pages, **kw)
+
+    def recording_clear(self, state):
+        rec["last"] = (rec["start"], rec["blocks"], snap(state.prof.sketch))
+        out = clear(self, state)
+        rec["start"], rec["blocks"] = snap(out.prof.sketch), []
+        return out
+
+    def undo():
+        TieredMemory.profile, TieredMemory.clear = profile, clear
+    TieredMemory.profile, TieredMemory.clear = recording_profile, recording_clear
+    return rec, undo
+
+
+def first_occurrence_ms(torch, s: int) -> float:
+    """Device ms of the sketch's O(S^2) first-occurrence dedup (plain torch)
+    on ``s`` ids, half of them padding."""
+    from repro_torch.core.sketch import _first_occurrence
+    ids = torch.randint(0, 1 << 22, (s,), device="cuda", dtype=torch.int32)
+    valid = torch.arange(s, device="cuda") < s // 2
+    return time_ms(lambda: _first_occurrence(ids, valid), n=20)
+
+
+def profile_sim(torch, blocks, smi, n: int = 16) -> None:
+    """torch.profiler over ``n`` neomem blocks at the paper's scale, from the
+    first block on (the init sweep is not profiled): the device's busy
+    share of the wall time and the kernels that fill it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.simulator import run_sim
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = {}
+
+    def stream():
+        prof.start()
+        yield from timed_stream(blocks[:n], marks)
+    run_sim("neomem", stream(), n_pages=PAPER_STREAM["n_pages"], device="cuda",
+            **PAPER_KW)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - marks["first"]) * 1e6
+    prof.stop()
+    dev = device_rows(torch, prof)
+    busy_us = sum(t for t, _, _ in dev)
+    print(f"sim-paper: profile of {n} neomem blocks: wall {wall_us / n / 1e3:.3f} "
+          f"ms/block, device busy {busy_us / n / 1e3:.3f} ms/block "
+          f"({100 * busy_us / wall_us:.1f}% of wall), "
+          f"{sum(c for _, _, c in dev) / n:.1f} device launches/block on {smi}")
+    for t, name, count in dev[:8]:
+        print(f"sim-paper:   {t / n / 1e3:8.3f} ms/block  {count / n:6.1f}/block  "
+              f"{name[:70]}")
+
+
+def sim_paper_path(torch, counters, smi) -> dict:
+    """PHASE sim-paper: gups at the paper's scale through every method on
+    the card; neomem's sketch over its last clear interval replayed
+    bitwise on the CPU."""
+    from repro_torch.core.simulator import run_sim
+    from repro_torch.core.sketch import SketchParams
+    n_pages, n_blocks = PAPER_STREAM["n_pages"], PAPER_STREAM["n_blocks"]
+    blocks = sim_blocks("gups", PAPER_STREAM)
+    accesses = n_pages + sum(b.size for b in blocks)
+    zero_counts(counters)
+    rows = {}
+    for m in SIM_METHODS:
+        marks = {}
+        t0 = time.perf_counter()
+        res = run_sim(m, timed_stream(blocks, marks), n_pages=n_pages,
+                      device="cuda", **PAPER_KW)
+        t1 = time.perf_counter()
+        if res.fast_hits + res.slow_hits != accesses:
+            raise AssertionError(f"sim-paper {m}: {res.fast_hits} + "
+                                 f"{res.slow_hits} hits != {accesses} accesses")
+        if not 0 <= res.promoted <= PAPER_QUOTA * n_blocks:
+            raise AssertionError(f"sim-paper {m}: {res.promoted} promotions "
+                                 f"over the quota of {PAPER_QUOTA} x {n_blocks}")
+        rows[m] = dict(init_s=marks["first"] - t0,
+                       ms=(t1 - marks["first"]) * 1e3 / n_blocks, res=res)
+    launches = read_counts(torch, counters, "sim-paper", counters[1:])
+    # the replay's record comes from a second neomem run, so the timed runs
+    # above pay for no snapshot
+    rec, undo = record_sketch_intervals()      # only neomem profiles and clears
+    try:
+        res = run_sim("neomem", iter(blocks), n_pages=n_pages, device="cuda",
+                      **PAPER_KW)
+    finally:
+        undo()
+    bad = sim_mismatch(sim_outcome(res), sim_outcome(rows["neomem"]["res"]))
+    if bad:
+        raise AssertionError(f"sim-paper: the recorded neomem run differs: {bad}")
+    if rec["last"] is None or not rec["last"][1]:
+        raise AssertionError("sim-paper: no complete clear interval recorded")
+    t0 = time.perf_counter()
+    start, recorded, end = rec["last"]
+    replay_sketch(torch, SketchParams(width=PAPER_W, depth=2), recorded, end,
+                  start=start, what="sim-paper sketch")
+    print(f"sim-paper: neomem's last clear interval ({len(recorded)} blocks "
+          f"of {PAPER_STREAM['block']} ids at W={PAPER_W}) replayed bitwise on the "
+          f"CPU ({time.perf_counter() - t0:.1f} s) from a second, recorded run "
+          f"equal to the timed one")
+    for m, r in rows.items():
+        res = r["res"]
+        print(f"sim-paper: {m}: {r['ms']:.3f} ms per block on the card after a "
+              f"{r['init_s']:.2f} s init sweep; hit rate {res.hit_rate:.4f}, "
+              f"{res.promoted} promoted, {res.ping_pong} ping-pong, modeled "
+              f"runtime {res.runtime:.6f} s on {smi}")
+    profile_sim(torch, blocks, smi)
+    print("sim-paper: first-occurrence dedup (O(S^2), plain torch) device "
+          + ", ".join(f"{first_occurrence_ms(torch, s):.4f} ms at S={s}"
+                      for s in (SIM_STREAM["block"], PAPER_STREAM["block"]))
+          + f" on {smi}")
+    print("sim-paper: launches " + json.dumps(launches) + f" on {smi}")
+    return launches
 
 
 def embed_gather_ms(torch, dec, eng, params, n: int = 50) -> tuple[float, float]:
@@ -1246,7 +1644,7 @@ def main() -> int:
           f"on {smi}")
     phases = {"main": launches}
     for phase, path in (("lanes", lanes_path), ("reuse", reuse_path),
-                        ("disagg", disagg_path)):
+                        ("disagg", disagg_path), ("fill", fill_path)):
         gc.collect()                   # the previous phase's rings and stores
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -1255,6 +1653,11 @@ def main() -> int:
               f"{rep['completed']} requests, "
               f"{rep['tokens'] / rep['clock']['decode_s']:.2f} tokens/s on the "
               f"decode clock, launches {json.dumps(phases[phase])} on {smi}")
+    for phase, path in (("sim", sim_path), ("sim-paper", sim_paper_path)):
+        t0 = time.perf_counter()
+        phases[phase] = path(torch, counters, smi)
+        print(f"PHASE {phase}: ok in {time.perf_counter() - t0:.1f} s, launches "
+              f"{json.dumps(phases[phase])} on {smi}")
     by_name = {"paged_attn": "paged_attention_raw",
                "neoprof_update": "sketch_update_kernel",
                "neoprof_mark": "sketch_mark_hot_kernel",

@@ -66,6 +66,17 @@ def make_seeds(depth: int, width: int,
                          generator=generator, dtype=torch.int32)
 
 
+def key_seeds(depth: int, width: int, seed: int = 0) -> torch.Tensor:
+    """The H3 seeds the reference draws from a key (CPU int32):
+    ``jax.random.randint(PRNGKey(seed), (depth, 30), 0, width)`` bit for
+    bit, through the port's threefry (:mod:`repro_torch.models.prng`).  The
+    reference's sketch defaults to ``seed`` 0."""
+    from repro_torch.models import prng
+    if width <= 0 or width & (width - 1):
+        raise ValueError("sketch width must be a power of two")
+    return prng.randint(prng.prng_key(seed), (depth, PAGE_ID_BITS), width)
+
+
 def sketch_init(params: SketchParams, seeds: torch.Tensor | None = None, *,
                 device="cuda") -> SketchState:
     """Zeroed sketch on ``device``; ``seeds`` default to :func:`make_seeds`

@@ -159,6 +159,34 @@ def promote(state: TierState, hot_pages: torch.Tensor, k: int
     return new_state, torch.where(need, safe, -1), slot_for
 
 
+def migrate_data(fast: torch.Tensor, slow: torch.Tensor,
+                 promoted_pages: torch.Tensor, victim_slots: torch.Tensor,
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply the data movement of a promotion batch (low-level helper):
+    ``fast[victim_slots[i]] = slow[promoted_pages[i]]`` where both are >= 0.
+
+    fast: (num_slots, *page_shape); slow: (num_pages, *page_shape).  Tiers
+    are inclusive, so ``slow`` comes back as it was.  As in the reference's
+    scatter, a no-op lane (either index < 0) writes its slot's old row back
+    to slot ``max(victim, 0)``, and where lanes share a slot the last one
+    wins (so a later no-op lane undoes a promotion into slot 0); each slot
+    is written once here, by its last lane, on any device.  The full data
+    plane lives in :mod:`repro_torch.tiering.migrate`."""
+    promoted_pages = promoted_pages.to(fast.device)
+    victim_slots = victim_slots.to(fast.device)
+    ok = (promoted_pages >= 0) & (victim_slots >= 0)
+    safe_page = promoted_pages.clamp_min(0).long()
+    safe_slot = victim_slots.clamp_min(0).long()
+    mask = ok.reshape((-1,) + (1,) * (fast.dim() - 1))
+    rows = torch.where(mask, slow[safe_page], fast[safe_slot])
+    k = safe_slot.shape[0]
+    later = torch.ones((k, k), dtype=torch.bool, device=fast.device).triu(1)
+    last = ~((safe_slot[:, None] == safe_slot[None, :]) & later).any(dim=1)
+    fast = fast.clone()
+    fast[safe_slot[last]] = rows[last]
+    return fast, slow
+
+
 def drain_period_stats(state: TierState) -> tuple[TierState, dict]:
     """Read & clear the per-period counters (daemon policy inputs)."""
     stats = {

@@ -13,7 +13,8 @@
 // of every valid id flagged hot (out of place, like the reference).
 //
 // What bounds them on an H100: bytes, and at the main path's size (D=2,
-// W=16384, S=16) launch latency more than either.  The update's refresh
+// W=16384, S=16) launch latency more than either; at the simulator's
+// largest block (S=16384) the hashing described below.  The update's refresh
 // reads and writes every counter and tag once (D*W*(4+1+4+1) bytes =
 // 320 KB, 10.5 MB at the paper's W=512K); mark reads and writes the
 // D*W-byte plane once (32 KB), while the block itself is S ids.
@@ -40,9 +41,11 @@
 // saturated: the same as clamping live+delta, since delta >= 0.  Outputs
 // are out of place, and shared-memory integer atomics keep every result
 // bitwise.  Hashing all S ids in every block costs S*30 XOR-selects per
-// block and pass; at the largest S that chip_smoke.py sends (1024) that is
-// ~240 per thread over both passes, small beside the segment's loads, so
-// the ids are not hashed once up front.
+// block and pass: at the serving paths' S <= 1024 that is ~240 per thread
+// over both passes, small beside the segment's loads; at the simulator's
+// S = 16384 with W = 512K it is ~3,800 per thread in each of 512 blocks,
+// and the call takes ~20x its byte bound (PERF.md §6).  Hashing the ids
+// once up front would remove that; it is not done yet.
 // Mark: each block owns one 4 KB segment of the flat D*W plane, copies it
 // with 16-byte vector loads and stores (a byte loop covers a ragged end or
 // an unaligned plane), then hashes the S ids itself with the seeds in

@@ -50,6 +50,27 @@ def prng_key(seed: int, device="cpu") -> torch.Tensor:
                         device=device)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` for one raw key (2,): (num, 2), new key
+    ``i`` the hash of the counter pair ``(i >> 32, i & 0xffffffff)``."""
+    idx = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK32)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def randint(key: torch.Tensor, shape: tuple[int, ...], span: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, 0, span, int32)`` for a power-of-two
+    ``span`` <= 2**31: jax draws two words per element from the two halves
+    of ``split(key)`` and combines them with a multiplier of
+    ``(2**16 % span)**2 % span``, which is 0 for a power of two, so the
+    value is the second half's bits masked to ``span - 1``."""
+    if span <= 0 or span & (span - 1) or span > 1 << 31:
+        raise ValueError(f"span {span} is not a power of two <= 2**31")
+    n = int(np.prod(shape, dtype=np.int64))
+    bits = random_bits(split(key)[1:], n)[0] & (span - 1)
+    return bits.to(torch.int32).reshape(shape)
+
+
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` over a batch: ``keys`` (..., 2), ``data`` an
     int or a tensor broadcastable to ``keys.shape[:-1]``; the new key is the

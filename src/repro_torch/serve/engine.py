@@ -15,8 +15,10 @@ two serving modes over one machinery:
     segments, and lanes reset/preempt/resume mid-flight, bitwise.
 
 NeoMem: per step the paged-attention kernel's per-page softmax mass becomes
-the "kv" page stream (``KVPagesResource``) and the token column the
-"embeddings" stream (``EmbedRowsResource``); NeoProf's sketch takes both,
+the "kv" page stream (``KVPagesResource``; ``ServeConfig.kv_mass_source=
+"fill"`` feeds each page's fill instead, the A/B baseline of the mass
+fidelity gate) and the token column the "embeddings" stream
+(``EmbedRowsResource``); NeoProf's sketch takes both,
 and every ``migration_interval`` steps the daemon ticks for every resource
 under one quota budget: hot pages are promoted with 2Q and their bytes move
 between the pinned-host slow store and the device fast buffer.  With
@@ -72,6 +74,10 @@ class ServeConfig:
     resources: tuple[str, ...] = ()
     kv_quota: int = 64
     kv_mass_threshold: float = 0.02
+    # "kv" hotness stream source (DESIGN.md §10): "kernel" feeds the
+    # attention kernel's per-page softmax mass; "fill" the ring's per-page
+    # fill (page_len), the proxy the kernel mass replaced
+    kv_mass_source: str = "kernel"
     embed_hot_slots: int = 64       # hot vocab row-blocks kept on the device
     embed_quota: int = 64
     embed_rows_per_page: int = 0    # vocab rows per page (0 -> package default)
@@ -122,6 +128,10 @@ class ServeEngine:
                 raise NotImplementedError(
                     f"ServeConfig.{field}={getattr(scfg, field)!r}: {what} is "
                     "not yet ported to repro_torch")
+        if scfg.kv_mass_source not in ("kernel", "fill"):
+            raise ValueError(
+                f"kv_mass_source must be 'kernel' or 'fill', "
+                f"got {scfg.kv_mass_source!r}")
         if scfg.reuse_pages:
             if not scfg.lanes:
                 raise ValueError(
@@ -154,6 +164,7 @@ class ServeEngine:
         self._clock = TickClock(scfg.migration_interval)
         self._decode_s = 0.0            # decode wall time
         self._last_kv_mass = None       # (B, n_slots) kernel mass, post-step
+        self._kernel_mass = scfg.kv_mass_source == "kernel"
         # (lane, slot) -> (page id, fill) at its last flush (change
         # tracking; single-request mode uses lane 0)
         self._kv_flushed: dict[tuple[int, int], tuple[int, int]] = {}
@@ -287,13 +298,14 @@ class ServeEngine:
         n = tok.shape[1]
         logits, self.cache, streams = dec.prefill_paged(
             self.cfg, self.params, self.cache, tok, page_t=self.scfg.page_t,
-            tiered=self._tier_reads(), collect_mass=True)
+            tiered=self._tier_reads(), collect_mass=self._kernel_mass)
         if "embeddings" in self.daemon:
             self.daemon.observe("embeddings", tok.to(torch.int32))
-        _, ids = self._kv_page_stream()
-        # (C, G, n_attn, B, S) averaged over groups, positions and lockstep
-        # rows, summed over the chunk (DESIGN.md §10)
-        mass = streams["kv_mass"].mean(dim=(1, 2, 3)).sum(dim=0)
+        mass, ids = self._kv_page_stream()
+        if self._kernel_mass:
+            # (C, G, n_attn, B, S) averaged over groups, positions and
+            # lockstep rows, summed over the chunk (DESIGN.md §10)
+            mass = streams["kv_mass"].mean(dim=(1, 2, 3)).sum(dim=0)
         self.daemon.observe("kv", mass, ids)
         self._flush_kv_slow()
         self._maybe_tick(n)
@@ -316,7 +328,8 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, self.cache, streams = dec.decode_step_paged(
             self.cfg, self.params, self.cache, tok, page_t=self.scfg.page_t,
-            return_streams=True, tiered=self._tier_reads())
+            return_streams=True, collect_mass=self._kernel_mass,
+            tiered=self._tier_reads())
         self._set_kv_mass(streams)
         self._observe(tok)
         self._maybe_tick()
@@ -325,16 +338,20 @@ class ServeEngine:
 
     def _set_kv_mass(self, streams: dict) -> None:
         """Hold the step's (B, n_slots) page mass: the (G, n_attn, B, S)
-        stream averaged over layer groups and attention positions."""
-        self._last_kv_mass = streams["kv_mass"].mean(dim=(0, 1))
+        stream averaged over layer groups and attention positions (None
+        under ``kv_mass_source="fill"``, where the kernel exports none)."""
+        km = streams["kv_mass"]
+        self._last_kv_mass = km.mean(dim=(0, 1)) if km is not None else None
 
     def _observe(self, tok: torch.Tensor) -> None:
         if "embeddings" in self.daemon:
             self.daemon.observe("embeddings", tok.to(torch.int32))
-        _, ids = self._kv_page_stream()
-        # batch rows advance in lockstep over the same page ids, so the row
-        # mean is the device's aggregate view of the step's attention mass
-        self.daemon.observe("kv", self._last_kv_mass.mean(dim=0), ids)
+        mass, ids = self._kv_page_stream()
+        if self._kernel_mass:
+            # batch rows advance in lockstep over the same page ids, so the
+            # row mean is the device's aggregate view of the step's mass
+            mass = self._last_kv_mass.mean(dim=0)
+        self.daemon.observe("kv", mass, ids)
 
     # -- continuous-batching lane mode (serve/sched.py, DESIGN.md §9) ---------
     def start_lanes(self) -> None:
@@ -375,7 +392,7 @@ class ServeEngine:
         logits, self.cache, streams = dec.decode_step_paged(
             self.cfg, self.params, self.cache, self._tokens(tokens)[:, None],
             page_t=self.scfg.page_t, return_streams=True,
-            tiered=self._tier_reads(),
+            collect_mass=self._kernel_mass, tiered=self._tier_reads(),
             active=torch.as_tensor(self._lane_active, device=self.device))
         self._set_kv_mass(streams)
         self._observe_lanes(tokens)
@@ -422,7 +439,7 @@ class ServeEngine:
         logits, self.cache, streams = dec.prefill_paged(
             self.cfg, self.params, self.cache, self._tokens(tok),
             page_t=self.scfg.page_t, valid=valid, active=active,
-            tiered=self._tier_reads(), collect_mass=True)
+            tiered=self._tier_reads(), collect_mass=self._kernel_mass)
         self._lane_active = active.copy()
         self._observe_lane_chunk(tok, valid, streams, active)
         self._flush_kv_lanes(lanes=[lane])
@@ -435,28 +452,32 @@ class ServeEngine:
         other lanes (and tail padding) masked to -1."""
         if "embeddings" in self.daemon:
             self.daemon.observe("embeddings", self._ids(np.where(valid, tok, -1)))
-        gids = self._kv_lane_stream(active=active)
-        # per-step (C, G, n_attn, L, S) kernel mass: averaged over groups
-        # and positions, summed over the chunk's valid steps — the bulk
-        # analogue of the one-step stream advance_lanes feeds
-        per_step = streams["kv_mass"].mean(dim=(1, 2))               # (C, L, S)
-        w = torch.as_tensor(valid.T, dtype=per_step.dtype, device=self.device)
-        agg = (per_step * w[:, :, None]).sum(dim=0)                  # (L, S)
-        self._observe_kv_lanes(agg, gids)
+        mass, gids = self._kv_lane_stream(active=active)
+        if self._kernel_mass:
+            # per-step (C, G, n_attn, L, S) kernel mass: averaged over
+            # groups and positions, summed over the chunk's valid steps —
+            # the bulk analogue of the one-step stream advance_lanes feeds
+            per_step = streams["kv_mass"].mean(dim=(1, 2))           # (C, L, S)
+            w = torch.as_tensor(valid.T, dtype=per_step.dtype, device=self.device)
+            mass = (per_step * w[:, :, None]).sum(dim=0)             # (L, S)
+        self._observe_kv_lanes(mass, gids)
 
     def _observe_lanes(self, tokens: np.ndarray) -> None:
         """Feed the tiering streams with inactive lanes masked to -1 pads."""
         if "embeddings" in self.daemon:
             self.daemon.observe("embeddings",
                                 self._ids(np.where(self._lane_active, tokens, -1)))
-        gids = self._kv_lane_stream()
-        self._observe_kv_lanes(self._last_kv_mass, gids)
+        mass, gids = self._kv_lane_stream()
+        self._observe_kv_lanes(self._last_kv_mass if self._kernel_mass else mass,
+                               gids)
 
-    def _observe_kv_lanes(self, mass: torch.Tensor, gids: np.ndarray) -> None:
-        """The per-lane kernel mass, masked to the live lanes' segment-mapped
-        pages (the mask the gids carry), as one flat "kv" block."""
+    def _observe_kv_lanes(self, mass, gids: np.ndarray) -> None:
+        """The (L, S) per-lane mass (the kernel's tensor, or the fill as an
+        array), masked to the live lanes' segment-mapped pages (the mask the
+        gids carry), as one flat "kv" block."""
         g = self._ids(gids)
-        mass = torch.where(g >= 0, mass.float(), 0.0)
+        mass = torch.where(
+            g >= 0, torch.as_tensor(mass, device=self.device).float(), 0.0)
         self._count_shared_mass(mass, gids)
         self.daemon.observe("kv", mass.reshape(-1), g.reshape(-1))
 
@@ -688,22 +709,24 @@ class ServeEngine:
 
     def _kv_page_stream(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Resident ring window as (per-page fill, logical page ids), batch
-        row 0 representative.  The fill is the flush's change key; the
-        observed mass is the kernel's."""
+        row 0 representative.  The fill is the flush's change key and, under
+        ``kv_mass_source="fill"``, the observed mass."""
         plen, cur, pos = self._ring_view()
         ids = self._ring_page_ids(plen, cur, pos, self.scfg.page_t)[0]
         return (torch.as_tensor(plen[0], dtype=torch.float32, device=self.device),
                 self._ids(ids))
 
-    def _kv_lane_stream(self, active: np.ndarray | None = None) -> np.ndarray:
-        """Lane mode: the (L, S) global page ids of the "kv" stream — each
-        lane's resident ring pages mapped into its slow-store segment's
-        address space; lanes outside ``active`` (default: the live mask)
-        are -1.  The observed mass is the kernel's."""
+    def _kv_lane_stream(self, active: np.ndarray | None = None,
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """Lane mode: the (L, S) per-page fill and global page ids of the
+        "kv" stream — each lane's resident ring pages mapped into its
+        slow-store segment's address space; lanes outside ``active``
+        (default: the live mask) are -1.  The fill is the observed mass
+        under ``kv_mass_source="fill"``."""
         plen, cur, pos = self._ring_view()
         local = self._ring_page_ids(plen, cur, pos, self.scfg.page_t)
         act = self._lane_active if active is None else np.asarray(active, bool)
-        return self._map_gids(local, act)
+        return plen, self._map_gids(local, act)
 
     def _map_gids(self, local: np.ndarray, act: np.ndarray) -> np.ndarray:
         """Resolve (L, S) local page ids to global store page ids through

@@ -676,7 +676,7 @@ class Scheduler:
         request's final step — and a chunk-prefilling lane the engine's own
         active mask no longer carries — is still charged."""
         occupied = np.array([r is not None for r in lanes], bool)
-        gids = eng._kv_lane_stream(active=occupied)
+        _, gids = eng._kv_lane_stream(active=occupied)
         _, hit = eng.daemon["kv"].lookup(eng._ids(gids.reshape(-1)))
         hit = hit.cpu().numpy().reshape(gids.shape)
         valid = gids >= 0
