@@ -20,6 +20,8 @@ Phases, one summary line each:
                 histogram also on rows shaped like the main path's; and
                 update, mark and histogram at the simulator's blocks
                 (S=2048 at W=16K, S=16384 at W=512K), bitwise and timed;
+                attention also at kimi-k2's group of 8 query heads per kv
+                head (PHASE moe's two ring shapes), checked and timed;
   3. main     — ServeEngine on llama3.2-3b at full width (random weights
                 from a seed) serving a batch of 4 random 1024-token prompts
                 for 64 greedy tokens through the NeoMem loop; every kernel
@@ -69,7 +71,25 @@ Phases, one summary line each:
                 exported; the kv integers (reads, promotions, rows migrated
                 and flushed, placement table, θ trace) and the lane schedule
                 must equal the CPU run's at the smoke config;
-  8. sim      — the paper's evaluation path: fig11_main_speedup.py's grid
+  8. moe      — kimi-k2 at full width (d 7168, 64/8 heads, 384 experts
+                top-8, vocab 163840), its depth cut to one dense prologue
+                layer and one MoE layer (MOE_DEPTH), with the experts and
+                embeddings resources: serve_bench.py's kimi-k2 case (2 x 16
+                prompt tokens, 16 new, 96 of 384 experts on the card), then
+                the lane phase's configuration over PHASE fill's 16-step cut
+                of its trace; every kernel must launch in each, logits be
+                finite and page mass sum to 1, router ids be experts or -1,
+                the kv and embeddings sketches replay bitwise on the CPU,
+                the experts' feed replay through a CPU daemon to the same
+                promotion batches, placement table, θ trace and sketch, the
+                bytes moved be those rows x 88,080,384 B, every resident
+                expert's fast row equal its slow row, the MoE layer read
+                through the tier agree with the dense one (MOE_TOL), and the
+                lane schedule equal the CPU run's at the smoke config;
+                prints wall, tokens/s, ms per step, hit rates and bytes, ms
+                per slow expert row, a profile of 4 steps and the card's
+                peak memory and pinned host bytes;
+  9. sim      — the paper's evaluation path: fig11_main_speedup.py's grid
                 (8 workloads x 6 methods, benchmarks/common.py's scale)
                 through the port's tiering simulator on the card, every
                 result (counts, θ and error traces exactly; modeled runtime
@@ -77,7 +97,7 @@ Phases, one summary line each:
                 equal to a CPU run of the port on the same blocks; prints
                 the modeled geomean speedups, neomem's hit rates and the
                 card's wall ms per block;
-  9. sim-paper — gups at the paper's scale (4M pages, W=512K, blocks of
+  10. sim-paper — gups at the paper's scale (4M pages, W=512K, blocks of
                 16384) through all six methods on the card: hits must sum
                 to the accesses, promotions stay within the quota, and
                 neomem's sketch over its last clear interval (recorded in a
@@ -160,6 +180,20 @@ FILL_SINGLE = dict(paged=True, page_t=4, hot_slots=6, migration_interval=4,
 FILL_PROMPT = (2, 30, 16)          # batch, prompt tokens, new tokens
 FILL_LANES = dict(LANE_SERVE, resources=[], kv_mass_source="fill")
 FILL_TRACE = dict(LANE_TRACE, n_steps=16)
+# PHASE moe: kimi-k2 at full width, depth cut to 1 dense prologue layer and
+# 1 MoE layer (the 384 experts of one layer are 33.8 GB in bf16; a second
+# MoE layer would not leave the fast tier room on the card), with the
+# experts and embeddings resources.  (a) benchmarks/serve_bench.py's kimi-k2
+# case, its 2 of 8 hot experts scaled to 96 of 384; (b) the lane phase's
+# configuration over PHASE fill's 16-step cut of its trace.
+MOE_DEPTH = 2
+MOE_SINGLE = dict(max_seq=256, paged=True, page_t=8, hot_slots=6,
+                  migration_interval=4, resources=["experts", "embeddings"],
+                  expert_hot_slots=96, expert_quota=32, embed_hot_slots=2)
+MOE_PROMPT = (2, 16, 16)           # batch, prompt tokens, new tokens
+MOE_LANES = dict(LANE_SERVE, resources=["experts", "embeddings"],
+                 expert_hot_slots=96, expert_quota=32)
+MOE_TRACE = FILL_TRACE
 # PHASE sim: fig11_main_speedup.py's grid at benchmarks/common.py's scale
 # (N_PAGES, BLOCK, N_BLOCKS, FAST_RATIO, SIM_KW, METHODS; stream seed 11)
 SIM_WORKLOADS = ("deathstar", "pagerank", "xsbench", "gups", "silo", "btree",
@@ -329,6 +363,18 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
                        for _ in range(n_sets)])
     print(f"kernel paged_attn at P=6 T=4 (the reuse and disagg phases): device "
           f"{t4_cold:.4f} ms cold ({n_sets} input sets, round-robin)")
+    # kimi-k2's shape (PHASE moe): 64 query heads over 8 kv heads, a group
+    # of 8 (the kernel's MAX_GROUP), dk = dv = 128; the single request's
+    # 2 rows over 6 slots of 8 tokens and the lanes' 4 over 8 slots of 16 —
+    # a row with a part-filled current slot, a full ring, a ragged one and
+    # an empty lane
+    for b, p, t in ((2, 6, 8), (4, 8, 16)):
+        lens = rng.integers(0, t + 1, (b, p))
+        lens[0] = 0
+        lens[0, 2] = t // 2
+        lens[1] = t
+        lens[3:] = 0
+        check_group8(torch, pa_ops, rates, case(b, 64, 8, 128, 128, p, t, bf16, lens))
     # main path: llama3.2-3b decode, B=4, 16 ring slots of 64 tokens, the
     # current slot part-filled
     b, h, hkv, d, p, t = 4, 24, 8, 128, 16, 64
@@ -379,6 +425,39 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
                 replaces="src/repro/kernels/paged_attn/paged_attn.py:34",
                 max_abs_err=err, ms=cold, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib_cold, host_ms=host)
+
+
+def check_group8(torch, pa_ops, rates, checked) -> None:
+    """Time attention at a checked kimi-k2 shape (group 8): cold over enough
+    input sets to exceed the L2 and warm, beside its byte bound and SDPA's
+    masked call on the same pages."""
+    q, kp, vp, lt, out, ref = checked
+    b, h, _ = q.shape
+    _, p, t, hkv, d = kp.shape
+    n_sets = -(-2 * 50 * 2 ** 20 // (2 * kp.numel() * kp.element_size()))
+    sets = [(q, kp, vp, lt)] + [(q, torch.randn_like(kp), torch.randn_like(vp), lt)
+                                for _ in range(n_sets - 1)]
+    calls = [lambda x=x: pa_ops.paged_attention_raw(*x, return_page_stats=True)
+             for x in sets]
+    warm, cold = time_ms(calls[0]), time_ms(calls)
+
+    def sdpa_call(q, kp, vp, lt):
+        qs = q.to(torch.bfloat16)[:, :, None, :]
+        ks, vs = (x.repeat_interleave(h // hkv, dim=3).permute(0, 3, 1, 2, 4)
+                  .reshape(b, h, p * t, d) for x in (kp, vp))
+        mask = (torch.arange(t, device="cuda")[None, None] < lt[:, :, None]
+                ).reshape(b, 1, 1, p * t)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        return lambda: sdpa(qs, ks, vs, attn_mask=mask)
+    lib_cold = time_ms([sdpa_call(*x) for x in sets])
+    n_tok = int(lt.sum())
+    nbytes = (q.numel() * 4 + n_tok * hkv * 2 * d * 2 + lt.numel() * 4
+              + b * h * (2 + d) * 4 + 2 * b * p * h * 4)
+    bms, by = bound_ms(nbytes, n_tok * h * 4 * d, rates)
+    print(f"kernel paged_attn at group 8 (kimi-k2, B={b} P={p} T={t}): max_abs_err "
+          f"{max_err(out, ref):.3g}; device {cold:.4f} ms cold ({n_sets} input sets, "
+          f"round-robin), {warm:.4f} ms warm; bound {bms:.5f} ms by {by}; SDPA "
+          f"{lib_cold:.4f} ms cold")
 
 
 def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
@@ -857,10 +936,10 @@ def lane_schedule(sched) -> dict:
                          for r in sorted(sched.finished, key=lambda r: r.rid)]}
 
 
-def _smoke_cpu():
+def _smoke_cpu(arch: str = "llama3.2-3b"):
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models.transformer import init_params
-    cfg = get_smoke_config("llama3.2-3b")
+    cfg = get_smoke_config(arch)
     return cfg, init_params(cfg, seed=0, device="cpu")
 
 
@@ -983,6 +1062,20 @@ def run_fill(cfg, params, device) -> tuple:
 def cpu_fill() -> dict:
     """PHASE fill's integers from the port on the CPU at the smoke config."""
     return run_fill(*_smoke_cpu(), "cpu")[0]
+
+
+def run_moe_lanes(cfg, params, device, on_sched=None):
+    """PHASE moe's lane drive: the lane configuration with the experts and
+    embeddings resources over PHASE fill's cut of the lane trace."""
+    return run_trace(cfg, params, device, MOE_LANES, LANE_SCHED, MOE_TRACE,
+                     LANE_TENANTS, on_sched)
+
+
+def cpu_moe_lane_schedule() -> dict:
+    """PHASE moe's lane schedule from the port on the CPU at kimi-k2's smoke
+    config: no scheduling decision reads a token's value."""
+    _, sched, _, _ = run_moe_lanes(*_smoke_cpu("kimi-k2-1t-a32b"), "cpu")
+    return lane_schedule(sched)
 
 
 def check_lane_steps(eng, checked) -> None:
@@ -1131,6 +1224,294 @@ def fill_path(torch, counters, cfg, params, smi):
     print(f"fill: both arms in {wall_s:.2f} s wall on {smi}")
     print("fill: launches " + json.dumps(launches) + f" on {smi}")
     return launches, rep
+
+
+# -- PHASE moe: kimi-k2 with the experts resource -------------------------------
+
+MOE_TOL = 2 ** -6       # tiered vs dense MoE layer: max |diff| <= this * max |dense|
+
+
+def draw_moe_params(torch):
+    """kimi-k2 at full width, depth cut to MOE_DEPTH layers (1 dense
+    prologue layer, 1 MoE layer), random bf16 weights from seed 0."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b"), n_layers=MOE_DEPTH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"moe: kimi-k2 full width (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.head_dim}, vocab {cfg.vocab}, {cfg.moe.n_experts} experts "
+          f"top-{cfg.moe.top_k} of ff {cfg.moe.expert_ff}, prologue ff "
+          f"{cfg.moe.dense_ff}), depth cut to {cfg.moe.n_dense_prologue} dense + "
+          f"{cfg.n_groups} MoE layer(s): {n_params / 1e9:.3f} B params bf16 drawn "
+          f"in {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def record_experts(eng, n_experts: int) -> list:
+    """Record what the experts resource takes, in order: every observed
+    block (pages, touch pages) and every daemon tick's promotion batch; each
+    raw router id must be an expert or -1."""
+    h, log = eng.daemon["experts"], []
+    observe, encode, tick = h.mem.observe, h.resource.encode_stream, eng.daemon.tick
+
+    def encoding(router):
+        r = router.cpu()
+        if not bool((((r >= 0) & (r < n_experts)) | (r == -1)).all()):
+            raise AssertionError(f"router ids outside [0, {n_experts}) and -1")
+        return encode(router)
+
+    def observing(state, pages, *, touch_pages=None, **kw):
+        log.append(("observe", pages.cpu(), touch_pages.cpu()))
+        return observe(state, pages, touch_pages=touch_pages, **kw)
+
+    def ticking():
+        events = tick()
+        ev = events.get("experts")
+        log.append(("tick", None if ev is None else
+                    [x.cpu() for x in (ev.promoted, ev.victims, ev.evicted)]))
+        return events
+    h.resource.encode_stream, h.mem.observe, eng.daemon.tick = \
+        encoding, observing, ticking
+    return log
+
+
+def replay_experts(torch, eng, log) -> dict:
+    """The recorded experts feed through a fresh CPU daemon of the port that
+    holds the experts resource alone (placement only, no data plane): every
+    promotion batch, the placement table, the θ trace and the sketch must
+    equal the card's, and the card must have moved exactly the rows the
+    batches name.  The daemon's budget is the sum of its resources'
+    quotas, so each resource's share is its own demand capped by its quota
+    whatever the others ask, and the experts alone replay the card's
+    three-resource daemon."""
+    import dataclasses
+    from repro_torch.tiering.daemon import NeoMemDaemon
+    from repro_torch.tiering.resources import ExpertStreamResource
+    h = eng.daemon["experts"]
+    cpu = NeoMemDaemon(eng.daemon.dp, device="cpu")
+    ch = cpu.register(ExpertStreamResource(
+        dataclasses.replace(h.resource.spec, row_shape=None),
+        n_experts=h.resource.n_experts), seeds=h.state.prof.sketch.seeds.cpu())
+    rows = epochs = 0
+    for kind, *rest in log:
+        if kind == "observe":
+            pages, touch = rest
+            ch.state = ch.mem.observe(ch.state, pages, touch_pages=touch)
+            continue
+        ev = cpu.tick().get("experts")
+        got = None if ev is None else [ev.promoted, ev.victims, ev.evicted]
+        if (got is None) != (rest[0] is None) or (got is not None and not all(
+                torch.equal(a.to(torch.int64), b.to(torch.int64))
+                for a, b in zip(got, rest[0]))):
+            raise AssertionError(f"experts: promotion batch {epochs} differs from "
+                                 f"the CPU replay: {rest[0]} vs {got}")
+        if got is not None:
+            up = (ev.promoted >= 0) & (ev.victims >= 0)
+            rows += int(up.sum()) + int((up & (ev.evicted >= 0)).sum())
+            epochs += 1
+    for name in ("page_slot", "slot_page"):
+        if not torch.equal(getattr(ch.state.tier, name),
+                           getattr(h.state.tier, name).cpu()):
+            raise AssertionError(f"experts: {name} differs from the CPU replay")
+    if ch.stats.theta_trace != h.stats.theta_trace:
+        raise AssertionError(f"experts: θ trace {h.stats.theta_trace} vs "
+                             f"{ch.stats.theta_trace} on the CPU")
+    for name in ("counts", "epochs", "hot", "cur_epoch", "n_seen"):
+        if not torch.equal(getattr(ch.state.prof.sketch, name),
+                           getattr(h.state.prof.sketch, name).cpu()):
+            raise AssertionError(f"experts: sketch {name} differs from the CPU replay")
+    moved = eng.tier_stats()["experts"]["migration_bytes"]
+    mc = eng.cfg.moe
+    if moved != rows * h.mem.row_bytes or \
+            h.mem.row_bytes != 3 * eng.cfg.d_model * mc.expert_ff * 2:
+        raise AssertionError(f"experts: {moved} B moved for {rows} rows of "
+                             f"{h.mem.row_bytes} B")
+    return {"blocks": sum(k == "observe" for k, *_ in log), "epochs": epochs,
+            "rows": rows, "promoted": int((ch.state.tier.slot_page >= 0).sum()),
+            "theta": list(h.stats.theta_trace)}
+
+
+def check_expert_rows(torch, eng) -> int:
+    """Every resident expert's fast row equals its slow row bitwise (a page
+    past the store holds the store's last row, ROADMAP C4)."""
+    h = eng.daemon["experts"]
+    buf, slot_page = h.mem.buffers, h.state.tier.slot_page.cpu()
+    n = buf.slow.shape[0]
+    resident = torch.nonzero(slot_page >= 0).reshape(-1).tolist()
+    for slot in resident:
+        page = min(int(slot_page[slot]), n - 1)
+        if not torch.equal(buf.fast[slot], buf.slow[page].to(buf.fast.device)):
+            raise AssertionError(f"experts: fast slot {slot} differs from slow "
+                                 f"page {page}")
+    return len(resident)
+
+
+def check_tiered_layer(torch, eng, params, seeds=range(32)) -> tuple:
+    """The MoE layer read through the placement table against the same
+    layer over the dense weights, on an x whose top-8 reads both tiers."""
+    from repro_torch.models import moe
+    cfg = eng.cfg
+    p = {k: v[0] for k, v in params["blocks"][0]["ffn"].items()}
+    bias = params["blocks"][0]["router_bias"][0]
+    view, e = eng._tier_reads()["experts"], cfg.moe.n_experts
+    for seed in seeds:
+        gen = torch.Generator(device=eng.device).manual_seed(seed)
+        x = torch.randn((2, 1, cfg.d_model), generator=gen,
+                        device=eng.device).to(torch.bfloat16)
+        _, idx, _ = moe.router_topk(p, x, cfg.moe.top_k, bias=bias)
+        hit = view["page_slot"][idx.long()] >= 0
+        if bool(hit.any()) and not bool(hit.all()):
+            break
+    else:
+        raise AssertionError("no x reads both tiers")
+    tiered, ti, _ = moe.moe_apply_tiered(p, x, cfg.moe.top_k, bias=bias, tier=view,
+                                         group_id=0)
+    dense, di, _ = moe.moe_apply_ep(p, x, cfg.moe.top_k, bias=bias)
+    err = float((tiered.float() - dense.float()).abs().max())
+    scale = float(dense.float().abs().max())
+    if not (torch.equal(ti, di) and err <= MOE_TOL * scale):
+        raise AssertionError(f"tiered MoE layer differs from the dense one: max "
+                             f"|diff| {err} against {MOE_TOL} * {scale}")
+    return int(hit.sum()), int(hit.numel()), err, scale
+
+
+def slow_row_ms(torch, eng, n: int = 8, reps: int = 5) -> float:
+    """Wall ms per expert row read from the pinned slow store on a miss
+    (one read of ``n`` distinct non-resident experts, synchronised)."""
+    h = eng.daemon["experts"]
+    cold = torch.nonzero(h.state.tier.page_slot < 0).reshape(-1)[:n]
+    view = h.tier_view()
+    from repro_torch.tiering.migrate import lookup_rows
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lookup_rows(view["fast"], view["slow"], view["page_slot"], cold)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / cold.numel())
+    return statistics.median(times)
+
+
+def pinned_bytes(eng) -> int:
+    return sum(h.mem.buffers.slow.nbytes for h in eng.daemon.resources.values()
+               if h.mem.buffers.slow.is_pinned())
+
+
+def moe_single(torch, counters, cfg, params, smi, device="cuda") -> dict:
+    """PHASE moe (a): serve_bench.py's kimi-k2 case at full width."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, ServeConfig(
+        **dict(MOE_SINGLE, resources=tuple(MOE_SINGLE["resources"]))),
+        device=device)
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    log = record_experts(eng, cfg.moe.n_experts)
+    blocks = {n: record_blocks(eng.daemon[n]) for n in ("kv", "embeddings")}
+    b, n, new = MOE_PROMPT
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (b, n))
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    tok = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(new - 1):
+        tok = eng.step(tok)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    tokens = np.stack(out, axis=1)
+    if not (tokens.shape == (b, new) and (tokens >= 0).all()
+            and (tokens < cfg.vocab).all()):
+        raise AssertionError(f"moe: tokens of shape {tokens.shape} or out of the "
+                             "vocabulary")
+    # one more step, whose logits and page mass are checked: its daemon tick
+    # is the drive's first Algorithm-1 update (the histogram's launch)
+    logits = eng._advance(torch.as_tensor(tok, device=device)[:, None])
+    launches = read_counts(torch, counters, "moe")
+    sums = eng._last_kv_mass.sum(dim=1)
+    if not (bool(torch.isfinite(logits).all()) and bool(((sums - 1).abs() < 1e-4).all())):
+        raise AssertionError(f"moe: non-finite logits or page mass sums "
+                             f"{sums.tolist()} != 1")
+    for name, recorded in blocks.items():
+        replay_resource(torch, eng.daemon[name], recorded)
+    placement = replay_experts(torch, eng, log)
+    resident = check_expert_rows(torch, eng)
+    hits, reads, err, scale = check_tiered_layer(torch, eng, params)
+    stats = eng.tier_stats()
+    print(f"moe: single request, {b} x {n} prompt tokens and {new} new: bound the "
+          f"stores in {bind_s:.1f} s; prefill {prefill_s:.3f} s, decode "
+          f"{b * (new - 1) / decode_s:.2f} tokens/s, {1e3 * decode_s / (new - 1):.2f} "
+          f"ms/step on {smi}")
+    print(f"moe: sketches of kv and embeddings replayed bitwise; experts' "
+          f"{placement['blocks']} blocks through a CPU daemon: {placement['epochs']} "
+          f"promotion batches, {placement['rows']} rows moved, θ {placement['theta']} "
+          f"all equal; {resident} resident expert rows equal their slow rows")
+    print(f"moe: tiered MoE layer against the dense one: {hits} of {reads} reads "
+          f"fast, max |diff| {err:.4g} (limit {MOE_TOL} x {scale:.4g})")
+    for name in ("experts", "embeddings", "kv"):
+        row = stats[name]
+        print(f"moe: {name} hit rate {row['hit_rate']:.3f}, migration "
+              f"{row['migration_bytes']} B, flush {row['flush_bytes']} B "
+              f"on {smi}")
+    print(f"moe: slow expert row read {slow_row_ms(torch, eng):.3f} ms per missed "
+          f"row (88,080,384 B, pinned host to device, wall) on {smi}")
+    profile_decode(torch, eng, tok, steps=4)
+    print(f"moe: peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB, pinned host stores {pinned_bytes(eng) / 2 ** 30:.2f} GiB on {smi}")
+    return launches
+
+
+def moe_path(torch, counters, smi, device="cuda"):
+    """PHASE moe: kimi-k2 at full width (depth cut), the single request,
+    then the lane drive held to the CPU's schedule at the smoke config."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = draw_moe_params(torch)
+    launches = {"single": moe_single(torch, counters, cfg, params, smi, device)}
+    gc.collect()                       # the single request's stores
+    torch.cuda.empty_cache()
+    logs, blocks, checked = {}, {}, {"steps": 0, "chunks": 0}
+
+    def instrument(sched):
+        logs["experts"] = record_experts(sched.eng, cfg.moe.n_experts)
+        for name in ("kv", "embeddings"):
+            blocks[name] = record_blocks(sched.eng.daemon[name])
+        check_lane_steps(sched.eng, checked)
+        zero_counts(counters)
+    eng, sched, trace, wall_s = run_moe_lanes(cfg, params, device, instrument)
+    launches["lanes"] = read_counts(torch, counters, "moe lanes")
+    rep = sched.report()
+    check_report(rep, sched.finished, len(trace.arrivals), cfg.vocab)
+    for name, recorded in blocks.items():
+        replay_resource(torch, eng.daemon[name], recorded)
+    placement = replay_experts(torch, eng, logs["experts"])
+    resident = check_expert_rows(torch, eng)
+    t0 = time.perf_counter()
+    cpu = cpu_moe_lane_schedule()
+    card = lane_schedule(sched)
+    if card != cpu:
+        raise AssertionError(f"moe: the card's schedule differs from the CPU's:\n"
+                             f"{card}\n{cpu}")
+    print(f"moe: lanes, schedule equal to the CPU run at the smoke config "
+          f"({time.perf_counter() - t0:.1f} s): {len(sched.finished)} requests, "
+          f"{rep['steps']} steps, {rep['preemptions']} preemption(s); experts' "
+          f"{placement['blocks']} blocks replayed ({placement['epochs']} batches, "
+          f"{placement['rows']} rows, θ {placement['theta']}); {resident} resident "
+          f"expert rows equal their slow rows; {checked['steps']} lane steps and "
+          f"{checked['chunks']} chunks with finite logits and unit page mass")
+    print_serving(rep, wall_s, "moe lanes", smi)
+    print(f"moe: lanes peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, pinned host "
+          f"stores {pinned_bytes(eng) / 2 ** 30:.2f} GiB on {smi}")
+    total = {k: launches["single"][k] + launches["lanes"][k] for k in launches["single"]}
+    print("moe: launches " + json.dumps(launches) + f" on {smi}")
+    return total, rep
 
 
 def check_int8_encoding(torch, eng, checked, n_embed: int = 64) -> None:
@@ -1653,6 +2034,17 @@ def main() -> int:
               f"{rep['completed']} requests, "
               f"{rep['tokens'] / rep['clock']['decode_s']:.2f} tokens/s on the "
               f"decode clock, launches {json.dumps(phases[phase])} on {smi}")
+    del params                         # llama3.2-3b's 6.4 GB, for kimi-k2's
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phases["moe"], rep = moe_path(torch, counters, smi)
+    print(f"PHASE moe: ok in {time.perf_counter() - t0:.1f} s, "
+          f"{rep['completed']} lane requests, "
+          f"{rep['tokens'] / rep['clock']['decode_s']:.2f} tokens/s on the "
+          f"decode clock, launches {json.dumps(phases['moe'])} on {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
     for phase, path in (("sim", sim_path), ("sim-paper", sim_paper_path)):
         t0 = time.perf_counter()
         phases[phase] = path(torch, counters, smi)

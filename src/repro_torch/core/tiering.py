@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.scatter import scatter_drop
+from repro_torch.core.scatter import gather_clamped, scatter_drop
 
 
 class TierParams(NamedTuple):
@@ -67,7 +67,8 @@ def touch(state: TierState, page_ids: torch.Tensor) -> TierState:
     """Record accesses: hit/miss counts + 2Q reference/A1->Am graduation."""
     page_ids = page_ids.long()
     valid = page_ids >= 0
-    slots = state.page_slot[torch.where(valid, page_ids, 0)].long()
+    slots = gather_clamped(state.page_slot,
+                           torch.where(valid, page_ids, 0)).long()
     hit = valid & (slots >= 0)
     n_slots = state.slot_page.shape[0]
     # misses write the trash row and are dropped
@@ -116,7 +117,7 @@ def promote(state: TierState, hot_pages: torch.Tensor, k: int
     eq = (safe[:, None] == safe[None, :]) & valid[None, :]
     earlier = torch.ones((k, k), dtype=torch.bool, device=dev).tril(-1)
     first = valid & ~(eq & earlier).any(dim=1)
-    need = first & (state.page_slot[safe_l] < 0)       # not already resident
+    need = first & (gather_clamped(state.page_slot, safe_l) < 0)  # not resident
 
     # rank-based 2Q victim selection: cheapest slots first, ties by slot index
     n_slots = state.slot_page.shape[0]
@@ -137,7 +138,7 @@ def promote(state: TierState, hot_pages: torch.Tensor, k: int
     sl_idx = torch.where(need, slot_for, n_slots)
 
     # ping-pong: promoting a page whose PG_demoted flag is set
-    pp = (need & state.demoted[safe_l]).sum(dtype=torch.int32)
+    pp = (need & gather_clamped(state.demoted, safe_l)).sum(dtype=torch.int32)
 
     # demote victims, then install promotions (clearing PG_demoted)
     page_slot = scatter_drop(state.page_slot, ev_idx, -1)
@@ -209,5 +210,6 @@ def lookup(state: TierState, page_ids: torch.Tensor
     """(slot_or_minus1, hit_mask) for a batch of page ids."""
     page_ids = page_ids.long()
     valid = page_ids >= 0
-    slots = torch.where(valid, state.page_slot[torch.where(valid, page_ids, 0)], -1)
+    slots = torch.where(valid, gather_clamped(state.page_slot,
+                                              torch.where(valid, page_ids, 0)), -1)
     return slots, slots >= 0

@@ -1,11 +1,13 @@
 """NeoMem paged decode: attention over the fast-tier ring of hot KV pages.
 
 Port of the single-device paged path of ``repro/models/decode.py`` for the
-dense GQA family.  Cache layout (stacked by pattern group, as the
-reference's):
+dense GQA family and the GQA mixture-of-experts family (kimi-k2).  Cache
+layout (stacked by pattern group, as the reference's):
 
   * paged attn blocks ... {"k_pages","v_pages"}: (G, B, n_slots, T, Hkv, dh)
                           + {"page_len": (G, B, n_slots), "cur_slot": (G, B)}
+  * "prologue" .......... a MoE arch's dense prologue layers: a list of the
+                          same ring without the G axis
   * "pos" ............... () int32 lockstep position, or (B,) per-lane
                           positions (continuous batching, DESIGN.md §9)
 
@@ -15,12 +17,18 @@ Where the reference scans over layer groups and prompt tokens, the port
 runs Python loops, and it updates the cache IN PLACE (the page tensors are
 the bulk of device memory; nothing else holds the old values).
 
+A MoE block's FFN is the top-k expert layer (:mod:`repro_torch.models.moe`):
+with the experts resource bound (``tiered["experts"]``) the first MoE
+position of each group reads its experts' weight rows through the
+resource's placement table, as the reference's; the router's token->expert
+ids come back as the ``"router"`` stream, the experts resource's input.
+
 Lane masks: where the reference computes a new cache for every lane and
 ``merge_cache`` keeps the old leaves of the inactive ones, the port's
 writes are conditional on the mask — an inactive lane's pages, ``page_len``,
 ``cur_slot`` and ``pos`` stay bitwise unchanged and the ring is never
-copied.  Its logits and mass are computed on the unchanged ring and are
-not to be read.
+copied.  Its logits, mass and router ids are computed on the unchanged ring
+and are not to be read.
 
 Also here, as in the reference: ``install_pages``, which fast-forwards one
 lane over complete KV pages from the reuse pool (in place, that lane
@@ -35,10 +43,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import prng
 from repro_torch.models.layers import (apply_norm, apply_rope, embed_apply,
                                        logits_apply, mlp_apply)
-from repro_torch.models.transformer import check_dense
+from repro_torch.models.transformer import check_ported
 from repro_torch.tiering.migrate import lookup_rows as _tier_lookup_rows
 
 
@@ -78,27 +87,31 @@ def _embed_tokens(params, token, tiered):
 def init_paged_cache(cfg: ArchConfig, batch: int, n_slots: int, page_t: int,
                      dtype=torch.bfloat16, per_lane_pos: bool = False, *,
                      device="cuda"):
-    """NeoMem fast-tier paged cache for every attention block.
+    """NeoMem fast-tier paged cache for every attention block, the dense
+    prologue's rings included.
 
     ``per_lane_pos=True`` makes ``pos`` a (batch,) vector so each batch row
     (a continuous-batching lane) advances on its own (DESIGN.md §9)."""
-    check_dense(cfg)
-    g, hkv, dh = cfg.n_groups, cfg.n_kv_heads, cfg.head_dim
+    check_ported(cfg)
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
 
-    def one():
+    def one(lead):
         return {
-            "k_pages": torch.zeros((g, batch, n_slots, page_t, hkv, dh),
+            "k_pages": torch.zeros(lead + (batch, n_slots, page_t, hkv, dh),
                                    dtype=dtype, device=device),
-            "v_pages": torch.zeros((g, batch, n_slots, page_t, hkv, dh),
+            "v_pages": torch.zeros(lead + (batch, n_slots, page_t, hkv, dh),
                                    dtype=dtype, device=device),
-            "page_len": torch.zeros((g, batch, n_slots), dtype=torch.int32,
+            "page_len": torch.zeros(lead + (batch, n_slots), dtype=torch.int32,
                                     device=device),
-            "cur_slot": torch.zeros((g, batch), dtype=torch.int32,
+            "cur_slot": torch.zeros(lead + (batch,), dtype=torch.int32,
                                     device=device),
         }
-    return {"blocks": [one() for _ in cfg.pattern],
-            "pos": torch.zeros((batch,) if per_lane_pos else (),
-                               dtype=torch.int32, device=device)}
+    out = {"blocks": [one((cfg.n_groups,)) for _ in cfg.pattern],
+           "pos": torch.zeros((batch,) if per_lane_pos else (),
+                              dtype=torch.int32, device=device)}
+    if cfg.moe and cfg.moe.n_dense_prologue:
+        out["prologue"] = [one(()) for _ in range(cfg.moe.n_dense_prologue)]
+    return out
 
 
 def _append_attend_local(kp, vp, plen, cur_slot, k_new, v_new, q_eff, *,
@@ -142,10 +155,38 @@ def _append_attend_local(kp, vp, plen, cur_slot, k_new, v_new, q_eff, *,
                                   softcap=softcap), None
 
 
-def _paged_attn_block(p, cfg: ArchConfig, x_t, cache, pos, page_t: int,
-                      collect_mass: bool = False, active=None):
+def _moe_block(p, cfg: ArchConfig, h2, tiered_moe, router: list):
+    """The MoE FFN of a block: through the experts resource's placement
+    table when the engine bound its view for this position, else over the
+    dense expert weights.  The router's (B, 1, k) ids go to ``router``."""
+    if tiered_moe is not None:
+        y, idx, _ = moe_lib.moe_apply_tiered(
+            p["ffn"], h2, cfg.moe.top_k, bias=p.get("router_bias"),
+            tier=tiered_moe["view"], group_id=tiered_moe["group_id"])
+    else:
+        y, idx, _ = moe_lib.moe_apply_ep(p["ffn"], h2, cfg.moe.top_k,
+                                         bias=p.get("router_bias"))
+    router.append(idx)
+    return y
+
+
+def _tiered_moe_for(cfg: ArchConfig, tiered, i: int, g: int):
+    """Expert tier view for pattern position ``i`` of group ``g``, or None.
+    Only the FIRST MoE position reads through the tiered store: its weights
+    are the payload rows the serve engine bound (DESIGN.md §8)."""
+    if not tiered or "experts" not in tiered:
+        return None
+    if "moe" not in cfg.pattern or i != cfg.pattern.index("moe"):
+        return None
+    return {"view": tiered["experts"], "group_id": g}
+
+
+def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
+                      page_t: int, collect_mass: bool = False, active=None,
+                      tiered_moe=None, router: list | None = None):
     """One decoder block over the paged ring (GQA branch of the reference's
-    ``_paged_attn_block``).  Returns (x_t, mass or None)."""
+    ``_paged_attn_block``); ``kind`` "moe" runs the expert layer as its FFN.
+    Returns (x_t, mass or None)."""
     h = apply_norm(cfg.norm, p["ln1"], x_t)
     b = x_t.shape[0]
     q, k, v = attn._proj_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
@@ -162,7 +203,11 @@ def _paged_attn_block(p, cfg: ArchConfig, x_t, cache, pos, page_t: int,
         active=active)
     x_t = x_t + o.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x_t.dtype) \
         @ p["attn"]["wo"]
-    y = mlp_apply(p["ffn"], apply_norm(cfg.norm, p["ln2"], x_t), cfg.mlp)
+    h2 = apply_norm(cfg.norm, p["ln2"], x_t)
+    if kind == "moe":
+        y = _moe_block(p, cfg, h2, tiered_moe, router)
+    else:
+        y = mlp_apply(p["ffn"], h2, cfg.mlp)
     return x_t + y, mass
 
 
@@ -173,32 +218,40 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     """One decode step over the NeoMem fast tier (hot pages only).
 
     ``token`` (B, 1) int.  Returns ``(logits (B, 1, V) f32, cache)`` and,
-    with ``return_streams``, a streams dict whose ``"kv_mass"`` is the
+    with ``return_streams``, a streams dict: ``"kv_mass"`` is the
     (G, n_attn, B, n_slots) kernel-exported per-page softmax mass of every
-    attention position (``"router"`` is None: the dense family has none).
+    body attention position (the dense prologue exports none, as in the
+    reference), ``"router"`` the (G, n_moe, B, 1, k) int32 token->expert
+    ids of every MoE position (None for the dense family).
     ``collect_mass`` (default: follow ``return_streams``) gates the
     kernel's page-stats export.  ``tiered`` serves the token embedding
-    through the tiered store (:func:`_embed_tokens`).  ``active`` (B,) bool
-    masks whole lanes: an inactive lane's cache leaves stay bitwise
+    (:func:`_embed_tokens`) and the first MoE position's expert weights
+    (:func:`_tiered_moe_for`) through the tiered store.  ``active`` (B,)
+    bool masks whole lanes: an inactive lane's cache leaves stay bitwise
     unchanged (needs per-lane positions).  The cache is updated in place.
     """
-    check_dense(cfg)
+    check_ported(cfg)
     collect_mass = return_streams if collect_mass is None else collect_mass
     pos = cache["pos"]
     if active is not None and pos.dim() == 0:
         raise ValueError("a lane mask needs per-lane positions "
                          "(init_paged_cache(per_lane_pos=True))")
     x = _embed_tokens(params, token, tiered)
-    masses = []
+    for lp, lc in zip(params.get("prologue", []), cache.get("prologue", [])):
+        x, _ = _paged_attn_block(lp, cfg, "attn", x, lc, pos, page_t,
+                                 active=active)
+    masses, routers = [], []
     for g in range(cfg.n_groups):
-        group = []
-        for i, _kind in enumerate(cfg.pattern):
-            x, mass = _paged_attn_block(_take(params["blocks"][i], g), cfg, x,
-                                        _take(cache["blocks"][i], g), pos,
-                                        page_t, collect_mass, active)
+        group, router = [], []
+        for i, kind in enumerate(cfg.pattern):
+            x, mass = _paged_attn_block(
+                _take(params["blocks"][i], g), cfg, kind, x,
+                _take(cache["blocks"][i], g), pos, page_t, collect_mass, active,
+                tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router)
             if mass is not None:
                 group.append(mass)
         masses.append(group)
+        routers.append(router)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = logits_apply(params["embed"], x, cfg.final_softcap)
     cache["pos"] = pos + (1 if active is None else active.to(pos.dtype))
@@ -206,7 +259,20 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
         return logits, cache
     kv_mass = (torch.stack([torch.stack(gm) for gm in masses])
                if collect_mass else None)
-    return logits, cache, {"router": None, "kv_mass": kv_mass}
+    router = (torch.stack([torch.stack(gr) for gr in routers])
+              if routers[0] else None)
+    return logits, cache, {"router": router, "kv_mass": kv_mass}
+
+
+def _stack_steps(steps: list, fill):
+    """Stack per-column streams on a leading chunk axis; a skipped column
+    (None) becomes a block of ``fill`` shaped like the others, or the whole
+    stream None when no column produced it."""
+    ran = [m for m in steps if m is not None]
+    if not ran:
+        return None
+    return torch.stack([torch.full_like(ran[0], fill) if m is None else m
+                        for m in steps])
 
 
 def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
@@ -220,8 +286,9 @@ def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
     no-op step for that lane) and ``active`` (B,) bool masks whole lanes;
     both are host arrays.  A column that is padding for every lane is
     skipped.  Returns ``(last valid logits (B, V) f32, cache, streams)``;
-    streams stacks the per-step ``kv_mass`` on a leading chunk axis,
-    (C, G, n_attn, B, S), zeros for a skipped column.
+    streams stacks the per-step ``kv_mass`` and ``router`` on a leading
+    chunk axis, (C, G, n_attn, B, S) and (C, G, n_moe, B, 1, k): a skipped
+    column's mass is zeros and its router ids -1 (padding to every reader).
     """
     tokens = torch.as_tensor(tokens)
     b, c = tokens.shape
@@ -233,12 +300,13 @@ def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
             step_act = step_act & np.asarray(active, bool)[:, None]
     last = torch.zeros((b, cfg.vocab), dtype=torch.float32,
                        device=tokens.device)
-    kv_mass = []
+    kv_mass, router = [], []
     for col in range(c):
         act = None
         if step_act is not None:
             if not step_act[:, col].any():
                 kv_mass.append(None)
+                router.append(None)
                 continue
             act = torch.as_tensor(step_act[:, col], device=tokens.device)
         logits, cache, streams = decode_step_paged(
@@ -248,10 +316,9 @@ def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
         step = logits[:, -1].float()
         last = step if act is None else torch.where(act[:, None], step, last)
         kv_mass.append(streams["kv_mass"])
-    ran = [m for m in kv_mass if m is not None]
-    stacked = (torch.stack([torch.zeros_like(ran[0]) if m is None else m
-                            for m in kv_mass]) if ran else None)
-    return last, cache, {"router": None, "kv_mass": stacked}
+        router.append(streams["router"])
+    return last, cache, {"router": _stack_steps(router, -1),
+                         "kv_mass": _stack_steps(kv_mass, 0.0)}
 
 
 # ---------------------------------------------------------------------------

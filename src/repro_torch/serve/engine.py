@@ -17,13 +17,15 @@ two serving modes over one machinery:
 NeoMem: per step the paged-attention kernel's per-page softmax mass becomes
 the "kv" page stream (``KVPagesResource``; ``ServeConfig.kv_mass_source=
 "fill"`` feeds each page's fill instead, the A/B baseline of the mass
-fidelity gate) and the token column the "embeddings" stream
-(``EmbedRowsResource``); NeoProf's sketch takes both,
-and every ``migration_interval`` steps the daemon ticks for every resource
-under one quota budget: hot pages are promoted with 2Q and their bytes move
-between the pinned-host slow store and the device fast buffer.  With
-``jit_tier_reads`` the step itself reads its embedding rows through the
-embeddings placement table (``tiering/migrate.py::lookup_rows``).
+fidelity gate), the token column the "embeddings" stream
+(``EmbedRowsResource``) and, on a MoE arch, the router's token->expert ids
+the "experts" stream (``ExpertStreamResource``); NeoProf's sketch takes
+each, and every ``migration_interval`` steps the daemon ticks for every
+resource under one quota budget: hot pages are promoted with 2Q and their
+bytes move between the pinned-host slow store and the device fast buffer.
+With ``jit_tier_reads`` the step itself reads its embedding rows and its
+experts' weight rows through their placement tables
+(``tiering/migrate.py::lookup_rows``).
 
 Lane mode also serves, as the reference does:
 
@@ -40,8 +42,8 @@ Lane mode also serves, as the reference does:
     finished prefills over through the slow store.
 
 Features of the reference that wait for later slices raise
-``NotImplementedError``: dense (``paged=False``) serving, the experts
-resource and the asynchronous data plane.
+``NotImplementedError``: dense (``paged=False``) serving and the
+asynchronous data plane.
 """
 from __future__ import annotations
 
@@ -60,7 +62,9 @@ from repro_torch.tiering.memory import DaemonParams
 from repro_torch.tiering.migrate import segment_page_ids
 from repro_torch.tiering.resource import ResourceSpec
 from repro_torch.tiering.resources import (EMBED_ROWS_PER_PAGE,
-                                           EmbedRowsResource, KVPagesResource)
+                                           EmbedRowsResource,
+                                           ExpertStreamResource,
+                                           KVPagesResource)
 
 
 @dataclasses.dataclass
@@ -78,6 +82,8 @@ class ServeConfig:
     # attention kernel's per-page softmax mass; "fill" the ring's per-page
     # fill (page_len), the proxy the kernel mass replaced
     kv_mass_source: str = "kernel"
+    expert_hot_slots: int = 4       # device-resident experts per layer group
+    expert_quota: int = 32
     embed_hot_slots: int = 64       # hot vocab row-blocks kept on the device
     embed_quota: int = 64
     embed_rows_per_page: int = 0    # vocab rows per page (0 -> package default)
@@ -88,8 +94,8 @@ class ServeConfig:
     lanes: int = 0                  # decode lanes (0 = single-request mode)
     kv_segments: int = 0            # slow-store KV segments (0 -> lanes)
     kv_tier_slots: int = 0          # kv fast-tier slots (0 -> hot_slots)
-    # read embedding rows in-step through the tiered store (off = the
-    # dense table)
+    # read embedding rows and expert weights in-step through the tiered
+    # store (off = the dense table and expert weights)
     jit_tier_reads: bool = True
     # slow-store wire format of every resource (tiering/codec.py, DESIGN.md
     # §14): "none" native rows, "fp32" full precision, "int8" per-row
@@ -104,7 +110,6 @@ class ServeConfig:
 
 _NOT_YET_PORTED = {
     "paged": (lambda s: not s.paged, "dense (paged=False) serving"),
-    "resources": (lambda s: "experts" in s.resources, "the experts resource"),
     "async_migration": (lambda s: s.async_migration,
                         "the asynchronous data plane"),
 }
@@ -217,6 +222,19 @@ class ServeEngine:
                 # the ring fills
                 payload = torch.zeros((spec.n_pages,) + row_shape,
                                       dtype=torch.bfloat16, pin_memory=pinned)
+            elif kind == "experts":
+                if cfg.moe is None or "moe" not in cfg.pattern:
+                    raise ValueError(
+                        f"arch {cfg.name!r} has no MoE layers to tier")
+                payload = self._expert_payload()
+                spec = ResourceSpec(
+                    "experts", n_pages=payload.shape[0],
+                    hot_slots=cfg.n_groups * scfg.expert_hot_slots,
+                    quota_pages=scfg.expert_quota,
+                    row_shape=tuple(payload.shape[1:]),
+                    row_dtype=str(payload.dtype).split(".")[-1],
+                    slow_codec=scfg.slow_codec)
+                res = ExpertStreamResource(spec, n_experts=cfg.moe.n_experts)
             elif kind == "embeddings":
                 payload = self._embed_payload(self._embed_rpp)
                 spec = ResourceSpec(
@@ -230,9 +248,27 @@ class ServeEngine:
             else:
                 raise KeyError(f"unknown serve resource kind {kind!r}")
             handle = self.daemon.register(res, seeds=seeds)
-            # the KV store starts un-witnessed; the embedding rows are
-            # valid from step 0
+            # the KV store starts un-witnessed; the embedding and expert
+            # rows are valid from step 0
             handle.bind_data(payload, initially_valid=(kind != "kv"))
+
+    def _expert_payload(self) -> torch.Tensor:
+        """(G*E, 3*d*f) expert weight rows ``[w_gate | w_in | w_out]``, page
+        = group * n_experts + expert, of the first MoE position (one
+        representative block per expert, as the reference binds).  On the
+        card the store is allocated pinned once and filled a few experts at
+        a time from the device (kimi-k2's is 33.8 GB: no second copy on the
+        card, no pageable staging on the host)."""
+        ffn = self.params["blocks"][self.cfg.pattern.index("moe")]["ffn"]
+        parts = [ffn[k].flatten(0, 1).flatten(1)
+                 for k in ("w_gate", "w_in", "w_out")]      # (G*E, d*f) each
+        if self.device.type != "cuda":
+            return torch.cat(parts, dim=1)
+        n, width = parts[0].shape[0], sum(p.shape[1] for p in parts)
+        store = torch.empty((n, width), dtype=parts[0].dtype, pin_memory=True)
+        for lo in range(0, n, 8):
+            store[lo:lo + 8].copy_(torch.cat([p[lo:lo + 8] for p in parts], dim=1))
+        return store
 
     def _embed_payload(self, rows_per_page: int) -> torch.Tensor:
         """(n_pages, rows_per_page, d) vocab row-blocks of the live table."""
@@ -246,15 +282,19 @@ class ServeEngine:
 
     def _tier_reads(self) -> dict:
         """Tier views for the in-step read path: ``{"fast", "slow",
-        "page_slot", "rows_per_page"}`` for the embeddings, rebuilt each
-        step so migration epochs are picked up.  Empty when
-        ``jit_tier_reads`` is off or no embeddings resource is registered;
-        the KV ring needs no view (it IS the fast tier, in-cache)."""
-        if not self.scfg.jit_tier_reads or "embeddings" not in self.daemon:
-            return {}
-        view = self.daemon["embeddings"].tier_view()
-        view["rows_per_page"] = self._embed_rpp
-        return {"embeddings": view}
+        "page_slot", "scale"}`` for the embeddings (with their
+        ``rows_per_page``) and the experts, rebuilt each step so migration
+        epochs are picked up.  Empty when ``jit_tier_reads`` is off; the KV
+        ring needs no view (it IS the fast tier, in-cache)."""
+        out: dict = {}
+        if not self.scfg.jit_tier_reads:
+            return out
+        if "embeddings" in self.daemon:
+            out["embeddings"] = self.daemon["embeddings"].tier_view()
+            out["embeddings"]["rows_per_page"] = self._embed_rpp
+        if "experts" in self.daemon:
+            out["experts"] = self.daemon["experts"].tier_view()
+        return out
 
     # -- single-request mode ----------------------------------------------------
     @property
@@ -299,8 +339,7 @@ class ServeEngine:
         logits, self.cache, streams = dec.prefill_paged(
             self.cfg, self.params, self.cache, tok, page_t=self.scfg.page_t,
             tiered=self._tier_reads(), collect_mass=self._kernel_mass)
-        if "embeddings" in self.daemon:
-            self.daemon.observe("embeddings", tok.to(torch.int32))
+        self._observe_common(tok, streams["router"])
         mass, ids = self._kv_page_stream()
         if self._kernel_mass:
             # (C, G, n_attn, B, S) averaged over groups, positions and
@@ -331,7 +370,7 @@ class ServeEngine:
             return_streams=True, collect_mass=self._kernel_mass,
             tiered=self._tier_reads())
         self._set_kv_mass(streams)
-        self._observe(tok)
+        self._observe(tok, streams["router"])
         self._maybe_tick()
         self._decode_s += time.perf_counter() - t0
         return logits
@@ -343,9 +382,17 @@ class ServeEngine:
         km = streams["kv_mass"]
         self._last_kv_mass = km.mean(dim=(0, 1)) if km is not None else None
 
-    def _observe(self, tok: torch.Tensor) -> None:
+    def _observe_common(self, tok: torch.Tensor, router) -> None:
+        """The embeddings and experts streams of single-request mode: every
+        token and every router id is live.  A prefill chunk's router stream
+        is (C, G, n_moe, B, 1, k), a step's (G, n_moe, B, 1, k)."""
         if "embeddings" in self.daemon:
             self.daemon.observe("embeddings", tok.to(torch.int32))
+        if "experts" in self.daemon and router is not None:
+            self.daemon.observe("experts", router)
+
+    def _observe(self, tok: torch.Tensor, router) -> None:
+        self._observe_common(tok, router)
         mass, ids = self._kv_page_stream()
         if self._kernel_mass:
             # batch rows advance in lockstep over the same page ids, so the
@@ -395,7 +442,7 @@ class ServeEngine:
             collect_mass=self._kernel_mass, tiered=self._tier_reads(),
             active=torch.as_tensor(self._lane_active, device=self.device))
         self._set_kv_mass(streams)
-        self._observe_lanes(tokens)
+        self._observe_lanes(tokens, streams["router"])
         self._maybe_tick()
         out = logits[:, -1].float().cpu().numpy()
         self._decode_s += time.perf_counter() - t0
@@ -452,6 +499,11 @@ class ServeEngine:
         other lanes (and tail padding) masked to -1."""
         if "embeddings" in self.daemon:
             self.daemon.observe("embeddings", self._ids(np.where(valid, tok, -1)))
+        if "experts" in self.daemon and streams["router"] is not None:
+            # (C, G, n_moe, L, 1, k), padding steps and other lanes -1
+            live = torch.as_tensor(valid.T, device=self.device)
+            self.daemon.observe("experts", torch.where(
+                live[:, None, None, :, None, None], streams["router"], -1))
         mass, gids = self._kv_lane_stream(active=active)
         if self._kernel_mass:
             # per-step (C, G, n_attn, L, S) kernel mass: averaged over
@@ -462,11 +514,16 @@ class ServeEngine:
             mass = (per_step * w[:, :, None]).sum(dim=0)             # (L, S)
         self._observe_kv_lanes(mass, gids)
 
-    def _observe_lanes(self, tokens: np.ndarray) -> None:
+    def _observe_lanes(self, tokens: np.ndarray, router) -> None:
         """Feed the tiering streams with inactive lanes masked to -1 pads."""
         if "embeddings" in self.daemon:
             self.daemon.observe("embeddings",
                                 self._ids(np.where(self._lane_active, tokens, -1)))
+        if "experts" in self.daemon and router is not None:
+            # (G, n_moe, L, 1, k)
+            live = torch.as_tensor(self._lane_active, device=self.device)
+            self.daemon.observe("experts", torch.where(
+                live[None, None, :, None, None], router, -1))
         mass, gids = self._kv_lane_stream()
         self._observe_kv_lanes(self._last_kv_mass if self._kernel_mass else mass,
                                gids)
@@ -487,12 +544,16 @@ class ServeEngine:
 
     def reset_lane(self, lane: int) -> None:
         """Return a lane to its initial state for a fresh admission: ring
-        bookkeeping and position back to zero, the dense family's initial
-        ring state (page payloads may stay — ``page_len`` masks them)."""
+        bookkeeping (the dense prologue's too) and position back to zero,
+        the initial state of every ring (page payloads may stay —
+        ``page_len`` masks them)."""
         for entry in self.cache["blocks"]:
             for k, v in entry.items():
                 if k not in ("k_pages", "v_pages"):
                     v[:, lane] = 0
+        for entry in self.cache.get("prologue", []):
+            entry["page_len"][lane] = 0
+            entry["cur_slot"][lane] = 0
         self.cache["pos"][lane] = 0
         self._invalidate_lane_flush(lane)
         self._lane_pages[lane] = -1
@@ -503,16 +564,20 @@ class ServeEngine:
 
         The lane's resident ring pages are force-flushed down to its KV
         slow-store segment (an exact snapshot of the ring), and what the KV
-        payload does not carry — the ring bookkeeping and the position, and
-        the pages of attention positions beyond the representative entry —
-        is snapshotted to the host in the returned residual.
+        payload does not carry — the ring bookkeeping and the position, the
+        pages of attention positions beyond the representative entry and
+        the dense prologue's rings — is snapshotted to the host in the
+        returned residual.
         :meth:`resume_lane` restores it bitwise."""
         self._flush_kv_lanes(lanes=[lane], force=True)
         residual = {"pos": int(self.cache["pos"][lane]),
                     "segment": int(self._lane_segments[lane]),
                     "pages": self._lane_pages[lane].copy(),
                     "full": self._lane_full[lane].copy(),
-                    "blocks": []}
+                    "blocks": [],
+                    "prologue": [{k: v[lane].to("cpu", copy=True)
+                                  for k, v in entry.items()}
+                                 for entry in self.cache.get("prologue", [])]}
         rep = self._paged_entry()
         for entry in self.cache["blocks"]:
             skip = ("k_pages", "v_pages") if entry is rep else ()
@@ -530,6 +595,10 @@ class ServeEngine:
         for entry, snap in zip(self.cache["blocks"], residual["blocks"]):
             for k, v in snap.items():
                 entry[k][:, lane] = v.to(self.device)
+        for entry, snap in zip(self.cache.get("prologue", []),
+                               residual["prologue"]):
+            for k, v in snap.items():
+                entry[k][lane] = v.to(self.device)
         self.cache["pos"][lane] = residual["pos"]
         self._invalidate_lane_flush(lane)
         self._lane_pages[lane] = residual["pages"]

@@ -13,12 +13,14 @@ binds payload data gets a :class:`TierBuffers` set (DESIGN.md §8):
   * ``scale``: ``(num_pages,)`` float32 per-row scales under the ``int8``
     codec (``None`` otherwise), beside the payload in the same memory.
 
-Rows cross the link as they are stored: a slow read moves the payload
-(and its scales) to the device through a pinned staging buffer and decodes
-there; a write or a demotion encodes on the device and moves the wire
-format down.  Each daemon epoch applies one copy (:func:`migrate`):
-victims are re-encoded back to their old slow pages, then the promoted
-pages are decoded into the freed fast slots.  Unlike the reference's
+Rows cross the link as they are stored: a slow read copies each payload
+row straight from the pinned store to the device (its scales through a
+pinned staging buffer) and decodes there; a write or a demotion encodes on
+the device and moves the wire format down.  A read touches the slow store
+only for the ids that miss the fast tier, each distinct id once.  Each
+daemon epoch applies one copy (:func:`migrate`): victims are re-encoded
+back to their old slow pages, then the promoted pages are decoded into the
+freed fast slots.  Unlike the reference's
 donated functional copies, the verbs update the buffers IN PLACE (the
 fast buffer is the only copy the device holds) and return the same
 :class:`TierBuffers`.
@@ -116,9 +118,18 @@ def _gather(store: torch.Tensor, ids: np.ndarray) -> torch.Tensor:
 
 def _slow_rows(slow: torch.Tensor, scale: torch.Tensor | None,
                ids: np.ndarray, device, out_dtype) -> torch.Tensor:
-    """Slow rows ``ids`` moved to ``device`` in their wire format (payload
-    and scales, asynchronously from pinned staging) and decoded there."""
-    payload = _gather(slow, ids).to(device, non_blocking=True)
+    """Slow rows ``ids`` moved to ``device`` in their wire format and decoded
+    there.  From a pinned store each row is copied straight to the device,
+    one asynchronous copy a row (no staging gather on the host: a kimi-k2
+    expert row is 88 MB); from any other store, one gather."""
+    ids = np.asarray(ids, np.int64).reshape(-1)
+    if slow.is_pinned():
+        payload = torch.empty((ids.size,) + tuple(slow.shape[1:]),
+                              dtype=slow.dtype, device=device)
+        for j, i in enumerate(ids.tolist()):
+            payload[j].copy_(slow[i], non_blocking=True)
+    else:
+        payload = slow[torch.as_tensor(ids, device=slow.device)].to(device)
     sc = _scale_at(scale, ids)
     if sc is not None:
         sc = sc.to(device, non_blocking=True)
@@ -152,29 +163,41 @@ def migrate(buffers: TierBuffers, promoted, victims, evicted,
     promoted, victims, evicted = _host(promoted), _host(victims), _host(evicted)
     ok = (promoted >= 0) & (victims >= 0)
     ev_ok = ok & (evicted >= 0)
-    fast = buffers.fast
+    fast, n_pages = buffers.fast, buffers.slow.shape[0]
     # gather the promoted rows BEFORE the write-back (a page promoted in this
-    # batch is never also evicted in it, but the order documents it)
-    up = _slow_rows(buffers.slow, buffers.scale, promoted[ok], fast.device,
+    # batch is never also evicted in it, but the order documents it); a page
+    # id past the store reads its last row and its write-back is dropped,
+    # still counted, as in the reference's jitted copy (ROADMAP C4)
+    up = _slow_rows(buffers.slow, buffers.scale,
+                    np.minimum(promoted[ok], n_pages - 1), fast.device,
                     fast.dtype)
-    slots_ev = torch.as_tensor(victims[ev_ok], dtype=torch.long, device=fast.device)
-    _store_rows(buffers, evicted[ev_ok], fast[slots_ev], codec)
+    down = ev_ok & (evicted < n_pages)
+    slots_ev = torch.as_tensor(victims[down], dtype=torch.long, device=fast.device)
+    _store_rows(buffers, evicted[down], fast[slots_ev], codec)
     fast[torch.as_tensor(victims[ok], dtype=torch.long, device=fast.device)] = up
     return buffers, int(ok.sum()), int(ev_ok.sum())
 
 
 def read_rows(fast: torch.Tensor, slow: torch.Tensor, slots: torch.Tensor,
               page_ids: torch.Tensor, scale=None) -> torch.Tensor:
-    """Serve a batch of page reads: fast copy when resident, slow fallback
-    decoded on the device.  Rows for invalid page ids (< 0) read slow page
-    0 — callers mask them."""
+    """Serve a batch of page reads: the fast copy when resident, else the
+    slow row decoded on the device.  Only the missed ids are read from the
+    slow store, each distinct id once.  Rows for invalid page ids (< 0)
+    read slow page 0 — callers mask them."""
     slots = slots.to(fast.device).long()
-    hit = slots >= 0
-    safe = _host(torch.where(page_ids >= 0, page_ids, 0)).reshape(-1)
-    slow_rows = _slow_rows(slow, scale, safe, fast.device, fast.dtype)
-    slow_rows = slow_rows.reshape(tuple(slots.shape) + tuple(fast.shape[1:]))
-    mask = hit.reshape(tuple(hit.shape) + (1,) * (fast.dim() - 1))
-    return torch.where(mask, fast[torch.where(hit, slots, 0)], slow_rows)
+    row_shape = tuple(fast.shape[1:])
+    flat = slots.reshape(-1)
+    out = fast[flat.clamp_min(0)]
+    miss = np.flatnonzero(_host(flat) < 0)
+    if miss.size:
+        ids = _host(torch.where(page_ids >= 0, page_ids, 0)).reshape(-1)[miss]
+        uniq, inv = np.unique(ids, return_inverse=True)
+        inv = inv.reshape(-1)
+        rows = _slow_rows(slow, scale, uniq, fast.device, fast.dtype)
+        if not np.array_equal(inv, np.arange(inv.size)):
+            rows = rows[torch.as_tensor(inv, device=fast.device)]
+        out[torch.as_tensor(miss, device=fast.device)] = rows
+    return out.reshape(tuple(slots.shape) + row_shape)
 
 
 def lookup_rows(fast: torch.Tensor, slow: torch.Tensor,

@@ -1,8 +1,9 @@
-"""The built-in tiered resources the port serves: paged KV and vocab rows
-(DESIGN.md §3.2, §3.3).
+"""The three built-in tiered resources: KV pages, MoE experts and vocab rows
+(DESIGN.md §3.1-§3.3).
 
-Port of ``repro/tiering/resources.py``; the experts resource comes with the
-MoE archs.
+Port of ``repro/tiering/resources.py``: each is a stream encoder, and the
+serve engine binds each one's payload (flushed KV pages, expert weight rows,
+vocab row-blocks) so the daemon's epochs move real bytes.
 """
 from __future__ import annotations
 
@@ -39,6 +40,31 @@ class KVPagesResource(StreamResource):
         total = torch.clamp_min(page_mass.sum(), 1e-30)
         keep = page_mass / total >= self.mass_threshold
         return torch.where(keep, page_ids.to(torch.int32), -1).reshape(-1)
+
+
+@register_resource("experts")
+class ExpertStreamResource(StreamResource):
+    """MoE expert weights: the stream is the router's token->expert ids,
+    page = group * n_experts + expert."""
+
+    def __init__(self, spec: ResourceSpec, n_experts: int):
+        super().__init__(spec)
+        self.n_experts = n_experts
+
+    def encode_stream(self, router_streams: torch.Tensor) -> torch.Tensor:
+        """(G, n_moe, ..., k) router expert ids -> flat page stream; negative
+        entries are padding (masked lanes) and stay -1.  As in the
+        reference, the leading axis is taken for the group axis whatever it
+        is: a prefill chunk's (C, G, n_moe, B, 1, k) stream numbers its pages
+        by chunk column, past the resource's pages (ROADMAP C4)."""
+        g = router_streams.shape[0]
+        group_ids = torch.arange(g, dtype=torch.int32,
+                                 device=router_streams.device).reshape(
+            (g,) + (1,) * (router_streams.dim() - 1))
+        router = router_streams.to(torch.int32)
+        pages = torch.where(router >= 0, group_ids * self.n_experts + router,
+                            -1).reshape(-1)
+        return _subsample(pages, self.spec.stream_cap)
 
 
 @register_resource("embeddings")
