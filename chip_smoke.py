@@ -21,7 +21,12 @@ Phases, one summary line each:
                 update, mark and histogram at the simulator's blocks
                 (S=2048 at W=16K, S=16384 at W=512K), bitwise and timed;
                 attention also at kimi-k2's group of 8 query heads per kv
-                head (PHASE moe's two ring shapes), checked and timed;
+                head (PHASE moe's two ring shapes), checked and timed, and
+                at deepseek-v3's MLA shape (128 query heads over one latent
+                head, dk 576, dv 512: the head-tiled kernel) at edge shapes
+                and at PHASE mla's two ring shapes and PHASE main's, checked
+                and timed with its bound (bytes, or flops at the TF32
+                tensor-core rate) and SDPA's enable_gqa call;
   3. main     — ServeEngine on llama3.2-3b at full width (random weights
                 from a seed) serving a batch of 4 random 1024-token prompts
                 for 64 greedy tokens through the NeoMem loop; every kernel
@@ -89,7 +94,14 @@ Phases, one summary line each:
                 prints wall, tokens/s, ms per step, hit rates and bytes, ms
                 per slow expert row, a profile of 4 steps and the card's
                 peak memory and pinned host bytes;
-  9. sim      — the paper's evaluation path: fig11_main_speedup.py's grid
+  9. mla      — deepseek-v3 at full width (d 7168, 128 heads, MLA
+                q_lora 1536 / kv_lora 512 / d_nope 128 / d_rope 64 / d_v
+                128, 256 experts top-8, vocab 129280), its depth cut to its
+                3 dense prologue layers and its first MoE layer (MLA_DEPTH),
+                through PHASE moe's drives and checks with 64 of 256 experts
+                on the card; every attention launch of the phase must be
+                the head-tiled kernel's;
+  10. sim     — the paper's evaluation path: fig11_main_speedup.py's grid
                 (8 workloads x 6 methods, benchmarks/common.py's scale)
                 through the port's tiering simulator on the card, every
                 result (counts, θ and error traces exactly; modeled runtime
@@ -97,7 +109,7 @@ Phases, one summary line each:
                 equal to a CPU run of the port on the same blocks; prints
                 the modeled geomean speedups, neomem's hit rates and the
                 card's wall ms per block;
-  10. sim-paper — gups at the paper's scale (4M pages, W=512K, blocks of
+  11. sim-paper — gups at the paper's scale (4M pages, W=512K, blocks of
                 16384) through all six methods on the card: hits must sum
                 to the accesses, promotions stay within the quota, and
                 neomem's sketch over its last clear interval (recorded in a
@@ -106,8 +118,9 @@ Phases, one summary line each:
                 neomem blocks (device busy share, top kernels) and the
                 cost of the sketch's O(S^2) first-occurrence dedup.
 The line before the last is a JSON object with every kernel's numbers (its
-launches in PHASE main, and per phase: the simulator phases launch no
-attention); the last line is {"ok": true, "device": {...}}.  Any failure
+launches in PHASE main, the head-tiled attention kernel's in PHASE mla, and
+per phase: the simulator phases launch no attention); the last line is
+{"ok": true, "device": {...}}.  Any failure
 raises (exit != 0) and prints no result; with no CUDA device the script
 exits 2.
 """
@@ -129,6 +142,7 @@ sys.path.insert(0, str(ROOT / "src"))
 LAUNCHES = 100          # timed calls per measurement (median reported)
 SPIN_CYCLES = 1 << 26   # card clock cycles the timed calls queue behind
 ATOL, RTOL = 1e-4, 1e-4  # attention kernel vs plain version, float32
+MLA_SCALE = (128 + 64) ** -0.5   # deepseek-v3's softmax scale, (d_nope + d_rope)^-1/2
 COLD_SETS = 6           # attention input sets rotated through (101 MB of K/V > L2)
 SKETCH_SETS = 24        # sketch input sets rotated through (151 MB at W=512K > L2)
 PAPER_W = 1 << 19       # the paper's sketch width (Table III: W=512K, D=2)
@@ -194,6 +208,20 @@ MOE_PROMPT = (2, 16, 16)           # batch, prompt tokens, new tokens
 MOE_LANES = dict(LANE_SERVE, resources=["experts", "embeddings"],
                  expert_hot_slots=96, expert_quota=32)
 MOE_TRACE = FILL_TRACE
+# PHASE mla: deepseek-v3 at full width (MLA attention, 256 experts top-8),
+# depth cut to its 3 dense prologue layers and its first MoE layer, with
+# PHASE moe's drives: a quarter of the experts on the card in each
+MLA_DEPTH = 4
+MLA_SINGLE = dict(MOE_SINGLE, expert_hot_slots=64)
+MLA_LANES = dict(MOE_LANES, expert_hot_slots=64)
+# the two MoE phases: arch, depth cut, the single request's and the lane
+# drive's engine configuration
+MOE_PHASES = {
+    "moe": dict(arch="kimi-k2-1t-a32b", depth=MOE_DEPTH, single=MOE_SINGLE,
+                lanes=MOE_LANES),
+    "mla": dict(arch="deepseek-v3-671b", depth=MLA_DEPTH, single=MLA_SINGLE,
+                lanes=MLA_LANES),
+}
 # PHASE sim: fig11_main_speedup.py's grid at benchmarks/common.py's scale
 # (N_PAGES, BLOCK, N_BLOCKS, FAST_RATIO, SIM_KW, METHODS; stream seed 11)
 SIM_WORKLOADS = ("deathstar", "pagerank", "xsbench", "gups", "silo", "btree",
@@ -209,15 +237,16 @@ SIM_RUNTIME_RTOL, SIM_BW_ATOL = 1e-12, 1e-6   # card vs CPU: modeled runtime, bw
 PAPER_STREAM = dict(n_pages=1 << 22, block=1 << 14, n_blocks=256, seed=11)
 PAPER_KW = dict(fast_ratio=1 / 3, sketch_width=PAPER_W, sketch_depth=2)
 PAPER_QUOTA = 256
-# datasheet memory bandwidth (bytes/s) and float32 non-tensor peak (flop/s)
-CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+# datasheet memory bandwidth (bytes/s), float32 non-tensor peak and dense
+# TF32 tensor-core peak (flop/s)
+CARDS = (("H200", 4.8e12, 67e12, 495e12), ("H100 NVL", 3.9e12, 60e12, 417e12),
+         ("H100 PCIe", 2.0e12, 51e12, 378e12), ("H100", 3.35e12, 67e12, 495e12))
 
 
-def card_rates(name: str) -> tuple[float, float]:
-    for key, bw, f32 in CARDS:
+def card_rates(name: str) -> tuple[float, float, float]:
+    for key, *rates in CARDS:
         if key in name:
-            return bw, f32
+            return tuple(rates)
     raise RuntimeError(f"no datasheet rates for card {name!r}")
 
 
@@ -289,32 +318,40 @@ def max_err(outs, refs) -> float:
 
 # -- phase 2: kernels against their plain versions -----------------------------
 
+def attention_case(torch, pa_ops, pa_ref, gen, b, h, hkv, dk, dv, p, t, dtype,
+                   lens, softcap=0.0, scale=None):
+    """One call of the attention kernel on random inputs against its plain
+    version (ATOL + RTOL*|ref| on every output) and its page mass."""
+    scale = dk ** -0.5 if scale is None else scale
+    q = torch.randn((b, h, dk), generator=gen, device="cuda")
+    kp = torch.randn((b, p, t, hkv, dk), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((b, p, t, hkv, dv), generator=gen, device="cuda").to(dtype)
+    lens = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    out = pa_ops.paged_attention_raw(q, kp, vp, lens, scale=scale, softcap=softcap,
+                                     return_page_stats=True)
+    ref = pa_ref.paged_attention_raw_ref(q, kp, vp, lens, scale=scale,
+                                         softcap=softcap)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("m", "l", "acc", "page_m", "page_l"), out, ref):
+        bad = ~((a - r).abs() <= ATOL + RTOL * r.abs())   # NaN is bad too
+        if bool(bad.any()):
+            raise AssertionError(
+                f"paged_attn {name} differs at {(b, h, hkv, dk, dv, p, t, dtype)}:"
+                f" max err {float((a - r).abs().max())}")
+    mass = pa_ops.page_mass(*[out[i] for i in (0, 1, 3, 4)])
+    valid_rows = (lens > 0).any(dim=1)
+    sums = mass.sum(dim=1)[valid_rows]
+    if not bool(((sums - 1).abs() < 1e-4).all()):
+        raise AssertionError(f"page mass sums {sums.tolist()} != 1")
+    if not bool((mass[lens == 0] == 0).all()):
+        raise AssertionError("a masked page carries mass")
+    return q, kp, vp, lens, out, ref
+
+
 def check_attention(torch, pa_ops, pa_ref, rates, gen):
     """Edge shapes, then the main path's shape (timed)."""
-    def case(b, h, hkv, dk, dv, p, t, dtype, lens, softcap=0.0):
-        q = torch.randn((b, h, dk), generator=gen, device="cuda")
-        kp = torch.randn((b, p, t, hkv, dk), generator=gen, device="cuda").to(dtype)
-        vp = torch.randn((b, p, t, hkv, dv), generator=gen, device="cuda").to(dtype)
-        lens = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
-        out = pa_ops.paged_attention_raw(q, kp, vp, lens, softcap=softcap,
-                                         return_page_stats=True)
-        ref = pa_ref.paged_attention_raw_ref(q, kp, vp, lens,
-                                             scale=dk ** -0.5, softcap=softcap)
-        torch.cuda.synchronize()
-        for name, a, r in zip(("m", "l", "acc", "page_m", "page_l"), out, ref):
-            bad = ~((a - r).abs() <= ATOL + RTOL * r.abs())   # NaN is bad too
-            if bool(bad.any()):
-                raise AssertionError(
-                    f"paged_attn {name} differs at {(b, h, hkv, dk, dv, p, t, dtype)}:"
-                    f" max err {float((a - r).abs().max())}")
-        mass = pa_ops.page_mass(*[out[i] for i in (0, 1, 3, 4)])
-        valid_rows = (lens > 0).any(dim=1)
-        sums = mass.sum(dim=1)[valid_rows]
-        if not bool(((sums - 1).abs() < 1e-4).all()):
-            raise AssertionError(f"page mass sums {sums.tolist()} != 1")
-        if not bool((mass[lens == 0] == 0).all()):
-            raise AssertionError("a masked page carries mass")
-        return q, kp, vp, lens, out, ref
+    def case(*args, **kw):
+        return attention_case(torch, pa_ops, pa_ref, gen, *args, **kw)
 
     rng = np.random.default_rng(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -374,7 +411,9 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
         lens[0, 2] = t // 2
         lens[1] = t
         lens[3:] = 0
-        check_group8(torch, pa_ops, rates, case(b, 64, 8, 128, 128, p, t, bf16, lens))
+        time_attention(torch, pa_ops, pa_ref, rates,
+                       case(b, 64, 8, 128, 128, p, t, bf16, lens), "paged_attn",
+                       "paged_attn at group 8 (kimi-k2)")
     # main path: llama3.2-3b decode, B=4, 16 ring slots of 64 tokens, the
     # current slot part-filled
     b, h, hkv, d, p, t = 4, 24, 8, 128, 16, 64
@@ -427,37 +466,116 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
                 bound_by=by, library_ms=lib_cold, host_ms=host)
 
 
-def check_group8(torch, pa_ops, rates, checked) -> None:
-    """Time attention at a checked kimi-k2 shape (group 8): cold over enough
-    input sets to exceed the L2 and warm, beside its byte bound and SDPA's
-    masked call on the same pages."""
+def check_mla_attention(torch, pa_ops, pa_ref, rates, gen):
+    """The head-tiled kernel at MLA's shape (deepseek-v3: 128 query heads over
+    one latent head, dk 576, dv 512, scale (128 + 64)^-1/2): edge shapes,
+    then PHASE mla's two ring shapes (the single request's B 2, P 6, T 8 and
+    the lanes' B 4, P 8, T 16) and PHASE main's (B 4, P 16, T 64), checked
+    and timed cold and warm, with the host's time per call, the plain
+    version's, the bound and a library call's.  Returns the kernel row of
+    the last."""
+    def case(*args, **kw):
+        return attention_case(torch, pa_ops, pa_ref, gen, *args, **kw)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rng = np.random.default_rng(1)
+    before = pa_ops.head_tiled.launches
+    scale = MLA_SCALE
+    edge = rng.integers(0, 9, (3, 9))
+    edge[2] = 0                                   # a fully masked row
+    edge[0, :4] = 8
+    case(3, 48, 2, 576, 512, 9, 8, bf16, edge, scale=scale)   # tiles of 16 + 8
+    case(2, 128, 1, 576, 512, 3, 8, f32, rng.integers(0, 9, (2, 3)), scale=scale)
+    case(1, 128, 1, 576, 512, 4, 16, bf16, rng.integers(1, 17, (1, 4)),
+         softcap=30.0, scale=scale)
+    case(2, 128, 1, 576, 512, 5, 6, bf16, rng.integers(0, 7, (2, 5)), scale=scale)
+    case(2, 128, 1, 576, 512, 1, 64, bf16, [[64], [0]], scale=scale)
+    case(2, 32, 1, 24, 16, 3, 4, bf16, rng.integers(0, 5, (2, 3)))  # smoke widths
+    if pa_ops.head_tiled.launches - before != 6:
+        raise AssertionError("a group above MAX_GROUP did not take the head-tiled "
+                             "kernel")
+    for b, p, t in ((2, 6, 8), (4, 8, 16), (4, 16, 64)):
+        lens = rng.integers(0, t + 1, (b, p))
+        lens[0] = t
+        lens[0, p // 2] = t // 2                  # the part-filled current slot
+        lens[1, :2] = 0
+        row = time_attention(
+            torch, pa_ops, pa_ref, rates,
+            case(b, 128, 1, 576, 512, p, t, bf16, lens, scale=scale),
+            "paged_attn_mla", "paged_attn_mla (deepseek-v3)", scale=scale)
+    return row
+
+
+def time_attention(torch, pa_ops, pa_ref, rates, checked, name, label,
+                   scale=None) -> dict:
+    """Time attention at a checked shape: cold over enough input sets to
+    exceed the L2, warm, the host's wall per call, the plain version, the
+    bound (bytes at the memory rate, flops at the TF32 tensor-core rate: bf16
+    pages are exact in TF32) and a library call: SDPA with enable_gqa over
+    the masked pages, else with the kv heads expanded, else
+    matmul-softmax-matmul in bf16, whichever a backend takes first."""
     q, kp, vp, lt, out, ref = checked
-    b, h, _ = q.shape
-    _, p, t, hkv, d = kp.shape
-    n_sets = -(-2 * 50 * 2 ** 20 // (2 * kp.numel() * kp.element_size()))
+    b, h, dk = q.shape
+    _, p, t, hkv, _ = kp.shape
+    dv = vp.shape[-1]
+    scale = dk ** -0.5 if scale is None else scale
+    kv_bytes = (kp.numel() + vp.numel()) * kp.element_size()
+    n_sets = max(2, -(-2 * 50 * 2 ** 20 // kv_bytes))
     sets = [(q, kp, vp, lt)] + [(q, torch.randn_like(kp), torch.randn_like(vp), lt)
                                 for _ in range(n_sets - 1)]
-    calls = [lambda x=x: pa_ops.paged_attention_raw(*x, return_page_stats=True)
+    calls = [lambda x=x: pa_ops.paged_attention_raw(*x, scale=scale,
+                                                    return_page_stats=True)
              for x in sets]
-    warm, cold = time_ms(calls[0]), time_ms(calls)
+    warm, cold, host = time_ms(calls[0]), time_ms(calls), host_ms(calls[0])
+    plain = time_ms(lambda: pa_ref.paged_attention_raw_ref(q, kp, vp, lt,
+                                                           scale=scale))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def sdpa_call(q, kp, vp, lt):
+    def library(q, kp, vp, lt, how):
         qs = q.to(torch.bfloat16)[:, :, None, :]
-        ks, vs = (x.repeat_interleave(h // hkv, dim=3).permute(0, 3, 1, 2, 4)
-                  .reshape(b, h, p * t, d) for x in (kp, vp))
+        ks, vs = (x.permute(0, 3, 1, 2, 4).reshape(b, hkv, p * t, x.shape[-1])
+                  for x in (kp, vp))
         mask = (torch.arange(t, device="cuda")[None, None] < lt[:, :, None]
                 ).reshape(b, 1, 1, p * t)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        return lambda: sdpa(qs, ks, vs, attn_mask=mask)
-    lib_cold = time_ms([sdpa_call(*x) for x in sets])
+        if how == "SDPA, enable_gqa":
+            return lambda: sdpa(qs, ks, vs, attn_mask=mask, scale=scale,
+                                enable_gqa=True)
+        if how == "SDPA, kv heads expanded":
+            ke, ve = (x.repeat_interleave(h // hkv, dim=1) for x in (ks, vs))
+            return lambda: sdpa(qs, ke, ve, attn_mask=mask, scale=scale)
+        ke, ve = (x.repeat_interleave(h // hkv, dim=1) for x in (ks, vs))
+
+        def mm():
+            s = torch.matmul(qs, ke.transpose(-1, -2)) * scale
+            return torch.matmul(torch.softmax(s.masked_fill(~mask, -1e30), -1), ve)
+        return mm
+    lib_cold, how = None, None
+    for how in ("SDPA, enable_gqa", "SDPA, kv heads expanded",
+                "matmul-softmax-matmul"):
+        try:
+            fns = [library(*x, how) for x in sets]
+            fns[0]()
+            torch.cuda.synchronize()
+            lib_cold = time_ms(fns)
+            break
+        except RuntimeError as e:
+            print(f"kernel {label}: library {how} refused ({str(e)[:120]})")
     n_tok = int(lt.sum())
-    nbytes = (q.numel() * 4 + n_tok * hkv * 2 * d * 2 + lt.numel() * 4
-              + b * h * (2 + d) * 4 + 2 * b * p * h * 4)
-    bms, by = bound_ms(nbytes, n_tok * h * 4 * d, rates)
-    print(f"kernel paged_attn at group 8 (kimi-k2, B={b} P={p} T={t}): max_abs_err "
-          f"{max_err(out, ref):.3g}; device {cold:.4f} ms cold ({n_sets} input sets, "
-          f"round-robin), {warm:.4f} ms warm; bound {bms:.5f} ms by {by}; SDPA "
-          f"{lib_cold:.4f} ms cold")
+    nbytes = (q.numel() * 4 + n_tok * hkv * (dk + dv) * kp.element_size()
+              + lt.numel() * 4 + b * h * (2 + dv) * 4 + 2 * b * p * h * 4)
+    nops = 2 * n_tok * h * (dk + dv)
+    bms, by = bound_ms(nbytes, nops, (rates[0], rates[2]))
+    print(f"kernel {label} (group {h // hkv}, dk {dk}, dv {dv}, B={b} P={p} T={t}): "
+          f"max_abs_err {max_err(out, ref):.3g}; device {cold:.4f} ms cold ({n_sets} "
+          f"input sets, round-robin), {warm:.4f} ms warm, host {host:.4f} ms per "
+          f"eager call; plain {plain:.4f} ms; bound {bms:.5f} ms by {by} "
+          f"({nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} GFLOP at the TF32 tensor-core "
+          f"rate; {nops / rates[1] * 1e3:.5f} ms at the float32 CUDA-core rate); "
+          f"library ({how}) {lib_cold:.4f} ms cold")
+    return dict(name=name, route="cuda", source="src/repro_torch/csrc/paged_attn.cu",
+                replaces="src/repro/kernels/paged_attn/paged_attn.py:34",
+                max_abs_err=max_err(out, ref), ms=cold, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib_cold, host_ms=host)
 
 
 def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
@@ -855,8 +973,8 @@ def profile_decode(torch, eng, tok, steps: int = 8):
           f"{launches / steps:.1f} device launches/step (kernels and copies)")
     for t, name, count in dev[:8]:
         print(f"profile:   {t / steps / 1e3:8.3f} ms/step  {count // steps:5d}/step  {name[:70]}")
-    attn_us = sum(t for t, name, _ in dev if "paged_attn_kernel" in name)
-    attn_n = sum(count for _, name, count in dev if "paged_attn_kernel" in name)
+    attn_us = sum(t for t, name, _ in dev if "paged_attn_" in name)
+    attn_n = sum(count for _, name, count in dev if "paged_attn_" in name)
     print(f"profile: paged attention {attn_us / steps / 1e3:.3f} ms/step over "
           f"{attn_n / steps:.1f} launches/step, {100 * attn_us / busy_us:.1f}% of "
           "device busy time")
@@ -1064,17 +1182,19 @@ def cpu_fill() -> dict:
     return run_fill(*_smoke_cpu(), "cpu")[0]
 
 
-def run_moe_lanes(cfg, params, device, on_sched=None):
-    """PHASE moe's lane drive: the lane configuration with the experts and
-    embeddings resources over PHASE fill's cut of the lane trace."""
-    return run_trace(cfg, params, device, MOE_LANES, LANE_SCHED, MOE_TRACE,
-                     LANE_TENANTS, on_sched)
+def run_moe_lanes(cfg, params, device, on_sched=None, phase="moe"):
+    """PHASE moe's (or mla's) lane drive: the lane configuration with the
+    experts and embeddings resources over PHASE fill's cut of the lane
+    trace."""
+    return run_trace(cfg, params, device, MOE_PHASES[phase]["lanes"], LANE_SCHED,
+                     MOE_TRACE, LANE_TENANTS, on_sched)
 
 
-def cpu_moe_lane_schedule() -> dict:
-    """PHASE moe's lane schedule from the port on the CPU at kimi-k2's smoke
-    config: no scheduling decision reads a token's value."""
-    _, sched, _, _ = run_moe_lanes(*_smoke_cpu("kimi-k2-1t-a32b"), "cpu")
+def cpu_moe_lane_schedule(phase="moe") -> dict:
+    """PHASE moe's (or mla's) lane schedule from the port on the CPU at the
+    arch's smoke config: no scheduling decision reads a token's value."""
+    _, sched, _, _ = run_moe_lanes(*_smoke_cpu(MOE_PHASES[phase]["arch"]), "cpu",
+                                   phase=phase)
     return lane_schedule(sched)
 
 
@@ -1231,20 +1351,25 @@ def fill_path(torch, counters, cfg, params, smi):
 MOE_TOL = 2 ** -6       # tiered vs dense MoE layer: max |diff| <= this * max |dense|
 
 
-def draw_moe_params(torch):
-    """kimi-k2 at full width, depth cut to MOE_DEPTH layers (1 dense
-    prologue layer, 1 MoE layer), random bf16 weights from seed 0."""
+def draw_moe_params(torch, phase="moe"):
+    """The phase's arch at full width, depth cut to the phase's depth (its
+    dense prologue layers and one MoE layer), random bf16 weights from
+    seed 0 (deepseek-v3's multi-token head is drawn and never run)."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.models.transformer import init_params
-    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b"), n_layers=MOE_DEPTH)
+    spec = MOE_PHASES[phase]
+    cfg = dataclasses.replace(get_config(spec["arch"]), n_layers=spec["depth"])
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(params))
-    print(f"moe: kimi-k2 full width (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
-          f"heads of {cfg.head_dim}, vocab {cfg.vocab}, {cfg.moe.n_experts} experts "
-          f"top-{cfg.moe.top_k} of ff {cfg.moe.expert_ff}, prologue ff "
+    attn = (f"MLA q_lora {cfg.mla.q_lora} / kv_lora {cfg.mla.kv_lora} / d_nope "
+            f"{cfg.mla.d_nope} / d_rope {cfg.mla.d_rope} / d_v {cfg.mla.d_v}"
+            if cfg.mla else f"heads of {cfg.head_dim}")
+    print(f"{phase}: {cfg.name} full width (d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, {attn}, vocab {cfg.vocab}, {cfg.moe.n_experts} "
+          f"experts top-{cfg.moe.top_k} of ff {cfg.moe.expert_ff}, prologue ff "
           f"{cfg.moe.dense_ff}), depth cut to {cfg.moe.n_dense_prologue} dense + "
           f"{cfg.n_groups} MoE layer(s): {n_params / 1e9:.3f} B params bf16 drawn "
           f"in {time.perf_counter() - t0:.1f} s")
@@ -1401,13 +1526,13 @@ def pinned_bytes(eng) -> int:
                if h.mem.buffers.slow.is_pinned())
 
 
-def moe_single(torch, counters, cfg, params, smi, device="cuda") -> dict:
-    """PHASE moe (a): serve_bench.py's kimi-k2 case at full width."""
+def moe_single(torch, counters, cfg, params, smi, device="cuda", phase="moe") -> dict:
+    """PHASE moe (a), or mla's: serve_bench.py's kimi-k2 case at full width."""
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     t0 = time.perf_counter()
+    single = MOE_PHASES[phase]["single"]
     eng = ServeEngine(cfg, params, ServeConfig(
-        **dict(MOE_SINGLE, resources=tuple(MOE_SINGLE["resources"]))),
-        device=device)
+        **dict(single, resources=tuple(single["resources"]))), device=device)
     torch.cuda.synchronize()
     bind_s = time.perf_counter() - t0
     log = record_experts(eng, cfg.moe.n_experts)
@@ -1429,15 +1554,15 @@ def moe_single(torch, counters, cfg, params, smi, device="cuda") -> dict:
     tokens = np.stack(out, axis=1)
     if not (tokens.shape == (b, new) and (tokens >= 0).all()
             and (tokens < cfg.vocab).all()):
-        raise AssertionError(f"moe: tokens of shape {tokens.shape} or out of the "
+        raise AssertionError(f"{phase}: tokens of shape {tokens.shape} or out of the "
                              "vocabulary")
     # one more step, whose logits and page mass are checked: its daemon tick
     # is the drive's first Algorithm-1 update (the histogram's launch)
     logits = eng._advance(torch.as_tensor(tok, device=device)[:, None])
-    launches = read_counts(torch, counters, "moe")
+    launches = read_counts(torch, counters, phase)
     sums = eng._last_kv_mass.sum(dim=1)
     if not (bool(torch.isfinite(logits).all()) and bool(((sums - 1).abs() < 1e-4).all())):
-        raise AssertionError(f"moe: non-finite logits or page mass sums "
+        raise AssertionError(f"{phase}: non-finite logits or page mass sums "
                              f"{sums.tolist()} != 1")
     for name, recorded in blocks.items():
         replay_resource(torch, eng.daemon[name], recorded)
@@ -1445,35 +1570,37 @@ def moe_single(torch, counters, cfg, params, smi, device="cuda") -> dict:
     resident = check_expert_rows(torch, eng)
     hits, reads, err, scale = check_tiered_layer(torch, eng, params)
     stats = eng.tier_stats()
-    print(f"moe: single request, {b} x {n} prompt tokens and {new} new: bound the "
+    print(f"{phase}: single request, {b} x {n} prompt tokens and {new} new: bound the "
           f"stores in {bind_s:.1f} s; prefill {prefill_s:.3f} s, decode "
           f"{b * (new - 1) / decode_s:.2f} tokens/s, {1e3 * decode_s / (new - 1):.2f} "
           f"ms/step on {smi}")
-    print(f"moe: sketches of kv and embeddings replayed bitwise; experts' "
+    print(f"{phase}: sketches of kv and embeddings replayed bitwise; experts' "
           f"{placement['blocks']} blocks through a CPU daemon: {placement['epochs']} "
           f"promotion batches, {placement['rows']} rows moved, θ {placement['theta']} "
           f"all equal; {resident} resident expert rows equal their slow rows")
-    print(f"moe: tiered MoE layer against the dense one: {hits} of {reads} reads "
+    print(f"{phase}: tiered MoE layer against the dense one: {hits} of {reads} reads "
           f"fast, max |diff| {err:.4g} (limit {MOE_TOL} x {scale:.4g})")
     for name in ("experts", "embeddings", "kv"):
         row = stats[name]
-        print(f"moe: {name} hit rate {row['hit_rate']:.3f}, migration "
+        print(f"{phase}: {name} hit rate {row['hit_rate']:.3f}, migration "
               f"{row['migration_bytes']} B, flush {row['flush_bytes']} B "
               f"on {smi}")
-    print(f"moe: slow expert row read {slow_row_ms(torch, eng):.3f} ms per missed "
+    print(f"{phase}: slow expert row read {slow_row_ms(torch, eng):.3f} ms per missed "
           f"row (88,080,384 B, pinned host to device, wall) on {smi}")
     profile_decode(torch, eng, tok, steps=4)
-    print(f"moe: peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+    print(f"{phase}: peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
           f"GiB, pinned host stores {pinned_bytes(eng) / 2 ** 30:.2f} GiB on {smi}")
     return launches
 
 
-def moe_path(torch, counters, smi, device="cuda"):
-    """PHASE moe: kimi-k2 at full width (depth cut), the single request,
-    then the lane drive held to the CPU's schedule at the smoke config."""
+def moe_path(torch, counters, smi, device="cuda", phase="moe"):
+    """PHASE moe (kimi-k2) or mla (deepseek-v3): the arch at full width
+    (depth cut), the single request, then the lane drive held to the CPU's
+    schedule at the smoke config."""
     torch.cuda.reset_peak_memory_stats()
-    cfg, params = draw_moe_params(torch)
-    launches = {"single": moe_single(torch, counters, cfg, params, smi, device)}
+    cfg, params = draw_moe_params(torch, phase)
+    launches = {"single": moe_single(torch, counters, cfg, params, smi, device,
+                                     phase)}
     gc.collect()                       # the single request's stores
     torch.cuda.empty_cache()
     logs, blocks, checked = {}, {}, {"steps": 0, "chunks": 0}
@@ -1484,8 +1611,9 @@ def moe_path(torch, counters, smi, device="cuda"):
             blocks[name] = record_blocks(sched.eng.daemon[name])
         check_lane_steps(sched.eng, checked)
         zero_counts(counters)
-    eng, sched, trace, wall_s = run_moe_lanes(cfg, params, device, instrument)
-    launches["lanes"] = read_counts(torch, counters, "moe lanes")
+    eng, sched, trace, wall_s = run_moe_lanes(cfg, params, device, instrument,
+                                              phase)
+    launches["lanes"] = read_counts(torch, counters, f"{phase} lanes")
     rep = sched.report()
     check_report(rep, sched.finished, len(trace.arrivals), cfg.vocab)
     for name, recorded in blocks.items():
@@ -1493,24 +1621,24 @@ def moe_path(torch, counters, smi, device="cuda"):
     placement = replay_experts(torch, eng, logs["experts"])
     resident = check_expert_rows(torch, eng)
     t0 = time.perf_counter()
-    cpu = cpu_moe_lane_schedule()
+    cpu = cpu_moe_lane_schedule(phase)
     card = lane_schedule(sched)
     if card != cpu:
-        raise AssertionError(f"moe: the card's schedule differs from the CPU's:\n"
+        raise AssertionError(f"{phase}: the card's schedule differs from the CPU's:\n"
                              f"{card}\n{cpu}")
-    print(f"moe: lanes, schedule equal to the CPU run at the smoke config "
+    print(f"{phase}: lanes, schedule equal to the CPU run at the smoke config "
           f"({time.perf_counter() - t0:.1f} s): {len(sched.finished)} requests, "
           f"{rep['steps']} steps, {rep['preemptions']} preemption(s); experts' "
           f"{placement['blocks']} blocks replayed ({placement['epochs']} batches, "
           f"{placement['rows']} rows, θ {placement['theta']}); {resident} resident "
           f"expert rows equal their slow rows; {checked['steps']} lane steps and "
           f"{checked['chunks']} chunks with finite logits and unit page mass")
-    print_serving(rep, wall_s, "moe lanes", smi)
-    print(f"moe: lanes peak device memory "
+    print_serving(rep, wall_s, f"{phase} lanes", smi)
+    print(f"{phase}: lanes peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, pinned host "
           f"stores {pinned_bytes(eng) / 2 ** 30:.2f} GiB on {smi}")
     total = {k: launches["single"][k] + launches["lanes"][k] for k in launches["single"]}
-    print("moe: launches " + json.dumps(launches) + f" on {smi}")
+    print(f"{phase}: launches " + json.dumps(launches) + f" on {smi}")
     return total, rep
 
 
@@ -2007,7 +2135,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s into {_lib.library_path().name}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_attention(torch, pa_ops, pa_ref, rates, gen)]
+    rows = [check_attention(torch, pa_ops, pa_ref, rates, gen),
+            check_mla_attention(torch, pa_ops, pa_ref, rates, gen)]
     rows += check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen)
     for r in rows:
         print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, device "
@@ -2045,18 +2174,35 @@ def main() -> int:
           f"decode clock, launches {json.dumps(phases['moe'])} on {smi}")
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mla_counters = counters + (pa_ops.head_tiled,)
+    phases["mla"], rep = moe_path(torch, mla_counters, smi, phase="mla")
+    if phases["mla"]["paged_attention_raw"] != phases["mla"]["paged_attention_head_tiled"]:
+        raise AssertionError("PHASE mla: an attention call missed the head-tiled "
+                             f"kernel: {phases['mla']}")
+    print(f"PHASE mla: ok in {time.perf_counter() - t0:.1f} s, "
+          f"{rep['completed']} lane requests, "
+          f"{rep['tokens'] / rep['clock']['decode_s']:.2f} tokens/s on the "
+          f"decode clock, launches {json.dumps(phases['mla'])} on {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
     for phase, path in (("sim", sim_path), ("sim-paper", sim_paper_path)):
         t0 = time.perf_counter()
         phases[phase] = path(torch, counters, smi)
         print(f"PHASE {phase}: ok in {time.perf_counter() - t0:.1f} s, launches "
               f"{json.dumps(phases[phase])} on {smi}")
     by_name = {"paged_attn": "paged_attention_raw",
+               "paged_attn_mla": "paged_attention_head_tiled",
                "neoprof_update": "sketch_update_kernel",
                "neoprof_mark": "sketch_mark_hot_kernel",
                "cms_hist": "hist_kernel"}
     for r in rows:
-        r["launches"] = launches[by_name[r["name"]]]
-        r["phase_launches"] = {p: n[by_name[r["name"]]] for p, n in phases.items()}
+        # launches on the kernel's own main path: PHASE main's, and for the
+        # head-tiled kernel PHASE mla's
+        path = "mla" if r["name"] == "paged_attn_mla" else "main"
+        r["launches"] = phases[path][by_name[r["name"]]]
+        r["phase_launches"] = {p: n.get(by_name[r["name"]], 0)
+                               for p, n in phases.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "phase_launches")

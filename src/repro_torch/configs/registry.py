@@ -1,23 +1,24 @@
 """Architecture registry: arch id -> ArchConfig, for the archs the port runs.
 
 The reference registry lists ten architectures; the port serves the dense
-paged-KV arch of the main path (llama3.2-3b) and the GQA MoE flagship
-(kimi-k2) so far.  Asking for any other known arch raises, naming it as not
-yet ported.
+paged-KV arch of the main path (llama3.2-3b), the GQA MoE flagship
+(kimi-k2) and the MLA MoE arch (deepseek-v3) so far.  Asking for any
+other known arch raises, naming it as not yet ported.
 """
 from __future__ import annotations
 
-from repro_torch.configs import kimi_k2_1t, llama32_3b
+from repro_torch.configs import deepseek_v3_671b, kimi_k2_1t, llama32_3b
 
-ARCHS = ["llama3.2-3b", "kimi-k2-1t-a32b"]
+ARCHS = ["llama3.2-3b", "kimi-k2-1t-a32b", "deepseek-v3-671b"]
 
 # the reference's other archs, which later slices port
 NOT_YET_PORTED = (
     "llama-3.2-vision-11b", "zamba2-2.7b", "gemma2-27b", "stablelm-1.6b",
-    "qwen1.5-4b", "whisper-base", "xlstm-1.3b", "deepseek-v3-671b",
+    "qwen1.5-4b", "whisper-base", "xlstm-1.3b",
 )
 
-_MODULES = {"llama3.2-3b": llama32_3b, "kimi-k2-1t-a32b": kimi_k2_1t}
+_MODULES = {"llama3.2-3b": llama32_3b, "kimi-k2-1t-a32b": kimi_k2_1t,
+            "deepseek-v3-671b": deepseek_v3_671b}
 
 
 def _module(name: str):

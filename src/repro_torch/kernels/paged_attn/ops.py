@@ -1,8 +1,10 @@
 """Paged decode attention: kernel wrapper, normalisation and page mass.
 
-``paged_attention_raw`` launches the Hopper kernel (``csrc/paged_attn.cu``)
-on CUDA tensors and runs the plain version on CPU tensors.  The
-normalisation ``acc / max(l, 1e-30)`` and :func:`page_mass` stay plain
+``paged_attention_raw`` launches a Hopper kernel (``csrc/paged_attn.cu``)
+on CUDA tensors and runs the plain version on CPU tensors: the grouped
+kernel for up to ``MAX_GROUP`` query heads per kv head, the head-tiled
+kernel above that (MLA's latent attention, a group of 128 on deepseek-v3).
+The normalisation ``acc / max(l, 1e-30)`` and :func:`page_mass` stay plain
 torch, as they stay jnp around the reference's Pallas kernel.  The sharded
 path's ``paged_attention_local_stats`` / ``combine_stats`` come with the
 distribution layer.
@@ -15,11 +17,30 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.dispatch import kernel_device, require
 from repro_torch.kernels.paged_attn.ref import paged_attention_raw_ref
 
-__all__ = ["paged_attention_raw", "paged_attention", "page_mass"]
+__all__ = ["paged_attention_raw", "paged_attention", "page_mass", "head_tiled"]
 
 SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block may use
-MAX_GROUP = 8            # query heads per kv head the kernel's registers hold
+MAX_GROUP = 8            # query heads per kv head the grouped kernel's registers hold
 MAX_DV = 512             # value width: one column pair per consumer thread
+
+
+class LaunchCount:
+    """A launch counter read and reset like a wrapper's own ``launches``."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+# launches of the head-tiled kernel alone (each also counts in
+# ``paged_attention_raw.launches``, which counts every attention launch)
+head_tiled = LaunchCount("paged_attention_head_tiled")
+
+
+def _tma_rows(t: torch.Tensor, width: int) -> bool:
+    """A base and row width the head-tiled kernel's float4 and TMA box
+    copies take."""
+    return t.data_ptr() % 16 == 0 and (width * t.element_size()) % 16 == 0
 
 
 def paged_attention_raw(q, k_pages, v_pages, page_lengths, *, scale=None,
@@ -45,9 +66,13 @@ def paged_attention_raw(q, k_pages, v_pages, page_lengths, *, scale=None,
     require(k_pages, "k_pages", k_pages.dtype, (b, p, t, hkv, dk))
     require(v_pages, "v_pages", k_pages.dtype, (b, p, t, hkv, dv))
     require(page_lengths, "page_lengths", torch.int32, (b, p))
-    if h // hkv > MAX_GROUP or dv > MAX_DV:
-        raise ValueError(f"kernel takes <= {MAX_GROUP} query heads per kv head and "
-                         f"dv <= {MAX_DV}, got {h // hkv} and {dv}")
+    if dv > MAX_DV:
+        raise ValueError(f"kernel takes dv <= {MAX_DV}, got {dv}")
+    tiled = h // hkv > MAX_GROUP
+    if tiled and not (_tma_rows(q, dk) and _tma_rows(k_pages, dk)
+                      and _tma_rows(v_pages, dv)):
+        raise ValueError(f"the head-tiled kernel (a group of {h // hkv}) takes "
+                         "16-byte aligned q and pages of 16-byte K and V rows")
     lib = _lib.lib()
     bf16 = int(k_pages.dtype == torch.bfloat16)
     smem = lib.paged_attn_smem_bytes(bf16, h // hkv, t, dk, dv)
@@ -69,6 +94,8 @@ def paged_attention_raw(q, k_pages, v_pages, page_lengths, *, scale=None,
         int(return_page_stats), _lib.stream_ptr(q.device))
     _lib.check(err, "paged_attn")
     paged_attention_raw.launches += 1
+    if tiled:
+        head_tiled.launches += 1
     return (m, l, acc, page_m, page_l) if return_page_stats else (m, l, acc)
 
 

@@ -1,5 +1,9 @@
-"""GQA attention parameters and projections (port of ``repro/models/attention.py``,
-the parts the paged decode path reads)."""
+"""GQA and MLA attention parameters and projections (port of
+``repro/models/attention.py``, the parts the paged decode path reads).
+
+MLA's training and dense-cache forms (``mla_apply``, ``mla_decode``) come
+with the training forward and the dense cache; serving reads MLA through
+the absorbed latent query of the paged decode (``models/decode.py``)."""
 from __future__ import annotations
 
 import math
@@ -58,3 +62,45 @@ def _proj_qkv(p, x, h, hkv, dh):
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (q.reshape(b, s, h, dh), k.reshape(b, s, hkv, dh),
             v.reshape(b, s, hkv, dh))
+
+
+# -- DeepSeek-V3 MLA -----------------------------------------------------------
+
+MLA_DEFAULTS = dict(q_lora=1536, kv_lora=512, d_nope=128, d_rope=64, d_v=128)
+
+
+def mla_init(generator: torch.Generator, d, h, *, groups: int = 0, dtype=DTYPE,
+             device="cuda", **dims):
+    """MLA weights with the reference's init scales: the low-rank query
+    (``wq_a`` -> ``q_norm`` -> ``wq_b``), the latent kv projection with its
+    rope key (``wkv_a``, ``kv_norm``), the latent's up-projection ``wkv_b``
+    ((kv_lora, h*(d_nope+d_v)): per head the nope key, then the value) and
+    ``wo``.  ``dims`` override :data:`MLA_DEFAULTS` (q_lora, kv_lora,
+    d_nope, d_rope, d_v); ``groups > 0`` stacks that many layers on a
+    leading axis."""
+    dims = dict(MLA_DEFAULTS, **dims)
+    q_lora, kv_lora, d_v = dims["q_lora"], dims["kv_lora"], dims["d_v"]
+    d_nope, d_rope = dims["d_nope"], dims["d_rope"]
+    lead = (groups,) if groups else ()
+    s = d ** -0.5
+    ones = dict(dtype=torch.float32, device=device)
+    return {
+        "wq_a": _normal(lead + (d, q_lora), s, generator, device, dtype),
+        "q_norm": torch.ones(lead + (q_lora,), **ones),
+        "wq_b": _normal(lead + (q_lora, h * (d_nope + d_rope)), q_lora ** -0.5,
+                        generator, device, dtype),
+        "wkv_a": _normal(lead + (d, kv_lora + d_rope), s, generator, device, dtype),
+        "kv_norm": torch.ones(lead + (kv_lora,), **ones),
+        "wkv_b": _normal(lead + (kv_lora, h * (d_nope + d_v)), kv_lora ** -0.5,
+                         generator, device, dtype),
+        "wo": _normal(lead + (h * d_v, d), (h * d_v) ** -0.5, generator, device,
+                      dtype),
+    }
+
+
+def _rms(x, w, eps=1e-6):
+    """RMS norm in float32 with a float32 scale, rounded back to ``x``'s
+    dtype (the reference's MLA-internal norm)."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * w).to(x.dtype)

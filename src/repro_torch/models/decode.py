@@ -1,11 +1,14 @@
 """NeoMem paged decode: attention over the fast-tier ring of hot KV pages.
 
 Port of the single-device paged path of ``repro/models/decode.py`` for the
-dense GQA family and the GQA mixture-of-experts family (kimi-k2).  Cache
-layout (stacked by pattern group, as the reference's):
+dense GQA family and the mixture-of-experts family with GQA (kimi-k2) or
+MLA (deepseek-v3) attention.  Cache layout (stacked by pattern group, as
+the reference's):
 
-  * paged attn blocks ... {"k_pages","v_pages"}: (G, B, n_slots, T, Hkv, dh)
-                          + {"page_len": (G, B, n_slots), "cur_slot": (G, B)}
+  * paged attn blocks ... {"k_pages","v_pages"}: (G, B, n_slots, T, Hkv, dk|dv)
+                          + {"page_len": (G, B, n_slots), "cur_slot": (G, B)};
+                          GQA: Hkv = n_kv_heads, dk = dv = head_dim; MLA: one
+                          latent head, dk = kv_lora + d_rope, dv = kv_lora
   * "prologue" .......... a MoE arch's dense prologue layers: a list of the
                           same ring without the G axis
   * "pos" ............... () int32 lockstep position, or (B,) per-lane
@@ -16,6 +19,13 @@ resource's store, managed by the serve engine and the daemon between steps.
 Where the reference scans over layer groups and prompt tokens, the port
 runs Python loops, and it updates the cache IN PLACE (the page tensors are
 the bulk of device memory; nothing else holds the old values).
+
+An MLA block attends in the latent space, as the reference's absorbed
+decode: the query's nope part goes through the key half of ``wkv_b`` into
+the kv_lora-wide latent, the page rows are ``[c_t | rope(k_r)]`` and ``c_t``,
+and the attention output goes back through the value half of ``wkv_b``
+before ``wo``.  One latent head serves every query head, so the attention
+kernel runs at a group of ``n_heads`` (128 on deepseek-v3).
 
 A MoE block's FFN is the top-k expert layer (:mod:`repro_torch.models.moe`):
 with the experts resource bound (``tiered["experts"]``) the first MoE
@@ -84,6 +94,14 @@ def _embed_tokens(params, token, tiered):
     return torch.take_along_dim(rows, r, dim=-2)[..., 0, :]
 
 
+def ring_dims(cfg: ArchConfig) -> tuple[int, int, int]:
+    """(kv heads, K width, V width) of a ring page row: MLA keeps one latent
+    head of ``[c | k_rope]`` keys and ``c`` values, GQA its kv heads."""
+    if cfg.mla is not None:
+        return 1, cfg.mla.kv_lora + cfg.mla.d_rope, cfg.mla.kv_lora
+    return cfg.n_kv_heads, cfg.head_dim, cfg.head_dim
+
+
 def init_paged_cache(cfg: ArchConfig, batch: int, n_slots: int, page_t: int,
                      dtype=torch.bfloat16, per_lane_pos: bool = False, *,
                      device="cuda"):
@@ -93,13 +111,13 @@ def init_paged_cache(cfg: ArchConfig, batch: int, n_slots: int, page_t: int,
     ``per_lane_pos=True`` makes ``pos`` a (batch,) vector so each batch row
     (a continuous-batching lane) advances on its own (DESIGN.md §9)."""
     check_ported(cfg)
-    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    hkv, dk, dv = ring_dims(cfg)
 
     def one(lead):
         return {
-            "k_pages": torch.zeros(lead + (batch, n_slots, page_t, hkv, dh),
+            "k_pages": torch.zeros(lead + (batch, n_slots, page_t, hkv, dk),
                                    dtype=dtype, device=device),
-            "v_pages": torch.zeros(lead + (batch, n_slots, page_t, hkv, dh),
+            "v_pages": torch.zeros(lead + (batch, n_slots, page_t, hkv, dv),
                                    dtype=dtype, device=device),
             "page_len": torch.zeros(lead + (batch, n_slots), dtype=torch.int32,
                                     device=device),
@@ -181,28 +199,64 @@ def _tiered_moe_for(cfg: ArchConfig, tiered, i: int, g: int):
     return {"view": tiered["experts"], "group_id": g}
 
 
+def _mla_qkv(pa, cfg: ArchConfig, h, pos_b):
+    """MLA's absorbed decode inputs (the reference's MLA branch): the latent
+    query ``[q_nope @ w_k, rope(q_rope)]`` (B, H, kv_lora + d_rope) f32, the
+    new page rows ``[c_t | rope(k_r)]`` and ``c_t`` (B, 1, dk|dv), and the
+    softmax scale ``(d_nope + d_rope) ** -0.5``."""
+    m, b = cfg.mla, h.shape[0]
+    q = attn._rms(h @ pa["wq_a"], pa["q_norm"]) @ pa["wq_b"]
+    q = q.reshape(b, cfg.n_heads, m.d_nope + m.d_rope)
+    q_nope, q_rope = q[..., :m.d_nope], q[..., m.d_nope:]
+    q_rope = apply_rope(q_rope[:, None], pos_b, cfg.rope_theta)[:, 0]
+    w_k = pa["wkv_b"].reshape(m.kv_lora, cfg.n_heads, m.d_nope + m.d_v)[..., :m.d_nope]
+    q_lat = torch.einsum("bhd,khd->bhk", q_nope.float(), w_k.float())
+    q_eff = torch.cat([q_lat, q_rope.float()], dim=-1)
+    kv_a = h[:, 0] @ pa["wkv_a"]
+    c_t = attn._rms(kv_a[..., :m.kv_lora], pa["kv_norm"])
+    kr_t = apply_rope(kv_a[:, None, None, m.kv_lora:], pos_b,
+                      cfg.rope_theta)[:, 0, 0]
+    k_new = torch.cat([c_t, kr_t], dim=-1)[:, None, :]
+    return q_eff, k_new, c_t[:, None, :], (m.d_nope + m.d_rope) ** -0.5
+
+
+def _mla_out(pa, cfg: ArchConfig, o, dtype):
+    """The latent attention output (B, H, kv_lora) f32 through the value
+    half of ``wkv_b`` in float32, then ``wo``: (B, 1, d)."""
+    m, b = cfg.mla, o.shape[0]
+    w_v = pa["wkv_b"].reshape(m.kv_lora, cfg.n_heads, m.d_nope + m.d_v)[..., m.d_nope:]
+    o = torch.einsum("bhk,khd->bhd", o, w_v.float())
+    return o.reshape(b, 1, cfg.n_heads * m.d_v).to(dtype) @ pa["wo"]
+
+
 def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
                       page_t: int, collect_mass: bool = False, active=None,
                       tiered_moe=None, router: list | None = None):
-    """One decoder block over the paged ring (GQA branch of the reference's
-    ``_paged_attn_block``); ``kind`` "moe" runs the expert layer as its FFN.
-    Returns (x_t, mass or None)."""
+    """One decoder block over the paged ring (the GQA and MLA branches of
+    the reference's ``_paged_attn_block``); ``kind`` "moe" runs the expert
+    layer as its FFN.  Returns (x_t, mass or None)."""
     h = apply_norm(cfg.norm, p["ln1"], x_t)
     b = x_t.shape[0]
-    q, k, v = attn._proj_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.head_dim)
     pos_b = _pos_col(pos, b)
-    if cfg.rope_theta > 0:
-        q = apply_rope(q, pos_b, cfg.rope_theta)
-        k = apply_rope(k, pos_b, cfg.rope_theta)
-    scale = (cfg.head_dim ** -0.5) if cfg.attn_scale is None else cfg.attn_scale
+    if cfg.mla is not None:
+        q_eff, k_new, v_new, scale = _mla_qkv(p["attn"], cfg, h, pos_b)
+    else:
+        q, k, v = attn._proj_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim)
+        if cfg.rope_theta > 0:
+            q = apply_rope(q, pos_b, cfg.rope_theta)
+            k = apply_rope(k, pos_b, cfg.rope_theta)
+        q_eff, k_new, v_new = q[:, 0].float().contiguous(), k[:, 0], v[:, 0]
+        scale = (cfg.head_dim ** -0.5) if cfg.attn_scale is None else cfg.attn_scale
     o, mass = _append_attend_local(
         cache["k_pages"], cache["v_pages"], cache["page_len"], cache["cur_slot"],
-        k[:, 0], v[:, 0], q[:, 0].float().contiguous(), scale=scale,
-        softcap=cfg.attn_softcap, page_t=page_t, collect_mass=collect_mass,
-        active=active)
-    x_t = x_t + o.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x_t.dtype) \
-        @ p["attn"]["wo"]
+        k_new, v_new, q_eff, scale=scale, softcap=cfg.attn_softcap,
+        page_t=page_t, collect_mass=collect_mass, active=active)
+    if cfg.mla is not None:
+        x_t = x_t + _mla_out(p["attn"], cfg, o, x_t.dtype)
+    else:
+        x_t = x_t + o.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x_t.dtype) \
+            @ p["attn"]["wo"]
     h2 = apply_norm(cfg.norm, p["ln2"], x_t)
     if kind == "moe":
         y = _moe_block(p, cfg, h2, tiered_moe, router)

@@ -1,21 +1,27 @@
 """Parameter init for the decoder families the port serves (port of
 ``repro/models/transformer.py`` ``init_params``): the dense GQA family and
-the GQA mixture-of-experts family (kimi-k2).
+the mixture-of-experts family, with GQA (kimi-k2) or MLA attention and the
+multi-token-prediction head's parameters (deepseek-v3).
 
 Layers are stacked by *pattern group*: ``params["blocks"][i]`` holds pattern
 position i with every leaf shaped ``(G, ...)``, the reference's layout, so
 weights converted from the reference (:mod:`repro_torch.convert`) drop in.
 A MoE arch's dense prologue layers are ``params["prologue"]``, a list of
-unstacked blocks whose FFN is ``dense_ff`` wide.  Weights are drawn on the
-target device from a seeded ``torch.Generator`` with the reference's init
-scales; the numbers differ from ``jax.random``'s.
+unstacked blocks whose FFN is ``dense_ff`` wide.  ``params["mtp"]`` (an
+unstacked block, the (2d, d) projection and a norm) is drawn so that both
+packages hold the same tree; its forward is the training loss's, which the
+port does not run yet.  Weights are drawn on the target device from a
+seeded ``torch.Generator`` with the reference's init scales; the numbers
+differ from ``jax.random``'s.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import _normal, gqa_init
+from repro_torch.models.attention import _normal, gqa_init, mla_init
 from repro_torch.models.layers import DTYPE
 from repro_torch.models.moe import moe_init
 
@@ -25,21 +31,22 @@ def _norm(shape, device):
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """The port runs GQA attention with RMS norms and swiglu, in the dense
-    family (pattern ``("attn",)``) or the MoE family (pattern ``("moe",)``
-    behind dense prologue layers); raise for anything else (MLA, the
-    multi-token head, SSM, local/global windows, the other families)."""
+    """The port runs RMS norms and swiglu in the dense GQA family (pattern
+    ``("attn",)``) or the MoE family (pattern ``("moe",)`` behind dense
+    prologue layers), whose attention is GQA or MLA and which may carry the
+    multi-token head's parameters; raise for anything else (SSM,
+    local/global windows, the other families, MLA or the multi-token head
+    outside the MoE family)."""
     dense = cfg.family == "dense" and cfg.moe is None \
-        and set(cfg.pattern) == {"attn"}
+        and set(cfg.pattern) == {"attn"} and cfg.mla is None and not cfg.mtp
     moe = cfg.family == "moe" and cfg.moe is not None \
         and set(cfg.pattern) == {"moe"}
-    if (not (dense or moe) or cfg.mla is not None or cfg.mtp
-            or cfg.mlp != "swiglu" or cfg.norm != "rms" or cfg.post_norm
-            or cfg.embed_scale):
+    if (not (dense or moe) or cfg.mlp != "swiglu" or cfg.norm != "rms"
+            or cfg.post_norm or cfg.embed_scale):
         raise NotImplementedError(
             f"arch {cfg.name!r} ({cfg.family}, pattern {cfg.pattern}) is not yet "
-            "ported to repro_torch: only the dense and MoE GQA families with "
-            "RMS norms are")
+            "ported to repro_torch: only the dense GQA family and the MoE "
+            "family (GQA or MLA) with RMS norms are")
 
 
 def _mlp(gen, d, f, lead, device):
@@ -53,10 +60,14 @@ def _block(gen, cfg: ArchConfig, kind: str, groups: int, device):
     arch's prologue); ``groups > 0`` stacks that many on a leading axis."""
     d = cfg.d_model
     lead = (groups,) if groups else ()
-    p = {"ln1": _norm(lead + (d,), device), "ln2": _norm(lead + (d,), device),
-         "attn": gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                          groups=groups, bias=cfg.qkv_bias, dtype=DTYPE,
-                          device=device)}
+    p = {"ln1": _norm(lead + (d,), device), "ln2": _norm(lead + (d,), device)}
+    if cfg.mla is not None:
+        p["attn"] = mla_init(gen, d, cfg.n_heads, groups=groups, device=device,
+                             **dataclasses.asdict(cfg.mla))
+    else:
+        p["attn"] = gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                             groups=groups, bias=cfg.qkv_bias, dtype=DTYPE,
+                             device=device)
     if kind == "moe":
         mc = cfg.moe
         p["ffn"] = moe_init(gen, d, mc.n_experts, mc.expert_ff,
@@ -73,7 +84,7 @@ def _block(gen, cfg: ArchConfig, kind: str, groups: int, device):
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
     check_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    # draw order: the body, the prologue, then the embedding
+    # draw order: the body, the prologue, the embedding, then the MTP head
     params = {"blocks": [_block(gen, cfg, kind, cfg.n_groups, device)
                          for kind in cfg.pattern]}
     if cfg.moe and cfg.moe.n_dense_prologue:
@@ -81,5 +92,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
                               for _ in range(cfg.moe.n_dense_prologue)]
     params["embed"] = {"table": _normal((cfg.vocab, cfg.d_model),
                                         cfg.d_model ** -0.5, gen, device, DTYPE)}
+    if cfg.mtp:
+        d = cfg.d_model
+        params["mtp"] = {
+            "block": _block(gen, cfg, "attn_dense" if cfg.moe else "attn", 0,
+                            device),
+            "proj": _normal((2 * d, d), (2 * d) ** -0.5, gen, device, DTYPE),
+            "norm": _norm((d,), device)}
     params["final_norm"] = _norm((cfg.d_model,), device)
     return params

@@ -142,7 +142,11 @@ class ServeEngine:
                 raise ValueError(
                     "reuse_pages requires lane mode (ServeConfig.lanes > 0)")
             if not dec.reuse_eligible(cfg):
-                raise ValueError(f"arch {cfg.name!r} is not reuse-eligible")
+                raise ValueError(
+                    f"arch {cfg.name!r} is not reuse-eligible: the KV slow "
+                    f"store must carry the whole per-position state (single "
+                    f"attention pattern position, no recurrent blocks, no "
+                    f"dense prologue)")
         self.cfg = cfg
         self.params = params
         self.scfg = scfg
@@ -207,8 +211,7 @@ class ServeEngine:
                 # lane mode: the slow store is carved into per-request
                 # segments, each a max_seq-worth of logical pages
                 n_segments = scfg.kv_segments or scfg.lanes or 1
-                row_shape = (cfg.n_groups, scfg.page_t, cfg.n_kv_heads,
-                             2 * cfg.head_dim)
+                row_shape = self._kv_row_shape()
                 spec = ResourceSpec(
                     "kv", n_pages=n_segments * self.pages_per_seq
                     + scfg.reuse_pages,
@@ -251,6 +254,13 @@ class ServeEngine:
             # the KV store starts un-witnessed; the embedding and expert
             # rows are valid from step 0
             handle.bind_data(payload, initially_valid=(kind != "kv"))
+
+    def _kv_row_shape(self) -> tuple[int, ...]:
+        """One logical KV page across all layer groups: the ring's K and V
+        rows concatenated on the last axis (MLA: the latent and rope widths
+        beside the latent, 576 + 512 on deepseek-v3; GQA: 2 x head_dim)."""
+        hkv, dk, dv = dec.ring_dims(self.cfg)
+        return (self.cfg.n_groups, self.scfg.page_t, hkv, dk + dv)
 
     def _expert_payload(self) -> torch.Tensor:
         """(G*E, 3*d*f) expert weight rows ``[w_gate | w_in | w_out]``, page
@@ -618,9 +628,9 @@ class ServeEngine:
         tabled = self._lane_pages[lane, local[slots]]
         gids = np.where(tabled >= 0, tabled,
                         segment * self.pages_per_seq + local[slots])
-        rows = self.daemon["kv"].read_rows(gids).movedim(0, 1)  # (G, n, T, hkv, 2d)
+        rows = self.daemon["kv"].read_rows(gids).movedim(0, 1)  # (G, n, T, hkv, dk+dv)
         at = torch.as_tensor(slots, device=self.device)
-        dk = self.cfg.head_dim
+        dk = self._kv_split_width()
         entry["k_pages"][:, lane, at] = rows[..., :dk].to(entry["k_pages"].dtype)
         entry["v_pages"][:, lane, at] = rows[..., dk:].to(entry["v_pages"].dtype)
         for i, s in enumerate(slots):
@@ -634,7 +644,7 @@ class ServeEngine:
     # -- disaggregated prefill/decode hand-off (DESIGN.md §13) ----------------
     def _kv_split_width(self) -> int:
         """Last-axis K width inside a concatenated [K | V] payload row."""
-        return self.cfg.head_dim
+        return dec.ring_dims(self.cfg)[1]
 
     def handoff_lane(self, lane: int) -> dict:
         """Producer side: detach a finished prefill from its lane.  A

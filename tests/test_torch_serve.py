@@ -314,8 +314,8 @@ def test_engine_refuses_features_not_yet_ported(field, value):
 
 
 def test_registry_names_unported_archs():
-    assert t_registry.list_archs() == [ARCH, "kimi-k2-1t-a32b"]
+    assert t_registry.list_archs() == [ARCH, "kimi-k2-1t-a32b", "deepseek-v3-671b"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_registry.get_config("deepseek-v3-671b")
+        t_registry.get_config("gemma2-27b")
     with pytest.raises(KeyError):
         t_registry.get_config("no-such-arch")
