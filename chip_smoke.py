@@ -23,10 +23,20 @@ Phases, one summary line each:
                 attention also at kimi-k2's group of 8 query heads per kv
                 head (PHASE moe's two ring shapes), checked and timed, and
                 at deepseek-v3's MLA shape (128 query heads over one latent
-                head, dk 576, dv 512: the head-tiled kernel) at edge shapes
-                and at PHASE mla's two ring shapes and PHASE main's, checked
-                and timed with its bound (bytes, or flops at the TF32
-                tensor-core rate) and SDPA's enable_gqa call;
+                head, dk 576, dv 512: the head-tiled kernel; its registers
+                and spills read from the build log) at edge shapes (some
+                with +-1e30 in the K and V rows past the page lengths, one
+                with 128-token pages) and at PHASE mla's two ring shapes,
+                PHASE main's (also with every page masked: the fixed cost)
+                and a 4,096-token context (B 8, P 64, T 64; held to the
+                plain version one batch row at a time, whose time is not
+                taken), checked and timed with its bound (bytes, or flops
+                at the TF32 tensor-core rate) and SDPA's enable_gqa call,
+                and the cluster size the launch takes at each timed shape
+                with the clusters of each size that fit at once;
+                the sketch kernels' library calls (index_put_ accumulate,
+                out-of-place index_put, bucketize + bincount) at every
+                shape they are timed at;
   3. main     — ServeEngine on llama3.2-3b at full width (random weights
                 from a seed) serving a batch of 4 random 1024-token prompts
                 for 64 greedy tokens through the NeoMem loop; every kernel
@@ -319,24 +329,38 @@ def max_err(outs, refs) -> float:
 # -- phase 2: kernels against their plain versions -----------------------------
 
 def attention_case(torch, pa_ops, pa_ref, gen, b, h, hkv, dk, dv, p, t, dtype,
-                   lens, softcap=0.0, scale=None):
+                   lens, softcap=0.0, scale=None, junk=False, ref_rows=None):
     """One call of the attention kernel on random inputs against its plain
-    version (ATOL + RTOL*|ref| on every output) and its page mass."""
+    version (ATOL + RTOL*|ref| on every output) and its page mass.
+    ``junk``: the K and V rows past each page's length hold +-1e30, which a
+    kernel fails on if it lets them into the scores, the page stats or
+    p @ V.  ``ref_rows``: run the plain version that many batch rows at a
+    time (its kv-head expansion of a long context would not fit at once)."""
     scale = dk ** -0.5 if scale is None else scale
     q = torch.randn((b, h, dk), generator=gen, device="cuda")
     kp = torch.randn((b, p, t, hkv, dk), generator=gen, device="cuda").to(dtype)
     vp = torch.randn((b, p, t, hkv, dv), generator=gen, device="cuda").to(dtype)
     lens = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    if junk:
+        tok = torch.arange(t, device="cuda")
+        past = (tok[None, None, :] >= lens[:, :, None])[..., None, None]
+        big = torch.where(tok % 2 == 0, 1e30, -1e30)[None, None, :, None, None]
+        kp = torch.where(past, big.to(dtype), kp)
+        vp = torch.where(past, big.to(dtype), vp)
     out = pa_ops.paged_attention_raw(q, kp, vp, lens, scale=scale, softcap=softcap,
                                      return_page_stats=True)
-    ref = pa_ref.paged_attention_raw_ref(q, kp, vp, lens, scale=scale,
-                                         softcap=softcap)
+    rows = [slice(0, b)] if ref_rows is None else [
+        slice(i, i + ref_rows) for i in range(0, b, ref_rows)]
+    parts = [pa_ref.paged_attention_raw_ref(q[r], kp[r], vp[r], lens[r], scale=scale,
+                                            softcap=softcap) for r in rows]
+    ref = tuple(torch.cat(x) for x in zip(*parts))
     torch.cuda.synchronize()
     for name, a, r in zip(("m", "l", "acc", "page_m", "page_l"), out, ref):
         bad = ~((a - r).abs() <= ATOL + RTOL * r.abs())   # NaN is bad too
         if bool(bad.any()):
             raise AssertionError(
-                f"paged_attn {name} differs at {(b, h, hkv, dk, dv, p, t, dtype)}:"
+                f"paged_attn {name} differs at {(b, h, hkv, dk, dv, p, t, dtype)}"
+                f"{' (junk past the lengths)' if junk else ''}:"
                 f" max err {float((a - r).abs().max())}")
     mass = pa_ops.page_mass(*[out[i] for i in (0, 1, 3, 4)])
     valid_rows = (lens > 0).any(dim=1)
@@ -466,17 +490,22 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
                 bound_by=by, library_ms=lib_cold, host_ms=host)
 
 
-def check_mla_attention(torch, pa_ops, pa_ref, rates, gen):
+def check_mla_attention(torch, pa_ops, pa_ref, _lib, rates, gen):
     """The head-tiled kernel at MLA's shape (deepseek-v3: 128 query heads over
-    one latent head, dk 576, dv 512, scale (128 + 64)^-1/2): edge shapes,
-    then PHASE mla's two ring shapes (the single request's B 2, P 6, T 8 and
-    the lanes' B 4, P 8, T 16) and PHASE main's (B 4, P 16, T 64), checked
-    and timed cold and warm, with the host's time per call, the plain
-    version's, the bound and a library call's.  Returns the kernel row of
-    the last."""
+    one latent head, dk 576, dv 512, scale (128 + 64)^-1/2): its registers
+    and spills from the build log, edge shapes (K and V junk past the page
+    lengths in some), then PHASE mla's two ring shapes (the single request's
+    B 2, P 6, T 8 and the lanes' B 4, P 8, T 16), PHASE main's (B 4, P 16,
+    T 64, with every page masked too: the fixed cost) and a 4,096-token
+    context (B 8, P 64, T 64, all pages full; its plain version one batch
+    row at a time and not timed), checked and timed cold and warm, with the
+    host's time per call, the plain version's, the bound and a library
+    call's.  Returns the kernel row of B 4, P 16, T 64."""
     def case(*args, **kw):
         return attention_case(torch, pa_ops, pa_ref, gen, *args, **kw)
 
+    for line in ptxas_report(_lib, "paged_attn_tiled_kernel"):
+        print(f"kernel paged_attn_mla: {line}")
     bf16, f32 = torch.bfloat16, torch.float32
     rng = np.random.default_rng(1)
     before = pa_ops.head_tiled.launches
@@ -484,14 +513,25 @@ def check_mla_attention(torch, pa_ops, pa_ref, rates, gen):
     edge = rng.integers(0, 9, (3, 9))
     edge[2] = 0                                   # a fully masked row
     edge[0, :4] = 8
-    case(3, 48, 2, 576, 512, 9, 8, bf16, edge, scale=scale)   # tiles of 16 + 8
-    case(2, 128, 1, 576, 512, 3, 8, f32, rng.integers(0, 9, (2, 3)), scale=scale)
-    case(1, 128, 1, 576, 512, 4, 16, bf16, rng.integers(1, 17, (1, 4)),
-         softcap=30.0, scale=scale)
-    case(2, 128, 1, 576, 512, 5, 6, bf16, rng.integers(0, 7, (2, 5)), scale=scale)
-    case(2, 128, 1, 576, 512, 1, 64, bf16, [[64], [0]], scale=scale)
+    cases = [
+        ((3, 48, 2, 576, 512, 9, 8, bf16, edge), {}),          # tiles of 32 + 16
+        ((2, 128, 1, 576, 512, 3, 8, f32, rng.integers(0, 9, (2, 3))), {}),
+        ((2, 128, 1, 576, 512, 3, 8, f32, [[8, 3, 0], [5, 8, 1]]), dict(junk=True)),
+        ((1, 128, 1, 576, 512, 4, 16, bf16, rng.integers(1, 17, (1, 4))),
+         dict(softcap=30.0)),
+        ((2, 128, 1, 576, 512, 5, 6, bf16, rng.integers(0, 7, (2, 5))), {}),
+        ((2, 128, 1, 576, 512, 1, 64, bf16, [[64], [0]]), {}),
+        # a 37-token page among full, empty and 1-token ones
+        ((2, 128, 1, 576, 512, 4, 64, bf16, [[64, 37, 0, 5], [1, 64, 63, 0]]),
+         dict(junk=True)),
+        # 128-token pages: two softmax segments a page
+        ((1, 128, 1, 576, 512, 3, 128, bf16, [[128, 100, 64]]), dict(junk=True)),
+    ]
+    for args, kw in cases:
+        case(*args, scale=scale, **kw)
     case(2, 32, 1, 24, 16, 3, 4, bf16, rng.integers(0, 5, (2, 3)))  # smoke widths
-    if pa_ops.head_tiled.launches - before != 6:
+    case(2, 32, 1, 24, 16, 3, 4, bf16, [[4, 1, 0], [2, 3, 4]], junk=True)
+    if pa_ops.head_tiled.launches - before != len(cases) + 2:
         raise AssertionError("a group above MAX_GROUP did not take the head-tiled "
                              "kernel")
     for b, p, t in ((2, 6, 8), (4, 8, 16), (4, 16, 64)):
@@ -499,21 +539,76 @@ def check_mla_attention(torch, pa_ops, pa_ref, rates, gen):
         lens[0] = t
         lens[0, p // 2] = t // 2                  # the part-filled current slot
         lens[1, :2] = 0
-        row = time_attention(
-            torch, pa_ops, pa_ref, rates,
-            case(b, 128, 1, 576, 512, p, t, bf16, lens, scale=scale),
-            "paged_attn_mla", "paged_attn_mla (deepseek-v3)", scale=scale)
+        checked = case(b, 128, 1, 576, 512, p, t, bf16, lens, scale=scale)
+        row = time_attention(torch, pa_ops, pa_ref, rates, checked, "paged_attn_mla",
+                             "paged_attn_mla (deepseek-v3)", scale=scale)
+        print(f"kernel paged_attn_mla (deepseek-v3) at B={b} P={p} T={t}: "
+              f"{tiled_plan(_lib, checked)}")
+    q, kp, vp, lt = checked[:4]
+    masked = torch.zeros_like(lt)
+    empty = time_ms(lambda: pa_ops.paged_attention_raw(q, kp, vp, masked, scale=scale,
+                                                       return_page_stats=True))
+    print(f"kernel paged_attn_mla (deepseek-v3) at B=4 P=16 T=64, every page "
+          f"masked: device {empty:.4f} ms (launch, q, the cluster's merge; no "
+          f"K/V bytes)")
+    # deepseek-v3 decoding 8 sequences at a 4,096-token context
+    b, p, t = 8, 64, 64
+    checked = case(b, 128, 1, 576, 512, p, t, bf16, np.full((b, p), t), scale=scale,
+                   ref_rows=1)
+    time_attention(torch, pa_ops, pa_ref, rates, checked, "paged_attn_mla",
+                   "paged_attn_mla (deepseek-v3, 4,096 tokens)", scale=scale,
+                   plain=False)
+    print(f"kernel paged_attn_mla (deepseek-v3) at B={b} P={p} T={t}: "
+          f"{tiled_plan(_lib, checked)}")
     return row
 
 
+def tiled_plan(_lib, checked) -> str:
+    """The cluster size the head-tiled kernel's launch takes at a checked
+    shape, and the clusters of each size that fit on the card at once, from
+    the launch's own query (``paged_attn_tiled_plan``)."""
+    import ctypes
+    q, kp, vp = checked[:3]
+    b, h, dk = q.shape
+    _, p, t, hkv, _ = kp.shape
+    fits = (ctypes.c_int * 8)()
+    bf16 = int(kp.element_size() == 2)          # bf16 or f32 pages reach it
+    c = _lib.lib().paged_attn_tiled_plan(bf16, b, h, hkv, p, t, dk, vp.shape[-1], fits)
+    if c < 0:
+        raise RuntimeError(f"paged_attn_tiled_plan: CUDA error {-c}")
+    return (f"cluster size {c} of the launch's choice; clusters of 1..8 blocks "
+            f"that fit at once {list(fits)} (0: more than the pages)")
+
+
+def ptxas_report(_lib, kernel: str) -> list:
+    """Registers and spills of each instantiation of ``kernel``, from the
+    build's -Xptxas -v log (``<lib>.log``)."""
+    log = Path(str(_lib.library_path()) + ".log")
+    if not log.exists():
+        return [f"no build log at {log.name}"]
+    out, name = [], None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name and "spill stores" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            pages = "bf16" if "bfloat16" in name else "f32"
+            out.append(f"ptxas, {pages} pages: {line.split(':', 1)[1].strip()}; "
+                       f"{spill}")
+            name = None
+    return out or [f"{kernel} not in {log.name}"]
+
+
 def time_attention(torch, pa_ops, pa_ref, rates, checked, name, label,
-                   scale=None) -> dict:
+                   scale=None, plain=True) -> dict:
     """Time attention at a checked shape: cold over enough input sets to
-    exceed the L2, warm, the host's wall per call, the plain version, the
-    bound (bytes at the memory rate, flops at the TF32 tensor-core rate: bf16
-    pages are exact in TF32) and a library call: SDPA with enable_gqa over
-    the masked pages, else with the kv heads expanded, else
-    matmul-softmax-matmul in bf16, whichever a backend takes first."""
+    exceed the L2, warm, the host's wall per call, the plain version (unless
+    ``plain`` is False), the bound (bytes at the memory rate, flops at the
+    TF32 tensor-core rate: bf16 pages are exact in TF32) and a library call:
+    SDPA with enable_gqa over the masked pages, else with the kv heads
+    expanded, else matmul-softmax-matmul in bf16, whichever a backend takes
+    first."""
     q, kp, vp, lt, out, ref = checked
     b, h, dk = q.shape
     _, p, t, hkv, _ = kp.shape
@@ -527,8 +622,8 @@ def time_attention(torch, pa_ops, pa_ref, rates, checked, name, label,
                                                     return_page_stats=True)
              for x in sets]
     warm, cold, host = time_ms(calls[0]), time_ms(calls), host_ms(calls[0])
-    plain = time_ms(lambda: pa_ref.paged_attention_raw_ref(q, kp, vp, lt,
-                                                           scale=scale))
+    plain = time_ms(lambda: pa_ref.paged_attention_raw_ref(
+        q, kp, vp, lt, scale=scale)) if plain else None
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def library(q, kp, vp, lt, how):
@@ -568,10 +663,12 @@ def time_attention(torch, pa_ops, pa_ref, rates, checked, name, label,
     print(f"kernel {label} (group {h // hkv}, dk {dk}, dv {dv}, B={b} P={p} T={t}): "
           f"max_abs_err {max_err(out, ref):.3g}; device {cold:.4f} ms cold ({n_sets} "
           f"input sets, round-robin), {warm:.4f} ms warm, host {host:.4f} ms per "
-          f"eager call; plain {plain:.4f} ms; bound {bms:.5f} ms by {by} "
+          f"eager call; plain {'not timed' if plain is None else f'{plain:.4f} ms'}; "
+          f"bound {bms:.5f} ms by {by} "
           f"({nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} GFLOP at the TF32 tensor-core "
           f"rate; {nops / rates[1] * 1e3:.5f} ms at the float32 CUDA-core rate); "
-          f"library ({how}) {lib_cold:.4f} ms cold")
+          f"library ({how}) "
+          f"{'refused' if lib_cold is None else f'{lib_cold:.4f} ms cold'}")
     return dict(name=name, route="cuda", source="src/repro_torch/csrc/paged_attn.cu",
                 replaces="src/repro/kernels/paged_attn/paged_attn.py:34",
                 max_abs_err=max_err(out, ref), ms=cold, plain_ms=plain, bound_ms=bms,
@@ -783,9 +880,13 @@ def check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen):
               f"round-robin), {time_ms(upd[0]):.4f} ms warm; bound {bms:.6f} ms "
               f"by {by}; index_put_ accumulate {lib:.4f} ms warm")
         bms, by = bound_ms(*mark_work(d, w, s, seeds), rates)
+        sel = flags[0] & (ids >= 0)
+        mark_at = (lane[:, sel], h_idx[:, sel])
+        true = torch.tensor(True, device="cuda")
+        lib = time_ms(lambda: hot.index_put(mark_at, true))
         print(f"kernel neoprof_mark at D={d} W={w} S={s}: device "
               f"{time_ms(mark):.4f} ms cold, {time_ms(mark[0]):.4f} ms warm; "
-              f"bound {bms:.6f} ms by {by}")
+              f"bound {bms:.6f} ms by {by}; out-of-place index_put {lib:.4f} ms warm")
         hist = [lambda x=x: hist_ops.hist_kernel(x[0][0], x[1][0], x[5], edges)
                 for x in sets]
         main_like = [state(1, w, "main") for _ in range(SKETCH_SETS)]
@@ -2136,7 +2237,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_attention(torch, pa_ops, pa_ref, rates, gen),
-            check_mla_attention(torch, pa_ops, pa_ref, rates, gen)]
+            check_mla_attention(torch, pa_ops, pa_ref, _lib, rates, gen)]
     rows += check_sketch(torch, np_ops, np_ref, hist_ops, hist_ref, sk, rates, gen)
     for r in rows:
         print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, device "

@@ -34,6 +34,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "paged_attn_launch": [_P] * 9 + [_I] * 7 + [_I, _F, _F, _I, _P],
     "paged_attn_smem_bytes": [_I] * 5,
+    "paged_attn_tiled_plan": [_I] * 8 + [_P],
     "neoprof_update_launch": [_P] * 10 + [_I] * 4 + [_P],
     "neoprof_mark_launch": [_P] * 5 + [_I] * 3 + [_P],
     "cms_hist_launch": [_P] * 5 + [_I, _P],

@@ -22,6 +22,7 @@ __all__ = ["paged_attention_raw", "paged_attention", "page_mass", "head_tiled"]
 SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block may use
 MAX_GROUP = 8            # query heads per kv head the grouped kernel's registers hold
 MAX_DV = 512             # value width: one column pair per consumer thread
+MAX_TILED_DK = 576       # head-tiled kernel: q's lo parts held in registers (MLA's 576)
 
 
 class LaunchCount:
@@ -73,6 +74,9 @@ def paged_attention_raw(q, k_pages, v_pages, page_lengths, *, scale=None,
                       and _tma_rows(v_pages, dv)):
         raise ValueError(f"the head-tiled kernel (a group of {h // hkv}) takes "
                          "16-byte aligned q and pages of 16-byte K and V rows")
+    if tiled and dk > MAX_TILED_DK:
+        raise ValueError(f"the head-tiled kernel (a group of {h // hkv}) takes "
+                         f"dk <= {MAX_TILED_DK}, got {dk}")
     lib = _lib.lib()
     bf16 = int(k_pages.dtype == torch.bfloat16)
     smem = lib.paged_attn_smem_bytes(bf16, h // hkv, t, dk, dv)

@@ -98,12 +98,19 @@ def test_plain_attention_matches_pallas_kernel_at_mla_shapes(shape):
 
 def test_head_tiled_kernel_is_chosen_above_the_group_limit():
     """Above MAX_GROUP the wrapper needs 16-byte K and V rows (the head-tiled
-    kernel's TMA boxes); the CPU path takes any shape."""
+    kernel's TMA boxes) and dk <= MAX_TILED_DK (q's lo parts in registers),
+    which MLA's 576 meets; the CPU path takes any shape."""
     assert 128 > t_pa_ops.MAX_GROUP and 4 <= t_pa_ops.MAX_GROUP
     kp = torch.zeros((1, 1, 4, 1, 576), dtype=torch.bfloat16)
     assert t_pa_ops._tma_rows(kp, 576) and t_pa_ops._tma_rows(kp[..., :512], 512)
     assert not t_pa_ops._tma_rows(kp, 36)
     assert t_pa_ops.head_tiled.__name__ == "paged_attention_head_tiled"
+    assert t_pa_ops.MAX_TILED_DK == 576 == t_dec.ring_dims(
+        t_registry.get_config(ARCH))[1]
+    q = torch.zeros((1, 16, 640))
+    kv = torch.zeros((1, 1, 4, 1, 640))
+    out = t_pa_ops.paged_attention_raw(q, kv, kv, torch.full((1, 1), 4, dtype=torch.int32))
+    assert out[2].shape == (1, 16, 640)         # the plain version: any dk
 
 
 # -- configs, params, the MLA norm -----------------------------------------------------
