@@ -21,7 +21,10 @@ Phases, one summary line each:
                 update, mark and histogram at the simulator's blocks
                 (S=2048 at W=16K, S=16384 at W=512K), bitwise and timed;
                 attention also at kimi-k2's group of 8 query heads per kv
-                head (PHASE moe's two ring shapes), checked and timed, and
+                head (PHASE moe's two ring shapes) and at PHASE dense's
+                paged-arm ring (B 2, P 6, T 8) for stablelm-1.6b (group 1,
+                dk 64), qwen1.5-4b (20 heads, group 1) and gemma2-27b (group
+                2, softcap 50, scale 144^-1/2), checked and timed, and
                 at deepseek-v3's MLA shape (128 query heads over one latent
                 head, dk 576, dv 512: the head-tiled kernel; its registers
                 and spills read from the build log) at edge shapes (some
@@ -86,7 +89,23 @@ Phases, one summary line each:
                 exported; the kv integers (reads, promotions, rows migrated
                 and flushed, placement table, θ trace) and the lane schedule
                 must equal the CPU run's at the smoke config;
-  8. moe      — kimi-k2 at full width (d 7168, 64/8 heads, 384 experts
+  8. dense    — the dense-cache serving mode (ServeConfig's default,
+                paged=False) on llama3.2-3b (PHASE main's params),
+                qwen1.5-4b, stablelm-1.6b and gemma2-27b at full width and
+                depth (each drawn after the previous one is released), in
+                two arms each: the full cache, then the paged ring
+                (serve_bench.py's llama case, page_t 8, 6 hot slots) fed the
+                dense arm's tokens, 2 x 32 prompt tokens and 16 greedy ones
+                with the embeddings resource; the two arms' logits must
+                agree within DECODE_PARITY at every step, their greedy picks
+                but at near-ties (printed), the logits be finite (within the
+                final softcap on gemma2), the dense arm launch the sketch
+                kernels and no attention kernel, the ring's page mass sum
+                to 1 and the embeddings sketch replay bitwise on the CPU;
+                prints wall, prefill s, tokens/s, ms per step, peak memory
+                per arm and a 4-step profile of the dense arm (busy share,
+                launches a step, the plain dense attention's ms a step);
+  9. moe      — kimi-k2 at full width (d 7168, 64/8 heads, 384 experts
                 top-8, vocab 163840), its depth cut to one dense prologue
                 layer and one MoE layer (MOE_DEPTH), with the experts and
                 embeddings resources: serve_bench.py's kimi-k2 case (2 x 16
@@ -103,15 +122,19 @@ Phases, one summary line each:
                 lane schedule equal the CPU run's at the smoke config;
                 prints wall, tokens/s, ms per step, hit rates and bytes, ms
                 per slow expert row, a profile of 4 steps and the card's
-                peak memory and pinned host bytes;
-  9. mla      — deepseek-v3 at full width (d 7168, 128 heads, MLA
+                peak memory and pinned host bytes; then the dense arm of the
+                single request (paged=False, experts and embeddings, built
+                once the lane engine's pinned store is released): no
+                attention launch, the embeddings sketch replayed bitwise and
+                the experts' feed through a CPU daemon;
+  10. mla     — deepseek-v3 at full width (d 7168, 128 heads, MLA
                 q_lora 1536 / kv_lora 512 / d_nope 128 / d_rope 64 / d_v
                 128, 256 experts top-8, vocab 129280), its depth cut to its
                 3 dense prologue layers and its first MoE layer (MLA_DEPTH),
                 through PHASE moe's drives and checks with 64 of 256 experts
-                on the card; every attention launch of the phase must be
-                the head-tiled kernel's;
-  10. sim     — the paper's evaluation path: fig11_main_speedup.py's grid
+                on the card (its dense arm on mla_decode); every attention
+                launch of the phase must be the head-tiled kernel's;
+  11. sim     — the paper's evaluation path: fig11_main_speedup.py's grid
                 (8 workloads x 6 methods, benchmarks/common.py's scale)
                 through the port's tiering simulator on the card, every
                 result (counts, θ and error traces exactly; modeled runtime
@@ -119,7 +142,7 @@ Phases, one summary line each:
                 equal to a CPU run of the port on the same blocks; prints
                 the modeled geomean speedups, neomem's hit rates and the
                 card's wall ms per block;
-  11. sim-paper — gups at the paper's scale (4M pages, W=512K, blocks of
+  12. sim-paper — gups at the paper's scale (4M pages, W=512K, blocks of
                 16384) through all six methods on the card: hits must sum
                 to the accesses, promotions stay within the quota, and
                 neomem's sketch over its last clear interval (recorded in a
@@ -232,6 +255,25 @@ MOE_PHASES = {
     "mla": dict(arch="deepseek-v3-671b", depth=MLA_DEPTH, single=MLA_SINGLE,
                 lanes=MLA_LANES),
 }
+# PHASE dense: the dense-cache serving mode (ServeConfig's default,
+# paged=False) on llama3.2-3b (PHASE main's params), qwen1.5-4b,
+# stablelm-1.6b and gemma2-27b at full width and depth, seed 0, each model
+# in two arms in turn: the full cache, and serve_bench.py's llama case
+# (page_t 8, 6 hot slots: the ring holds the whole 48-token context) fed the
+# dense arm's tokens; 2 random 32-token prompts, 16 greedy tokens, the
+# embeddings resource.
+DENSE_ARCHS = ("llama3.2-3b", "qwen1.5-4b", "stablelm-1.6b", "gemma2-27b")
+DENSE_SERVE = dict(max_seq=256, resources=["embeddings"], embed_hot_slots=4,
+                   migration_interval=4)
+DENSE_PAGED = dict(DENSE_SERVE, paged=True, page_t=8, hot_slots=6)
+DENSE_PROMPT = (2, 32, 16)         # batch, prompt tokens, new tokens
+DECODE_PARITY = 0.25    # the reference's decode-parity bound (tests/test_models.py:74)
+# the paged arm's attention shapes (label, heads, kv heads, head dim,
+# softcap, scale), checked and timed in PHASE kernels
+DENSE_ATTN_SHAPES = (("group 1, dk 64 (stablelm-1.6b)", 32, 32, 64, 0.0, None),
+                     ("group 1, 20 heads (qwen1.5-4b)", 20, 20, 128, 0.0, None),
+                     ("group 2, softcap 50 (gemma2-27b)", 32, 16, 128, 50.0,
+                      144.0 ** -0.5))
 # PHASE sim: fig11_main_speedup.py's grid at benchmarks/common.py's scale
 # (N_PAGES, BLOCK, N_BLOCKS, FAST_RATIO, SIM_KW, METHODS; stream seed 11)
 SIM_WORKLOADS = ("deathstar", "pagerank", "xsbench", "gups", "silo", "btree",
@@ -483,11 +525,32 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
               + b * h * (2 + d) * 4 + 2 * b * p * h * 4)
     nops = n_tok * h * 4 * d
     bms, by = bound_ms(nbytes, nops, rates)
+    check_dense_arch_attention(torch, pa_ops, pa_ref, rates)
     return dict(name="paged_attn", route="cuda",
                 source="src/repro_torch/csrc/paged_attn.cu",
                 replaces="src/repro/kernels/paged_attn/paged_attn.py:34",
                 max_abs_err=err, ms=cold, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib_cold, host_ms=host)
+
+
+def check_dense_arch_attention(torch, pa_ops, pa_ref, rates) -> None:
+    """PHASE dense's paged-arm ring shapes (B 2, P 6, T 8), checked and
+    timed: stablelm-1.6b (group 1, dk 64), qwen1.5-4b (20 heads, group 1,
+    dk 128) and gemma2-27b (group 2, dk 128, softcap 50, scale 144^-1/2).
+    Row 0 holds full pages and a part-filled current slot, row 1 ragged
+    lengths.  Inputs come from their own generators, so the other shapes'
+    inputs are those of earlier runs."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rng = np.random.default_rng(1)
+    for label, h, hkv, d, softcap, scale in DENSE_ATTN_SHAPES:
+        lens = np.full((2, 6), 8)
+        lens[0, 3:] = 0
+        lens[0, 2] = 5
+        lens[1] = rng.integers(0, 9, 6)
+        checked = attention_case(torch, pa_ops, pa_ref, gen, 2, h, hkv, d, d, 6, 8,
+                                 torch.bfloat16, lens, softcap=softcap, scale=scale)
+        time_attention(torch, pa_ops, pa_ref, rates, checked, "paged_attn",
+                       f"paged_attn at {label}", scale=scale, softcap=softcap)
 
 
 def check_mla_attention(torch, pa_ops, pa_ref, _lib, rates, gen):
@@ -601,14 +664,15 @@ def ptxas_report(_lib, kernel: str) -> list:
 
 
 def time_attention(torch, pa_ops, pa_ref, rates, checked, name, label,
-                   scale=None, plain=True) -> dict:
+                   scale=None, plain=True, softcap=0.0) -> dict:
     """Time attention at a checked shape: cold over enough input sets to
     exceed the L2, warm, the host's wall per call, the plain version (unless
     ``plain`` is False), the bound (bytes at the memory rate, flops at the
     TF32 tensor-core rate: bf16 pages are exact in TF32) and a library call:
     SDPA with enable_gqa over the masked pages, else with the kv heads
     expanded, else matmul-softmax-matmul in bf16, whichever a backend takes
-    first."""
+    first (SDPA takes no softcap: with ``softcap`` the yardstick runs
+    without it)."""
     q, kp, vp, lt, out, ref = checked
     b, h, dk = q.shape
     _, p, t, hkv, _ = kp.shape
@@ -618,12 +682,12 @@ def time_attention(torch, pa_ops, pa_ref, rates, checked, name, label,
     n_sets = max(2, -(-2 * 50 * 2 ** 20 // kv_bytes))
     sets = [(q, kp, vp, lt)] + [(q, torch.randn_like(kp), torch.randn_like(vp), lt)
                                 for _ in range(n_sets - 1)]
-    calls = [lambda x=x: pa_ops.paged_attention_raw(*x, scale=scale,
+    calls = [lambda x=x: pa_ops.paged_attention_raw(*x, scale=scale, softcap=softcap,
                                                     return_page_stats=True)
              for x in sets]
     warm, cold, host = time_ms(calls[0]), time_ms(calls), host_ms(calls[0])
     plain = time_ms(lambda: pa_ref.paged_attention_raw_ref(
-        q, kp, vp, lt, scale=scale)) if plain else None
+        q, kp, vp, lt, scale=scale, softcap=softcap)) if plain else None
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def library(q, kp, vp, lt, how):
@@ -660,14 +724,15 @@ def time_attention(torch, pa_ops, pa_ref, rates, checked, name, label,
               + lt.numel() * 4 + b * h * (2 + dv) * 4 + 2 * b * p * h * 4)
     nops = 2 * n_tok * h * (dk + dv)
     bms, by = bound_ms(nbytes, nops, (rates[0], rates[2]))
-    print(f"kernel {label} (group {h // hkv}, dk {dk}, dv {dv}, B={b} P={p} T={t}): "
+    print(f"kernel {label} (group {h // hkv}, dk {dk}, dv {dv}, B={b} P={p} T={t}"
+          f"{f', softcap {softcap:g}' if softcap else ''}): "
           f"max_abs_err {max_err(out, ref):.3g}; device {cold:.4f} ms cold ({n_sets} "
           f"input sets, round-robin), {warm:.4f} ms warm, host {host:.4f} ms per "
           f"eager call; plain {'not timed' if plain is None else f'{plain:.4f} ms'}; "
           f"bound {bms:.5f} ms by {by} "
           f"({nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} GFLOP at the TF32 tensor-core "
           f"rate; {nops / rates[1] * 1e3:.5f} ms at the float32 CUDA-core rate); "
-          f"library ({how}) "
+          f"library ({how}{', no softcap' if softcap else ''}) "
           f"{'refused' if lib_cold is None else f'{lib_cold:.4f} ms cold'}")
     return dict(name=name, route="cuda", source="src/repro_torch/csrc/paged_attn.cu",
                 replaces="src/repro/kernels/paged_attn/paged_attn.py:34",
@@ -1447,6 +1512,198 @@ def fill_path(torch, counters, cfg, params, smi):
     return launches, rep
 
 
+# -- PHASE dense: the full-cache serving mode against the paged ring ------------
+
+SKETCH_COUNTERS = slice(1, 4)   # update, mark and histogram among the counters
+
+
+def draw_dense_params(torch, arch):
+    """A dense arch at full width and depth (gemma2-27b's 54.5 GB of bf16
+    weights fit the card with no cut), random bf16 weights from seed 0."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"dense: {arch} full width (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.head_dim}, ff {cfg.d_ff}, vocab {cfg.vocab}), "
+          f"{cfg.n_layers} layers: {n_params / 1e9:.3f} B params bf16 drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def drive_arm(torch, eng, prompts, new: int, feed=None) -> dict:
+    """One arm's single request: prefill, then ``new - 1`` decode steps,
+    greedy or, with ``feed`` ((B, new) tokens on the card), fed those
+    tokens.  Keeps every step's (B, V) logits (the prompt's last from
+    prefill) and, on the ring, checks every step's page mass sums to 1."""
+    from repro_torch.models import decode as dec
+    caught, saved = [], {n: getattr(dec, n) for n in ("prefill_dense", "prefill_paged")}
+
+    def capture(fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            caught.append(out[0])
+            return out
+        return run
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for name, fn in saved.items():
+            setattr(dec, name, capture(fn))
+        eng.prefill(prompts)
+    finally:
+        for name, fn in saved.items():
+            setattr(dec, name, fn)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    logits = [caught[-1]]
+    toks = [logits[0].argmax(-1) if feed is None else feed[:, 0]]
+    t0 = time.perf_counter()
+    for i in range(new - 1):
+        logits.append(eng._advance(toks[-1][:, None])[:, -1])
+        if eng._last_kv_mass is not None:
+            sums = eng._last_kv_mass.sum(dim=1)
+            if not bool(((sums - 1).abs() < 1e-4).all()):
+                raise AssertionError(f"page mass sums {sums.tolist()} != 1")
+        toks.append(logits[-1].argmax(-1) if feed is None else feed[:, i + 1])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return dict(logits=torch.stack(logits), tokens=torch.stack(toks, dim=1),
+                prefill_s=prefill_s, decode_s=decode_s)
+
+
+def profile_dense(torch, eng, tok, steps: int = 4) -> None:
+    """torch.profiler over ``steps`` dense decode steps: the device's busy
+    share, its launches a step and the plain full-cache attention's device
+    time (``attention.dense_attend`` inside a profiler range)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import attention as attn
+    plain = attn.dense_attend
+
+    def ranged(*a, **kw):
+        with record_function("dense_attend"):
+            return plain(*a, **kw)
+    torch.cuda.synchronize()
+    attn.dense_attend = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                tok = eng.step(tok)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        attn.dense_attend = plain
+    # the range shows twice: on the host (its kernels' device time, summed
+    # over its ops) and as a device-side span, which holds the idle gaps
+    # between those kernels and is left out
+    dev = [r for r in device_rows(torch, prof) if r[1] != "dense_attend"]
+    busy_us = sum(t for t, _, _ in dev)
+    launches = sum(count for _, _, count in dev)
+    rng = [e for e in prof.events() if e.name == "dense_attend"
+           and e.device_type == torch.autograd.DeviceType.CPU]
+    attn_us = sum(e.device_time_total for e in rng)
+    calls = len(rng)
+    print(f"dense profile: {steps} steps, wall {wall_us / steps / 1e3:.2f} ms/step, "
+          f"device busy {busy_us / steps / 1e3:.2f} ms/step ({100 * busy_us / wall_us:.1f}"
+          f"% of wall), {launches / steps:.1f} device launches/step; plain dense "
+          f"attention {attn_us / steps / 1e3:.3f} ms/step over {calls / steps:.0f} "
+          f"calls/step ({100 * attn_us / max(busy_us, 1e-9):.1f}% of busy)")
+
+
+def dense_model(torch, counters, cfg, params, smi, device="cuda") -> dict:
+    """PHASE dense on one model: the dense arm, then the paged arm fed its
+    tokens; per-step logits within DECODE_PARITY of each other, greedy
+    tokens equal but at near-ties, finite logits (within the final softcap
+    where there is one), the dense arm no attention launch, unit page mass
+    on the ring, the embeddings sketch replayed bitwise on the CPU."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    b, n, new = DENSE_PROMPT
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (b, n))
+    arms = {}
+    for arm, serve in (("dense", DENSE_SERVE), ("paged", DENSE_PAGED)):
+        gc.collect()                   # the previous arm's engine and stores
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(cfg, params, ServeConfig(
+            **dict(serve, resources=tuple(serve["resources"]))), device=device)
+        blocks = record_blocks(eng.daemon["embeddings"])
+        zero_counts(counters)
+        run = drive_arm(torch, eng, prompts, new,
+                        None if arm == "dense" else arms["dense"]["tokens"])
+        run["launches"] = read_counts(
+            torch, counters, f"dense {cfg.name} {arm}",
+            required=counters[SKETCH_COUNTERS] if arm == "dense" else None)
+        if arm == "dense" and run["launches"]["paged_attention_raw"]:
+            raise AssertionError(f"dense {cfg.name}: the dense arm launched the "
+                                 f"attention kernel: {run['launches']}")
+        replay_resource(torch, eng.daemon["embeddings"], blocks)
+        run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        run["stats"] = eng.tier_stats()["embeddings"]
+        steps = new - 1
+        print(f"dense: {cfg.name} {arm} arm, {b} x {n} prompt tokens and {new} new: "
+              f"wall {run['prefill_s'] + run['decode_s']:.3f} s, prefill "
+              f"{run['prefill_s']:.3f} s, decode {b * steps / run['decode_s']:.2f} "
+              f"tokens/s, {1e3 * run['decode_s'] / steps:.2f} ms/step, embeddings "
+              f"hit rate {run['stats']['hit_rate']:.3f}, peak device memory "
+              f"{run['peak_gib']:.2f} GiB, launches {json.dumps(run['launches'])} "
+              f"on {smi}")
+        if arm == "dense":
+            profile_dense(torch, eng, run["tokens"][:, -1].cpu().numpy())
+        run["logits"] = run["logits"].cpu()
+        arms[arm] = run
+        del eng
+    d, p = arms["dense"]["logits"], arms["paged"]["logits"]     # (new, B, V)
+    if not (bool(torch.isfinite(d).all()) and bool(torch.isfinite(p).all())):
+        raise AssertionError(f"dense {cfg.name}: non-finite logits")
+    if cfg.final_softcap and max(float(d.abs().max()), float(p.abs().max())) \
+            > cfg.final_softcap:
+        raise AssertionError(f"dense {cfg.name}: logits past the final softcap")
+    gap = float((d - p).abs().max())
+    if gap > DECODE_PARITY:
+        raise AssertionError(f"dense {cfg.name}: dense and paged logits {gap} apart")
+
+    def margin(x):
+        top = x.topk(2, dim=-1).values
+        return top[..., 0] - top[..., 1]
+    near = (margin(d) < DECODE_PARITY) | (margin(p) < DECODE_PARITY)
+    parted = d.argmax(-1) != p.argmax(-1)
+    if bool((parted & ~near).any()):
+        raise AssertionError(f"dense {cfg.name}: greedy tokens part away from a "
+                             f"near-tie at (step, row) {parted.nonzero().tolist()}")
+    ties = (parted & near).nonzero().tolist()
+    print(f"dense: {cfg.name} logits of the two arms within {gap:.4f} (bound "
+          f"{DECODE_PARITY}) over {new} steps; greedy tokens equal"
+          + (f" but at near-ties (step, row) {ties}" if ties else "")
+          + f"; {int(near.sum())} of {near.numel()} picks had a top-2 margin under "
+          f"{DECODE_PARITY}; embeddings sketches replayed bitwise")
+    return {arm: arms[arm]["launches"] for arm in arms}
+
+
+def dense_path(torch, counters, models: dict, smi) -> dict:
+    """PHASE dense: each DENSE_ARCHS model in turn, its params released
+    before the next is drawn; ``models`` holds those already on the card
+    (PHASE main's llama3.2-3b), which this releases too."""
+    total = {c.__name__: 0 for c in counters}
+    for arch in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        cfg, params = models.pop(arch) if arch in models \
+            else draw_dense_params(torch, arch)
+        launches = dense_model(torch, counters, cfg, params, smi)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        for arm in launches.values():
+            for k, v in arm.items():
+                total[k] += v
+        print(f"dense: {arch} ok in {time.perf_counter() - t0:.1f} s")
+    print("dense: launches " + json.dumps(total) + f" on {smi}")
+    return total
+
+
 # -- PHASE moe: kimi-k2 with the experts resource -------------------------------
 
 MOE_TOL = 2 ** -6       # tiered vs dense MoE layer: max |diff| <= this * max |dense|
@@ -1694,6 +1951,57 @@ def moe_single(torch, counters, cfg, params, smi, device="cuda", phase="moe") ->
     return launches
 
 
+def moe_dense(torch, counters, cfg, params, smi, device="cuda", phase="moe") -> dict:
+    """PHASE moe's (or mla's) dense arm: the single request of (a) on the
+    full cache (``paged=False``: GQA MoE or ``mla_decode``, no kv resource)
+    with the experts and embeddings resources.  Its experts' feed replays
+    through a CPU daemon and its embeddings sketch bitwise; it launches the
+    sketch kernels and no attention kernel."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    single = dict(MOE_PHASES[phase]["single"], paged=False)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, ServeConfig(
+        **dict(single, resources=tuple(single["resources"]))), device=device)
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    log = record_experts(eng, cfg.moe.n_experts)
+    blocks = record_blocks(eng.daemon["embeddings"])
+    b, n, new = MOE_PROMPT
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (b, n))
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    tok = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(new - 1):
+        tok = eng.step(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    logits = eng._advance(torch.as_tensor(tok, device=device)[:, None])
+    launches = read_counts(torch, counters, f"{phase} dense",
+                           required=counters[SKETCH_COUNTERS])
+    if launches["paged_attention_raw"] or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{phase} dense: an attention launch or non-finite "
+                             f"logits: {launches}")
+    replay_resource(torch, eng.daemon["embeddings"], blocks)
+    placement = replay_experts(torch, eng, log)
+    resident = check_expert_rows(torch, eng)
+    stats = eng.tier_stats()
+    print(f"{phase}: dense arm (paged=False), {b} x {n} prompt tokens and {new} new: "
+          f"bound the stores in {bind_s:.1f} s; prefill {prefill_s:.3f} s, decode "
+          f"{b * (new - 1) / decode_s:.2f} tokens/s, {1e3 * decode_s / (new - 1):.2f} "
+          f"ms/step; embeddings sketch replayed bitwise; experts' "
+          f"{placement['blocks']} blocks through a CPU daemon: {placement['epochs']} "
+          f"promotion batches, {placement['rows']} rows moved, θ {placement['theta']} "
+          f"all equal; {resident} resident expert rows equal their slow rows; experts "
+          f"hit rate {stats['experts']['hit_rate']:.3f}, embeddings "
+          f"{stats['embeddings']['hit_rate']:.3f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+          f"{json.dumps(launches)} on {smi}")
+    return launches
+
+
 def moe_path(torch, counters, smi, device="cuda", phase="moe"):
     """PHASE moe (kimi-k2) or mla (deepseek-v3): the arch at full width
     (depth cut), the single request, then the lane drive held to the CPU's
@@ -1739,6 +2047,11 @@ def moe_path(torch, counters, smi, device="cuda", phase="moe"):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, pinned host "
           f"stores {pinned_bytes(eng) / 2 ** 30:.2f} GiB on {smi}")
     total = {k: launches["single"][k] + launches["lanes"][k] for k in launches["single"]}
+    del eng, sched                     # the lane engine's pinned expert store
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches["dense"] = moe_dense(torch, counters, cfg, params, smi, device, phase)
     print(f"{phase}: launches " + json.dumps(launches) + f" on {smi}")
     return total, rep
 
@@ -2264,7 +2577,15 @@ def main() -> int:
               f"{rep['completed']} requests, "
               f"{rep['tokens'] / rep['clock']['decode_s']:.2f} tokens/s on the "
               f"decode clock, launches {json.dumps(phases[phase])} on {smi}")
-    del params                         # llama3.2-3b's 6.4 GB, for kimi-k2's
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    models = {"llama3.2-3b": (cfg, params)}
+    del params                         # PHASE dense releases llama3.2-3b's 6.4 GB
+    phases["dense"] = dense_path(torch, counters, models, smi)
+    print(f"PHASE dense: ok in {time.perf_counter() - t0:.1f} s, "
+          f"{', '.join(DENSE_ARCHS)} at full width, dense and paged arms, "
+          f"launches {json.dumps(phases['dense'])} on {smi}")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

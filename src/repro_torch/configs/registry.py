@@ -1,24 +1,26 @@
 """Architecture registry: arch id -> ArchConfig, for the archs the port runs.
 
 The reference registry lists ten architectures; the port serves the dense
-paged-KV arch of the main path (llama3.2-3b), the GQA MoE flagship
-(kimi-k2) and the MLA MoE arch (deepseek-v3) so far.  Asking for any
-other known arch raises, naming it as not yet ported.
+decoders (llama3.2-3b, qwen1.5-4b, stablelm-1.6b and gemma2-27b), the GQA
+MoE flagship (kimi-k2) and the MLA MoE arch (deepseek-v3) so far.  Asking
+for any other known arch raises, naming it as not yet ported.
 """
 from __future__ import annotations
 
-from repro_torch.configs import deepseek_v3_671b, kimi_k2_1t, llama32_3b
+from repro_torch.configs import (deepseek_v3_671b, gemma2_27b, kimi_k2_1t,
+                                 llama32_3b, qwen15_4b, stablelm_1p6b)
 
-ARCHS = ["llama3.2-3b", "kimi-k2-1t-a32b", "deepseek-v3-671b"]
+ARCHS = ["llama3.2-3b", "kimi-k2-1t-a32b", "deepseek-v3-671b", "qwen1.5-4b",
+         "stablelm-1.6b", "gemma2-27b"]
 
 # the reference's other archs, which later slices port
 NOT_YET_PORTED = (
-    "llama-3.2-vision-11b", "zamba2-2.7b", "gemma2-27b", "stablelm-1.6b",
-    "qwen1.5-4b", "whisper-base", "xlstm-1.3b",
+    "llama-3.2-vision-11b", "zamba2-2.7b", "whisper-base", "xlstm-1.3b",
 )
 
 _MODULES = {"llama3.2-3b": llama32_3b, "kimi-k2-1t-a32b": kimi_k2_1t,
-            "deepseek-v3-671b": deepseek_v3_671b}
+            "deepseek-v3-671b": deepseek_v3_671b, "qwen1.5-4b": qwen15_4b,
+            "stablelm-1.6b": stablelm_1p6b, "gemma2-27b": gemma2_27b}
 
 
 def _module(name: str):

@@ -1,16 +1,22 @@
-"""GQA and MLA attention parameters and projections (port of
-``repro/models/attention.py``, the parts the paged decode path reads).
+"""GQA and MLA attention: parameters, projections and the dense-cache
+decode (port of ``repro/models/attention.py``).
 
-MLA's training and dense-cache forms (``mla_apply``, ``mla_decode``) come
-with the training forward and the dense cache; serving reads MLA through
-the absorbed latent query of the paged decode (``models/decode.py``)."""
+``gqa_decode`` and ``mla_decode`` attend over the full (dense) cache of
+``gqa_init_cache`` / ``mla_init_cache`` in float32, as the reference
+computes them outside any Pallas kernel; the new K/V (or MLA's latent and
+rope key) is written at ``pos`` in place.  ``pos`` is the cache's ()
+int32 position tensor, read on the device (no host sync).  The paged
+decode reads MLA through the absorbed latent query of ``models/decode.py``.
+MLA's training form (``mla_apply``) comes with the training forward."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from repro_torch.models.layers import DTYPE
+from repro_torch.models.layers import DTYPE, apply_rope
+
+NEG_INF = -1e30
 
 _WHOLE_DRAW = 1 << 30     # elements above which a tensor is drawn in slices
 _DRAW_SLICE = 1 << 28     # float32 elements drawn at once in that case
@@ -64,6 +70,67 @@ def _proj_qkv(p, x, h, hkv, dh):
             v.reshape(b, s, hkv, dh))
 
 
+def gqa_init_cache(batch, smax, hkv, dh, dtype=DTYPE, device="cuda"):
+    return {"k": torch.zeros((batch, smax, hkv, dh), dtype=dtype, device=device),
+            "v": torch.zeros((batch, smax, hkv, dh), dtype=dtype, device=device)}
+
+
+def _pos_col(pos: torch.Tensor, b: int) -> torch.Tensor:
+    """Decode positions as a (B, 1) column: ``pos`` is the scalar lockstep
+    counter or a (B,) vector of per-lane positions."""
+    return pos.reshape(-1, 1).expand(b, 1)
+
+
+def _write_at(cache: torch.Tensor, pos: torch.Tensor, rows: torch.Tensor) -> None:
+    """``cache[:, pos] = rows`` in place, ``pos`` a () device tensor."""
+    cache.index_copy_(1, pos.reshape(1).long(), rows.to(cache.dtype))
+
+
+def _key_mask(smax: int, pos: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """(smax,) bool: the causal keys of position ``pos``, and with
+    ``window > 0`` only the last ``window`` of them."""
+    kpos = torch.arange(smax, device=pos.device)
+    mask = kpos <= pos
+    if window > 0:
+        mask &= kpos > pos - window
+    return mask
+
+
+def dense_attend(q, ck, cv, pos, *, window=0, softcap=0.0, scale):
+    """One query position over the full cache, in float32: q (B, 1, H, dh),
+    ck/cv (B, Smax, Hkv, dh) -> (B, 1, Hkv, g, dh) float32, the reference's
+    einsum / mask / softmax / einsum with the scores softcapped before the
+    mask and masked to ``NEG_INF``."""
+    b, _, h, dh = q.shape
+    hkv = ck.shape[2]
+    qf = q.float().reshape(b, 1, hkv, h // hkv, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, ck.float()) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    mask = _key_mask(ck.shape[1], pos, window)
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", w, cv.float())
+
+
+def gqa_decode(p, x_t, cache, pos, *, h, hkv, dh, rope_theta=10000.0,
+               window=0, softcap=0.0, scale=None):
+    """x_t (B, 1, D) at position ``pos``: the full-cache decode.  Writes the
+    new K/V into ``cache`` in place; returns (B, 1, D)."""
+    b = x_t.shape[0]
+    q, k, v = _proj_qkv(p, x_t, h, hkv, dh)
+    if rope_theta > 0:
+        pos_b = _pos_col(pos, b)
+        q = apply_rope(q, pos_b, rope_theta)
+        k = apply_rope(k, pos_b, rope_theta)
+    _write_at(cache["k"], pos, k)
+    _write_at(cache["v"], pos, v)
+    scale = (dh ** -0.5) if scale is None else scale
+    o = dense_attend(q, cache["k"], cache["v"], pos, window=window,
+                     softcap=softcap, scale=scale)
+    return o.reshape(b, 1, h * dh).to(x_t.dtype) @ p["wo"]
+
+
 # -- DeepSeek-V3 MLA -----------------------------------------------------------
 
 MLA_DEFAULTS = dict(q_lora=1536, kv_lora=512, d_nope=128, d_rope=64, d_v=128)
@@ -104,3 +171,41 @@ def _rms(x, w, eps=1e-6):
     xf = x.float()
     y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return (y * w).to(x.dtype)
+
+
+def mla_init_cache(batch, smax, kv_lora=512, d_rope=64, dtype=DTYPE,
+                   device="cuda"):
+    """MLA caches the compressed latent and the rope key, not K and V."""
+    return {"c_kv": torch.zeros((batch, smax, kv_lora), dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, smax, d_rope), dtype=dtype, device=device)}
+
+
+def mla_decode(p, x_t, cache, pos, *, h, q_lora=1536, kv_lora=512,
+               d_nope=128, d_rope=64, d_v=128, rope_theta=10000.0):
+    """MLA's absorbed decode over the full latent cache, in float32: the
+    nope query goes through the key half of ``wkv_b`` into the latent
+    space, the attention output back through its value half.  Writes the
+    latent and rope key at ``pos`` in place; returns (B, 1, D)."""
+    b = x_t.shape[0]
+    pos_b = _pos_col(pos, b)
+    q = _rms(x_t @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+    q = q.reshape(b, 1, h, d_nope + d_rope)
+    q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
+    q_rope = apply_rope(q_rope, pos_b, rope_theta)
+    kv_a = x_t @ p["wkv_a"]
+    c_t = _rms(kv_a[..., :kv_lora], p["kv_norm"])
+    kr_t = apply_rope(kv_a[..., None, kv_lora:], pos_b, rope_theta)[:, :, 0]
+    _write_at(cache["c_kv"], pos, c_t)
+    _write_at(cache["k_rope"], pos, kr_t)
+    c_kv, k_rope = cache["c_kv"].float(), cache["k_rope"].float()
+    wkv_b = p["wkv_b"].reshape(kv_lora, h, d_nope + d_v)
+    w_k, w_v = wkv_b[..., :d_nope].float(), wkv_b[..., d_nope:].float()
+    q_lat = torch.einsum("bqhd,khd->bqhk", q_nope.float(), w_k)
+    s_lat = torch.einsum("bqhk,bsk->bhqs", q_lat, c_kv)
+    s_rope = torch.einsum("bqhd,bsd->bhqs", q_rope.float(), k_rope)
+    s = (s_lat + s_rope) * (d_nope + d_rope) ** -0.5
+    s = torch.where(_key_mask(c_kv.shape[1], pos), s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqs,bsk->bqhk", w, c_kv)
+    o = torch.einsum("bqhk,khd->bqhd", o_lat, w_v)
+    return o.reshape(b, 1, h * d_v).to(x_t.dtype) @ p["wo"]

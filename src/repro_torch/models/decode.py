@@ -1,9 +1,13 @@
-"""NeoMem paged decode: attention over the fast-tier ring of hot KV pages.
+"""Serving decode: the NeoMem paged decode over the fast-tier ring of hot
+KV pages, and the full (dense) cache decode.
 
-Port of the single-device paged path of ``repro/models/decode.py`` for the
-dense GQA family and the mixture-of-experts family with GQA (kimi-k2) or
-MLA (deepseek-v3) attention.  Cache layout (stacked by pattern group, as
-the reference's):
+Port of the single-device serving paths of ``repro/models/decode.py`` for
+the dense GQA family (llama3.2-3b, qwen1.5-4b, stablelm-1.6b, gemma2-27b)
+and the mixture-of-experts family with GQA (kimi-k2) or MLA (deepseek-v3)
+attention.  Cache layouts (stacked by pattern group, as the reference's):
+
+  * dense attn blocks ... {"k","v"}: (G, B, Smax, Hkv, dh)
+  * dense MLA blocks .... {"c_kv","k_rope"}: (G, B, Smax, kv_lora | d_rope)
 
   * paged attn blocks ... {"k_pages","v_pages"}: (G, B, n_slots, T, Hkv, dk|dv)
                           + {"page_len": (G, B, n_slots), "cur_slot": (G, B)};
@@ -33,12 +37,21 @@ position of each group reads its experts' weight rows through the
 resource's placement table, as the reference's; the router's token->expert
 ids come back as the ``"router"`` stream, the experts resource's input.
 
+The dense path (``init_cache``, ``decode_step``, ``prefill_dense``) writes
+each step's K/V at ``pos`` in place and attends over every cached position
+(``attention.gqa_decode`` / ``mla_decode``, plain torch, as the reference
+computes them outside any Pallas kernel); gemma2's sliding ``window``
+masks its ``attn_local`` positions there.  The paged path reads no window,
+as the reference's does not (ROADMAP C5).  Both apply gemma2's embedding
+scale and post-norms.
+
 Lane masks: where the reference computes a new cache for every lane and
 ``merge_cache`` keeps the old leaves of the inactive ones, the port's
 writes are conditional on the mask — an inactive lane's pages, ``page_len``,
 ``cur_slot`` and ``pos`` stay bitwise unchanged and the ring is never
 copied.  Its logits, mass and router ids are computed on the unchanged ring
-and are not to be read.
+and are not to be read.  ``merge_cache`` therefore has no counterpart: the
+paged writes are masked in place, and the dense cache has no lanes.
 
 Also here, as in the reference: ``install_pages``, which fast-forwards one
 lane over complete KV pages from the reuse pool (in place, that lane
@@ -68,12 +81,6 @@ def _take(tree, g: int):
     return tree[g]
 
 
-def _pos_col(pos: torch.Tensor, b: int) -> torch.Tensor:
-    """Decode positions as a (B, 1) column: ``pos`` is the scalar lockstep
-    counter or a (B,) vector of per-lane positions."""
-    return pos.reshape(-1, 1).expand(b, 1)
-
-
 def _embed_tokens(params, token, tiered):
     """Token embedding, served from the NeoMem tiered store when bound.
 
@@ -92,6 +99,15 @@ def _embed_tokens(params, token, tiered):
                              scale=tv.get("scale"))          # (B, 1, rpp, d)
     r = torch.remainder(token, rpp)[..., None, None]
     return torch.take_along_dim(rows, r, dim=-2)[..., 0, :]
+
+
+def _embed(cfg: ArchConfig, params, token, tiered):
+    """The step's token embedding, scaled by sqrt(d) where the arch asks
+    (gemma), in float32 and rounded back as the reference's."""
+    x = _embed_tokens(params, token, tiered)
+    if cfg.embed_scale:
+        x = (x.float() * cfg.d_model ** 0.5).to(x.dtype)
+    return x
 
 
 def ring_dims(cfg: ArchConfig) -> tuple[int, int, int]:
@@ -237,7 +253,7 @@ def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
     layer as its FFN.  Returns (x_t, mass or None)."""
     h = apply_norm(cfg.norm, p["ln1"], x_t)
     b = x_t.shape[0]
-    pos_b = _pos_col(pos, b)
+    pos_b = attn._pos_col(pos, b)
     if cfg.mla is not None:
         q_eff, k_new, v_new, scale = _mla_qkv(p["attn"], cfg, h, pos_b)
     else:
@@ -253,16 +269,28 @@ def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
         k_new, v_new, q_eff, scale=scale, softcap=cfg.attn_softcap,
         page_t=page_t, collect_mass=collect_mass, active=active)
     if cfg.mla is not None:
-        x_t = x_t + _mla_out(p["attn"], cfg, o, x_t.dtype)
+        o = _mla_out(p["attn"], cfg, o, x_t.dtype)
     else:
-        x_t = x_t + o.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x_t.dtype) \
+        o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x_t.dtype) \
             @ p["attn"]["wo"]
+    return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router), mass
+
+
+def _block_tail(p, cfg: ArchConfig, kind: str, x_t, o, tiered_moe, router):
+    """Everything of a decoder block after its attention output ``o``: the
+    residual, the FFN (the expert layer for ``kind`` "moe") and, where the
+    arch has them (gemma2), the post-norms of both branches."""
+    if cfg.post_norm:
+        o = apply_norm(cfg.norm, p["pn1"], o)
+    x_t = x_t + o
     h2 = apply_norm(cfg.norm, p["ln2"], x_t)
     if kind == "moe":
         y = _moe_block(p, cfg, h2, tiered_moe, router)
     else:
         y = mlp_apply(p["ffn"], h2, cfg.mlp)
-    return x_t + y, mass
+    if cfg.post_norm:
+        y = apply_norm(cfg.norm, p["pn2"], y)
+    return x_t + y
 
 
 def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
@@ -290,7 +318,7 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     if active is not None and pos.dim() == 0:
         raise ValueError("a lane mask needs per-lane positions "
                          "(init_paged_cache(per_lane_pos=True))")
-    x = _embed_tokens(params, token, tiered)
+    x = _embed(cfg, params, token, tiered)
     for lp, lc in zip(params.get("prologue", []), cache.get("prologue", [])):
         x, _ = _paged_attn_block(lp, cfg, "attn", x, lc, pos, page_t,
                                  active=active)
@@ -373,6 +401,116 @@ def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
         router.append(streams["router"])
     return last, cache, {"router": _stack_steps(router, -1),
                          "kv_mass": _stack_steps(kv_mass, 0.0)}
+
+
+# ---------------------------------------------------------------------------
+# full (dense) cache decode
+# ---------------------------------------------------------------------------
+
+def _block_cache(cfg: ArchConfig, kind: str, batch: int, smax: int, dtype,
+                 device):
+    """One attention block's full cache: MLA's latent and rope key, else
+    GQA's K and V.  The recurrent kinds keep O(1) states a later slice
+    ports."""
+    if kind in ("mamba", "mlstm", "slstm"):
+        raise NotImplementedError(
+            f"the {kind!r} block's decode state is not yet ported to repro_torch")
+    if cfg.mla is not None:
+        return attn.mla_init_cache(batch, smax, cfg.mla.kv_lora, cfg.mla.d_rope,
+                                   dtype, device)
+    return attn.gqa_init_cache(batch, smax, cfg.n_kv_heads, cfg.head_dim, dtype,
+                               device)
+
+
+def _stacked(tree, g: int):
+    """A block cache with a leading group axis of ``g`` (zeros, as the
+    reference broadcasts one group's zeros)."""
+    return {k: v.new_zeros((g,) + v.shape) for k, v in tree.items()}
+
+
+def init_cache(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16, *,
+               device="cuda"):
+    """Full (dense) KV cache of ``smax`` positions for every attention
+    block, group-stacked, the dense prologue's unstacked; ``pos`` is a ()
+    int32 tensor."""
+    check_ported(cfg)
+    out = {"blocks": [_stacked(_block_cache(cfg, kind, batch, smax, dtype, device),
+                               cfg.n_groups) for kind in cfg.pattern],
+           "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.moe and cfg.moe.n_dense_prologue:
+        out["prologue"] = [_block_cache(cfg, "attn", batch, smax, dtype, device)
+                           for _ in range(cfg.moe.n_dense_prologue)]
+    return out
+
+
+def _decode_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
+                       tiered_moe=None, router: list | None = None):
+    """One decoder block over the full cache (the reference's
+    ``_decode_attn_block`` for self-attention kinds): GQA with the sliding
+    window on ``attn_local`` positions, or MLA's absorbed decode."""
+    h = apply_norm(cfg.norm, p["ln1"], x_t)
+    if cfg.mla is not None:
+        o = attn.mla_decode(p["attn"], h, cache, pos, h=cfg.n_heads,
+                            rope_theta=cfg.rope_theta,
+                            q_lora=cfg.mla.q_lora, kv_lora=cfg.mla.kv_lora,
+                            d_nope=cfg.mla.d_nope, d_rope=cfg.mla.d_rope,
+                            d_v=cfg.mla.d_v)
+    else:
+        o = attn.gqa_decode(p["attn"], h, cache, pos, h=cfg.n_heads,
+                            hkv=cfg.n_kv_heads, dh=cfg.head_dim,
+                            rope_theta=cfg.rope_theta,
+                            window=cfg.window if kind == "attn_local" else 0,
+                            softcap=cfg.attn_softcap, scale=cfg.attn_scale)
+    return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router)
+
+
+def decode_step(cfg: ArchConfig, params, cache, token, *,
+                return_streams: bool = False, tiered=None):
+    """One decode step over the full cache: ``token`` (B, 1) int ->
+    ``(logits (B, 1, V) f32, cache)``, and with ``return_streams`` a
+    streams dict whose ``"router"`` is the (G, n_moe, B, 1, k) token->expert
+    stream (None for a dense FFN).  ``tiered`` serves the token embedding
+    and the first MoE position's expert weights through the tiered store,
+    as in :func:`decode_step_paged`.  The cache is updated in place."""
+    check_ported(cfg)
+    pos = cache["pos"]
+    x = _embed(cfg, params, token, tiered)
+    for lp, lc in zip(params.get("prologue", []), cache.get("prologue", [])):
+        x = _decode_attn_block(lp, cfg, "attn", x, lc, pos)
+    routers = []
+    for g in range(cfg.n_groups):
+        router = []
+        for i, kind in enumerate(cfg.pattern):
+            x = _decode_attn_block(
+                _take(params["blocks"][i], g), cfg, kind, x,
+                _take(cache["blocks"][i], g), pos,
+                tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router)
+        routers.append(router)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    logits = logits_apply(params["embed"], x, cfg.final_softcap)
+    cache["pos"] = pos + 1
+    if not return_streams:
+        return logits, cache
+    router = (torch.stack([torch.stack(gr) for gr in routers])
+              if routers[0] else None)
+    return logits, cache, {"router": router}
+
+
+def prefill_dense(cfg: ArchConfig, params, cache, tokens, *, tiered=None):
+    """Single-pass dense prefill: :func:`decode_step` over each prompt
+    column in turn, filling the cache and keeping the last logits (the
+    prompt runs once).  Returns ``(last logits (B, V) f32, cache,
+    streams)``; ``streams["router"]`` stacks the per-step router streams on
+    a leading prompt axis, (S, G, n_moe, B, 1, k), or is None."""
+    tokens = torch.as_tensor(tokens)
+    routers, logits = [], None
+    for col in range(tokens.shape[1]):
+        logits, cache, streams = decode_step(
+            cfg, params, cache, tokens[:, col:col + 1], return_streams=True,
+            tiered=tiered)
+        routers.append(streams["router"])
+    router = torch.stack(routers) if routers[0] is not None else None
+    return logits[:, -1], cache, {"router": router}
 
 
 # ---------------------------------------------------------------------------

@@ -12,17 +12,41 @@ import torch.nn.functional as F
 DTYPE = torch.bfloat16
 
 
-def rmsnorm(p, x, eps=1e-6):
+def rmsnorm(p, x, eps=1e-6, plus_one: bool = False):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * p["scale"]).to(x.dtype)
+    scale = p["scale"] + 1.0 if plus_one else p["scale"]
+    return (y * scale).to(x.dtype)
+
+
+def layernorm(p, x, eps=1e-5):
+    """LayerNorm over the last axis with the population variance, as
+    ``jnp.var`` takes it (``torch.var`` would divide by n - 1)."""
+    xf = x.float()
+    c = xf - xf.mean(dim=-1, keepdim=True)
+    var = (c * c).mean(dim=-1, keepdim=True)
+    return (c * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def make_norm(kind: str, shape, device) -> dict:
+    """A norm's float32 params of ``shape`` (the width, behind any stacking
+    axes): "rms" a scale of ones, "rms+1" (gemma: applied as 1 + w) a scale
+    of zeros, "ln" a scale of ones and a bias of zeros."""
+    f32 = dict(dtype=torch.float32, device=device)
+    if kind == "rms":
+        return {"scale": torch.ones(shape, **f32)}
+    if kind == "rms+1":
+        return {"scale": torch.zeros(shape, **f32)}
+    return {"scale": torch.ones(shape, **f32), "bias": torch.zeros(shape, **f32)}
 
 
 def apply_norm(kind: str, p, x):
-    if kind != "rms":
-        raise NotImplementedError(f"norm {kind!r} is not yet ported to repro_torch")
-    return rmsnorm(p, x)
+    if kind == "rms":
+        return rmsnorm(p, x)
+    if kind == "rms+1":
+        return rmsnorm(p, x, plus_one=True)
+    return layernorm(p, x)
 
 
 # -- rotary -----------------------------------------------------------------
@@ -47,10 +71,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # -- MLP / embedding / logits -------------------------------------------------
 
 def mlp_apply(p, x, kind: str = "swiglu"):
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp {kind!r} is not yet ported to repro_torch")
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_in"])
-    return h @ p["w_out"]
+    """swiglu and geglu (tanh-approximate GELU, as ``jax.nn.gelu(...,
+    approximate=True)``) gate ``w_in``'s product with ``w_gate``'s; "gelu"
+    is the biased two-matrix MLP."""
+    if kind == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_in"])
+        return h @ p["w_out"]
+    if kind == "geglu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_in"])
+        return h @ p["w_out"]
+    h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
+    return h @ p["w_out"] + p["b_out"]
 
 
 def embed_apply(p, tokens):

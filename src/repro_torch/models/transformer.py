@@ -1,7 +1,10 @@
 """Parameter init for the decoder families the port serves (port of
 ``repro/models/transformer.py`` ``init_params``): the dense GQA family and
 the mixture-of-experts family, with GQA (kimi-k2) or MLA attention and the
-multi-token-prediction head's parameters (deepseek-v3).
+multi-token-prediction head's parameters (deepseek-v3).  The dense family
+covers llama3.2-3b and the layer features of qwen1.5-4b (QKV biases),
+stablelm-1.6b (LayerNorm) and gemma2-27b (``rms+1`` norms, post-norms,
+GeGLU, and the ``("attn_local", "attn_global")`` pattern).
 
 Layers are stacked by *pattern group*: ``params["blocks"][i]`` holds pattern
 position i with every leaf shaped ``(G, ...)``, the reference's layout, so
@@ -22,45 +25,57 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import _normal, gqa_init, mla_init
-from repro_torch.models.layers import DTYPE
+from repro_torch.models.layers import DTYPE, make_norm
 from repro_torch.models.moe import moe_init
 
-
-def _norm(shape, device):
-    return {"scale": torch.ones(shape, dtype=torch.float32, device=device)}
+# the dense family's attention block kinds (gemma2 alternates local and global)
+DENSE_KINDS = {"attn", "attn_local", "attn_global"}
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """The port runs RMS norms and swiglu in the dense GQA family (pattern
-    ``("attn",)``) or the MoE family (pattern ``("moe",)`` behind dense
-    prologue layers), whose attention is GQA or MLA and which may carry the
-    multi-token head's parameters; raise for anything else (SSM,
-    local/global windows, the other families, MLA or the multi-token head
+    """The port runs the dense GQA family (patterns of ``attn``,
+    ``attn_local`` and ``attn_global`` blocks) and the MoE family (pattern
+    ``("moe",)`` behind dense prologue layers), whose attention is GQA or
+    MLA and which may carry the multi-token head's parameters, with any of
+    the reference's norms (rms, rms+1, ln) and MLPs (swiglu, geglu, gelu);
+    raise for anything else (SSM and xLSTM blocks, shared or cross
+    attention, encoders, the other families, MLA or the multi-token head
     outside the MoE family)."""
     dense = cfg.family == "dense" and cfg.moe is None \
-        and set(cfg.pattern) == {"attn"} and cfg.mla is None and not cfg.mtp
+        and set(cfg.pattern) <= DENSE_KINDS and cfg.mla is None and not cfg.mtp
     moe = cfg.family == "moe" and cfg.moe is not None \
         and set(cfg.pattern) == {"moe"}
-    if (not (dense or moe) or cfg.mlp != "swiglu" or cfg.norm != "rms"
-            or cfg.post_norm or cfg.embed_scale):
+    if not (dense or moe) or cfg.encoder_layers:
         raise NotImplementedError(
             f"arch {cfg.name!r} ({cfg.family}, pattern {cfg.pattern}) is not yet "
             "ported to repro_torch: only the dense GQA family and the MoE "
-            "family (GQA or MLA) with RMS norms are")
+            "family (GQA or MLA) are")
 
 
-def _mlp(gen, d, f, lead, device):
+def _mlp(gen, d, f, kind, lead, device):
+    """``mlp_init``'s params: swiglu and geglu gate ``w_in`` with
+    ``w_gate``; "gelu" has ``w_in`` and ``w_out`` with zero biases."""
+    if kind == "gelu":
+        return {"w_in": _normal(lead + (d, f), d ** -0.5, gen, device, DTYPE),
+                "b_in": torch.zeros(lead + (f,), dtype=DTYPE, device=device),
+                "w_out": _normal(lead + (f, d), f ** -0.5, gen, device, DTYPE),
+                "b_out": torch.zeros(lead + (d,), dtype=DTYPE, device=device)}
     return {"w_in": _normal(lead + (d, f), d ** -0.5, gen, device, DTYPE),
             "w_gate": _normal(lead + (d, f), d ** -0.5, gen, device, DTYPE),
             "w_out": _normal(lead + (f, d), f ** -0.5, gen, device, DTYPE)}
 
 
 def _block(gen, cfg: ArchConfig, kind: str, groups: int, device):
-    """One block of ``kind`` ("attn", "moe", or "attn_dense" for a MoE
-    arch's prologue); ``groups > 0`` stacks that many on a leading axis."""
+    """One block of ``kind`` (a dense attention kind, "moe", or
+    "attn_dense" for a MoE arch's prologue); ``groups > 0`` stacks that
+    many on a leading axis."""
     d = cfg.d_model
     lead = (groups,) if groups else ()
-    p = {"ln1": _norm(lead + (d,), device), "ln2": _norm(lead + (d,), device)}
+    p = {"ln1": make_norm(cfg.norm, lead + (d,), device),
+         "ln2": make_norm(cfg.norm, lead + (d,), device)}
+    if cfg.post_norm:
+        p["pn1"] = make_norm(cfg.norm, lead + (d,), device)
+        p["pn2"] = make_norm(cfg.norm, lead + (d,), device)
     if cfg.mla is not None:
         p["attn"] = mla_init(gen, d, cfg.n_heads, groups=groups, device=device,
                              **dataclasses.asdict(cfg.mla))
@@ -77,7 +92,7 @@ def _block(gen, cfg: ArchConfig, kind: str, groups: int, device):
                                            dtype=torch.float32, device=device)
     else:
         width = cfg.moe.dense_ff if kind == "attn_dense" else cfg.d_ff
-        p["ffn"] = _mlp(gen, d, width, lead, device)
+        p["ffn"] = _mlp(gen, d, width, cfg.mlp, lead, device)
     return p
 
 
@@ -98,6 +113,6 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
             "block": _block(gen, cfg, "attn_dense" if cfg.moe else "attn", 0,
                             device),
             "proj": _normal((2 * d, d), (2 * d) ** -0.5, gen, device, DTYPE),
-            "norm": _norm((d,), device)}
-    params["final_norm"] = _norm((cfg.d_model,), device)
+            "norm": make_norm(cfg.norm, (d,), device)}
+    params["final_norm"] = make_norm(cfg.norm, (cfg.d_model,), device)
     return params

@@ -1,12 +1,16 @@
-"""Serving engine: paged prefill + decode with NeoMem-tiered resources.
+"""Serving engine: prefill + decode with NeoMem-tiered resources.
 
-Port of ``repro/serve/engine.py`` in paged mode (DESIGN.md §9, §10), with
-two serving modes over one machinery:
+Port of ``repro/serve/engine.py`` (DESIGN.md §9, §10), with two serving
+modes over one machinery:
 
   * single-request (``prefill``/``step``/``generate``) — one batched
-    prompt decoded lockstep, scalar position; the prompt streams through
-    the paged ring in ring-capacity chunks, each chunk's pages flushed down
-    to the KV slow store before the ring can wrap over them;
+    prompt decoded lockstep, scalar position.  Dense (``paged=False``, the
+    default): the full cache of ``max_seq`` positions, one pass of
+    ``decode.prefill_dense`` over the prompt whose streams are observed as
+    one batch, then ``decode.decode_step``; no "kv" resource.  Paged: the
+    prompt streams through the paged ring in ring-capacity chunks, each
+    chunk's pages flushed down to the KV slow store before the ring can
+    wrap over them;
   * continuous-batching lanes (``ServeConfig.lanes > 0``) — the batch
     becomes independent decode lanes with per-lane positions, driven one
     token per lane per ``advance_lanes`` call (or one chunk of one lane's
@@ -14,7 +18,7 @@ two serving modes over one machinery:
     (serve/sched.py); the KV slow store is carved into per-request
     segments, and lanes reset/preempt/resume mid-flight, bitwise.
 
-NeoMem: per step the paged-attention kernel's per-page softmax mass becomes
+NeoMem: per paged step the attention kernel's per-page softmax mass becomes
 the "kv" page stream (``KVPagesResource``; ``ServeConfig.kv_mass_source=
 "fill"`` feeds each page's fill instead, the A/B baseline of the mass
 fidelity gate), the token column the "embeddings" stream
@@ -41,9 +45,8 @@ Lane mode also serves, as the reference does:
     engine over the owner's daemon, stores and reuse pool, handing
     finished prefills over through the slow store.
 
-Features of the reference that wait for later slices raise
-``NotImplementedError``: dense (``paged=False``) serving and the
-asynchronous data plane.
+The reference's asynchronous data plane waits for a later slice and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -74,7 +77,8 @@ class ServeConfig:
     hot_slots: int = 16
     paged: bool = False
     migration_interval: int = 8     # decode steps between daemon ticks
-    # tiered resources to register ("kv" is implied by paged=True)
+    # tiered resources to register ("kv" is implied by paged=True and
+    # requires it)
     resources: tuple[str, ...] = ()
     kv_quota: int = 64
     kv_mass_threshold: float = 0.02
@@ -109,7 +113,6 @@ class ServeConfig:
 
 
 _NOT_YET_PORTED = {
-    "paged": (lambda s: not s.paged, "dense (paged=False) serving"),
     "async_migration": (lambda s: s.async_migration,
                         "the asynchronous data plane"),
 }
@@ -133,6 +136,8 @@ class ServeEngine:
                 raise NotImplementedError(
                     f"ServeConfig.{field}={getattr(scfg, field)!r}: {what} is "
                     "not yet ported to repro_torch")
+        if scfg.lanes and not scfg.paged:
+            raise ValueError("lane mode (ServeConfig.lanes) requires paged=True")
         if scfg.kv_mass_source not in ("kernel", "fill"):
             raise ValueError(
                 f"kv_mass_source must be 'kernel' or 'fill', "
@@ -173,7 +178,7 @@ class ServeEngine:
         self._clock = TickClock(scfg.migration_interval)
         self._decode_s = 0.0            # decode wall time
         self._last_kv_mass = None       # (B, n_slots) kernel mass, post-step
-        self._kernel_mass = scfg.kv_mass_source == "kernel"
+        self._kernel_mass = scfg.paged and scfg.kv_mass_source == "kernel"
         # (lane, slot) -> (page id, fill) at its last flush (change
         # tracking; single-request mode uses lane 0)
         self._kv_flushed: dict[tuple[int, int], tuple[int, int]] = {}
@@ -206,8 +211,10 @@ class ServeEngine:
     def _register_resources(self, seeds) -> None:
         cfg, scfg = self.cfg, self.scfg
         pinned = self.device.type == "cuda"
-        for kind in sorted(set(scfg.resources) | {"kv"}):
+        for kind in sorted(set(scfg.resources) | ({"kv"} if scfg.paged else set())):
             if kind == "kv":
+                if not scfg.paged:
+                    raise ValueError("the 'kv' resource requires paged=True")
                 # lane mode: the slow store is carved into per-request
                 # segments, each a max_seq-worth of logical pages
                 n_segments = scfg.kv_segments or scfg.lanes or 1
@@ -332,10 +339,21 @@ class ServeEngine:
                              "advance_lanes (the request scheduler), not "
                              "prefill/generate")
         b, s = tokens.shape
+        tokens = self._tokens(tokens)
+        if not self.scfg.paged:
+            # one pass fills the full cache and gives the last logits; the
+            # prompt's streams are observed as one batch each
+            self.cache = dec.init_cache(self.cfg, b, self.scfg.max_seq,
+                                        device=self.device)
+            logits, self.cache, streams = dec.prefill_dense(
+                self.cfg, self.params, self.cache, tokens,
+                tiered=self._tier_reads())
+            self._observe_common(tokens, streams["router"])
+            self._maybe_tick(s)
+            return logits.argmax(-1).cpu().numpy()
         self.cache = dec.init_paged_cache(self.cfg, b, self.scfg.hot_slots,
                                           self.scfg.page_t, device=self.device)
         self._kv_flushed.clear()
-        tokens = self._tokens(tokens)
         logits = None
         for off in range(0, s, self._chunk_cap):
             logits = self._prefill_chunk(tokens[:, off:off + self._chunk_cap])
@@ -373,12 +391,18 @@ class ServeEngine:
         return np.stack(out, axis=1)
 
     def _advance(self, tok: torch.Tensor) -> torch.Tensor:
-        """One decode step: the paged body, the tiering streams, the cadence."""
+        """One decode step: the paged or dense body, the tiering streams,
+        the cadence."""
         t0 = time.perf_counter()
-        logits, self.cache, streams = dec.decode_step_paged(
-            self.cfg, self.params, self.cache, tok, page_t=self.scfg.page_t,
-            return_streams=True, collect_mass=self._kernel_mass,
-            tiered=self._tier_reads())
+        if self.scfg.paged:
+            logits, self.cache, streams = dec.decode_step_paged(
+                self.cfg, self.params, self.cache, tok, page_t=self.scfg.page_t,
+                return_streams=True, collect_mass=self._kernel_mass,
+                tiered=self._tier_reads())
+        else:
+            logits, self.cache, streams = dec.decode_step(
+                self.cfg, self.params, self.cache, tok, return_streams=True,
+                tiered=self._tier_reads())
         self._set_kv_mass(streams)
         self._observe(tok, streams["router"])
         self._maybe_tick()
@@ -389,7 +413,7 @@ class ServeEngine:
         """Hold the step's (B, n_slots) page mass: the (G, n_attn, B, S)
         stream averaged over layer groups and attention positions (None
         under ``kv_mass_source="fill"``, where the kernel exports none)."""
-        km = streams["kv_mass"]
+        km = streams.get("kv_mass")
         self._last_kv_mass = km.mean(dim=(0, 1)) if km is not None else None
 
     def _observe_common(self, tok: torch.Tensor, router) -> None:
@@ -403,6 +427,8 @@ class ServeEngine:
 
     def _observe(self, tok: torch.Tensor, router) -> None:
         self._observe_common(tok, router)
+        if "kv" not in self.daemon:
+            return
         mass, ids = self._kv_page_stream()
         if self._kernel_mass:
             # batch rows advance in lockstep over the same page ids, so the
@@ -898,12 +924,12 @@ class ServeEngine:
         the owner's, and the worker's pages flush per chunk and at
         hand-off."""
         ticks = self._clock.advance(n)
-        if not self._daemon_owner:
+        if not (self._daemon_owner and self.daemon.resources):
             return
         for _ in range(ticks):
             if self.lane_mode:
                 self._flush_kv_lanes()
-            else:
+            elif "kv" in self.daemon:
                 self._flush_kv_slow()
             self.daemon.tick()
 

@@ -1,0 +1,236 @@
+"""The port's layer features and its six archs against the reference, on the
+CPU at smoke widths, from the reference's exact weights (``params_from_jax``).
+
+* Configs: qwen1.5-4b, stablelm-1.6b and gemma2-27b, ``CONFIG`` and
+  ``SMOKE_CONFIG`` equal field for field; the registry.
+* Norms (``rms``, ``rms+1``, ``ln``) and MLPs (swiglu, geglu, gelu): float32
+  within 1e-6 (summation order only); bf16 within one bf16 ulp of the
+  output's scale (2^-7 relative: each side rounds the float32 result once,
+  and the port's GELU and SiLU round once where XLA's may not, ROADMAP C2).
+* The params tree (names, shapes, dtypes) of the three new archs.
+* ``decode_step`` (the full cache) and ``decode_step_paged`` (the ring) of
+  every ported arch, float32 params and caches, 12 teacher-forced steps:
+  logits within 1e-4, router ids bitwise, cache positions exact.
+* ``check_ported`` still raises for the block kinds and families no slice
+  has ported.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.registry import get_config as j_get_config  # noqa: E402
+from repro.configs.registry import get_smoke_config as j_smoke  # noqa: E402
+from repro.models import decode as j_dec  # noqa: E402
+from repro.models import layers as j_layers  # noqa: E402
+from repro.models import transformer as j_tr  # noqa: E402
+from repro_torch.configs import registry as t_registry  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.models import decode as t_dec  # noqa: E402
+from repro_torch.models import layers as t_layers  # noqa: E402
+from repro_torch.models import transformer as t_tr  # noqa: E402
+
+NEW_ARCHS = ("qwen1.5-4b", "stablelm-1.6b", "gemma2-27b")
+ARCHS = ("llama3.2-3b", "kimi-k2-1t-a32b", "deepseek-v3-671b") + NEW_ARCHS
+STEPS, B = 12, 2
+PAGE_T, SLOTS = 4, 4        # a 16-token ring: 12 steps fill three pages
+
+
+def _f32(tree):
+    return jax.tree.map(
+        lambda x: x.astype(jnp.float32) if jnp.issubdtype(x.dtype, jnp.floating)
+        else x, tree)
+
+
+def _np(t):
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+@pytest.fixture(scope="module")
+def f32_params():
+    """Every arch's smoke params from the reference's init (seed 0), float32,
+    as (reference tree, port tree)."""
+    out = {}
+    for arch in ARCHS:
+        jp = _f32(j_tr.init_params(j_smoke(arch), jax.random.PRNGKey(0)))
+        out[arch] = jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return out
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_configs_match_reference(arch):
+    for full in (True, False):
+        get_t = t_registry.get_config if full else t_registry.get_smoke_config
+        get_j = j_get_config if full else j_smoke
+        assert dataclasses.asdict(get_t(arch)) == dataclasses.asdict(get_j(arch))
+
+
+def test_registry_lists_the_six_ported_archs():
+    assert t_registry.list_archs() == list(ARCHS)
+    assert set(t_registry.NOT_YET_PORTED) == {
+        "llama-3.2-vision-11b", "zamba2-2.7b", "whisper-base", "xlstm-1.3b"}
+    for name in t_registry.NOT_YET_PORTED:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            t_registry.get_smoke_config(name)
+
+
+def _close_bf16(got, want):
+    """Within one bf16 ulp of the output's scale (see the module docstring)."""
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, atol=scale * 2 ** -7, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["rms", "rms+1", "ln"])
+def test_norms_match_reference(kind):
+    d = 48
+    init = j_layers.make_norm(kind, d)
+    port_init = t_layers.make_norm(kind, (d,), "cpu")
+    assert set(port_init) == set(init)
+    for k, v in init.items():
+        np.testing.assert_array_equal(port_init[k].numpy(), np.asarray(v))
+        assert port_init[k].dtype == torch.float32
+    rng = np.random.default_rng(0)
+    p = {k: (np.asarray(v) + rng.normal(0, 0.3, d)).astype(np.float32)
+         for k, v in init.items()}
+    x = (rng.normal(0.5, 2.0, (3, 5, d))).astype(np.float32)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    want = np.asarray(j_layers.apply_norm(kind, p, jnp.asarray(x)))
+    got = t_layers.apply_norm(kind, tp, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    want = np.asarray(j_layers.apply_norm(kind, p, jnp.asarray(x, jnp.bfloat16))
+                      .astype(jnp.float32))
+    got = t_layers.apply_norm(kind, tp, torch.from_numpy(x).bfloat16()).float().numpy()
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "geglu", "gelu"])
+def test_mlp_apply_matches_reference(kind):
+    d, f = 32, 80
+    p = j_layers.mlp_init(jax.random.PRNGKey(3), d, f, kind, dtype=jnp.float32)
+    if kind == "gelu":     # nonzero biases, so that both are exercised
+        rng = np.random.default_rng(1)
+        p["b_in"] = jnp.asarray(rng.normal(0, 0.1, f), jnp.float32)
+        p["b_out"] = jnp.asarray(rng.normal(0, 0.1, d), jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, p), device="cpu")
+    x = np.random.default_rng(2).normal(0, 1.5, (2, 3, d)).astype(np.float32)
+    want = np.asarray(j_layers.mlp_apply(p, jnp.asarray(x), kind))
+    got = t_layers.mlp_apply(tp, torch.from_numpy(x), kind).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    pb = jax.tree.map(lambda a: a.astype(jnp.bfloat16), p)
+    tb = params_from_jax(jax.tree.map(np.asarray, pb), device="cpu")
+    want = np.asarray(j_layers.mlp_apply(pb, jnp.asarray(x, jnp.bfloat16), kind)
+                      .astype(jnp.float32))
+    got = t_layers.mlp_apply(tb, torch.from_numpy(x).bfloat16(), kind).float().numpy()
+    np.testing.assert_allclose(got, want, atol=float(np.abs(want).max()) * 2 ** -6,
+                               rtol=0)
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, f"{prefix}['{k}']")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_init_params_matches_reference_layout(arch):
+    """Same tree, shapes and dtypes as the reference's init; norm inits as
+    the reference's (``rms+1`` scales at 0, ``ln`` biases at 0), QKV biases
+    and post-norms where the arch has them."""
+    cfg = j_smoke(arch)
+    ref = jax.eval_shape(lambda: j_tr.init_params(cfg, jax.random.PRNGKey(0)))
+    port = t_tr.init_params(t_registry.get_smoke_config(arch), seed=0, device="cpu")
+    port_flat = dict(_flatten(port))
+    ref_leaves = jax.tree_util.tree_leaves_with_path(ref)
+    assert set(port_flat) == {jax.tree_util.keystr(p) for p, _ in ref_leaves}
+    for path, leaf in ref_leaves:
+        key = jax.tree_util.keystr(path)
+        assert tuple(port_flat[key].shape) == leaf.shape, key
+        assert str(port_flat[key].dtype).split(".")[-1] == str(leaf.dtype), key
+    blk = port["blocks"][0]
+    assert ("bq" in blk["attn"]) == cfg.qkv_bias
+    assert ("pn1" in blk) == cfg.post_norm
+    want = 0.0 if cfg.norm == "rms+1" else 1.0
+    assert bool((port["final_norm"]["scale"] == want).all())
+    if cfg.norm == "ln":
+        assert bool((blk["ln1"]["bias"] == 0).all())
+
+
+def _teacher_tokens(vocab):
+    return np.random.default_rng(7).integers(0, vocab, (STEPS, B, 1))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_matches_reference(arch, f32_params):
+    """The full-cache decode, max_seq 16 (past gemma2-smoke's window of 8)."""
+    jp, tp = f32_params[arch]
+    cfg, tcfg = j_smoke(arch), t_registry.get_smoke_config(arch)
+    jc = j_dec.init_cache(cfg, B, 16, dtype=jnp.float32)
+    tc = t_dec.init_cache(tcfg, B, 16, dtype=torch.float32, device="cpu")
+    step = jax.jit(lambda p, c, t: j_dec.decode_step(cfg, p, c, t,
+                                                     return_streams=True))
+    for i, tok in enumerate(_teacher_tokens(cfg.vocab)):
+        jl, jc, js = step(jp, jc, jnp.asarray(tok))
+        tl, tc, ts = t_dec.decode_step(tcfg, tp, tc, torch.from_numpy(tok),
+                                       return_streams=True)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0,
+                                   err_msg=f"{arch} logits step {i}")
+        if js["router"] is None:
+            assert ts["router"] is None
+        else:
+            np.testing.assert_array_equal(ts["router"].numpy(), np.asarray(js["router"]))
+    assert int(tc["pos"]) == int(jc["pos"]) == STEPS
+    for got, want in zip(tc["blocks"], jc["blocks"]):
+        for k in want:
+            np.testing.assert_allclose(_np(got[k]), np.asarray(want[k]), atol=1e-5,
+                                       rtol=0, err_msg=f"{arch} cache {k}")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_paged_matches_reference(arch, f32_params):
+    """The ring, with gemma2's embedding scale and post-norms (its paged
+    path reads no window, as the reference's, ROADMAP C5)."""
+    jp, tp = f32_params[arch]
+    cfg, tcfg = j_smoke(arch), t_registry.get_smoke_config(arch)
+    jc = j_dec.init_paged_cache(cfg, B, SLOTS, PAGE_T, dtype=jnp.float32)
+    tc = t_dec.init_paged_cache(tcfg, B, SLOTS, PAGE_T, dtype=torch.float32,
+                                device="cpu")
+    step = jax.jit(lambda p, c, t: j_dec.decode_step_paged(
+        cfg, p, c, t, page_t=PAGE_T, return_streams=True))
+    for i, tok in enumerate(_teacher_tokens(cfg.vocab)):
+        jl, jc, js = step(jp, jc, jnp.asarray(tok))
+        tl, tc, ts = t_dec.decode_step_paged(tcfg, tp, tc, torch.from_numpy(tok),
+                                             page_t=PAGE_T, return_streams=True)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0,
+                                   err_msg=f"{arch} logits step {i}")
+        np.testing.assert_allclose(ts["kv_mass"].numpy(), np.asarray(js["kv_mass"]),
+                                   atol=1e-5, rtol=0, err_msg=f"{arch} mass step {i}")
+        if js["router"] is not None:
+            np.testing.assert_array_equal(ts["router"].numpy(), np.asarray(js["router"]))
+    for key in ("page_len", "cur_slot"):
+        np.testing.assert_array_equal(tc["blocks"][0][key].numpy(),
+                                      np.asarray(jc["blocks"][0][key]))
+
+
+@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm", "shared_attn",
+                                  "cross", "dec", "encoder_layers"])
+def test_check_ported_still_refuses_unported_kinds(kind):
+    cfg = t_registry.get_smoke_config("llama3.2-3b")
+    bad = (dataclasses.replace(cfg, encoder_layers=2, n_layers=6)
+           if kind == "encoder_layers"
+           else dataclasses.replace(cfg, pattern=("attn", kind)))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        t_tr.check_ported(bad)
+    # the dense family's own kinds and layer features pass
+    t_tr.check_ported(dataclasses.replace(
+        cfg, pattern=("attn_local", "attn_global"), norm="ln", mlp="gelu",
+        qkv_bias=True, post_norm=True, embed_scale=True))

@@ -304,18 +304,26 @@ def _flatten(tree, prefix=""):
 def test_engine_refuses_features_not_yet_ported(field, value):
     """Features still to port raise ``NotImplementedError``; the experts
     resource is ported, and on this dense arch it raises the reference's
-    ``ValueError`` (no MoE layers to tier)."""
+    ``ValueError`` (no MoE layers to tier).  Dense serving (``paged=False``)
+    is ported, and lane mode without ``paged=True`` raises the reference's
+    ``ValueError``."""
     tcfg = t_registry.get_smoke_config(ARCH)
-    scfg = t_engine.ServeConfig(**dict(SCFG, **{field: value}))
-    error, match = ((ValueError, "has no MoE layers") if field == "resources"
-                    else (NotImplementedError, "not yet ported"))
+    kw = dict(SCFG, **{field: value})
+    if field == "paged":
+        kw["lanes"] = 2
+    scfg = t_engine.ServeConfig(**kw)
+    error, match = {
+        "resources": (ValueError, "has no MoE layers"),
+        "paged": (ValueError, "lane mode .* requires paged=True"),
+    }.get(field, (NotImplementedError, "not yet ported"))
     with pytest.raises(error, match=match):
         t_engine.ServeEngine(tcfg, None, scfg, device="cpu")
 
 
 def test_registry_names_unported_archs():
-    assert t_registry.list_archs() == [ARCH, "kimi-k2-1t-a32b", "deepseek-v3-671b"]
+    assert t_registry.list_archs() == [ARCH, "kimi-k2-1t-a32b", "deepseek-v3-671b",
+                                       "qwen1.5-4b", "stablelm-1.6b", "gemma2-27b"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_registry.get_config("gemma2-27b")
+        t_registry.get_config("zamba2-2.7b")
     with pytest.raises(KeyError):
         t_registry.get_config("no-such-arch")
