@@ -24,7 +24,10 @@ Phases, one summary line each:
                 head (PHASE moe's two ring shapes) and at PHASE dense's
                 paged-arm ring (B 2, P 6, T 8) for stablelm-1.6b (group 1,
                 dk 64), qwen1.5-4b (20 heads, group 1) and gemma2-27b (group
-                2, softcap 50, scale 144^-1/2), checked and timed, and
+                2, softcap 50, scale 144^-1/2), at zamba2-2.7b's
+                shared-attention ring (group 1, 32 heads, dk = dv = 80) at
+                PHASE ssm's two ring shapes (B 2, P 6, T 8 and B 4, P 8,
+                T 16), checked and timed, and
                 at deepseek-v3's MLA shape (128 query heads over one latent
                 head, dk 576, dv 512: the head-tiled kernel; its registers
                 and spills read from the build log) at edge shapes (some
@@ -105,7 +108,23 @@ Phases, one summary line each:
                 prints wall, prefill s, tokens/s, ms per step, peak memory
                 per arm and a 4-step profile of the dense arm (busy share,
                 launches a step, the plain dense attention's ms a step);
-  9. moe      — kimi-k2 at full width (d 7168, 64/8 heads, 384 experts
+  9. ssm      — zamba2-2.7b (45 Mamba2 blocks and one shared attention
+                block used at 9 positions) and xlstm-1.3b (42 mLSTM and 6
+                sLSTM blocks, no attention) at full width and depth, each
+                drawn after the previous one is released: (c) one block of
+                each recurrent kind at full width, SSM_LAYER_STEPS float32
+                steps on the card against the CPU within ATOL + RTOL*|ref|;
+                (a) PHASE dense's two arms with its checks, the paged arm
+                launching the attention kernel only on zamba2 (xlstm's two
+                arms bitwise equal, its kv resource never read); (b) the
+                lane phase's drive over its whole trace: the lane phase's
+                checks, a preempted request's recurrent states bitwise
+                after its resume, a lane serving a second request, the
+                schedule equal to the CPU run at the arch's smoke config;
+                prints per arm and arch the figures of PHASE dense (the
+                profile's range around the recurrent blocks), each
+                preemption's and resume's ms and the lanes' serving lines;
+  10. moe     — kimi-k2 at full width (d 7168, 64/8 heads, 384 experts
                 top-8, vocab 163840), its depth cut to one dense prologue
                 layer and one MoE layer (MOE_DEPTH), with the experts and
                 embeddings resources: serve_bench.py's kimi-k2 case (2 x 16
@@ -127,14 +146,14 @@ Phases, one summary line each:
                 once the lane engine's pinned store is released): no
                 attention launch, the embeddings sketch replayed bitwise and
                 the experts' feed through a CPU daemon;
-  10. mla     — deepseek-v3 at full width (d 7168, 128 heads, MLA
+  11. mla     — deepseek-v3 at full width (d 7168, 128 heads, MLA
                 q_lora 1536 / kv_lora 512 / d_nope 128 / d_rope 64 / d_v
                 128, 256 experts top-8, vocab 129280), its depth cut to its
                 3 dense prologue layers and its first MoE layer (MLA_DEPTH),
                 through PHASE moe's drives and checks with 64 of 256 experts
                 on the card (its dense arm on mla_decode); every attention
                 launch of the phase must be the head-tiled kernel's;
-  11. sim     — the paper's evaluation path: fig11_main_speedup.py's grid
+  12. sim     — the paper's evaluation path: fig11_main_speedup.py's grid
                 (8 workloads x 6 methods, benchmarks/common.py's scale)
                 through the port's tiering simulator on the card, every
                 result (counts, θ and error traces exactly; modeled runtime
@@ -142,7 +161,7 @@ Phases, one summary line each:
                 equal to a CPU run of the port on the same blocks; prints
                 the modeled geomean speedups, neomem's hit rates and the
                 card's wall ms per block;
-  12. sim-paper — gups at the paper's scale (4M pages, W=512K, blocks of
+  13. sim-paper — gups at the paper's scale (4M pages, W=512K, blocks of
                 16384) through all six methods on the card: hits must sum
                 to the accesses, promotions stay within the quota, and
                 neomem's sketch over its last clear interval (recorded in a
@@ -274,6 +293,16 @@ DENSE_ATTN_SHAPES = (("group 1, dk 64 (stablelm-1.6b)", 32, 32, 64, 0.0, None),
                      ("group 1, 20 heads (qwen1.5-4b)", 20, 20, 128, 0.0, None),
                      ("group 2, softcap 50 (gemma2-27b)", 32, 16, 128, 50.0,
                       144.0 ** -0.5))
+# PHASE ssm: zamba2-2.7b (Mamba2 blocks, one shared attention block every
+# sixth layer) and xlstm-1.3b (mLSTM and sLSTM blocks, no attention) at full
+# width and depth, seed 0, each drawn after the previous one is released:
+# (a) PHASE dense's two arms, (b) the lane phase's drive over its whole
+# trace, (c) one layer of each recurrent kind on the card against the CPU
+SSM_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
+SSM_LAYER_STEPS = 8     # (c): float32 decode steps of one full-width layer
+# zamba2's shared-attention ring (32 query heads over 32 kv heads of 80) at
+# PHASE ssm's paged arm (B 2, P 6, T 8) and lanes (B 4, P 8, T 16)
+SSM_ATTN_SHAPES = ((2, 6, 8), (4, 8, 16))
 # PHASE sim: fig11_main_speedup.py's grid at benchmarks/common.py's scale
 # (N_PAGES, BLOCK, N_BLOCKS, FAST_RATIO, SIM_KW, METHODS; stream seed 11)
 SIM_WORKLOADS = ("deathstar", "pagerank", "xsbench", "gups", "silo", "btree",
@@ -526,6 +555,7 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
     nops = n_tok * h * 4 * d
     bms, by = bound_ms(nbytes, nops, rates)
     check_dense_arch_attention(torch, pa_ops, pa_ref, rates)
+    check_ssm_attention(torch, pa_ops, pa_ref, rates)
     return dict(name="paged_attn", route="cuda",
                 source="src/repro_torch/csrc/paged_attn.cu",
                 replaces="src/repro/kernels/paged_attn/paged_attn.py:34",
@@ -551,6 +581,27 @@ def check_dense_arch_attention(torch, pa_ops, pa_ref, rates) -> None:
                                  torch.bfloat16, lens, softcap=softcap, scale=scale)
         time_attention(torch, pa_ops, pa_ref, rates, checked, "paged_attn",
                        f"paged_attn at {label}", scale=scale, softcap=softcap)
+
+
+def check_ssm_attention(torch, pa_ops, pa_ref, rates) -> None:
+    """zamba2-2.7b's shared-attention ring (group 1, 32 heads, dk = dv = 80:
+    160-byte rows, TMA boxes of 16-byte multiples) at PHASE ssm's paged arm
+    and lane shapes, checked and timed.  Row 0 holds full pages and a
+    part-filled current slot, the lanes' last row is an empty (reset) lane,
+    the rest ragged."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rng = np.random.default_rng(2)
+    for b, p, t in SSM_ATTN_SHAPES:
+        lens = rng.integers(0, t + 1, (b, p))
+        lens[0] = t
+        lens[0, p // 2:] = 0
+        lens[0, p // 2 - 1] = t // 2 + 1
+        if b > 2:
+            lens[-1] = 0
+        checked = attention_case(torch, pa_ops, pa_ref, gen, b, 32, 32, 80, 80, p, t,
+                                 torch.bfloat16, lens)
+        time_attention(torch, pa_ops, pa_ref, rates, checked, "paged_attn",
+                       "paged_attn at group 1, dk 80 (zamba2-2.7b)")
 
 
 def check_mla_attention(torch, pa_ops, pa_ref, _lib, rates, gen):
@@ -1185,8 +1236,11 @@ def run_trace(cfg, params, device, serve, sched_kw, trace_kw, profiles=None,
     """A seeded trace through the port's Scheduler on ``device``: ``serve``
     and ``sched_kw`` configure the engine and the scheduler, ``profiles``
     the tenants (None: the trace kind's own); ``on_sched(sched)`` runs
-    between building the scheduler (and its engines) and the trace.
+    between building the scheduler (and its engines) and the trace.  On the
+    CPU (the smoke configs' reference runs) the replay takes one thread:
+    at those widths threads only add their hand-offs.
     Returns (engine, scheduler, trace, wall seconds of the replay)."""
+    import torch
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.serve.sched import SchedConfig, Scheduler, Tenant
     from repro_torch.workloads import TenantProfile, make_trace, play
@@ -1201,8 +1255,14 @@ def run_trace(cfg, params, device, serve, sched_kw, trace_kw, profiles=None,
                       SchedConfig(**sched_kw))
     if on_sched is not None:
         on_sched(sched)
+    threads = torch.get_num_threads()
+    if device == "cpu":
+        torch.set_num_threads(1)
     t0 = time.perf_counter()
-    play(trace, sched)
+    try:
+        play(trace, sched)
+    finally:
+        torch.set_num_threads(threads)
     return eng, sched, trace, time.perf_counter() - t0
 
 
@@ -1227,11 +1287,11 @@ def _smoke_cpu(arch: str = "llama3.2-3b"):
     return cfg, init_params(cfg, seed=0, device="cpu")
 
 
-def cpu_lane_schedule() -> dict:
-    """The lane phase's schedule from the port on the CPU, at the smoke
-    config (seconds); the trace's arrivals are drawn for the smoke
+def cpu_lane_schedule(arch: str = "llama3.2-3b") -> dict:
+    """The lane phase's schedule from the port on the CPU, at ``arch``'s
+    smoke config (seconds); the trace's arrivals are drawn for the smoke
     vocabulary, the same steps, tenants and lengths as at full width."""
-    _, sched, _, _ = run_lanes(*_smoke_cpu(), "cpu")
+    _, sched, _, _ = run_lanes(*_smoke_cpu(arch), "cpu")
     return lane_schedule(sched)
 
 
@@ -1366,16 +1426,21 @@ def cpu_moe_lane_schedule(phase="moe") -> dict:
 
 def check_lane_steps(eng, checked) -> None:
     """Every lane step of ``eng`` must return finite logits and, for its
-    active lanes, page mass summing to 1; every chunk finite logits."""
+    active lanes, page mass summing to 1 (no mass at all on an arch without
+    a ring); every chunk finite logits."""
     advance, prefill_lane = eng.advance_lanes, eng.prefill_lane
 
     def checked_advance(tokens, active, segments):
         logits = advance(tokens, active, segments)
         act = np.asarray(active, bool)
-        sums = eng._last_kv_mass.sum(dim=1).cpu().numpy()[act]
-        if not (np.isfinite(logits).all() and (np.abs(sums - 1) < 1e-4).all()):
-            raise AssertionError(f"lane step: non-finite logits or page "
-                                 f"mass sums {sums.tolist()} != 1")
+        if eng._paged_entry() is None:
+            sums, unit = [], eng._last_kv_mass is None
+        else:
+            sums = eng._last_kv_mass.sum(dim=1).cpu().numpy()[act]
+            unit = bool((np.abs(sums - 1) < 1e-4).all())
+        if not (np.isfinite(logits).all() and unit):
+            raise AssertionError(f"lane step: non-finite logits, or page mass "
+                                 f"sums {list(sums)} != 1 (or mass without a ring)")
         checked["steps"] += 1
         return logits
 
@@ -1517,8 +1582,8 @@ def fill_path(torch, counters, cfg, params, smi):
 SKETCH_COUNTERS = slice(1, 4)   # update, mark and histogram among the counters
 
 
-def draw_dense_params(torch, arch):
-    """A dense arch at full width and depth (gemma2-27b's 54.5 GB of bf16
+def draw_dense_params(torch, arch, phase="dense"):
+    """An arch at full width and depth (gemma2-27b's 54.5 GB of bf16
     weights fit the card with no cut), random bf16 weights from seed 0."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.transformer import init_params
@@ -1527,10 +1592,11 @@ def draw_dense_params(torch, arch):
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(params))
-    print(f"dense: {arch} full width (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+    n_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    print(f"{phase}: {arch} full width (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
           f"heads of {cfg.head_dim}, ff {cfg.d_ff}, vocab {cfg.vocab}), "
-          f"{cfg.n_layers} layers: {n_params / 1e9:.3f} B params bf16 drawn in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{cfg.n_layers} layers of pattern {cfg.pattern}: {n_params / 1e9:.3f} B "
+          f"params ({n_bytes / 1e9:.3f} GB) drawn in {time.perf_counter() - t0:.1f} s")
     return cfg, params
 
 
@@ -1575,19 +1641,22 @@ def drive_arm(torch, eng, prompts, new: int, feed=None) -> dict:
                 prefill_s=prefill_s, decode_s=decode_s)
 
 
-def profile_dense(torch, eng, tok, steps: int = 4) -> None:
+def profile_dense(torch, eng, tok, steps: int = 4, ranged=None,
+                  phase="dense") -> None:
     """torch.profiler over ``steps`` dense decode steps: the device's busy
-    share, its launches a step and the plain full-cache attention's device
-    time (``attention.dense_attend`` inside a profiler range)."""
+    share, its launches a step and the device time of one function inside a
+    profiler range: ``ranged`` (module, name, label), by default the plain
+    full-cache attention (``attention.dense_attend``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.models import attention as attn
-    plain = attn.dense_attend
+    mod, name, label = ranged or (attn, "dense_attend", "plain dense attention")
+    plain = getattr(mod, name)
 
-    def ranged(*a, **kw):
-        with record_function("dense_attend"):
+    def in_range(*a, **kw):
+        with record_function(name):
             return plain(*a, **kw)
     torch.cuda.synchronize()
-    attn.dense_attend = ranged
+    setattr(mod, name, in_range)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1596,31 +1665,39 @@ def profile_dense(torch, eng, tok, steps: int = 4) -> None:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     finally:
-        attn.dense_attend = plain
+        setattr(mod, name, plain)
     # the range shows twice: on the host (its kernels' device time, summed
     # over its ops) and as a device-side span, which holds the idle gaps
     # between those kernels and is left out
-    dev = [r for r in device_rows(torch, prof) if r[1] != "dense_attend"]
+    dev = [r for r in device_rows(torch, prof) if r[1] != name]
     busy_us = sum(t for t, _, _ in dev)
     launches = sum(count for _, _, count in dev)
-    rng = [e for e in prof.events() if e.name == "dense_attend"
+    rng = [e for e in prof.events() if e.name == name
            and e.device_type == torch.autograd.DeviceType.CPU]
-    attn_us = sum(e.device_time_total for e in rng)
+    range_us = sum(e.device_time_total for e in rng)
     calls = len(rng)
-    print(f"dense profile: {steps} steps, wall {wall_us / steps / 1e3:.2f} ms/step, "
-          f"device busy {busy_us / steps / 1e3:.2f} ms/step ({100 * busy_us / wall_us:.1f}"
-          f"% of wall), {launches / steps:.1f} device launches/step; plain dense "
-          f"attention {attn_us / steps / 1e3:.3f} ms/step over {calls / steps:.0f} "
-          f"calls/step ({100 * attn_us / max(busy_us, 1e-9):.1f}% of busy)")
+    print(f"{phase} profile: {eng.cfg.name} {steps} steps, wall "
+          f"{wall_us / steps / 1e3:.2f} ms/step, device busy "
+          f"{busy_us / steps / 1e3:.2f} ms/step ({100 * busy_us / wall_us:.1f}"
+          f"% of wall), {launches / steps:.1f} device launches/step; {label} "
+          f"{range_us / steps / 1e3:.3f} ms/step over {calls / steps:.0f} "
+          f"calls/step ({100 * range_us / max(busy_us, 1e-9):.1f}% of busy)")
 
 
-def dense_model(torch, counters, cfg, params, smi, device="cuda") -> dict:
-    """PHASE dense on one model: the dense arm, then the paged arm fed its
-    tokens; per-step logits within DECODE_PARITY of each other, greedy
-    tokens equal but at near-ties, finite logits (within the final softcap
-    where there is one), the dense arm no attention launch, unit page mass
-    on the ring, the embeddings sketch replayed bitwise on the CPU."""
+def dense_model(torch, counters, cfg, params, smi, device="cuda",
+                phase="dense") -> dict:
+    """PHASE dense (or ssm) on one model: the dense arm, then the paged arm
+    fed its tokens; per-step logits within DECODE_PARITY of each other
+    (bitwise equal on an arch without attention, whose arms run the same
+    ops), greedy tokens equal but at near-ties, finite logits (within the
+    final softcap where there is one), the dense arm no attention launch,
+    the paged arm attention launches exactly where the arch has a ring
+    (then with unit page mass) and no kv reads or bytes where it has none,
+    the embeddings sketch replayed bitwise on the CPU."""
+    from repro_torch.models import decode as dec
+    from repro_torch.models.transformer import RECURRENT_KINDS
     from repro_torch.serve.engine import ServeConfig, ServeEngine
+    ring = any(k not in RECURRENT_KINDS for k in cfg.pattern)
     b, n, new = DENSE_PROMPT
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (b, n))
     arms = {}
@@ -1634,17 +1711,24 @@ def dense_model(torch, counters, cfg, params, smi, device="cuda") -> dict:
         zero_counts(counters)
         run = drive_arm(torch, eng, prompts, new,
                         None if arm == "dense" else arms["dense"]["tokens"])
+        attends = arm == "paged" and ring
         run["launches"] = read_counts(
-            torch, counters, f"dense {cfg.name} {arm}",
-            required=counters[SKETCH_COUNTERS] if arm == "dense" else None)
-        if arm == "dense" and run["launches"]["paged_attention_raw"]:
-            raise AssertionError(f"dense {cfg.name}: the dense arm launched the "
+            torch, counters, f"{phase} {cfg.name} {arm}",
+            required=None if attends else counters[SKETCH_COUNTERS])
+        if not attends and run["launches"]["paged_attention_raw"]:
+            raise AssertionError(f"{phase} {cfg.name}: the {arm} arm launched the "
                                  f"attention kernel: {run['launches']}")
         replay_resource(torch, eng.daemon["embeddings"], blocks)
         run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         run["stats"] = eng.tier_stats()["embeddings"]
+        if arm == "paged" and not ring:
+            kv = eng.tier_stats()["kv"]
+            if kv["fast_reads"] + kv["slow_reads"] or kv["migration_bytes"] \
+                    or kv["flush_bytes"]:
+                raise AssertionError(f"{phase} {cfg.name}: the kv resource of an "
+                                     f"arch without a ring moved: {kv}")
         steps = new - 1
-        print(f"dense: {cfg.name} {arm} arm, {b} x {n} prompt tokens and {new} new: "
+        print(f"{phase}: {cfg.name} {arm} arm, {b} x {n} prompt tokens and {new} new: "
               f"wall {run['prefill_s'] + run['decode_s']:.3f} s, prefill "
               f"{run['prefill_s']:.3f} s, decode {b * steps / run['decode_s']:.2f} "
               f"tokens/s, {1e3 * run['decode_s'] / steps:.2f} ms/step, embeddings "
@@ -1652,19 +1736,24 @@ def dense_model(torch, counters, cfg, params, smi, device="cuda") -> dict:
               f"{run['peak_gib']:.2f} GiB, launches {json.dumps(run['launches'])} "
               f"on {smi}")
         if arm == "dense":
-            profile_dense(torch, eng, run["tokens"][:, -1].cpu().numpy())
+            profile_dense(torch, eng, run["tokens"][:, -1].cpu().numpy(),
+                          ranged=None if phase == "dense" else
+                          (dec, "_recurrent_block", "recurrent blocks"),
+                          phase=phase)
         run["logits"] = run["logits"].cpu()
         arms[arm] = run
         del eng
     d, p = arms["dense"]["logits"], arms["paged"]["logits"]     # (new, B, V)
     if not (bool(torch.isfinite(d).all()) and bool(torch.isfinite(p).all())):
-        raise AssertionError(f"dense {cfg.name}: non-finite logits")
+        raise AssertionError(f"{phase} {cfg.name}: non-finite logits")
     if cfg.final_softcap and max(float(d.abs().max()), float(p.abs().max())) \
             > cfg.final_softcap:
-        raise AssertionError(f"dense {cfg.name}: logits past the final softcap")
+        raise AssertionError(f"{phase} {cfg.name}: logits past the final softcap")
     gap = float((d - p).abs().max())
-    if gap > DECODE_PARITY:
-        raise AssertionError(f"dense {cfg.name}: dense and paged logits {gap} apart")
+    if gap > DECODE_PARITY or (not ring and gap):
+        raise AssertionError(f"{phase} {cfg.name}: dense and paged logits {gap} "
+                             "apart" + ("" if ring else " (no attention: must "
+                                        "be bitwise equal)"))
 
     def margin(x):
         top = x.topk(2, dim=-1).values
@@ -1672,10 +1761,10 @@ def dense_model(torch, counters, cfg, params, smi, device="cuda") -> dict:
     near = (margin(d) < DECODE_PARITY) | (margin(p) < DECODE_PARITY)
     parted = d.argmax(-1) != p.argmax(-1)
     if bool((parted & ~near).any()):
-        raise AssertionError(f"dense {cfg.name}: greedy tokens part away from a "
+        raise AssertionError(f"{phase} {cfg.name}: greedy tokens part away from a "
                              f"near-tie at (step, row) {parted.nonzero().tolist()}")
     ties = (parted & near).nonzero().tolist()
-    print(f"dense: {cfg.name} logits of the two arms within {gap:.4f} (bound "
+    print(f"{phase}: {cfg.name} logits of the two arms within {gap:.4f} (bound "
           f"{DECODE_PARITY}) over {new} steps; greedy tokens equal"
           + (f" but at near-ties (step, row) {ties}" if ties else "")
           + f"; {int(near.sum())} of {near.numel()} picks had a top-2 margin under "
@@ -1701,6 +1790,184 @@ def dense_path(torch, counters, models: dict, smi) -> dict:
                 total[k] += v
         print(f"dense: {arch} ok in {time.perf_counter() - t0:.1f} s")
     print("dense: launches " + json.dumps(total) + f" on {smi}")
+    return total
+
+
+# -- PHASE ssm: zamba2-2.7b and xlstm-1.3b at full width and depth --------------
+
+def ssm_layer_check(torch, cfg, params, device="cuda") -> dict:
+    """(c) One block of each recurrent kind of ``cfg`` at full width, its
+    group-0 weights in float32: SSM_LAYER_STEPS decode steps from the
+    initial state on seeded inputs, on the card (TF32 off) against the same
+    port function on the CPU; every output and state within ATOL +
+    RTOL*|ref|.  Returns each kind's max error."""
+    from repro_torch.models import decode as dec
+    from repro_torch.models.transformer import RECURRENT_KINDS
+    gen = torch.Generator().manual_seed(3)
+    errs = {}
+    for kind in dict.fromkeys(k for k in cfg.pattern if k in RECURRENT_KINDS):
+        i = cfg.pattern.index(kind)
+        card = {part: {k: v[0].float() for k, v in leaves.items()}
+                for part, leaves in params["blocks"][i].items()}
+        host = {part: {k: v.cpu() for k, v in leaves.items()}
+                for part, leaves in card.items()}
+        states = {side: dec.recurrent_cache(cfg, kind, 2, dtype=torch.float32,
+                                            device=dev)
+                  for side, dev in (("card", device), ("host", "cpu"))}
+        err = 0.0
+        for step in range(SSM_LAYER_STEPS):
+            x = torch.randn((2, 1, cfg.d_model), generator=gen)
+            got = dec._recurrent_block(card, cfg, kind, x.to(device), states["card"])
+            want = dec._recurrent_block(host, cfg, kind, x, states["host"])
+            pairs = [("y", got, want)] + [(k, states["card"][k], states["host"][k])
+                                          for k in states["host"]]
+            for name, a, r in pairs:
+                a = a.cpu()
+                bad = ~((a - r).abs() <= ATOL + RTOL * r.abs())
+                if bool(bad.any()):
+                    raise AssertionError(
+                        f"ssm {cfg.name}: {kind} {name} on the card differs from the "
+                        f"CPU at step {step}: max err {float((a - r).abs().max())}")
+                err = max(err, float((a - r).abs().max()))
+        errs[kind] = err
+        print(f"ssm: {cfg.name} one {kind} block at full width, {SSM_LAYER_STEPS} "
+              f"float32 steps on the card against the CPU: max abs err {err:.3g} "
+              f"(within {ATOL} + {RTOL}*|ref|, TF32 off)")
+    return errs
+
+
+def instrument_lane_verbs(torch, eng, seen) -> None:
+    """Time each preemption and resume (synchronised wall ms) and check that
+    a resumed lane's recurrent states and ring bookkeeping are bitwise what
+    they were at its preemption; count each lane's resets (admissions)."""
+    preempt, resume, reset = eng.preempt_lane, eng.resume_lane, eng.reset_lane
+    snaps = {}
+
+    def timed_preempt(lane):
+        snap = [{k: v[:, lane].clone() for k, v in e.items()
+                 if k not in ("k_pages", "v_pages")} for e in eng.cache["blocks"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        residual = preempt(lane)
+        torch.cuda.synchronize()
+        seen["preempt_ms"].append((time.perf_counter() - t0) * 1e3)
+        snaps[id(residual)] = snap
+        return residual
+
+    def timed_resume(lane, residual):
+        snap = snaps.pop(id(residual))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = resume(lane, residual)
+        torch.cuda.synchronize()
+        seen["resume_ms"].append((time.perf_counter() - t0) * 1e3)
+        for i, (entry, leaves) in enumerate(zip(eng.cache["blocks"], snap)):
+            for k, v in leaves.items():
+                if not torch.equal(entry[k][:, lane], v):
+                    raise AssertionError(f"resumed lane {lane}: block {i} {k} differs "
+                                         "from its state at preemption")
+        return n
+
+    def counted_reset(lane):
+        seen["resets"][lane] = seen["resets"].get(lane, 0) + 1
+        return reset(lane)
+    eng.preempt_lane, eng.resume_lane, eng.reset_lane = (
+        timed_preempt, timed_resume, counted_reset)
+
+
+def ssm_lanes(torch, counters, arch, cfg, params, smi, device="cuda") -> dict:
+    """(b) The lane phase's drive over its whole trace on one arch: the
+    lane phase's checks (report, finite logits, unit page mass where there
+    is a ring, sketches replayed bitwise, bytes moved), a preempted request
+    resumed with its states bitwise, a lane serving a second request, and
+    the schedule equal to the CPU run at the arch's smoke config."""
+    from repro_torch.models.transformer import RECURRENT_KINDS
+    ring = any(k not in RECURRENT_KINDS for k in cfg.pattern)
+    checked = {"steps": 0, "chunks": 0}
+    seen = {"preempt_ms": [], "resume_ms": [], "resets": {}}
+    blocks = {}
+
+    def instrument(sched):
+        for name in ("kv", "embeddings"):
+            blocks[name] = record_blocks(sched.eng.daemon[name])
+        check_lane_steps(sched.eng, checked)
+        instrument_lane_verbs(torch, sched.eng, seen)
+        zero_counts(counters)
+
+    eng, sched, trace, wall_s = run_lanes(cfg, params, device, instrument)
+    launches = read_counts(torch, counters, f"ssm {cfg.name} lanes",
+                           required=None if ring else counters[SKETCH_COUNTERS])
+    if not ring and launches["paged_attention_raw"]:
+        raise AssertionError(f"ssm {cfg.name} lanes: attention launched without a "
+                             f"ring: {launches}")
+    rep = sched.report()
+    reqs = sched.finished
+    check_report(rep, reqs, len(trace.arrivals), cfg.vocab)
+    if not (rep["preemptions"] >= 1 and any(r.preemptions for r in reqs)
+            and seen["resume_ms"]):
+        raise AssertionError(f"ssm {cfg.name} lanes: no request was preempted and "
+                             "resumed")
+    if max(seen["resets"].values()) < 2:
+        raise AssertionError(f"ssm {cfg.name} lanes: no lane served a second "
+                             f"request: {seen['resets']}")
+    res = rep["resources"]
+    kv = res["kv"]
+    moved = kv["migration_bytes"] > 0 and kv["flush_bytes"] > 0
+    idle = not (kv["fast_reads"] + kv["slow_reads"] or kv["migration_bytes"]
+                or kv["flush_bytes"])
+    if not (res["embeddings"]["migration_bytes"] > 0 and (moved if ring else idle)):
+        raise AssertionError(f"ssm {cfg.name} lanes: bytes moved {res}")
+    for name, recorded in blocks.items():
+        replay_resource(torch, eng.daemon[name], recorded)
+    t0 = time.perf_counter()
+    cpu = cpu_lane_schedule(arch)
+    card = lane_schedule(sched)
+    if card != cpu:
+        raise AssertionError(f"ssm {cfg.name}: the card's schedule differs from the "
+                             f"CPU's:\n{card}\n{cpu}")
+    print(f"ssm: {cfg.name} lanes: sketch replay of {len(blocks['kv'])} kv and "
+          f"{len(blocks['embeddings'])} embeddings blocks bitwise equal; "
+          f"{checked['steps']} lane steps with finite logits"
+          + (" and unit page mass" if ring else " and no page mass")
+          + f"; schedule equal to the CPU run at the smoke config "
+          f"({time.perf_counter() - t0:.1f} s): {len(reqs)} requests, "
+          f"{rep['steps']} steps, {rep['preemptions']} preemption(s), lane "
+          f"admissions {json.dumps(seen['resets'])}")
+    print(f"ssm: {cfg.name} lanes: {len(seen['preempt_ms'])} preemption(s) "
+          f"{', '.join(f'{t:.1f}' for t in seen['preempt_ms'])} ms, "
+          f"{len(seen['resume_ms'])} resume(s) "
+          f"{', '.join(f'{t:.1f}' for t in seen['resume_ms'])} ms (wall, "
+          f"synchronised), every resumed lane's states bitwise; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"on {smi}")
+    print_serving(rep, wall_s, f"ssm {cfg.name} lanes", smi)
+    return launches
+
+
+def ssm_path(torch, counters, smi, device="cuda") -> dict:
+    """PHASE ssm: each SSM_ARCHS model in turn at full width and depth, its
+    params released before the next is drawn: (c) one layer of each
+    recurrent kind against the CPU, (a) the dense and paged arms, (b) the
+    lane drive."""
+    total = {c.__name__: 0 for c in counters}
+    for arch in SSM_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params = draw_dense_params(torch, arch, phase="ssm")
+        ssm_layer_check(torch, cfg, params, device)
+        arms = dense_model(torch, counters, cfg, params, smi, device, phase="ssm")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lanes = ssm_lanes(torch, counters, arch, cfg, params, smi, device)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        for run in (*arms.values(), lanes):
+            for k, v in run.items():
+                total[k] += v
+        print(f"ssm: {arch} ok in {time.perf_counter() - t0:.1f} s")
+    print("ssm: launches " + json.dumps(total) + f" on {smi}")
     return total
 
 
@@ -2586,6 +2853,13 @@ def main() -> int:
     print(f"PHASE dense: ok in {time.perf_counter() - t0:.1f} s, "
           f"{', '.join(DENSE_ARCHS)} at full width, dense and paged arms, "
           f"launches {json.dumps(phases['dense'])} on {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phases["ssm"] = ssm_path(torch, counters, smi)
+    print(f"PHASE ssm: ok in {time.perf_counter() - t0:.1f} s, "
+          f"{', '.join(SSM_ARCHS)} at full width and depth, dense and paged arms "
+          f"and lanes, launches {json.dumps(phases['ssm'])} on {smi}")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

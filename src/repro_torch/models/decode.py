@@ -2,12 +2,16 @@
 KV pages, and the full (dense) cache decode.
 
 Port of the single-device serving paths of ``repro/models/decode.py`` for
-the dense GQA family (llama3.2-3b, qwen1.5-4b, stablelm-1.6b, gemma2-27b)
-and the mixture-of-experts family with GQA (kimi-k2) or MLA (deepseek-v3)
-attention.  Cache layouts (stacked by pattern group, as the reference's):
+the dense GQA family (llama3.2-3b, qwen1.5-4b, stablelm-1.6b, gemma2-27b),
+the mixture-of-experts family with GQA (kimi-k2) or MLA (deepseek-v3)
+attention, the Mamba2 hybrid with one shared attention block (zamba2) and
+the recurrent xLSTM (xlstm).  Cache layouts (stacked by pattern group, as
+the reference's):
 
   * dense attn blocks ... {"k","v"}: (G, B, Smax, Hkv, dh)
   * dense MLA blocks .... {"c_kv","k_rope"}: (G, B, Smax, kv_lora | d_rope)
+  * mamba blocks ........ {"ssm": (G, B, H, N, P) f32, "conv": (G, B, K-1, C)}
+  * m/sLSTM blocks ...... {"c","n","m"} f32 (``m`` starts at -1e30)
 
   * paged attn blocks ... {"k_pages","v_pages"}: (G, B, n_slots, T, Hkv, dk|dv)
                           + {"page_len": (G, B, n_slots), "cur_slot": (G, B)};
@@ -15,6 +19,9 @@ attention.  Cache layouts (stacked by pattern group, as the reference's):
                           latent head, dk = kv_lora + d_rope, dv = kv_lora
   * "prologue" .......... a MoE arch's dense prologue layers: a list of the
                           same ring without the G axis
+  * the recurrent blocks keep their O(1) states in both caches (no ring);
+    a ``shared_attn`` position has its own cache or ring, read through the
+    one weight set ``params["shared_attn"]``
   * "pos" ............... () int32 lockstep position, or (B,) per-lane
                           positions (continuous batching, DESIGN.md §9)
 
@@ -48,10 +55,11 @@ scale and post-norms.
 Lane masks: where the reference computes a new cache for every lane and
 ``merge_cache`` keeps the old leaves of the inactive ones, the port's
 writes are conditional on the mask — an inactive lane's pages, ``page_len``,
-``cur_slot`` and ``pos`` stay bitwise unchanged and the ring is never
-copied.  Its logits, mass and router ids are computed on the unchanged ring
-and are not to be read.  ``merge_cache`` therefore has no counterpart: the
-paged writes are masked in place, and the dense cache has no lanes.
+``cur_slot``, recurrent states and ``pos`` stay bitwise unchanged and the
+ring is never copied.  Its logits, mass and router ids are computed on the
+unchanged ring and are not to be read.  ``merge_cache`` therefore has no
+counterpart: the paged writes are masked in place, and the dense cache has
+no lanes.
 
 Also here, as in the reference: ``install_pages``, which fast-forwards one
 lane over complete KV pages from the reuse pool (in place, that lane
@@ -70,7 +78,10 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import prng
 from repro_torch.models.layers import (apply_norm, apply_rope, embed_apply,
                                        logits_apply, mlp_apply)
-from repro_torch.models.transformer import check_ported
+from repro_torch.models.mamba2 import mamba2_decode, mamba2_init_cache
+from repro_torch.models.transformer import RECURRENT_KINDS, check_ported
+from repro_torch.models.xlstm import (mlstm_decode, mlstm_init_cache,
+                                      slstm_decode, slstm_init_cache)
 from repro_torch.tiering.migrate import lookup_rows as _tier_lookup_rows
 
 
@@ -122,14 +133,16 @@ def init_paged_cache(cfg: ArchConfig, batch: int, n_slots: int, page_t: int,
                      dtype=torch.bfloat16, per_lane_pos: bool = False, *,
                      device="cuda"):
     """NeoMem fast-tier paged cache for every attention block, the dense
-    prologue's rings included.
+    prologue's rings included; the recurrent blocks' O(1) states.
 
     ``per_lane_pos=True`` makes ``pos`` a (batch,) vector so each batch row
     (a continuous-batching lane) advances on its own (DESIGN.md §9)."""
     check_ported(cfg)
     hkv, dk, dv = ring_dims(cfg)
 
-    def one(lead):
+    def one(lead, kind="attn"):
+        if kind in RECURRENT_KINDS:
+            return recurrent_cache(cfg, kind, batch, lead, dtype, device)
         return {
             "k_pages": torch.zeros(lead + (batch, n_slots, page_t, hkv, dk),
                                    dtype=dtype, device=device),
@@ -140,12 +153,50 @@ def init_paged_cache(cfg: ArchConfig, batch: int, n_slots: int, page_t: int,
             "cur_slot": torch.zeros(lead + (batch,), dtype=torch.int32,
                                     device=device),
         }
-    out = {"blocks": [one((cfg.n_groups,)) for _ in cfg.pattern],
+    out = {"blocks": [one((cfg.n_groups,), kind) for kind in cfg.pattern],
            "pos": torch.zeros((batch,) if per_lane_pos else (),
                               dtype=torch.int32, device=device)}
     if cfg.moe and cfg.moe.n_dense_prologue:
         out["prologue"] = [one(()) for _ in range(cfg.moe.n_dense_prologue)]
     return out
+
+
+def recurrent_cache(cfg: ArchConfig, kind: str, batch: int, lead=(),
+                    dtype=torch.bfloat16, device="cuda") -> dict:
+    """A recurrent block's initial decode state (``lead`` stacks it): the
+    same in the full cache and the paged one."""
+    if kind == "mamba":
+        s = cfg.ssm
+        return mamba2_init_cache(batch, cfg.d_model, expand=s.expand,
+                                 headdim=s.headdim, n_groups=s.n_groups,
+                                 d_state=s.d_state, d_conv=s.d_conv, lead=lead,
+                                 dtype=dtype, device=device)
+    if kind == "mlstm":
+        return mlstm_init_cache(batch, cfg.d_model, cfg.mlstm_heads, lead=lead,
+                                device=device)
+    return slstm_init_cache(batch, cfg.d_model, lead=lead, device=device)
+
+
+def _recurrent_block(p, cfg: ArchConfig, kind: str, x_t, cache, active=None):
+    """One recurrent block (the reference's mamba, mlstm and slstm branches
+    of ``_decode_block``): norm, mixer, residual.  The new state is written
+    into ``cache`` in place, for the ``active`` (B,) lanes only when given
+    (an inactive lane's state stays bitwise unchanged)."""
+    h = apply_norm(cfg.norm, p["ln"], x_t)
+    if kind == "mamba":
+        s = cfg.ssm
+        o, new = mamba2_decode(p["mix"], h, cache, headdim=s.headdim,
+                               n_groups=s.n_groups, d_state=s.d_state)
+    elif kind == "mlstm":
+        o, new = mlstm_decode(p["mix"], h, cache, n_heads=cfg.mlstm_heads)
+    else:
+        o, new = slstm_decode(p["mix"], h, cache)
+    for k, v in new.items():
+        dst = cache[k]
+        if active is not None:
+            v = torch.where(active.view((-1,) + (1,) * (dst.dim() - 1)), v, dst)
+        dst.copy_(v)
+    return x_t + o
 
 
 def _append_attend_local(kp, vp, plen, cur_slot, k_new, v_new, q_eff, *,
@@ -303,8 +354,9 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     with ``return_streams``, a streams dict: ``"kv_mass"`` is the
     (G, n_attn, B, n_slots) kernel-exported per-page softmax mass of every
     body attention position (the dense prologue exports none, as in the
-    reference), ``"router"`` the (G, n_moe, B, 1, k) int32 token->expert
-    ids of every MoE position (None for the dense family).
+    reference; None for a pattern without attention), ``"router"`` the
+    (G, n_moe, B, 1, k) int32 token->expert ids of every MoE position (None
+    without one).
     ``collect_mass`` (default: follow ``return_streams``) gates the
     kernel's page-stats export.  ``tiered`` serves the token embedding
     (:func:`_embed_tokens`) and the first MoE position's expert weights
@@ -326,9 +378,14 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     for g in range(cfg.n_groups):
         group, router = [], []
         for i, kind in enumerate(cfg.pattern):
+            p, c = _take(params["blocks"][i], g), _take(cache["blocks"][i], g)
+            if kind in RECURRENT_KINDS:
+                x = _recurrent_block(p, cfg, kind, x, c, active)
+                continue
+            if kind == "shared_attn":
+                p, kind = params["shared_attn"], "attn"
             x, mass = _paged_attn_block(
-                _take(params["blocks"][i], g), cfg, kind, x,
-                _take(cache["blocks"][i], g), pos, page_t, collect_mass, active,
+                p, cfg, kind, x, c, pos, page_t, collect_mass, active,
                 tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router)
             if mass is not None:
                 group.append(mass)
@@ -340,7 +397,7 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     if not return_streams:
         return logits, cache
     kv_mass = (torch.stack([torch.stack(gm) for gm in masses])
-               if collect_mass else None)
+               if masses[0] else None)
     router = (torch.stack([torch.stack(gr) for gr in routers])
               if routers[0] else None)
     return logits, cache, {"router": router, "kv_mass": kv_mass}
@@ -409,12 +466,10 @@ def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
 
 def _block_cache(cfg: ArchConfig, kind: str, batch: int, smax: int, dtype,
                  device):
-    """One attention block's full cache: MLA's latent and rope key, else
-    GQA's K and V.  The recurrent kinds keep O(1) states a later slice
-    ports."""
-    if kind in ("mamba", "mlstm", "slstm"):
-        raise NotImplementedError(
-            f"the {kind!r} block's decode state is not yet ported to repro_torch")
+    """One block's full cache: a recurrent block's O(1) state, else MLA's
+    latent and rope key, else GQA's K and V."""
+    if kind in RECURRENT_KINDS:
+        return recurrent_cache(cfg, kind, batch, dtype=dtype, device=device)
     if cfg.mla is not None:
         return attn.mla_init_cache(batch, smax, cfg.mla.kv_lora, cfg.mla.d_rope,
                                    dtype, device)
@@ -423,16 +478,16 @@ def _block_cache(cfg: ArchConfig, kind: str, batch: int, smax: int, dtype,
 
 
 def _stacked(tree, g: int):
-    """A block cache with a leading group axis of ``g`` (zeros, as the
-    reference broadcasts one group's zeros)."""
-    return {k: v.new_zeros((g,) + v.shape) for k, v in tree.items()}
+    """A block cache with a leading group axis of ``g``, every group the
+    initial values (the reference broadcasts one group's)."""
+    return {k: v.expand((g,) + v.shape).clone() for k, v in tree.items()}
 
 
 def init_cache(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16, *,
                device="cuda"):
     """Full (dense) KV cache of ``smax`` positions for every attention
-    block, group-stacked, the dense prologue's unstacked; ``pos`` is a ()
-    int32 tensor."""
+    block and the recurrent blocks' O(1) states, group-stacked, the dense
+    prologue's unstacked; ``pos`` is a () int32 tensor."""
     check_ported(cfg)
     out = {"blocks": [_stacked(_block_cache(cfg, kind, batch, smax, dtype, device),
                                cfg.n_groups) for kind in cfg.pattern],
@@ -481,9 +536,14 @@ def decode_step(cfg: ArchConfig, params, cache, token, *,
     for g in range(cfg.n_groups):
         router = []
         for i, kind in enumerate(cfg.pattern):
+            p, c = _take(params["blocks"][i], g), _take(cache["blocks"][i], g)
+            if kind in RECURRENT_KINDS:
+                x = _recurrent_block(p, cfg, kind, x, c)
+                continue
+            if kind == "shared_attn":
+                p, kind = params["shared_attn"], "attn"
             x = _decode_attn_block(
-                _take(params["blocks"][i], g), cfg, kind, x,
-                _take(cache["blocks"][i], g), pos,
+                p, cfg, kind, x, c, pos,
                 tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router)
         routers.append(router)
     x = apply_norm(cfg.norm, params["final_norm"], x)
@@ -522,7 +582,7 @@ def reuse_eligible(cfg: ArchConfig) -> bool:
     KV slow store alone — the precondition for fast-forwarding a fresh lane
     over slow-store pages (DESIGN.md §12): one attention position in the
     pattern, no recurrent blocks, no dense prologue."""
-    recurrent = any(k in ("mamba", "mlstm", "slstm") for k in cfg.pattern)
+    recurrent = any(k in RECURRENT_KINDS for k in cfg.pattern)
     prologue = bool(cfg.moe and cfg.moe.n_dense_prologue)
     return len(cfg.pattern) == 1 and not recurrent and not prologue
 
@@ -534,8 +594,9 @@ def install_pages(cache, lane: int, slot_ids, rows: torch.Tensor, *, dk: int,
     ring slots ``slot_ids``.  Bitwise equal to streaming the same tokens:
     installed slots hold full pages and the new current slot's fill is
     zeroed (at a page boundary ``cur_slot`` has already advanced onto an
-    empty slot).  Only the lane's own slots and counters are written."""
-    entry = cache["blocks"][0]
+    empty slot).  Only the lane's own slots and counters are written; the
+    ring is the pattern's first, as :func:`reuse_eligible` asks."""
+    entry = next(c for c in cache["blocks"] if "page_len" in c)
     n_slots = entry["page_len"].shape[-1]
     slots = torch.as_tensor(np.asarray(slot_ids), dtype=torch.long,
                             device=entry["page_len"].device)

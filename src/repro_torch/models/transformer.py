@@ -1,8 +1,10 @@
 """Parameter init for the decoder families the port serves (port of
-``repro/models/transformer.py`` ``init_params``): the dense GQA family and
-the mixture-of-experts family, with GQA (kimi-k2) or MLA attention and the
-multi-token-prediction head's parameters (deepseek-v3).  The dense family
-covers llama3.2-3b and the layer features of qwen1.5-4b (QKV biases),
+``repro/models/transformer.py`` ``init_params``): the dense GQA family, the
+mixture-of-experts family, with GQA (kimi-k2) or MLA attention and the
+multi-token-prediction head's parameters (deepseek-v3), the hybrid family
+(zamba2: Mamba2 blocks and one shared attention block) and the recurrent
+``ssm`` family (xlstm: mLSTM and sLSTM blocks).  The dense family covers
+llama3.2-3b and the layer features of qwen1.5-4b (QKV biases),
 stablelm-1.6b (LayerNorm) and gemma2-27b (``rms+1`` norms, post-norms,
 GeGLU, and the ``("attn_local", "attn_global")`` pattern).
 
@@ -10,7 +12,11 @@ Layers are stacked by *pattern group*: ``params["blocks"][i]`` holds pattern
 position i with every leaf shaped ``(G, ...)``, the reference's layout, so
 weights converted from the reference (:mod:`repro_torch.convert`) drop in.
 A MoE arch's dense prologue layers are ``params["prologue"]``, a list of
-unstacked blocks whose FFN is ``dense_ff`` wide.  ``params["mtp"]`` (an
+unstacked blocks whose FFN is ``dense_ff`` wide.  A recurrent block is
+``{"ln", "mix"}`` (its norm and its Mamba2, mLSTM or sLSTM mixer); a
+``shared_attn`` position holds ``{}``, its weights living once in
+``params["shared_attn"]``, an unstacked attention block that every group
+reuses.  ``params["mtp"]`` (an
 unstacked block, the (2d, d) projection and a norm) is drawn so that both
 packages hold the same tree; its forward is the training loss's, which the
 port does not run yet.  Weights are drawn on the target device from a
@@ -26,30 +32,42 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import _normal, gqa_init, mla_init
 from repro_torch.models.layers import DTYPE, make_norm
+from repro_torch.models.mamba2 import mamba2_init
 from repro_torch.models.moe import moe_init
+from repro_torch.models.xlstm import mlstm_init, slstm_init
 
 # the dense family's attention block kinds (gemma2 alternates local and global)
 DENSE_KINDS = {"attn", "attn_local", "attn_global"}
+# the block kinds of the hybrid (zamba2) and recurrent (xlstm) families, and
+# the kinds whose decode state is O(1) recurrent state, not a KV cache
+HYBRID_KINDS = {"mamba", "shared_attn"}
+SSM_KINDS = {"mlstm", "slstm"}
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
 
 
 def check_ported(cfg: ArchConfig) -> None:
     """The port runs the dense GQA family (patterns of ``attn``,
-    ``attn_local`` and ``attn_global`` blocks) and the MoE family (pattern
+    ``attn_local`` and ``attn_global`` blocks), the MoE family (pattern
     ``("moe",)`` behind dense prologue layers), whose attention is GQA or
-    MLA and which may carry the multi-token head's parameters, with any of
-    the reference's norms (rms, rms+1, ln) and MLPs (swiglu, geglu, gelu);
-    raise for anything else (SSM and xLSTM blocks, shared or cross
-    attention, encoders, the other families, MLA or the multi-token head
+    MLA and which may carry the multi-token head's parameters, the hybrid
+    family (patterns of ``mamba`` and ``shared_attn`` blocks) and the
+    ``ssm`` family (patterns of ``mlstm`` and ``slstm`` blocks), with any
+    of the reference's norms (rms, rms+1, ln) and MLPs (swiglu, geglu,
+    gelu); raise for anything else (cross attention, encoders, the other
+    families, a family's blocks outside it, MLA or the multi-token head
     outside the MoE family)."""
-    dense = cfg.family == "dense" and cfg.moe is None \
-        and set(cfg.pattern) <= DENSE_KINDS and cfg.mla is None and not cfg.mtp
-    moe = cfg.family == "moe" and cfg.moe is not None \
-        and set(cfg.pattern) == {"moe"}
-    if not (dense or moe) or cfg.encoder_layers:
+    plain = cfg.moe is None and cfg.mla is None and not cfg.mtp
+    kinds = set(cfg.pattern)
+    dense = cfg.family == "dense" and plain and kinds <= DENSE_KINDS
+    moe = cfg.family == "moe" and cfg.moe is not None and kinds == {"moe"}
+    hybrid = cfg.family == "hybrid" and plain and cfg.ssm is not None \
+        and kinds <= HYBRID_KINDS
+    ssm = cfg.family == "ssm" and plain and kinds <= SSM_KINDS
+    if not (dense or moe or hybrid or ssm) or cfg.encoder_layers:
         raise NotImplementedError(
             f"arch {cfg.name!r} ({cfg.family}, pattern {cfg.pattern}) is not yet "
-            "ported to repro_torch: only the dense GQA family and the MoE "
-            "family (GQA or MLA) are")
+            "ported to repro_torch: only the dense GQA family, the MoE family "
+            "(GQA or MLA), the Mamba2 hybrid and the xLSTM family are")
 
 
 def _mlp(gen, d, f, kind, lead, device):
@@ -65,12 +83,31 @@ def _mlp(gen, d, f, kind, lead, device):
             "w_out": _normal(lead + (f, d), f ** -0.5, gen, device, DTYPE)}
 
 
+def _mixer(gen, cfg: ArchConfig, kind: str, groups: int, device):
+    """A recurrent block's mixer: Mamba2, mLSTM or sLSTM."""
+    if kind == "mamba":
+        s = cfg.ssm
+        return mamba2_init(gen, cfg.d_model, d_state=s.d_state, expand=s.expand,
+                           headdim=s.headdim, d_conv=s.d_conv,
+                           n_groups=s.n_groups, groups=groups, device=device)
+    if kind == "mlstm":
+        return mlstm_init(gen, cfg.d_model, n_heads=cfg.mlstm_heads,
+                          groups=groups, device=device)
+    return slstm_init(gen, cfg.d_model, groups=groups, device=device)
+
+
 def _block(gen, cfg: ArchConfig, kind: str, groups: int, device):
-    """One block of ``kind`` (a dense attention kind, "moe", or
-    "attn_dense" for a MoE arch's prologue); ``groups > 0`` stacks that
-    many on a leading axis."""
+    """One block of ``kind`` (a dense attention kind, "moe", "attn_dense"
+    for a MoE arch's prologue, a recurrent kind, or "shared_attn", whose
+    position holds no weights); ``groups > 0`` stacks that many on a
+    leading axis."""
     d = cfg.d_model
     lead = (groups,) if groups else ()
+    if kind == "shared_attn":
+        return {}
+    if kind in RECURRENT_KINDS:
+        return {"ln": make_norm(cfg.norm, lead + (d,), device),
+                "mix": _mixer(gen, cfg, kind, groups, device)}
     p = {"ln1": make_norm(cfg.norm, lead + (d,), device),
          "ln2": make_norm(cfg.norm, lead + (d,), device)}
     if cfg.post_norm:
@@ -99,9 +136,12 @@ def _block(gen, cfg: ArchConfig, kind: str, groups: int, device):
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
     check_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    # draw order: the body, the prologue, the embedding, then the MTP head
+    # draw order: the body, the shared attention block, the prologue, the
+    # embedding, then the MTP head
     params = {"blocks": [_block(gen, cfg, kind, cfg.n_groups, device)
                          for kind in cfg.pattern]}
+    if "shared_attn" in cfg.pattern:
+        params["shared_attn"] = _block(gen, cfg, "attn", 0, device)
     if cfg.moe and cfg.moe.n_dense_prologue:
         params["prologue"] = [_block(gen, cfg, "attn_dense", 0, device)
                               for _ in range(cfg.moe.n_dense_prologue)]

@@ -368,12 +368,14 @@ class ServeEngine:
             self.cfg, self.params, self.cache, tok, page_t=self.scfg.page_t,
             tiered=self._tier_reads(), collect_mass=self._kernel_mass)
         self._observe_common(tok, streams["router"])
-        mass, ids = self._kv_page_stream()
-        if self._kernel_mass:
-            # (C, G, n_attn, B, S) averaged over groups, positions and
-            # lockstep rows, summed over the chunk (DESIGN.md §10)
-            mass = streams["kv_mass"].mean(dim=(1, 2, 3)).sum(dim=0)
-        self.daemon.observe("kv", mass, ids)
+        view = self._kv_page_stream()
+        if view is not None:
+            mass, ids = view
+            if self._kernel_mass:
+                # (C, G, n_attn, B, S) averaged over groups, positions and
+                # lockstep rows, summed over the chunk (DESIGN.md §10)
+                mass = streams["kv_mass"].mean(dim=(1, 2, 3)).sum(dim=0)
+            self.daemon.observe("kv", mass, ids)
         self._flush_kv_slow()
         self._maybe_tick(n)
         return logits
@@ -427,9 +429,10 @@ class ServeEngine:
 
     def _observe(self, tok: torch.Tensor, router) -> None:
         self._observe_common(tok, router)
-        if "kv" not in self.daemon:
+        view = self._kv_page_stream() if "kv" in self.daemon else None
+        if view is None:
             return
-        mass, ids = self._kv_page_stream()
+        mass, ids = view
         if self._kernel_mass:
             # batch rows advance in lockstep over the same page ids, so the
             # row mean is the device's aggregate view of the step's mass
@@ -448,6 +451,11 @@ class ServeEngine:
         self.cache = dec.init_paged_cache(self.cfg, scfg.lanes, scfg.hot_slots,
                                           scfg.page_t, per_lane_pos=True,
                                           device=self.device)
+        # a pristine one-lane cache: reset_lane restores each leaf's initial
+        # value, which is not zero for the m/sLSTM stabiliser (-1e30)
+        self._lane_init = dec.init_paged_cache(self.cfg, 1, scfg.hot_slots,
+                                               scfg.page_t, per_lane_pos=True,
+                                               device=self.device)
         self._kv_flushed.clear()
         self._lane_active[:] = False
         self._lane_segments[:] = -1
@@ -540,7 +548,10 @@ class ServeEngine:
             live = torch.as_tensor(valid.T, device=self.device)
             self.daemon.observe("experts", torch.where(
                 live[:, None, None, :, None, None], streams["router"], -1))
-        mass, gids = self._kv_lane_stream(active=active)
+        view = self._kv_lane_stream(active=active)
+        if view is None:
+            return
+        mass, gids = view
         if self._kernel_mass:
             # per-step (C, G, n_attn, L, S) kernel mass: averaged over
             # groups and positions, summed over the chunk's valid steps —
@@ -560,7 +571,10 @@ class ServeEngine:
             live = torch.as_tensor(self._lane_active, device=self.device)
             self.daemon.observe("experts", torch.where(
                 live[None, None, :, None, None], router, -1))
-        mass, gids = self._kv_lane_stream()
+        view = self._kv_lane_stream()
+        if view is None:
+            return
+        mass, gids = view
         self._observe_kv_lanes(self._last_kv_mass if self._kernel_mass else mass,
                                gids)
 
@@ -580,16 +594,19 @@ class ServeEngine:
 
     def reset_lane(self, lane: int) -> None:
         """Return a lane to its initial state for a fresh admission: ring
-        bookkeeping (the dense prologue's too) and position back to zero,
-        the initial state of every ring (page payloads may stay —
-        ``page_len`` masks them)."""
-        for entry in self.cache["blocks"]:
+        bookkeeping (the dense prologue's too), O(1) recurrent states and
+        position back to their initial values, copied from the pristine
+        one-lane cache (page payloads may stay — ``page_len`` masks them)."""
+        init = self._lane_init
+        for entry, tmpl in zip(self.cache["blocks"], init["blocks"]):
             for k, v in entry.items():
                 if k not in ("k_pages", "v_pages"):
-                    v[:, lane] = 0
-        for entry in self.cache.get("prologue", []):
-            entry["page_len"][lane] = 0
-            entry["cur_slot"][lane] = 0
+                    v[:, lane] = tmpl[k][:, 0]
+        for entry, tmpl in zip(self.cache.get("prologue", []),
+                               init.get("prologue", [])):
+            for k, v in entry.items():
+                if k not in ("k_pages", "v_pages"):
+                    v[lane] = tmpl[k][0]
         self.cache["pos"][lane] = 0
         self._invalidate_lane_flush(lane)
         self._lane_pages[lane] = -1
@@ -601,9 +618,9 @@ class ServeEngine:
         The lane's resident ring pages are force-flushed down to its KV
         slow-store segment (an exact snapshot of the ring), and what the KV
         payload does not carry — the ring bookkeeping and the position, the
-        pages of attention positions beyond the representative entry and
-        the dense prologue's rings — is snapshotted to the host in the
-        returned residual.
+        O(1) recurrent states, the pages of attention positions beyond the
+        representative entry and the dense prologue's rings — is
+        snapshotted to the host in the returned residual.
         :meth:`resume_lane` restores it bitwise."""
         self._flush_kv_lanes(lanes=[lane], force=True)
         residual = {"pos": int(self.cache["pos"][lane]),
@@ -641,9 +658,9 @@ class ServeEngine:
         self._lane_full[lane] = residual["full"]
         segment = residual["segment"]
         self._lane_segments[lane] = segment
-        if segment < 0:
-            return 0
         entry = self._paged_entry()
+        if entry is None or segment < 0:
+            return 0
         plen = entry["page_len"][0, lane].cpu().numpy()[None]        # (1, S)
         cur = entry["cur_slot"][0, lane].cpu().numpy()[None]         # (1,)
         local = self._ring_page_ids(plen, cur, np.asarray([residual["pos"]]),
@@ -786,14 +803,20 @@ class ServeEngine:
         return row
 
     # -- the ring and the KV data plane ---------------------------------------
-    def _paged_entry(self) -> dict:
-        """The representative paged-attention cache entry (first in pattern)."""
-        return self.cache["blocks"][0]
+    def _paged_entry(self) -> dict | None:
+        """The representative paged-attention cache entry: the first ring in
+        the pattern (None when the pattern has no attention).  Its pages are
+        the KV payload rows; sibling rings, recurrent states and the dense
+        prologue travel in preemption residuals."""
+        return next((c for c in self.cache["blocks"] if "page_len" in c), None)
 
-    def _ring_view(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Host view of the ring: (page_len (B, S), cur_slot (B,), pos (B,)).
-        Group 0 is representative — all groups advance in lockstep."""
+    def _ring_view(self) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
+        """Host view of the ring: (page_len (B, S), cur_slot (B,), pos (B,)),
+        or None without a ring.  Group 0 is representative — all groups
+        advance in lockstep."""
         entry = self._paged_entry()
+        if entry is None:
+            return None
         plen = entry["page_len"][0].cpu().numpy()
         cur = entry["cur_slot"][0].cpu().numpy()
         pos = np.broadcast_to(self.cache["pos"].cpu().numpy(), cur.shape)
@@ -812,23 +835,29 @@ class ServeEngine:
         ids = cur_page[:, None] - (cur[:, None] - slots) % n_slots
         return np.where((plen > 0) & (ids >= 0), ids, -1)
 
-    def _kv_page_stream(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def _kv_page_stream(self) -> tuple[torch.Tensor, torch.Tensor] | None:
         """Resident ring window as (per-page fill, logical page ids), batch
-        row 0 representative.  The fill is the flush's change key and, under
-        ``kv_mass_source="fill"``, the observed mass."""
-        plen, cur, pos = self._ring_view()
+        row 0 representative; None without a ring.  The fill is the flush's
+        change key and, under ``kv_mass_source="fill"``, the observed mass."""
+        view = self._ring_view()
+        if view is None:
+            return None
+        plen, cur, pos = view
         ids = self._ring_page_ids(plen, cur, pos, self.scfg.page_t)[0]
         return (torch.as_tensor(plen[0], dtype=torch.float32, device=self.device),
                 self._ids(ids))
 
     def _kv_lane_stream(self, active: np.ndarray | None = None,
-                        ) -> tuple[np.ndarray, np.ndarray]:
+                        ) -> tuple[np.ndarray, np.ndarray] | None:
         """Lane mode: the (L, S) per-page fill and global page ids of the
         "kv" stream — each lane's resident ring pages mapped into its
         slow-store segment's address space; lanes outside ``active``
-        (default: the live mask) are -1.  The fill is the observed mass
-        under ``kv_mass_source="fill"``."""
-        plen, cur, pos = self._ring_view()
+        (default: the live mask) are -1; None without a ring.  The fill is
+        the observed mass under ``kv_mass_source="fill"``."""
+        view = self._ring_view()
+        if view is None:
+            return None
+        plen, cur, pos = view
         local = self._ring_page_ids(plen, cur, pos, self.scfg.page_t)
         act = self._lane_active if active is None else np.asarray(active, bool)
         return plen, self._map_gids(local, act)
@@ -847,9 +876,13 @@ class ServeEngine:
     def _flush_kv_slow(self) -> None:
         """Flush the ring's changed pages down to the KV data plane (slow
         store always, fast copies of promoted pages too), batch row 0 as
-        the representative payload; the bytes are metered as flush_bytes."""
+        the representative payload; the bytes are metered as flush_bytes.
+        Nothing to flush without a ring."""
         h = self.daemon["kv"]
-        plen, cur, pos = self._ring_view()
+        view = self._ring_view()
+        if view is None:
+            return
+        plen, cur, pos = view
         ids = self._ring_page_ids(plen, cur, pos, self.scfg.page_t)[0]
         fill = plen[0].astype(np.int64)
         changed = np.array([
@@ -874,8 +907,12 @@ class ServeEngine:
         a CLEAN shared page (installed, fill unchanged) is never written
         back, even under ``force``.  A slot whose shared mapping went stale
         (the ring wrote into it) forks: its page-table entry reverts to the
-        lane's private segment page and the payload flushes there."""
-        plen, cur, pos = self._ring_view()
+        lane's private segment page and the payload flushes there.
+        Nothing to flush without a ring."""
+        view = self._ring_view()
+        if view is None:
+            return
+        plen, cur, pos = view
         local = self._ring_page_ids(plen, cur, pos, self.scfg.page_t)
         if lanes is None:
             act = self._lane_active

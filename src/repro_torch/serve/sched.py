@@ -676,7 +676,10 @@ class Scheduler:
         request's final step — and a chunk-prefilling lane the engine's own
         active mask no longer carries — is still charged."""
         occupied = np.array([r is not None for r in lanes], bool)
-        _, gids = eng._kv_lane_stream(active=occupied)
+        view = eng._kv_lane_stream(active=occupied)
+        if view is None:              # no ring: nothing resident to meter
+            return
+        _, gids = view
         _, hit = eng.daemon["kv"].lookup(eng._ids(gids.reshape(-1)))
         hit = hit.cpu().numpy().reshape(gids.shape)
         valid = gids >= 0

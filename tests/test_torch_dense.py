@@ -141,14 +141,8 @@ def test_init_cache_matches_reference_layout(arch):
     for got, want in pairs:
         assert set(got) == set(want)
         for k, v in want.items():
-            assert tuple(got[k].shape) == v.shape and got[k].dtype == torch.bfloat16
-
-
-def test_init_cache_refuses_recurrent_blocks():
-    cfg = dataclasses.replace(t_registry.get_smoke_config("llama3.2-3b"),
-                              pattern=("attn", "mamba"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_dec._block_cache(cfg, "mamba", B, 8, torch.bfloat16, "cpu")
+            assert tuple(got[k].shape) == v.shape
+            assert str(got[k].dtype).split(".")[-1] == str(v.dtype), k
 
 
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "gemma2-27b"])
@@ -337,7 +331,9 @@ def test_default_serve_config_serves(arch):
                                t_engine.ServeConfig(), device="cpu")
     out = eng.generate(_prompt(tcfg.vocab)[:, :8], 4)
     assert out.shape == (B, 4) and (out >= 0).all() and (out < tcfg.vocab).all()
-    assert eng.cache["blocks"][0][next(iter(eng.cache["blocks"][0]))].shape[2] == 4096
+    attn = [e for e in eng.cache["blocks"] if "k" in e or "c_kv" in e]
+    assert all(next(iter(e.values())).shape[2] == 4096 for e in attn)
+    assert bool(attn) == (tcfg.family != "ssm")        # xlstm has no attention
     assert int(eng.cache["pos"]) == 8 + 3 and eng.step_count == 11
     assert not eng.daemon.resources
 

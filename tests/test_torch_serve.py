@@ -322,8 +322,9 @@ def test_engine_refuses_features_not_yet_ported(field, value):
 
 def test_registry_names_unported_archs():
     assert t_registry.list_archs() == [ARCH, "kimi-k2-1t-a32b", "deepseek-v3-671b",
-                                       "qwen1.5-4b", "stablelm-1.6b", "gemma2-27b"]
+                                       "qwen1.5-4b", "stablelm-1.6b", "gemma2-27b",
+                                       "zamba2-2.7b", "xlstm-1.3b"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_registry.get_config("zamba2-2.7b")
+        t_registry.get_config("llama-3.2-vision-11b")
     with pytest.raises(KeyError):
         t_registry.get_config("no-such-arch")
