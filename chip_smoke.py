@@ -23,8 +23,9 @@ Phases, one summary line each:
                 attention also at kimi-k2's group of 8 query heads per kv
                 head (PHASE moe's two ring shapes) and at PHASE dense's
                 paged-arm ring (B 2, P 6, T 8) for stablelm-1.6b (group 1,
-                dk 64), qwen1.5-4b (20 heads, group 1) and gemma2-27b (group
-                2, softcap 50, scale 144^-1/2), at zamba2-2.7b's
+                dk 64), qwen1.5-4b (20 heads, group 1), gemma2-27b (group
+                2, softcap 50, scale 144^-1/2) and llama-3.2-vision-11b
+                (group 4: 32 heads over 8 kv heads), at zamba2-2.7b's
                 shared-attention ring (group 1, 32 heads, dk = dv = 80) at
                 PHASE ssm's two ring shapes (B 2, P 6, T 8 and B 4, P 8,
                 T 16), checked and timed, and
@@ -117,14 +118,35 @@ Phases, one summary line each:
                 (a) PHASE dense's two arms with its checks, the paged arm
                 launching the attention kernel only on zamba2 (xlstm's two
                 arms bitwise equal, its kv resource never read); (b) the
-                lane phase's drive over its whole trace: the lane phase's
-                checks, a preempted request's recurrent states bitwise
+                lane phase's drive over a cut of its trace (SSM_LANE_TRACE,
+                PHASE fill's 16 arrival steps: 66 scheduler steps, the
+                shortest cut that preempts and reuses a lane): the lane
+                phase's checks, a preempted request's recurrent states bitwise
                 after its resume, a lane serving a second request, the
                 schedule equal to the CPU run at the arch's smoke config;
                 prints per arm and arch the figures of PHASE dense (the
                 profile's range around the recurrent blocks), each
                 preemption's and resume's ms and the lanes' serving lines;
-  10. moe     — kimi-k2 at full width (d 7168, 64/8 heads, 384 experts
+  10. cross   — llama-3.2-vision-11b (40 layers, a gated cross block every
+                fifth over 1,601 patch embeddings) and whisper-base (a
+                6-layer bidirectional encoder over 1,500 frame embeddings,
+                6 dec blocks of self and cross attention) at full width and
+                depth, each drawn after the previous one is released, the
+                request's aux embeddings standard normal from seed 0: (c)
+                the first cross or dec block at full width in float32,
+                CROSS_LAYER_STEPS steps on the card against the CPU within
+                ATOL + RTOL*|ref| (llama-3.2-vision's gate at CROSS_GATE, so
+                that the image counts), and whisper's whole encoder;
+                (a) llama-3.2-vision through PHASE dense's two arms and
+                checks with the reference's init (gates at 0, so the paged
+                arm, which has no cross step as the reference's has none,
+                ROADMAP C6, serves the same logits); whisper's dense arm
+                with PHASE dense's checks, then the same request on the CPU
+                fed its tokens: the encoder's output and every step's logits
+                within DECODE_PARITY, greedy picks equal but at near-ties;
+                prints per arch and arm the figures of PHASE dense (the
+                profile's range around the cross step);
+  11. moe     — kimi-k2 at full width (d 7168, 64/8 heads, 384 experts
                 top-8, vocab 163840), its depth cut to one dense prologue
                 layer and one MoE layer (MOE_DEPTH), with the experts and
                 embeddings resources: serve_bench.py's kimi-k2 case (2 x 16
@@ -146,14 +168,14 @@ Phases, one summary line each:
                 once the lane engine's pinned store is released): no
                 attention launch, the embeddings sketch replayed bitwise and
                 the experts' feed through a CPU daemon;
-  11. mla     — deepseek-v3 at full width (d 7168, 128 heads, MLA
+  12. mla     — deepseek-v3 at full width (d 7168, 128 heads, MLA
                 q_lora 1536 / kv_lora 512 / d_nope 128 / d_rope 64 / d_v
                 128, 256 experts top-8, vocab 129280), its depth cut to its
                 3 dense prologue layers and its first MoE layer (MLA_DEPTH),
                 through PHASE moe's drives and checks with 64 of 256 experts
                 on the card (its dense arm on mla_decode); every attention
                 launch of the phase must be the head-tiled kernel's;
-  12. sim     — the paper's evaluation path: fig11_main_speedup.py's grid
+  13. sim     — the paper's evaluation path: fig11_main_speedup.py's grid
                 (8 workloads x 6 methods, benchmarks/common.py's scale)
                 through the port's tiering simulator on the card, every
                 result (counts, θ and error traces exactly; modeled runtime
@@ -161,7 +183,7 @@ Phases, one summary line each:
                 equal to a CPU run of the port on the same blocks; prints
                 the modeled geomean speedups, neomem's hit rates and the
                 card's wall ms per block;
-  13. sim-paper — gups at the paper's scale (4M pages, W=512K, blocks of
+  14. sim-paper — gups at the paper's scale (4M pages, W=512K, blocks of
                 16384) through all six methods on the card: hits must sum
                 to the accesses, promotions stay within the quota, and
                 neomem's sketch over its last clear interval (recorded in a
@@ -292,17 +314,32 @@ DECODE_PARITY = 0.25    # the reference's decode-parity bound (tests/test_models
 DENSE_ATTN_SHAPES = (("group 1, dk 64 (stablelm-1.6b)", 32, 32, 64, 0.0, None),
                      ("group 1, 20 heads (qwen1.5-4b)", 20, 20, 128, 0.0, None),
                      ("group 2, softcap 50 (gemma2-27b)", 32, 16, 128, 50.0,
-                      144.0 ** -0.5))
+                      144.0 ** -0.5),
+                     ("group 4 (llama-3.2-vision-11b)", 32, 8, 128, 0.0, None))
 # PHASE ssm: zamba2-2.7b (Mamba2 blocks, one shared attention block every
 # sixth layer) and xlstm-1.3b (mLSTM and sLSTM blocks, no attention) at full
 # width and depth, seed 0, each drawn after the previous one is released:
-# (a) PHASE dense's two arms, (b) the lane phase's drive over its whole
-# trace, (c) one layer of each recurrent kind on the card against the CPU
+# (a) PHASE dense's two arms, (b) the lane phase's drive over SSM_LANE_TRACE,
+# (c) one layer of each recurrent kind on the card against the CPU
 SSM_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
+# (b)'s cut of the lane trace: the shortest (16 arrival steps, 66 scheduler
+# steps against the whole trace's 113) that still preempts and resumes a
+# request and serves a second request on a lane (PHASE fill's cut)
+SSM_LANE_TRACE = FILL_TRACE
 SSM_LAYER_STEPS = 8     # (c): float32 decode steps of one full-width layer
 # zamba2's shared-attention ring (32 query heads over 32 kv heads of 80) at
 # PHASE ssm's paged arm (B 2, P 6, T 8) and lanes (B 4, P 8, T 16)
 SSM_ATTN_SHAPES = ((2, 6, 8), (4, 8, 16))
+# PHASE cross: llama-3.2-vision-11b (a gated cross block every fifth layer
+# over 1,601 patch embeddings) and whisper-base (a 6-layer bidirectional
+# encoder over 1,500 frames, 6 dec blocks) at full width and depth, seed 0,
+# each drawn after the previous one is released: (c) one cross or dec block
+# (and whisper's encoder) on the card against the CPU, (a) PHASE dense's two
+# arms on llama-3.2-vision with the reference's init (its gates at 0), the
+# dense arm against a CPU run on whisper
+CROSS_ARCHS = ("llama-3.2-vision-11b", "whisper-base")
+CROSS_GATE = 0.5        # (c): the cross block's xgate, so that the image counts
+CROSS_LAYER_STEPS = 4   # (c): float32 decode steps of one full-width block
 # PHASE sim: fig11_main_speedup.py's grid at benchmarks/common.py's scale
 # (N_PAGES, BLOCK, N_BLOCKS, FAST_RATIO, SIM_KW, METHODS; stream seed 11)
 SIM_WORKLOADS = ("deathstar", "pagerank", "xsbench", "gups", "silo", "btree",
@@ -1266,9 +1303,10 @@ def run_trace(cfg, params, device, serve, sched_kw, trace_kw, profiles=None,
     return eng, sched, trace, time.perf_counter() - t0
 
 
-def run_lanes(cfg, params, device, on_sched=None):
-    """The lane phase's trace through the port's Scheduler on ``device``."""
-    return run_trace(cfg, params, device, LANE_SERVE, LANE_SCHED, LANE_TRACE,
+def run_lanes(cfg, params, device, on_sched=None, trace=LANE_TRACE):
+    """The lane phase's trace (or ``trace``, a cut of it) through the port's
+    Scheduler on ``device``."""
+    return run_trace(cfg, params, device, LANE_SERVE, LANE_SCHED, trace,
                      LANE_TENANTS, on_sched)
 
 
@@ -1287,11 +1325,12 @@ def _smoke_cpu(arch: str = "llama3.2-3b"):
     return cfg, init_params(cfg, seed=0, device="cpu")
 
 
-def cpu_lane_schedule(arch: str = "llama3.2-3b") -> dict:
-    """The lane phase's schedule from the port on the CPU, at ``arch``'s
-    smoke config (seconds); the trace's arrivals are drawn for the smoke
-    vocabulary, the same steps, tenants and lengths as at full width."""
-    _, sched, _, _ = run_lanes(*_smoke_cpu(arch), "cpu")
+def cpu_lane_schedule(arch: str = "llama3.2-3b", trace=LANE_TRACE) -> dict:
+    """The lane phase's schedule (over ``trace``) from the port on the CPU,
+    at ``arch``'s smoke config (seconds); the trace's arrivals are drawn for
+    the smoke vocabulary, the same steps, tenants and lengths as at full
+    width."""
+    _, sched, _, _ = run_lanes(*_smoke_cpu(arch), "cpu", trace=trace)
     return lane_schedule(sched)
 
 
@@ -1600,10 +1639,10 @@ def draw_dense_params(torch, arch, phase="dense"):
     return cfg, params
 
 
-def drive_arm(torch, eng, prompts, new: int, feed=None) -> dict:
-    """One arm's single request: prefill, then ``new - 1`` decode steps,
-    greedy or, with ``feed`` ((B, new) tokens on the card), fed those
-    tokens.  Keeps every step's (B, V) logits (the prompt's last from
+def drive_arm(torch, eng, prompts, new: int, feed=None, aux=None) -> dict:
+    """One arm's single request: prefill (with ``aux`` for the cross
+    blocks), then ``new - 1`` decode steps, greedy or, with ``feed`` ((B,
+    new) tokens), fed those tokens.  Keeps every step's (B, V) logits (the prompt's last from
     prefill) and, on the ring, checks every step's page mass sums to 1."""
     from repro_torch.models import decode as dec
     caught, saved = [], {n: getattr(dec, n) for n in ("prefill_dense", "prefill_paged")}
@@ -1619,13 +1658,15 @@ def drive_arm(torch, eng, prompts, new: int, feed=None) -> dict:
     try:
         for name, fn in saved.items():
             setattr(dec, name, capture(fn))
-        eng.prefill(prompts)
+        eng.prefill(prompts, aux)
     finally:
         for name, fn in saved.items():
             setattr(dec, name, fn)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     logits = [caught[-1]]
+    if feed is not None:
+        feed = feed.to(eng.device)
     toks = [logits[0].argmax(-1) if feed is None else feed[:, 0]]
     t0 = time.perf_counter()
     for i in range(new - 1):
@@ -1684,76 +1725,83 @@ def profile_dense(torch, eng, tok, steps: int = 4, ranged=None,
           f"calls/step ({100 * range_us / max(busy_us, 1e-9):.1f}% of busy)")
 
 
-def dense_model(torch, counters, cfg, params, smi, device="cuda",
-                phase="dense") -> dict:
-    """PHASE dense (or ssm) on one model: the dense arm, then the paged arm
-    fed its tokens; per-step logits within DECODE_PARITY of each other
-    (bitwise equal on an arch without attention, whose arms run the same
-    ops), greedy tokens equal but at near-ties, finite logits (within the
-    final softcap where there is one), the dense arm no attention launch,
-    the paged arm attention launches exactly where the arch has a ring
-    (then with unit page mass) and no kv reads or bytes where it has none,
-    the embeddings sketch replayed bitwise on the CPU."""
+# the function each phase's dense-arm profile times inside a profiler range
+PROFILE_RANGES = {"ssm": ("_recurrent_block", "recurrent blocks"),
+                  "cross": ("_cross_step", "cross step (cross_apply and its gate)")}
+
+
+def serve_arm(torch, counters, cfg, params, smi, arm, serve, prompts, new,
+              feed=None, device="cuda", phase="dense", aux=None) -> dict:
+    """One arm of PHASE dense (or ssm, cross) on one model: a fresh engine
+    of ``serve`` serves ``prompts`` (with ``aux`` for the cross blocks) for
+    ``new`` tokens, greedy or fed ``feed``; the sketch kernels must launch,
+    the attention kernel only on a paged arm of an arch with a ring (the
+    kv resource of an arch without one moves nothing), and the embeddings
+    sketch replay bitwise on the CPU.  Prints the arm's figures and, for a
+    dense arm, a 4-step profile.  Returns the drive (logits on the CPU),
+    its launches, peak memory and embeddings stats."""
     from repro_torch.models import decode as dec
     from repro_torch.models.transformer import RECURRENT_KINDS
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     ring = any(k not in RECURRENT_KINDS for k in cfg.pattern)
-    b, n, new = DENSE_PROMPT
-    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (b, n))
-    arms = {}
-    for arm, serve in (("dense", DENSE_SERVE), ("paged", DENSE_PAGED)):
-        gc.collect()                   # the previous arm's engine and stores
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        eng = ServeEngine(cfg, params, ServeConfig(
-            **dict(serve, resources=tuple(serve["resources"]))), device=device)
-        blocks = record_blocks(eng.daemon["embeddings"])
-        zero_counts(counters)
-        run = drive_arm(torch, eng, prompts, new,
-                        None if arm == "dense" else arms["dense"]["tokens"])
-        attends = arm == "paged" and ring
-        run["launches"] = read_counts(
-            torch, counters, f"{phase} {cfg.name} {arm}",
-            required=None if attends else counters[SKETCH_COUNTERS])
-        if not attends and run["launches"]["paged_attention_raw"]:
-            raise AssertionError(f"{phase} {cfg.name}: the {arm} arm launched the "
-                                 f"attention kernel: {run['launches']}")
-        replay_resource(torch, eng.daemon["embeddings"], blocks)
-        run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        run["stats"] = eng.tier_stats()["embeddings"]
-        if arm == "paged" and not ring:
-            kv = eng.tier_stats()["kv"]
-            if kv["fast_reads"] + kv["slow_reads"] or kv["migration_bytes"] \
-                    or kv["flush_bytes"]:
-                raise AssertionError(f"{phase} {cfg.name}: the kv resource of an "
-                                     f"arch without a ring moved: {kv}")
-        steps = new - 1
-        print(f"{phase}: {cfg.name} {arm} arm, {b} x {n} prompt tokens and {new} new: "
-              f"wall {run['prefill_s'] + run['decode_s']:.3f} s, prefill "
-              f"{run['prefill_s']:.3f} s, decode {b * steps / run['decode_s']:.2f} "
-              f"tokens/s, {1e3 * run['decode_s'] / steps:.2f} ms/step, embeddings "
-              f"hit rate {run['stats']['hit_rate']:.3f}, peak device memory "
-              f"{run['peak_gib']:.2f} GiB, launches {json.dumps(run['launches'])} "
-              f"on {smi}")
-        if arm == "dense":
-            profile_dense(torch, eng, run["tokens"][:, -1].cpu().numpy(),
-                          ranged=None if phase == "dense" else
-                          (dec, "_recurrent_block", "recurrent blocks"),
-                          phase=phase)
-        run["logits"] = run["logits"].cpu()
-        arms[arm] = run
-        del eng
-    d, p = arms["dense"]["logits"], arms["paged"]["logits"]     # (new, B, V)
+    gc.collect()                       # the previous arm's engine and stores
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, params, ServeConfig(
+        **dict(serve, resources=tuple(serve["resources"]))), device=device)
+    blocks = record_blocks(eng.daemon["embeddings"])
+    zero_counts(counters)
+    run = drive_arm(torch, eng, prompts, new, feed, aux)
+    attends = arm == "paged" and ring
+    run["launches"] = read_counts(
+        torch, counters, f"{phase} {cfg.name} {arm}",
+        required=None if attends else counters[SKETCH_COUNTERS])
+    if not attends and run["launches"]["paged_attention_raw"]:
+        raise AssertionError(f"{phase} {cfg.name}: the {arm} arm launched the "
+                             f"attention kernel: {run['launches']}")
+    replay_resource(torch, eng.daemon["embeddings"], blocks)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    run["stats"] = eng.tier_stats()["embeddings"]
+    if arm == "paged" and not ring:
+        kv = eng.tier_stats()["kv"]
+        if kv["fast_reads"] + kv["slow_reads"] or kv["migration_bytes"] \
+                or kv["flush_bytes"]:
+            raise AssertionError(f"{phase} {cfg.name}: the kv resource of an "
+                                 f"arch without a ring moved: {kv}")
+    b, n = prompts.shape
+    steps = new - 1
+    print(f"{phase}: {cfg.name} {arm} arm, {b} x {n} prompt tokens and {new} new"
+          f"{'' if aux is None else f' over {aux.shape[1]} aux embeddings'}: "
+          f"wall {run['prefill_s'] + run['decode_s']:.3f} s, prefill "
+          f"{run['prefill_s']:.3f} s, decode {b * steps / run['decode_s']:.2f} "
+          f"tokens/s, {1e3 * run['decode_s'] / steps:.2f} ms/step, embeddings "
+          f"hit rate {run['stats']['hit_rate']:.3f}, peak device memory "
+          f"{run['peak_gib']:.2f} GiB, launches {json.dumps(run['launches'])} "
+          f"on {smi}")
+    if arm == "dense":
+        name, label = PROFILE_RANGES.get(phase, (None, None))
+        profile_dense(torch, eng, run["tokens"][:, -1].cpu().numpy(),
+                      ranged=None if name is None else (dec, name, label),
+                      phase=phase)
+    run["logits"] = run["logits"].cpu()
+    run["aux"] = eng.aux
+    return run
+
+
+def hold_logits(torch, cfg, d, p, phase, what, exact=False) -> None:
+    """Two runs' per-step logits ``d``, ``p`` (new, B, V) on the CPU: finite
+    (within the final softcap where there is one), within DECODE_PARITY of
+    each other (bitwise with ``exact``), greedy picks equal but at
+    near-ties (a top-2 margin under DECODE_PARITY in either)."""
     if not (bool(torch.isfinite(d).all()) and bool(torch.isfinite(p).all())):
         raise AssertionError(f"{phase} {cfg.name}: non-finite logits")
     if cfg.final_softcap and max(float(d.abs().max()), float(p.abs().max())) \
             > cfg.final_softcap:
         raise AssertionError(f"{phase} {cfg.name}: logits past the final softcap")
     gap = float((d - p).abs().max())
-    if gap > DECODE_PARITY or (not ring and gap):
-        raise AssertionError(f"{phase} {cfg.name}: dense and paged logits {gap} "
-                             "apart" + ("" if ring else " (no attention: must "
-                                        "be bitwise equal)"))
+    if gap > DECODE_PARITY or (exact and gap):
+        raise AssertionError(f"{phase} {cfg.name}: {what} logits {gap} apart"
+                             + (" (must be bitwise equal)" if exact else ""))
 
     def margin(x):
         top = x.topk(2, dim=-1).values
@@ -1764,12 +1812,32 @@ def dense_model(torch, counters, cfg, params, smi, device="cuda",
         raise AssertionError(f"{phase} {cfg.name}: greedy tokens part away from a "
                              f"near-tie at (step, row) {parted.nonzero().tolist()}")
     ties = (parted & near).nonzero().tolist()
-    print(f"{phase}: {cfg.name} logits of the two arms within {gap:.4f} (bound "
-          f"{DECODE_PARITY}) over {new} steps; greedy tokens equal"
+    print(f"{phase}: {cfg.name} logits of {what} within {gap:.4f} (bound "
+          f"{DECODE_PARITY}) over {d.shape[0]} steps; greedy tokens equal"
           + (f" but at near-ties (step, row) {ties}" if ties else "")
           + f"; {int(near.sum())} of {near.numel()} picks had a top-2 margin under "
-          f"{DECODE_PARITY}; embeddings sketches replayed bitwise")
-    return {arm: arms[arm]["launches"] for arm in arms}
+          f"{DECODE_PARITY}")
+
+
+def dense_model(torch, counters, cfg, params, smi, device="cuda",
+                phase="dense", aux=None) -> dict:
+    """PHASE dense (or ssm, cross) on one model: the dense arm, then the
+    paged arm fed its tokens (:func:`serve_arm`); their per-step logits
+    within DECODE_PARITY of each other (bitwise equal on an arch without
+    attention, whose arms run the same ops) and greedy tokens equal but at
+    near-ties (:func:`hold_logits`).  Returns each arm's launches."""
+    from repro_torch.models.transformer import RECURRENT_KINDS
+    ring = any(k not in RECURRENT_KINDS for k in cfg.pattern)
+    b, n, new = DENSE_PROMPT
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (b, n))
+    dense = serve_arm(torch, counters, cfg, params, smi, "dense", DENSE_SERVE,
+                      prompts, new, None, device, phase, aux)
+    paged = serve_arm(torch, counters, cfg, params, smi, "paged", DENSE_PAGED,
+                      prompts, new, dense["tokens"], device, phase, aux)
+    hold_logits(torch, cfg, dense["logits"], paged["logits"], phase,
+                "the two arms", exact=not ring)
+    print(f"{phase}: {cfg.name} embeddings sketches of both arms replayed bitwise")
+    return {"dense": dense["launches"], "paged": paged["launches"]}
 
 
 def dense_path(torch, counters, models: dict, smi) -> dict:
@@ -1795,6 +1863,16 @@ def dense_path(torch, counters, models: dict, smi) -> dict:
 
 # -- PHASE ssm: zamba2-2.7b and xlstm-1.3b at full width and depth --------------
 
+def held(torch, got, want, what) -> float:
+    """``got`` (any device) within ATOL + RTOL*|want| of ``want`` (CPU);
+    returns the max abs error."""
+    got = got.cpu()
+    if bool((~((got - want).abs() <= ATOL + RTOL * want.abs())).any()):
+        raise AssertionError(f"{what} on the card differs from the CPU: max err "
+                             f"{float((got - want).abs().max())}")
+    return float((got - want).abs().max())
+
+
 def ssm_layer_check(torch, cfg, params, device="cuda") -> dict:
     """(c) One block of each recurrent kind of ``cfg`` at full width, its
     group-0 weights in float32: SSM_LAYER_STEPS decode steps from the
@@ -1806,11 +1884,8 @@ def ssm_layer_check(torch, cfg, params, device="cuda") -> dict:
     gen = torch.Generator().manual_seed(3)
     errs = {}
     for kind in dict.fromkeys(k for k in cfg.pattern if k in RECURRENT_KINDS):
-        i = cfg.pattern.index(kind)
-        card = {part: {k: v[0].float() for k, v in leaves.items()}
-                for part, leaves in params["blocks"][i].items()}
-        host = {part: {k: v.cpu() for k, v in leaves.items()}
-                for part, leaves in card.items()}
+        card = _tree_map(lambda v: v[0].float(), params["blocks"][cfg.pattern.index(kind)])
+        host = _tree_map(lambda v: v.cpu(), card)
         states = {side: dec.recurrent_cache(cfg, kind, 2, dtype=torch.float32,
                                             device=dev)
                   for side, dev in (("card", device), ("host", "cpu"))}
@@ -1822,13 +1897,8 @@ def ssm_layer_check(torch, cfg, params, device="cuda") -> dict:
             pairs = [("y", got, want)] + [(k, states["card"][k], states["host"][k])
                                           for k in states["host"]]
             for name, a, r in pairs:
-                a = a.cpu()
-                bad = ~((a - r).abs() <= ATOL + RTOL * r.abs())
-                if bool(bad.any()):
-                    raise AssertionError(
-                        f"ssm {cfg.name}: {kind} {name} on the card differs from the "
-                        f"CPU at step {step}: max err {float((a - r).abs().max())}")
-                err = max(err, float((a - r).abs().max()))
+                err = max(err, held(torch, a, r,
+                                    f"ssm {cfg.name}: {kind} {name} at step {step}"))
         errs[kind] = err
         print(f"ssm: {cfg.name} one {kind} block at full width, {SSM_LAYER_STEPS} "
               f"float32 steps on the card against the CPU: max abs err {err:.3g} "
@@ -1876,7 +1946,7 @@ def instrument_lane_verbs(torch, eng, seen) -> None:
 
 
 def ssm_lanes(torch, counters, arch, cfg, params, smi, device="cuda") -> dict:
-    """(b) The lane phase's drive over its whole trace on one arch: the
+    """(b) The lane phase's drive over SSM_LANE_TRACE on one arch: the
     lane phase's checks (report, finite logits, unit page mass where there
     is a ring, sketches replayed bitwise, bytes moved), a preempted request
     resumed with its states bitwise, a lane serving a second request, and
@@ -1894,7 +1964,8 @@ def ssm_lanes(torch, counters, arch, cfg, params, smi, device="cuda") -> dict:
         instrument_lane_verbs(torch, sched.eng, seen)
         zero_counts(counters)
 
-    eng, sched, trace, wall_s = run_lanes(cfg, params, device, instrument)
+    eng, sched, trace, wall_s = run_lanes(cfg, params, device, instrument,
+                                          SSM_LANE_TRACE)
     launches = read_counts(torch, counters, f"ssm {cfg.name} lanes",
                            required=None if ring else counters[SKETCH_COUNTERS])
     if not ring and launches["paged_attention_raw"]:
@@ -1920,7 +1991,7 @@ def ssm_lanes(torch, counters, arch, cfg, params, smi, device="cuda") -> dict:
     for name, recorded in blocks.items():
         replay_resource(torch, eng.daemon[name], recorded)
     t0 = time.perf_counter()
-    cpu = cpu_lane_schedule(arch)
+    cpu = cpu_lane_schedule(arch, SSM_LANE_TRACE)
     card = lane_schedule(sched)
     if card != cpu:
         raise AssertionError(f"ssm {cfg.name}: the card's schedule differs from the "
@@ -1968,6 +2039,137 @@ def ssm_path(torch, counters, smi, device="cuda") -> dict:
                 total[k] += v
         print(f"ssm: {arch} ok in {time.perf_counter() - t0:.1f} s")
     print("ssm: launches " + json.dumps(total) + f" on {smi}")
+    return total
+
+
+# -- PHASE cross: llama-3.2-vision-11b and whisper-base at full width and depth --
+
+def cross_aux(torch, cfg, batch: int, device="cuda"):
+    """The request's (batch, n_aux_tokens, d) bf16 patch or frame
+    embeddings, standard normal from seed 0 (the reference's frontends are
+    stubs that hand over such embeddings)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    return torch.randn((batch, cfg.n_aux_tokens, cfg.d_model), generator=gen,
+                       device=device).to(torch.bfloat16)
+
+
+def cross_layer_check(torch, cfg, params, device="cuda") -> dict:
+    """(c) At full width in float32, the card (TF32 off) against the same
+    port function on the CPU, within ATOL + RTOL*|ref|: CROSS_LAYER_STEPS
+    decode steps of the arch's first ``cross`` or ``dec`` block (group 0's
+    weights; a ``cross`` block's gate set to CROSS_GATE, so that the image
+    counts, which the card's step shows against the gate at 0) over a
+    seeded (2, n_aux_tokens, d) stream and, for an encoder arch, the whole
+    ``encode`` of a seeded (2, n_aux_tokens, d) input.  Returns the max
+    errors."""
+    from repro_torch.models import decode as dec
+    from repro_torch.models.transformer import encode
+    gen = torch.Generator().manual_seed(4)
+    kind = next(k for k in cfg.pattern if k in ("cross", "dec"))
+    card = _tree_map(lambda v: v[0].float(), params["blocks"][cfg.pattern.index(kind)])
+    if kind == "cross":
+        card["xgate"] = torch.full_like(card["xgate"], CROSS_GATE)
+    host = _tree_map(lambda v: v.cpu(), card)
+    src = torch.randn((2, cfg.n_aux_tokens, cfg.d_model), generator=gen)
+    caches = {side: dec._block_cache(cfg, kind, 2, CROSS_LAYER_STEPS, torch.float32,
+                                     dev) for side, dev in (("card", device), ("host", "cpu"))}
+    errs = {kind: 0.0}
+    for step in range(CROSS_LAYER_STEPS):
+        x = torch.randn((2, 1, cfg.d_model), generator=gen)
+        pos = torch.tensor(step, dtype=torch.int32)
+        got = dec._decode_attn_block(card, cfg, kind, x.to(device), caches["card"],
+                                     pos.to(device), kv_src=src.to(device))
+        want = dec._decode_attn_block(host, cfg, kind, x, caches["host"], pos,
+                                      kv_src=src)
+        errs[kind] = max(errs[kind], held(torch, got, want,
+                                          f"cross {cfg.name}: {kind} step {step}"),
+                         *(held(torch, caches["card"][k], caches["host"][k],
+                                f"cross {cfg.name}: {kind} cache {k}")
+                           for k in ("k", "v")))
+        if step == 0 and kind == "cross":
+            shut = dict(card, xgate=torch.zeros_like(card["xgate"]))
+            moved = float((got - dec._decode_attn_block(
+                shut, cfg, kind, x.to(device), caches["card"], pos.to(device),
+                kv_src=src.to(device))).abs().max())
+            if not moved > 0:
+                raise AssertionError(f"cross {cfg.name}: the gated image moved nothing")
+    print(f"cross: {cfg.name} one {kind} block at full width over {cfg.n_aux_tokens} "
+          f"aux embeddings, {CROSS_LAYER_STEPS} float32 steps on the card against the "
+          f"CPU: max abs err {errs[kind]:.3g} (within {ATOL} + {RTOL}*|ref|, TF32 off)"
+          + (f"; gate {CROSS_GATE}: the image moves the block's output by "
+             f"{moved:.3g}" if kind == "cross" else ""))
+    if cfg.encoder_layers:
+        enc = {"encoder": [_tree_map(lambda v: v.float(), lp) for lp in params["encoder"]],
+               "enc_norm": params["enc_norm"]}
+        x = torch.randn((2, cfg.n_aux_tokens, cfg.d_model), generator=gen)
+        errs["encode"] = held(torch, encode(cfg, enc, x.to(device)),
+                              encode(cfg, _tree_map(lambda v: v.cpu(), enc), x),
+                              f"cross {cfg.name}: encode")
+        print(f"cross: {cfg.name} encode ({cfg.encoder_layers} layers) at full width "
+              f"over {cfg.n_aux_tokens} frames in float32 on the card against the "
+              f"CPU: max abs err {errs['encode']:.3g} (within {ATOL} + {RTOL}*|ref|)")
+    return errs
+
+
+def cpu_run(torch, cfg, params, prompts, new, feed, aux) -> dict:
+    """The dense arm's request served by the port on the CPU (an engine of
+    DENSE_SERVE over the weights copied there), fed the card's tokens."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    eng = ServeEngine(cfg, _tree_map(lambda v: v.cpu(), params), ServeConfig(
+        **dict(DENSE_SERVE, resources=tuple(DENSE_SERVE["resources"]))), device="cpu")
+    run = drive_arm(torch, eng, prompts, new, feed.cpu(), aux.cpu())
+    run["aux"] = eng.aux
+    return run
+
+
+def encoder_model(torch, counters, cfg, params, smi, aux, device="cuda") -> dict:
+    """PHASE cross (a) on an encoder arch: the dense arm on the card with
+    :func:`serve_arm`'s checks, then the same request on the CPU fed its
+    tokens (:func:`cpu_run`): the encoder's output and every step's logits
+    within DECODE_PARITY, greedy tokens equal but at near-ties.  There is
+    no paged arm: the reference's paged path drops cross attention
+    (ROADMAP C6).  Returns the dense arm's launches."""
+    b, n, new = DENSE_PROMPT
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (b, n))
+    dense = serve_arm(torch, counters, cfg, params, smi, "dense", DENSE_SERVE,
+                      prompts, new, None, device, "cross", aux)
+    t0 = time.perf_counter()
+    host = cpu_run(torch, cfg, params, prompts, new, dense["tokens"], aux)
+    err = float((dense["aux"].cpu().float() - host["aux"].float()).abs().max())
+    if not err <= DECODE_PARITY:
+        raise AssertionError(f"cross {cfg.name}: the encoder's output on the card is "
+                             f"{err} from the CPU's")
+    print(f"cross: {cfg.name} encoder output {tuple(host['aux'].shape)} on the card "
+          f"within {err:.4f} of the CPU's (bound {DECODE_PARITY}); CPU run "
+          f"{time.perf_counter() - t0:.1f} s")
+    hold_logits(torch, cfg, dense["logits"], host["logits"], "cross",
+                "the card and the CPU")
+    return {"dense": dense["launches"]}
+
+
+def cross_path(torch, counters, smi, device="cuda") -> dict:
+    """PHASE cross: each CROSS_ARCHS model in turn at full width and depth,
+    its params released before the next is drawn: (c) the cross block (and
+    the encoder) against the CPU, (a) PHASE dense's arms over the request's
+    aux embeddings, or for whisper the dense arm against a CPU run."""
+    total = {c.__name__: 0 for c in counters}
+    for arch in CROSS_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params = draw_dense_params(torch, arch, phase="cross")
+        cross_layer_check(torch, cfg, params, device)
+        aux = cross_aux(torch, cfg, DENSE_PROMPT[0], device)
+        arms = (encoder_model(torch, counters, cfg, params, smi, aux, device)
+                if cfg.encoder_layers else
+                dense_model(torch, counters, cfg, params, smi, device, "cross", aux))
+        del params, aux
+        gc.collect()
+        torch.cuda.empty_cache()
+        for run in arms.values():
+            for k, v in run.items():
+                total[k] += v
+        print(f"cross: {arch} ok in {time.perf_counter() - t0:.1f} s")
+    print("cross: launches " + json.dumps(total) + f" on {smi}")
     return total
 
 
@@ -2776,6 +2978,15 @@ def embed_gather_ms(torch, dec, eng, params, n: int = 50) -> tuple[float, float]
             wall(lambda: dec._embed_tokens(params, tok, None)))
 
 
+def _tree_map(fn, tree):
+    """``fn`` over every tensor of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2860,6 +3071,14 @@ def main() -> int:
     print(f"PHASE ssm: ok in {time.perf_counter() - t0:.1f} s, "
           f"{', '.join(SSM_ARCHS)} at full width and depth, dense and paged arms "
           f"and lanes, launches {json.dumps(phases['ssm'])} on {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phases["cross"] = cross_path(torch, counters, smi)
+    print(f"PHASE cross: ok in {time.perf_counter() - t0:.1f} s, "
+          f"{', '.join(CROSS_ARCHS)} at full width and depth, dense and paged arms "
+          f"(whisper: the dense arm against the CPU), launches "
+          f"{json.dumps(phases['cross'])} on {smi}")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

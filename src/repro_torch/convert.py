@@ -15,7 +15,11 @@ import numpy as np
 import torch
 
 
-def _leaf(a, device) -> torch.Tensor:
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """An array (numpy, bf16 included, or anything ``np.asarray`` takes) as
+    a tensor on ``device``; a tensor is moved there as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
@@ -30,7 +34,7 @@ def params_from_jax(np_params, device="cuda"):
         return {k: params_from_jax(v, device) for k, v in np_params.items()}
     if isinstance(np_params, (list, tuple)):
         return type(np_params)(params_from_jax(v, device) for v in np_params)
-    return _leaf(np_params, device)
+    return tensor_from_numpy(np_params, device)
 
 
 def sketch_seeds_from_jax(np_seeds) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""GQA and MLA attention: parameters, projections and the dense-cache
-decode (port of ``repro/models/attention.py``).
+"""GQA and MLA attention: parameters, projections, the dense-cache decode,
+full-sequence attention and cross attention (port of
+``repro/models/attention.py``).
 
 ``gqa_decode`` and ``mla_decode`` attend over the full (dense) cache of
 ``gqa_init_cache`` / ``mla_init_cache`` in float32, as the reference
@@ -7,7 +8,11 @@ computes them outside any Pallas kernel; the new K/V (or MLA's latent and
 rope key) is written at ``pos`` in place.  ``pos`` is the cache's ()
 int32 position tensor, read on the device (no host sync).  The paged
 decode reads MLA through the absorbed latent query of ``models/decode.py``.
-MLA's training form (``mla_apply``) comes with the training forward."""
+``sdpa``, ``sdpa_chunked`` and ``gqa_apply`` attend over a whole sequence
+(whisper's bidirectional encoder) and ``cross_apply`` over another stream's
+keys and values (an image's patches, the encoder's output), plain torch in
+float32 as the reference's.  MLA's training form (``mla_apply``) comes with
+the training forward."""
 from __future__ import annotations
 
 import math
@@ -129,6 +134,90 @@ def gqa_decode(p, x_t, cache, pos, *, h, hkv, dh, rope_theta=10000.0,
     o = dense_attend(q, cache["k"], cache["v"], pos, window=window,
                      softcap=softcap, scale=scale)
     return o.reshape(b, 1, h * dh).to(x_t.dtype) @ p["wo"]
+
+
+# -- full-sequence attention (the encoder) and cross attention -------------------
+
+def sdpa(q, k, v, *, causal=True, window: int = 0, softcap: float = 0.0,
+         scale=None, q_offset: int = 0, k_offset: int = 0):
+    """q (B, Sq, H, dh) over k/v (B, Sk, Hkv, dh|dv) in float32, rounded
+    back to q's dtype: the reference's einsum / softcap / mask / softmax /
+    einsum.  ``window > 0`` keeps only the last ``window`` keys of each
+    query; ``q_offset`` / ``k_offset`` are the absolute positions of q[0]
+    and k[0]."""
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = (dh ** -0.5) if scale is None else scale
+    qf = q.float().reshape(b, sq, hkv, h // hkv, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=q.device)[None, :] + k_offset
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+CHUNK_Q = 512          # query-chunked attention kicks in above this length
+
+
+def sdpa_chunked(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
+                 chunk=CHUNK_Q):
+    """:func:`sdpa` one chunk of ``chunk`` queries at a time, as the
+    reference's scan; a length of at most ``chunk`` or not a multiple of it
+    (whisper's 1,500 frames) takes the plain path.  A causal sliding-window
+    chunk attends over only the ``window + chunk`` keys it can reach."""
+    sq = q.shape[1]
+    if sq <= chunk or sq % chunk != 0:
+        return sdpa(q, k, v, causal=causal, window=window, softcap=softcap,
+                    scale=scale)
+    sk = k.shape[1]
+    kv_span = min(sk, window + chunk) if (window > 0 and causal) else sk
+    outs = []
+    for i in range(sq // chunk):
+        start = min(max(i * chunk - (kv_span - chunk), 0), sk - kv_span)
+        outs.append(sdpa(q[:, i * chunk:(i + 1) * chunk],
+                         k[:, start:start + kv_span], v[:, start:start + kv_span],
+                         causal=causal, window=window, softcap=softcap,
+                         scale=scale, q_offset=i * chunk, k_offset=start))
+    return torch.cat(outs, dim=1)
+
+
+def gqa_apply(p, x, *, h, hkv, dh, rope_theta=10000.0, causal=True,
+              window=0, softcap=0.0, positions=None, scale=None):
+    """Full-sequence GQA over x (B, S, D): RoPE at ``positions`` (default
+    0..S-1), :func:`sdpa_chunked`, then ``wo``."""
+    b, s, _ = x.shape
+    q, k, v = _proj_qkv(p, x, h, hkv, dh)
+    pos = torch.arange(s, device=x.device)[None, :] if positions is None \
+        else positions
+    if rope_theta > 0:
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    o = sdpa_chunked(q, k, v, causal=causal, window=window, softcap=softcap,
+                     scale=scale)
+    return o.reshape(b, s, h * dh) @ p["wo"]
+
+
+def cross_apply(p, x, kv_src, *, h, hkv, dh):
+    """Cross attention: queries from x (B, Sq, D), keys and values projected
+    from ``kv_src`` (B, Sk, D) with no RoPE, every key visible.  The
+    reference caches nothing of it: each call projects all of ``kv_src``."""
+    b, sq, _ = x.shape
+    sk = kv_src.shape[1]
+    q, k, v = x @ p["wq"], kv_src @ p["wk"], kv_src @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    o = sdpa(q.reshape(b, sq, h, dh), k.reshape(b, sk, hkv, dh),
+             v.reshape(b, sk, hkv, dh), causal=False)
+    return o.reshape(b, sq, h * dh) @ p["wo"]
 
 
 # -- DeepSeek-V3 MLA -----------------------------------------------------------

@@ -5,8 +5,9 @@ Port of the single-device serving paths of ``repro/models/decode.py`` for
 the dense GQA family (llama3.2-3b, qwen1.5-4b, stablelm-1.6b, gemma2-27b),
 the mixture-of-experts family with GQA (kimi-k2) or MLA (deepseek-v3)
 attention, the Mamba2 hybrid with one shared attention block (zamba2) and
-the recurrent xLSTM (xlstm).  Cache layouts (stacked by pattern group, as
-the reference's):
+the recurrent xLSTM (xlstm), the vision decoder with gated cross attention
+(llama-3.2-vision) and the encoder-decoder whisper.  Cache layouts (stacked
+by pattern group, as the reference's):
 
   * dense attn blocks ... {"k","v"}: (G, B, Smax, Hkv, dh)
   * dense MLA blocks .... {"c_kv","k_rope"}: (G, B, Smax, kv_lora | d_rope)
@@ -51,6 +52,18 @@ computes them outside any Pallas kernel); gemma2's sliding ``window``
 masks its ``attn_local`` positions there.  The paged path reads no window,
 as the reference's does not (ROADMAP C5).  Both apply gemma2's embedding
 scale and post-norms.
+
+Cross attention: ``decode_step`` takes ``aux_embeds``, an image's patch
+embeddings or, for an encoder arch, the encoder's output (the engine
+encodes once at prefill; :func:`repro_torch.models.transformer.encode`).
+A ``cross`` block attends over it after its self-attention residual and
+adds the result scaled by ``tanh(xgate)``, a ``dec`` block adds it ungated
+(:func:`_cross_step`); without ``aux_embeds`` both run as self-attention
+blocks.  Their caches are GQA's.  No cross K/V is cached: every step
+projects the whole of ``aux_embeds`` again in every cross layer, as the
+reference's.  The paged path has no cross step at all: the reference's
+``_paged_attn_block`` takes no ``aux``, so on the ring both kinds are
+self-attention blocks (ROADMAP C6).
 
 Lane masks: where the reference computes a new cache for every lane and
 ``merge_cache`` keeps the old leaves of the inactive ones, the port's
@@ -327,13 +340,17 @@ def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
     return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router), mass
 
 
-def _block_tail(p, cfg: ArchConfig, kind: str, x_t, o, tiered_moe, router):
+def _block_tail(p, cfg: ArchConfig, kind: str, x_t, o, tiered_moe, router,
+                kv_src=None):
     """Everything of a decoder block after its attention output ``o``: the
-    residual, the FFN (the expert layer for ``kind`` "moe") and, where the
-    arch has them (gemma2), the post-norms of both branches."""
+    residual, the cross step over ``kv_src`` where the dense path gives one,
+    the FFN (the expert layer for ``kind`` "moe") and, where the arch has
+    them (gemma2), the post-norms of both branches."""
     if cfg.post_norm:
         o = apply_norm(cfg.norm, p["pn1"], o)
     x_t = x_t + o
+    if kv_src is not None:
+        x_t = _cross_step(p, cfg, kind, x_t, kv_src)
     h2 = apply_norm(cfg.norm, p["ln2"], x_t)
     if kind == "moe":
         y = _moe_block(p, cfg, h2, tiered_moe, router)
@@ -342,6 +359,29 @@ def _block_tail(p, cfg: ArchConfig, kind: str, x_t, o, tiered_moe, router):
     if cfg.post_norm:
         y = apply_norm(cfg.norm, p["pn2"], y)
     return x_t + y
+
+
+def _cross_step(p, cfg: ArchConfig, kind: str, x_t, kv_src):
+    """A ``cross`` or ``dec`` block's cross attention over ``kv_src`` and its
+    residual: a ``cross`` block's output is scaled by ``tanh(xgate)`` in
+    float32 and rounded back, a ``dec`` block's added as it is."""
+    hx = apply_norm(cfg.norm, p["lnx"], x_t)
+    xo = attn.cross_apply(p["xattn"], hx, kv_src, h=cfg.n_heads,
+                          hkv=cfg.n_kv_heads, dh=cfg.head_dim)
+    if kind == "cross":
+        return x_t + (torch.tanh(p["xgate"]) * xo.float()).to(x_t.dtype)
+    return x_t + xo
+
+
+def _cross_source(cfg: ArchConfig, kind: str, aux_embeds):
+    """What a block's cross step attends over: ``aux_embeds`` for a
+    ``cross`` block of an arch without an encoder and for a ``dec`` block
+    of one with an encoder (the reference renames it ``enc_out`` there),
+    else None (no cross step)."""
+    if (kind == "cross" and not cfg.encoder_layers) or \
+            (kind == "dec" and cfg.encoder_layers):
+        return aux_embeds
+    return None
 
 
 def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
@@ -499,10 +539,12 @@ def init_cache(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16, *,
 
 
 def _decode_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
-                       tiered_moe=None, router: list | None = None):
+                       tiered_moe=None, router: list | None = None,
+                       kv_src=None):
     """One decoder block over the full cache (the reference's
-    ``_decode_attn_block`` for self-attention kinds): GQA with the sliding
-    window on ``attn_local`` positions, or MLA's absorbed decode."""
+    ``_decode_attn_block``): GQA with the sliding window on ``attn_local``
+    positions, or MLA's absorbed decode, then the cross step over
+    ``kv_src`` when given."""
     h = apply_norm(cfg.norm, p["ln1"], x_t)
     if cfg.mla is not None:
         o = attn.mla_decode(p["attn"], h, cache, pos, h=cfg.n_heads,
@@ -516,17 +558,20 @@ def _decode_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
                             rope_theta=cfg.rope_theta,
                             window=cfg.window if kind == "attn_local" else 0,
                             softcap=cfg.attn_softcap, scale=cfg.attn_scale)
-    return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router)
+    return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router, kv_src)
 
 
-def decode_step(cfg: ArchConfig, params, cache, token, *,
+def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
                 return_streams: bool = False, tiered=None):
     """One decode step over the full cache: ``token`` (B, 1) int ->
     ``(logits (B, 1, V) f32, cache)``, and with ``return_streams`` a
     streams dict whose ``"router"`` is the (G, n_moe, B, 1, k) token->expert
-    stream (None for a dense FFN).  ``tiered`` serves the token embedding
-    and the first MoE position's expert weights through the tiered store,
-    as in :func:`decode_step_paged`.  The cache is updated in place."""
+    stream (None for a dense FFN).  ``aux_embeds`` (B, S_aux, D) is what the
+    cross blocks attend over: an image's patch embeddings, or for an
+    encoder arch the encoder's output, encoded once beforehand.  ``tiered``
+    serves the token embedding and the first MoE position's expert weights
+    through the tiered store, as in :func:`decode_step_paged`.  The cache
+    is updated in place."""
     check_ported(cfg)
     pos = cache["pos"]
     x = _embed(cfg, params, token, tiered)
@@ -544,7 +589,8 @@ def decode_step(cfg: ArchConfig, params, cache, token, *,
                 p, kind = params["shared_attn"], "attn"
             x = _decode_attn_block(
                 p, cfg, kind, x, c, pos,
-                tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router)
+                tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router,
+                kv_src=_cross_source(cfg, kind, aux_embeds))
         routers.append(router)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = logits_apply(params["embed"], x, cfg.final_softcap)
@@ -556,18 +602,19 @@ def decode_step(cfg: ArchConfig, params, cache, token, *,
     return logits, cache, {"router": router}
 
 
-def prefill_dense(cfg: ArchConfig, params, cache, tokens, *, tiered=None):
+def prefill_dense(cfg: ArchConfig, params, cache, tokens, *, aux_embeds=None,
+                  tiered=None):
     """Single-pass dense prefill: :func:`decode_step` over each prompt
-    column in turn, filling the cache and keeping the last logits (the
-    prompt runs once).  Returns ``(last logits (B, V) f32, cache,
+    column in turn (``aux_embeds`` passed to each), filling the cache and
+    keeping the last logits (the prompt runs once).  Returns ``(last logits (B, V) f32, cache,
     streams)``; ``streams["router"]`` stacks the per-step router streams on
     a leading prompt axis, (S, G, n_moe, B, 1, k), or is None."""
     tokens = torch.as_tensor(tokens)
     routers, logits = [], None
     for col in range(tokens.shape[1]):
         logits, cache, streams = decode_step(
-            cfg, params, cache, tokens[:, col:col + 1], return_streams=True,
-            tiered=tiered)
+            cfg, params, cache, tokens[:, col:col + 1], aux_embeds=aux_embeds,
+            return_streams=True, tiered=tiered)
         routers.append(streams["router"])
     router = torch.stack(routers) if routers[0] is not None else None
     return logits[:, -1], cache, {"router": router}

@@ -1,12 +1,16 @@
-"""Parameter init for the decoder families the port serves (port of
-``repro/models/transformer.py`` ``init_params``): the dense GQA family, the
-mixture-of-experts family, with GQA (kimi-k2) or MLA attention and the
-multi-token-prediction head's parameters (deepseek-v3), the hybrid family
-(zamba2: Mamba2 blocks and one shared attention block) and the recurrent
-``ssm`` family (xlstm: mLSTM and sLSTM blocks).  The dense family covers
-llama3.2-3b and the layer features of qwen1.5-4b (QKV biases),
-stablelm-1.6b (LayerNorm) and gemma2-27b (``rms+1`` norms, post-norms,
-GeGLU, and the ``("attn_local", "attn_global")`` pattern).
+"""Parameter init for every family the reference serves (port of
+``repro/models/transformer.py`` ``init_params``), and the encoder's forward
+(``encode``): the dense GQA family, the mixture-of-experts family, with GQA
+(kimi-k2) or MLA attention and the multi-token-prediction head's
+parameters (deepseek-v3), the hybrid family (zamba2: Mamba2 blocks and one
+shared attention block), the recurrent ``ssm`` family (xlstm: mLSTM and
+sLSTM blocks), the ``vlm`` family (llama-3.2-vision: self-attention blocks
+and gated ``cross`` blocks over an image's patch embeddings) and the
+``audio`` family (whisper: a bidirectional encoder, then ``dec`` blocks of
+self and cross attention).  The dense family covers llama3.2-3b and the
+layer features of qwen1.5-4b (QKV biases), stablelm-1.6b (LayerNorm) and
+gemma2-27b (``rms+1`` norms, post-norms, GeGLU, and the ``("attn_local",
+"attn_global")`` pattern).
 
 Layers are stacked by *pattern group*: ``params["blocks"][i]`` holds pattern
 position i with every leaf shaped ``(G, ...)``, the reference's layout, so
@@ -16,12 +20,17 @@ unstacked blocks whose FFN is ``dense_ff`` wide.  A recurrent block is
 ``{"ln", "mix"}`` (its norm and its Mamba2, mLSTM or sLSTM mixer); a
 ``shared_attn`` position holds ``{}``, its weights living once in
 ``params["shared_attn"]``, an unstacked attention block that every group
-reuses.  ``params["mtp"]`` (an
-unstacked block, the (2d, d) projection and a norm) is drawn so that both
-packages hold the same tree; its forward is the training loss's, which the
-port does not run yet.  Weights are drawn on the target device from a
-seeded ``torch.Generator`` with the reference's init scales; the numbers
-differ from ``jax.random``'s.
+reuses.  A ``cross`` or ``dec`` block adds its cross attention's norm
+``lnx`` and weights ``xattn``, and a ``cross`` block its gate ``xgate``
+(float32, drawn as zero as the reference's: with the reference's init an
+image changes no logit).  An encoder arch's blocks are
+``params["encoder"]``, a list of unstacked self-attention blocks, and its
+final norm ``params["enc_norm"]``.  ``params["mtp"]`` (an unstacked block,
+the (2d, d) projection and a norm) is drawn so that both packages hold the
+same tree; its forward is the training loss's, which the port does not run
+yet.  Weights are drawn on the target device from a seeded
+``torch.Generator`` with the reference's init scales; the numbers differ
+from ``jax.random``'s.
 """
 from __future__ import annotations
 
@@ -30,8 +39,8 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import _normal, gqa_init, mla_init
-from repro_torch.models.layers import DTYPE, make_norm
+from repro_torch.models.attention import _normal, gqa_apply, gqa_init, mla_init
+from repro_torch.models.layers import DTYPE, apply_norm, make_norm, mlp_apply
 from repro_torch.models.mamba2 import mamba2_init
 from repro_torch.models.moe import moe_init
 from repro_torch.models.xlstm import mlstm_init, slstm_init
@@ -43,6 +52,8 @@ DENSE_KINDS = {"attn", "attn_local", "attn_global"}
 HYBRID_KINDS = {"mamba", "shared_attn"}
 SSM_KINDS = {"mlstm", "slstm"}
 RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
+# the vision family's kinds (self-attention and gated cross attention)
+VLM_KINDS = {"attn", "cross"}
 
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -50,12 +61,13 @@ def check_ported(cfg: ArchConfig) -> None:
     ``attn_local`` and ``attn_global`` blocks), the MoE family (pattern
     ``("moe",)`` behind dense prologue layers), whose attention is GQA or
     MLA and which may carry the multi-token head's parameters, the hybrid
-    family (patterns of ``mamba`` and ``shared_attn`` blocks) and the
-    ``ssm`` family (patterns of ``mlstm`` and ``slstm`` blocks), with any
-    of the reference's norms (rms, rms+1, ln) and MLPs (swiglu, geglu,
-    gelu); raise for anything else (cross attention, encoders, the other
-    families, a family's blocks outside it, MLA or the multi-token head
-    outside the MoE family)."""
+    family (patterns of ``mamba`` and ``shared_attn`` blocks), the ``ssm``
+    family (patterns of ``mlstm`` and ``slstm`` blocks), the ``vlm`` family
+    (patterns of ``attn`` and ``cross`` blocks) and the ``audio`` family
+    (pattern ``("dec",)`` behind an encoder), with any of the reference's
+    norms (rms, rms+1, ln) and MLPs (swiglu, geglu, gelu); raise for
+    anything else (a family's blocks outside it, an encoder outside the
+    audio family, MLA or the multi-token head outside the MoE family)."""
     plain = cfg.moe is None and cfg.mla is None and not cfg.mtp
     kinds = set(cfg.pattern)
     dense = cfg.family == "dense" and plain and kinds <= DENSE_KINDS
@@ -63,11 +75,16 @@ def check_ported(cfg: ArchConfig) -> None:
     hybrid = cfg.family == "hybrid" and plain and cfg.ssm is not None \
         and kinds <= HYBRID_KINDS
     ssm = cfg.family == "ssm" and plain and kinds <= SSM_KINDS
-    if not (dense or moe or hybrid or ssm) or cfg.encoder_layers:
+    vlm = cfg.family == "vlm" and plain and kinds <= VLM_KINDS
+    audio = cfg.family == "audio" and plain and kinds == {"dec"} \
+        and cfg.encoder_layers > 0
+    if not (dense or moe or hybrid or ssm or vlm or audio) \
+            or (cfg.encoder_layers and not audio):
         raise NotImplementedError(
             f"arch {cfg.name!r} ({cfg.family}, pattern {cfg.pattern}) is not yet "
             "ported to repro_torch: only the dense GQA family, the MoE family "
-            "(GQA or MLA), the Mamba2 hybrid and the xLSTM family are")
+            "(GQA or MLA), the Mamba2 hybrid, the xLSTM family, the vision "
+            "family and the encoder-decoder family are")
 
 
 def _mlp(gen, d, f, kind, lead, device):
@@ -98,9 +115,9 @@ def _mixer(gen, cfg: ArchConfig, kind: str, groups: int, device):
 
 def _block(gen, cfg: ArchConfig, kind: str, groups: int, device):
     """One block of ``kind`` (a dense attention kind, "moe", "attn_dense"
-    for a MoE arch's prologue, a recurrent kind, or "shared_attn", whose
-    position holds no weights); ``groups > 0`` stacks that many on a
-    leading axis."""
+    for a MoE arch's prologue, a recurrent kind, "shared_attn", whose
+    position holds no weights, "cross" or "dec", or "enc" for an encoder
+    block); ``groups > 0`` stacks that many on a leading axis."""
     d = cfg.d_model
     lead = (groups,) if groups else ()
     if kind == "shared_attn":
@@ -130,6 +147,13 @@ def _block(gen, cfg: ArchConfig, kind: str, groups: int, device):
     else:
         width = cfg.moe.dense_ff if kind == "attn_dense" else cfg.d_ff
         p["ffn"] = _mlp(gen, d, width, cfg.mlp, lead, device)
+    if kind in ("cross", "dec"):
+        p["lnx"] = make_norm(cfg.norm, lead + (d,), device)
+        p["xattn"] = gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                              groups=groups, bias=cfg.qkv_bias, dtype=DTYPE,
+                              device=device)
+    if kind == "cross":
+        p["xgate"] = torch.zeros(lead + (1,), dtype=torch.float32, device=device)
     return p
 
 
@@ -137,7 +161,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
     check_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     # draw order: the body, the shared attention block, the prologue, the
-    # embedding, then the MTP head
+    # encoder, the embedding, then the MTP head
     params = {"blocks": [_block(gen, cfg, kind, cfg.n_groups, device)
                          for kind in cfg.pattern]}
     if "shared_attn" in cfg.pattern:
@@ -145,6 +169,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
     if cfg.moe and cfg.moe.n_dense_prologue:
         params["prologue"] = [_block(gen, cfg, "attn_dense", 0, device)
                               for _ in range(cfg.moe.n_dense_prologue)]
+    if cfg.encoder_layers:
+        params["encoder"] = [_block(gen, cfg, "enc", 0, device)
+                             for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = make_norm(cfg.norm, (cfg.d_model,), device)
     params["embed"] = {"table": _normal((cfg.vocab, cfg.d_model),
                                         cfg.d_model ** -0.5, gen, device, DTYPE)}
     if cfg.mtp:
@@ -156,3 +184,31 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
             "norm": make_norm(cfg.norm, (d,), device)}
     params["final_norm"] = make_norm(cfg.norm, (cfg.d_model,), device)
     return params
+
+
+def _encoder_block(p, cfg: ArchConfig, x):
+    """One encoder block over the whole sequence (the reference's
+    ``_apply_attn_block`` of kind ``"enc_self"``): bidirectional GQA with
+    RoPE at positions 0..S-1, then the MLP, each behind its norm and
+    residual."""
+    h = apply_norm(cfg.norm, p["ln1"], x)
+    o = gqa_apply(p["attn"], h, h=cfg.n_heads, hkv=cfg.n_kv_heads,
+                  dh=cfg.head_dim, rope_theta=cfg.rope_theta, causal=False,
+                  softcap=cfg.attn_softcap, scale=cfg.attn_scale)
+    if cfg.post_norm:
+        o = apply_norm(cfg.norm, p["pn1"], o)
+    x = x + o
+    y = mlp_apply(p["ffn"], apply_norm(cfg.norm, p["ln2"], x), cfg.mlp)
+    if cfg.post_norm:
+        y = apply_norm(cfg.norm, p["pn2"], y)
+    return x + y
+
+
+def encode(cfg: ArchConfig, params, aux_embeds):
+    """The encoder stack (whisper): frame embeddings (B, S, D) -> the
+    encoder's output, which serving computes once at prefill and every
+    decode step's ``dec`` blocks attend over."""
+    enc = aux_embeds
+    for lp in params["encoder"]:
+        enc = _encoder_block(lp, cfg, enc)
+    return apply_norm(cfg.norm, params["enc_norm"], enc)

@@ -4,7 +4,9 @@ Port of ``repro/serve/engine.py`` (DESIGN.md §9, §10), with two serving
 modes over one machinery:
 
   * single-request (``prefill``/``step``/``generate``) — one batched
-    prompt decoded lockstep, scalar position.  Dense (``paged=False``, the
+    prompt decoded lockstep, scalar position, with ``aux_embeds`` for the
+    cross blocks (an image's patches; whisper's frames, encoded once at
+    prefill).  Dense (``paged=False``, the
     default): the full cache of ``max_seq`` positions, one pass of
     ``decode.prefill_dense`` over the prompt whose streams are observed as
     one batch, then ``decode.decode_step``; no "kv" resource.  Paged: the
@@ -58,7 +60,9 @@ import torch
 
 from repro_torch.cache import KVReuseStore
 from repro_torch.configs.base import ArchConfig
+from repro_torch.convert import tensor_from_numpy
 from repro_torch.models import decode as dec
+from repro_torch.models.transformer import encode
 from repro_torch.serve.clock import TickClock
 from repro_torch.tiering.daemon import NeoMemDaemon
 from repro_torch.tiering.memory import DaemonParams
@@ -175,6 +179,7 @@ class ServeEngine:
                     base_gid=(scfg.kv_segments or scfg.lanes) * self.pages_per_seq,
                     page_t=scfg.page_t)
         self.cache = None
+        self.aux = None                 # what the cross blocks attend over
         self._clock = TickClock(scfg.migration_interval)
         self._decode_s = 0.0            # decode wall time
         self._last_kv_mass = None       # (B, n_slots) kernel mass, post-step
@@ -333,20 +338,29 @@ class ServeEngine:
         return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                device=self.device)
 
-    def prefill(self, tokens: np.ndarray) -> np.ndarray:
+    def prefill(self, tokens: np.ndarray, aux_embeds=None) -> np.ndarray:
+        """Start a request: ``tokens`` (B, S).  ``aux_embeds`` (B, S_aux, D),
+        numpy or a tensor, is what the cross blocks attend over at every
+        dense step: an image's patch embeddings, or an encoder arch's frame
+        embeddings, encoded here once.  The paged path has no cross step
+        (ROADMAP C6)."""
         if self.lane_mode:
             raise ValueError("lane mode serves through prefill_lane/"
                              "advance_lanes (the request scheduler), not "
                              "prefill/generate")
         b, s = tokens.shape
         tokens = self._tokens(tokens)
+        self.aux = None if aux_embeds is None else tensor_from_numpy(
+            aux_embeds, self.device)
+        if self.cfg.encoder_layers and self.aux is not None:
+            self.aux = encode(self.cfg, self.params, self.aux)
         if not self.scfg.paged:
             # one pass fills the full cache and gives the last logits; the
             # prompt's streams are observed as one batch each
             self.cache = dec.init_cache(self.cfg, b, self.scfg.max_seq,
                                         device=self.device)
             logits, self.cache, streams = dec.prefill_dense(
-                self.cfg, self.params, self.cache, tokens,
+                self.cfg, self.params, self.cache, tokens, aux_embeds=self.aux,
                 tiered=self._tier_reads())
             self._observe_common(tokens, streams["router"])
             self._maybe_tick(s)
@@ -384,8 +398,9 @@ class ServeEngine:
         logits = self._advance(self._tokens(token)[:, None])
         return logits[:, -1].argmax(-1).cpu().numpy()
 
-    def generate(self, prompt: np.ndarray, n_tokens: int) -> np.ndarray:
-        nxt = self.prefill(prompt)
+    def generate(self, prompt: np.ndarray, n_tokens: int,
+                 aux_embeds=None) -> np.ndarray:
+        nxt = self.prefill(prompt, aux_embeds)
         out = [nxt]
         for _ in range(n_tokens - 1):
             nxt = self.step(nxt)
@@ -403,8 +418,8 @@ class ServeEngine:
                 tiered=self._tier_reads())
         else:
             logits, self.cache, streams = dec.decode_step(
-                self.cfg, self.params, self.cache, tok, return_streams=True,
-                tiered=self._tier_reads())
+                self.cfg, self.params, self.cache, tok, aux_embeds=self.aux,
+                return_streams=True, tiered=self._tier_reads())
         self._set_kv_mass(streams)
         self._observe(tok, streams["router"])
         self._maybe_tick()
@@ -456,6 +471,7 @@ class ServeEngine:
         self._lane_init = dec.init_paged_cache(self.cfg, 1, scfg.hot_slots,
                                                scfg.page_t, per_lane_pos=True,
                                                device=self.device)
+        self.aux = None
         self._kv_flushed.clear()
         self._lane_active[:] = False
         self._lane_segments[:] = -1

@@ -1,22 +1,28 @@
-"""The port's layer features and its eight archs against the reference, on the
+"""The port's layer features and its ten archs against the reference, on the
 CPU at smoke widths, from the reference's exact weights (``params_from_jax``).
 
-* Configs: qwen1.5-4b, stablelm-1.6b, gemma2-27b, zamba2-2.7b and
-  xlstm-1.3b, ``CONFIG`` and ``SMOKE_CONFIG`` equal field for field; the
-  registry.
+* Configs: qwen1.5-4b, stablelm-1.6b, gemma2-27b, zamba2-2.7b, xlstm-1.3b,
+  llama-3.2-vision-11b and whisper-base, ``CONFIG`` and ``SMOKE_CONFIG``
+  equal field for field; the registry (all ten archs, none unported).
 * Norms (``rms``, ``rms+1``, ``ln``) and MLPs (swiglu, geglu, gelu): float32
   within 1e-6 (summation order only); bf16 within one bf16 ulp of the
   output's scale (2^-7 relative: each side rounds the float32 result once,
   and the port's GELU and SiLU round once where XLA's may not, ROADMAP C2).
-* The params tree (names, shapes, dtypes) of the three new archs.
-* ``decode_step`` (the full cache) and ``decode_step_paged`` (the ring) of
-  every ported arch, float32 params and caches, 12 teacher-forced steps:
+* The params tree (names, shapes, dtypes) of the dense archs and of the
+  vision and encoder-decoder archs (cross weights, gates, the encoder).
+* ``decode_step`` (the full cache, no aux embeddings: the cross blocks run
+  as self-attention blocks) and ``decode_step_paged`` (the ring; not
+  whisper's, as in the reference) of every arch, float32 params and
+  caches, 12 teacher-forced steps:
   logits within 1e-4, page mass within 1e-5 (none on xlstm, which has no
   attention), router ids bitwise, cache positions exact, K/V rows within
   1e-5, zamba2's and xlstm's recurrent states within 1e-5 of their scale.
-* ``check_ported`` still raises for the block kinds and families no slice
-  has ported, and for the recurrent and shared-attention kinds in the
-  dense family.
+* ``check_ported`` still raises for a family's block kinds outside it: the
+  recurrent, shared-attention, cross and decoder kinds and an encoder in
+  the dense family.
+
+Cross attention over aux embeddings, the encoder and the two archs'
+serving are ``tests/test_torch_cross.py``'s.
 """
 import dataclasses
 
@@ -40,8 +46,11 @@ from repro_torch.models import layers as t_layers  # noqa: E402
 from repro_torch.models import transformer as t_tr  # noqa: E402
 
 NEW_ARCHS = ("qwen1.5-4b", "stablelm-1.6b", "gemma2-27b")
+CROSS_ARCHS = ("llama-3.2-vision-11b", "whisper-base")
 ARCHS = ("llama3.2-3b", "kimi-k2-1t-a32b", "deepseek-v3-671b") + NEW_ARCHS \
-    + ("zamba2-2.7b", "xlstm-1.3b")
+    + ("zamba2-2.7b", "xlstm-1.3b") + CROSS_ARCHS
+# the ring's archs: all but whisper, whose paged decode the reference skips
+PAGED_ARCHS = tuple(a for a in ARCHS if a != "whisper-base")
 STEPS, B = 12, 2
 PAGE_T, SLOTS = 4, 4        # a 16-token ring: 12 steps fill three pages
 
@@ -94,7 +103,8 @@ def f32_params():
     return out
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS + ("zamba2-2.7b", "xlstm-1.3b"))
+@pytest.mark.parametrize("arch", NEW_ARCHS + ("zamba2-2.7b", "xlstm-1.3b")
+                         + CROSS_ARCHS)
 def test_configs_match_reference(arch):
     for full in (True, False):
         get_t = t_registry.get_config if full else t_registry.get_smoke_config
@@ -103,12 +113,14 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_lists_the_six_ported_archs():
+    """Every arch of the reference's registry is ported: ten, none left."""
     assert t_registry.list_archs() == list(ARCHS)
-    assert set(t_registry.NOT_YET_PORTED) == {"llama-3.2-vision-11b",
-                                              "whisper-base"}
-    for name in t_registry.NOT_YET_PORTED:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            t_registry.get_smoke_config(name)
+    assert len(ARCHS) == 10 and t_registry.NOT_YET_PORTED == ()
+    from repro.configs.registry import ARCHS as j_archs
+    assert set(ARCHS) == set(j_archs)
+    for name in ARCHS:
+        t_tr.check_ported(t_registry.get_config(name))
+        t_tr.check_ported(t_registry.get_smoke_config(name))
 
 
 def _close_bf16(got, want):
@@ -173,7 +185,7 @@ def _flatten(tree, prefix=""):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + CROSS_ARCHS)
 def test_init_params_matches_reference_layout(arch):
     """Same tree, shapes and dtypes as the reference's init; norm inits as
     the reference's (``rms+1`` scales at 0, ``ln`` biases at 0), QKV biases
@@ -224,7 +236,7 @@ def test_decode_step_matches_reference(arch, f32_params):
     _close_leaves(tc, jc, arch)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PAGED_ARCHS)
 def test_decode_step_paged_matches_reference(arch, f32_params):
     """The ring, with gemma2's embedding scale and post-norms (its paged
     path reads no window, as the reference's, ROADMAP C5)."""
@@ -255,10 +267,11 @@ def test_decode_step_paged_matches_reference(arch, f32_params):
 @pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm", "shared_attn",
                                   "cross", "dec", "encoder_layers"])
 def test_check_ported_still_refuses_unported_kinds(kind):
-    """Cross attention, whisper's decoder blocks and encoders wait for a
-    later slice; the recurrent and shared-attention kinds run only in their
-    own families (``tests/test_torch_ssm.py``), not mixed into a dense
-    arch."""
+    """Each block kind runs only in its own family, not mixed into a dense
+    arch: the recurrent and shared-attention kinds in the hybrid and ssm
+    families (``tests/test_torch_ssm.py``), ``cross`` in the vision family,
+    ``dec`` and an encoder in the encoder-decoder family
+    (``tests/test_torch_cross.py``)."""
     cfg = t_registry.get_smoke_config("llama3.2-3b")
     bad = (dataclasses.replace(cfg, encoder_layers=2, n_layers=6)
            if kind == "encoder_layers"

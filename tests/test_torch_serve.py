@@ -321,10 +321,14 @@ def test_engine_refuses_features_not_yet_ported(field, value):
 
 
 def test_registry_names_unported_archs():
+    """No arch is left unported: the vision config loads; an unknown arch
+    is a KeyError."""
     assert t_registry.list_archs() == [ARCH, "kimi-k2-1t-a32b", "deepseek-v3-671b",
                                        "qwen1.5-4b", "stablelm-1.6b", "gemma2-27b",
-                                       "zamba2-2.7b", "xlstm-1.3b"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_registry.get_config("llama-3.2-vision-11b")
+                                       "zamba2-2.7b", "xlstm-1.3b",
+                                       "llama-3.2-vision-11b", "whisper-base"]
+    assert t_registry.NOT_YET_PORTED == ()
+    vision = t_registry.get_config("llama-3.2-vision-11b")
+    assert (vision.family, vision.n_layers, vision.n_aux_tokens) == ("vlm", 40, 1601)
     with pytest.raises(KeyError):
         t_registry.get_config("no-such-arch")

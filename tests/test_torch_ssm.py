@@ -22,10 +22,11 @@ reference's exact weights (``params_from_jax``).
   fresh engine (the port of ``tests/test_sched.py::
   test_reset_lane_restores_init_state_xlstm``), and ``reset_lane`` puts
   every recurrent state back to its initial value.
-* ``chip_smoke.py``'s PHASE ssm lane drive: each arch's schedule at its
-  smoke config, which the phase holds the card's run to, is the lane
-  phase's (no scheduling decision reads a token, a lane's state or the
-  arch), which ``tests/test_torch_sched.py`` holds to the reference's.
+* ``chip_smoke.py``'s PHASE ssm lane drive over its cut of the lane trace:
+  each arch's schedule at its smoke config, which the phase holds the
+  card's run to, is llama3.2-3b's over the same cut (no scheduling
+  decision reads a token, a lane's state or the arch), and preempts a
+  request and reuses a lane.
 * ``check_ported`` accepts the hybrid and ``ssm`` families and refuses
   their blocks outside them.
 * gemma2-smoke (``attn_local`` + ``attn_global``: the sibling ring travels
@@ -333,13 +334,16 @@ def test_reset_lane_restores_every_initial_state(arch):
 
 
 def test_chip_smoke_ssm_lanes_schedule_is_the_lane_phases():
-    """PHASE ssm's lane drive at each arch's smoke config schedules as the
-    lane phase does on llama3.2-3b (held to the reference by
-    test_torch_sched.py): a preemption, and more requests than lanes, so
-    lanes serve again after a reset."""
-    want = CHIP.cpu_lane_schedule()
-    got = {arch: CHIP.cpu_lane_schedule(arch) for arch in ARCHS}
+    """PHASE ssm's lane drive, over its cut of the lane trace
+    (``SSM_LANE_TRACE``), at each arch's smoke config schedules as the lane
+    configuration does on llama3.2-3b over the same cut: a preemption, and
+    more requests than lanes, so lanes serve again after a reset."""
+    trace = CHIP.SSM_LANE_TRACE
+    assert trace["n_steps"] < CHIP.LANE_TRACE["n_steps"]
+    want = CHIP.cpu_lane_schedule(trace=trace)
+    got = {arch: CHIP.cpu_lane_schedule(arch, trace) for arch in ARCHS}
     assert want["preemptions"] >= 1 and len(want["requests"]) > CHIP.LANE_SERVE["lanes"]
+    assert any(r[3] for r in want["requests"])          # a request was preempted
     for arch in ARCHS:
         assert got[arch] == want, arch
 
