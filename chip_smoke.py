@@ -168,6 +168,34 @@ Phases, one summary line each:
                 once the lane engine's pinned store is released): no
                 attention launch, the embeddings sketch replayed bitwise and
                 the experts' feed through a CPU daemon;
+  11'. async  — inside PHASE moe, on its weights: the asynchronous data
+                plane (DESIGN.md §15; epoch copies on a side CUDA stream, a
+                CUDA event as the commit token) and the tiering checkpoint.
+                (a) moe's single request with async_migration=True after
+                its synchronous arm: tokens bitwise the synchronous arm's,
+                finite logits and unit page mass every step, the daemon
+                tick of every epoch's issue and commit recorded (commits
+                at the first tick after the issue counted against deferred
+                ones), no byte in flight after finalize, all three
+                resources' feeds replayed through a CPU daemon committing
+                at the recorded ticks (promotion batches, placement tables,
+                θ traces, sketches, bytes and epochs equal), flush bytes
+                equal to the synchronous arm's, resident expert rows equal
+                their slow rows; per arm ms a step, tokens/s, stall_s and
+                overlap bytes per decode second per resource, peak memory
+                and a 4-step profile; (b) the lane configuration over a
+                32-step cut of the lane trace (ASYNC_TRACE: the 16-step
+                cut's one preemption lands between epochs) on both planes:
+                every request's tokens equal, (a)'s replay, the schedule
+                equal to the CPU run at the smoke config with async on, at
+                least one preemption and one resume landing mid-epoch
+                (counted); (c) on (a)'s engine save_tiering, 4 more steps,
+                load_tiering: every resource's state bitwise the saved
+                one, no epoch in flight, resident expert rows equal their
+                slow rows, the refill's ms printed; (d) the side stream's
+                hazards: 48 rows of 32 MB through 16 epochs on each plane,
+                a write and a copy landing during each epoch's copies,
+                every tick's reads equal on the two planes;
   12. mla     — deepseek-v3 at full width (d 7168, 128 heads, MLA
                 q_lora 1536 / kv_lora 512 / d_nope 128 / d_rope 64 / d_v
                 128, 256 experts top-8, vocab 129280), its depth cut to its
@@ -193,7 +221,8 @@ Phases, one summary line each:
                 cost of the sketch's O(S^2) first-occurrence dedup.
 The line before the last is a JSON object with every kernel's numbers (its
 launches in PHASE main, the head-tiled attention kernel's in PHASE mla, and
-per phase: the simulator phases launch no attention); the last line is
+per phase, PHASE async's apart from moe's: the simulator phases launch no
+attention); the last line is
 {"ok": true, "device": {...}}.  Any failure
 raises (exit != 0) and prints no result; with no CUDA device the script
 exits 2.
@@ -282,6 +311,14 @@ MOE_PROMPT = (2, 16, 16)           # batch, prompt tokens, new tokens
 MOE_LANES = dict(LANE_SERVE, resources=["experts", "embeddings"],
                  expert_hot_slots=96, expert_quota=32)
 MOE_TRACE = FILL_TRACE
+# PHASE async: (a) PHASE moe (a) on the asynchronous plane; (b) the lane
+# configuration over a 32-step cut of the lane trace, on both planes: the
+# 16-step cut's one preemption falls at a tick where no epoch is in flight,
+# this cut's first preemption and resume land mid-epoch
+ASYNC_TRACE = dict(LANE_TRACE, n_steps=32)
+# (d): 48 rows of 32 MB (bf16), HAZARD_TICKS epochs on each plane
+HAZARD_SHAPE = (48, 4, 1 << 22)
+HAZARD_TICKS = 16
 # PHASE mla: deepseek-v3 at full width (MLA attention, 256 experts top-8),
 # depth cut to its 3 dense prologue layers and its first MoE layer, with
 # PHASE moe's drives: a quarter of the experts on the card in each
@@ -1447,19 +1484,22 @@ def cpu_fill() -> dict:
     return run_fill(*_smoke_cpu(), "cpu")[0]
 
 
-def run_moe_lanes(cfg, params, device, on_sched=None, phase="moe"):
+def run_moe_lanes(cfg, params, device, on_sched=None, phase="moe", async_=False,
+                  trace=MOE_TRACE):
     """PHASE moe's (or mla's) lane drive: the lane configuration with the
-    experts and embeddings resources over PHASE fill's cut of the lane
-    trace."""
-    return run_trace(cfg, params, device, MOE_PHASES[phase]["lanes"], LANE_SCHED,
-                     MOE_TRACE, LANE_TENANTS, on_sched)
+    experts and embeddings resources over PHASE fill's cut of the lane trace
+    (or ``trace``); ``async_`` serves it on the asynchronous plane."""
+    serve = dict(MOE_PHASES[phase]["lanes"], async_migration=async_)
+    return run_trace(cfg, params, device, serve, LANE_SCHED, trace, LANE_TENANTS,
+                     on_sched)
 
 
-def cpu_moe_lane_schedule(phase="moe") -> dict:
-    """PHASE moe's (or mla's) lane schedule from the port on the CPU at the
-    arch's smoke config: no scheduling decision reads a token's value."""
+def cpu_moe_lane_schedule(phase="moe", async_=False, trace=MOE_TRACE) -> dict:
+    """PHASE moe's (or mla's; with ``async_`` and ``ASYNC_TRACE``, PHASE
+    async's) lane schedule from the port on the CPU at the arch's smoke
+    config: no scheduling decision reads a token's value."""
     _, sched, _, _ = run_moe_lanes(*_smoke_cpu(MOE_PHASES[phase]["arch"]), "cpu",
-                                   phase=phase)
+                                   phase=phase, async_=async_, trace=trace)
     return lane_schedule(sched)
 
 
@@ -2203,12 +2243,13 @@ def draw_moe_params(torch, phase="moe"):
     return cfg, params
 
 
-def record_experts(eng, n_experts: int) -> list:
-    """Record what the experts resource takes, in order: every observed
-    block (pages, touch pages) and every daemon tick's promotion batch; each
-    raw router id must be an expert or -1."""
-    h, log = eng.daemon["experts"], []
-    observe, encode, tick = h.mem.observe, h.resource.encode_stream, eng.daemon.tick
+def record_experts(eng, n_experts: int, names=("experts",)) -> list:
+    """Record what the resources ``names`` take, in order: every observed
+    block (resource, pages, touch pages) and every daemon tick's promotion
+    batches; each raw router id must be an expert or -1."""
+    log = []
+    h = eng.daemon["experts"]
+    encode, tick = h.resource.encode_stream, eng.daemon.tick
 
     def encoding(router):
         r = router.cpu()
@@ -2216,74 +2257,132 @@ def record_experts(eng, n_experts: int) -> list:
             raise AssertionError(f"router ids outside [0, {n_experts}) and -1")
         return encode(router)
 
-    def observing(state, pages, *, touch_pages=None, **kw):
-        log.append(("observe", pages.cpu(), touch_pages.cpu()))
-        return observe(state, pages, touch_pages=touch_pages, **kw)
+    def observing(name, observe):
+        def recorded(state, pages, *, touch_pages=None, **kw):
+            log.append(("observe", name, pages.cpu(), touch_pages.cpu()))
+            return observe(state, pages, touch_pages=touch_pages, **kw)
+        return recorded
 
     def ticking():
         events = tick()
-        ev = events.get("experts")
-        log.append(("tick", None if ev is None else
-                    [x.cpu() for x in (ev.promoted, ev.victims, ev.evicted)]))
+        log.append(("tick", {n: None if n not in events else
+                             [x.cpu() for x in (events[n].promoted, events[n].victims,
+                                                events[n].evicted)]
+                             for n in names}))
         return events
-    h.resource.encode_stream, h.mem.observe, eng.daemon.tick = \
-        encoding, observing, ticking
+    for name in names:
+        eng.daemon[name].mem.observe = observing(name, eng.daemon[name].mem.observe)
+    h.resource.encode_stream, eng.daemon.tick = encoding, ticking
     return log
 
 
-def replay_experts(torch, eng, log) -> dict:
-    """The recorded experts feed through a fresh CPU daemon of the port that
-    holds the experts resource alone (placement only, no data plane): every
-    promotion batch, the placement table, the θ trace and the sketch must
-    equal the card's, and the card must have moved exactly the rows the
-    batches name.  The daemon's budget is the sum of its resources'
+def record_epochs(eng) -> dict:
+    """Record, per resource, the daemon tick at which each async epoch was
+    issued and at which it committed (a commit at the COMMIT phase of a
+    tick, when the card's token was ready; the forced commits of
+    ``finalize`` are not ticks and are not recorded)."""
+    epochs = {}
+    for name, h in eng.daemon.resources.items():
+        rec = epochs[name] = {"issued": [], "committed": []}
+        issue, commit = h.mem.issue_migration, h.mem.commit_migration
+
+        def issuing(state, event, stats, _issue=issue, _rec=rec):
+            moved = _issue(state, event, stats)
+            _rec["issued"].append(eng.daemon._tick)
+            return moved
+
+        def committing(stats, block=False, _mem=h.mem, _commit=commit, _rec=rec):
+            was = _mem.busy
+            moved = _commit(stats, block=block)
+            if was and not _mem.busy and not block:
+                _rec["committed"].append(eng.daemon._tick)
+            return moved
+        h.mem.issue_migration, h.mem.commit_migration = issuing, committing
+    return epochs
+
+
+def replay_experts(torch, eng, log, names=("experts",), epochs=None) -> dict:
+    """The recorded feed of the resources ``names`` through a fresh CPU
+    daemon of the port that holds them alone (placement only): every
+    promotion batch, the placement tables, the θ traces and the sketches
+    must equal the card's, and the card must have moved exactly the rows
+    the batches name.  The daemon's budget is the sum of its resources'
     quotas, so each resource's share is its own demand capped by its quota
-    whatever the others ask, and the experts alone replay the card's
-    three-resource daemon."""
+    whatever the others ask, and these resources alone replay the card's
+    three-resource daemon.  Under the async plane (``epochs`` from
+    :func:`record_epochs`, the card's daemon finalized) each replayed
+    resource binds a payload of one-byte rows, so that it runs the async
+    plane, and its commit probe is patched to commit each epoch at the
+    tick at which the card's did."""
+    import copy
     import dataclasses
     from repro_torch.tiering.daemon import NeoMemDaemon
-    from repro_torch.tiering.resources import ExpertStreamResource
-    h = eng.daemon["experts"]
     cpu = NeoMemDaemon(eng.daemon.dp, device="cpu")
-    ch = cpu.register(ExpertStreamResource(
-        dataclasses.replace(h.resource.spec, row_shape=None),
-        n_experts=h.resource.n_experts), seeds=h.state.prof.sketch.seeds.cpu())
-    rows = epochs = 0
+    for name in names:
+        h = eng.daemon[name]
+        res = copy.copy(h.resource)
+        res.spec = dataclasses.replace(res.spec, row_shape=None)
+        ch = cpu.register(res, seeds=h.state.prof.sketch.seeds.cpu())
+        if epochs is not None:
+            ch.bind_data(torch.zeros((res.spec.n_pages, 1), dtype=torch.uint8))
+            ready_at, commit = set(epochs[name]["committed"]), ch.mem.commit_migration
+
+            def at_card_ticks(stats, block=False, _at=ready_at, _commit=commit):
+                if block or cpu._tick in _at:
+                    return _commit(stats, block=True)
+                return 0
+            ch.mem.commit_migration = at_card_ticks
+    rows = {n: 0 for n in names}
+    batches = 0
     for kind, *rest in log:
         if kind == "observe":
-            pages, touch = rest
-            ch.state = ch.mem.observe(ch.state, pages, touch_pages=touch)
+            name, pages, touch = rest
+            if name in names:
+                ch = cpu[name]
+                ch.state = ch.mem.observe(ch.state, pages, touch_pages=touch)
             continue
-        ev = cpu.tick().get("experts")
-        got = None if ev is None else [ev.promoted, ev.victims, ev.evicted]
-        if (got is None) != (rest[0] is None) or (got is not None and not all(
-                torch.equal(a.to(torch.int64), b.to(torch.int64))
-                for a, b in zip(got, rest[0]))):
-            raise AssertionError(f"experts: promotion batch {epochs} differs from "
-                                 f"the CPU replay: {rest[0]} vs {got}")
-        if got is not None:
-            up = (ev.promoted >= 0) & (ev.victims >= 0)
-            rows += int(up.sum()) + int((up & (ev.evicted >= 0)).sum())
-            epochs += 1
-    for name in ("page_slot", "slot_page"):
-        if not torch.equal(getattr(ch.state.tier, name),
-                           getattr(h.state.tier, name).cpu()):
-            raise AssertionError(f"experts: {name} differs from the CPU replay")
-    if ch.stats.theta_trace != h.stats.theta_trace:
-        raise AssertionError(f"experts: θ trace {h.stats.theta_trace} vs "
-                             f"{ch.stats.theta_trace} on the CPU")
-    for name in ("counts", "epochs", "hot", "cur_epoch", "n_seen"):
-        if not torch.equal(getattr(ch.state.prof.sketch, name),
-                           getattr(h.state.prof.sketch, name).cpu()):
-            raise AssertionError(f"experts: sketch {name} differs from the CPU replay")
-    moved = eng.tier_stats()["experts"]["migration_bytes"]
-    mc = eng.cfg.moe
-    if moved != rows * h.mem.row_bytes or \
-            h.mem.row_bytes != 3 * eng.cfg.d_model * mc.expert_ff * 2:
-        raise AssertionError(f"experts: {moved} B moved for {rows} rows of "
-                             f"{h.mem.row_bytes} B")
-    return {"blocks": sum(k == "observe" for k, *_ in log), "epochs": epochs,
-            "rows": rows, "promoted": int((ch.state.tier.slot_page >= 0).sum()),
+        events = cpu.tick()
+        for name in names:
+            ev, want = events.get(name), rest[0][name]
+            got = None if ev is None else [ev.promoted, ev.victims, ev.evicted]
+            if (got is None) != (want is None) or (got is not None and not all(
+                    torch.equal(a.to(torch.int64), b.to(torch.int64))
+                    for a, b in zip(got, want))):
+                raise AssertionError(f"{name}: promotion batch at tick {cpu._tick} "
+                                     f"differs from the CPU replay: {want} vs {got}")
+            if got is not None:
+                up = (ev.promoted >= 0) & (ev.victims >= 0)
+                rows[name] += int(up.sum()) + int((up & (ev.evicted >= 0)).sum())
+                batches += name == "experts"
+    cpu.finalize()
+    stats = eng.tier_stats()
+    for name in names:
+        h, ch = eng.daemon[name], cpu[name]
+        for field in ("page_slot", "slot_page"):
+            if not torch.equal(getattr(ch.state.tier, field),
+                               getattr(h.state.tier, field).cpu()):
+                raise AssertionError(f"{name}: {field} differs from the CPU replay")
+        if ch.stats.theta_trace != h.stats.theta_trace:
+            raise AssertionError(f"{name}: θ trace {h.stats.theta_trace} vs "
+                                 f"{ch.stats.theta_trace} on the CPU")
+        for field in ("counts", "epochs", "hot", "cur_epoch", "n_seen"):
+            if not torch.equal(getattr(ch.state.prof.sketch, field),
+                               getattr(h.state.prof.sketch, field).cpu()):
+                raise AssertionError(f"{name}: sketch {field} differs from the CPU "
+                                     "replay")
+        moved = stats[name]["migration_bytes"]
+        if moved != rows[name] * h.mem.row_bytes or (
+                epochs is not None and ch.stats.migration_epochs
+                != stats[name]["migration_epochs"]):
+            raise AssertionError(f"{name}: {moved} B moved in "
+                                 f"{stats[name]['migration_epochs']} epochs for "
+                                 f"{rows[name]} rows of {h.mem.row_bytes} B")
+    h = eng.daemon["experts"]
+    if h.mem.row_bytes != 3 * eng.cfg.d_model * eng.cfg.moe.expert_ff * 2:
+        raise AssertionError(f"experts: rows of {h.mem.row_bytes} B")
+    return {"blocks": sum(e[:2] == ("observe", "experts") for e in log),
+            "epochs": batches, "rows": rows["experts"],
+            "promoted": int((cpu["experts"].state.tier.slot_page >= 0).sum()),
             "theta": list(h.stats.theta_trace)}
 
 
@@ -2353,17 +2452,79 @@ def pinned_bytes(eng) -> int:
                if h.mem.buffers.slow.is_pinned())
 
 
-def moe_single(torch, counters, cfg, params, smi, device="cuda", phase="moe") -> dict:
-    """PHASE moe (a), or mla's: serve_bench.py's kimi-k2 case at full width."""
+def check_every_step(torch, eng, phase) -> None:
+    """Every decode step of ``eng`` must return finite logits and page mass
+    summing to 1."""
+    advance = eng._advance
+
+    def checked(tok):
+        logits = advance(tok)
+        sums = eng._last_kv_mass.sum(dim=1)
+        if not (bool(torch.isfinite(logits).all())
+                and bool(((sums - 1).abs() < 1e-4).all())):
+            raise AssertionError(f"{phase}: non-finite logits or page mass sums "
+                                 f"{sums.tolist()} != 1")
+        return logits
+    eng._advance = checked
+
+
+def count_slow_rows(torch, eng, seen) -> callable:
+    """Count in ``seen["rows"]`` the expert rows the engine reads from the
+    slow tier (each distinct missed id of a read once, as ``read_rows``
+    reads them); returns the function that stops the count."""
+    from repro_torch.tiering import migrate
+    fast, read = eng.daemon["experts"].mem.buffers.fast, migrate.read_rows
+
+    def counting(f, slow, slots, page_ids, scale=None):
+        if f is fast:
+            miss = (slots.reshape(-1) < 0).to(page_ids.device)
+            seen["rows"] += int(torch.unique(page_ids.reshape(-1)[miss]).numel())
+        return read(f, slow, slots, page_ids, scale=scale)
+    migrate.read_rows = counting
+
+    def stop():
+        migrate.read_rows = read
+    return stop
+
+
+def epoch_ticks(epochs) -> dict:
+    """Per resource: epochs issued, committed at the first tick after their
+    issue, committed later, and left to ``finalize``."""
+    out = {}
+    for name, rec in epochs.items():
+        lags = [c - i for i, c in zip(rec["issued"], rec["committed"])]
+        out[name] = {"issued": len(rec["issued"]), "first_tick": lags.count(1),
+                     "deferred": sum(lag > 1 for lag in lags),
+                     "finalized": len(rec["issued"]) - len(lags)}
+    return out
+
+
+def overlap_line(stats, decode_s) -> str:
+    return "; ".join(
+        f"{n} stall {1e3 * r['stall_s']:.1f} ms over {r['migration_epochs']} epochs, "
+        f"overlap {r['overlap_bytes_per_decode_s'] / 1e9:.3f} GB per decode s"
+        for n, r in stats.items()) + f" (decode clock {decode_s:.3f} s)"
+
+
+def moe_single(torch, counters, cfg, params, smi, device="cuda", phase="moe",
+               sync=None) -> dict:
+    """PHASE moe (a), or mla's: serve_bench.py's kimi-k2 case at full width.
+    With ``sync`` (this function's result for the synchronous plane) it is
+    PHASE async's arm (a) on the asynchronous plane, held to it, and then
+    its checkpoint round trip (c)."""
     from repro_torch.serve.engine import ServeConfig, ServeEngine
+    arm = phase if sync is None else "async"
     t0 = time.perf_counter()
-    single = MOE_PHASES[phase]["single"]
+    single = dict(MOE_PHASES[phase]["single"], async_migration=sync is not None)
     eng = ServeEngine(cfg, params, ServeConfig(
         **dict(single, resources=tuple(single["resources"]))), device=device)
     torch.cuda.synchronize()
     bind_s = time.perf_counter() - t0
-    log = record_experts(eng, cfg.moe.n_experts)
+    names = ("experts", "embeddings", "kv") if sync is not None else ("experts",)
+    log = record_experts(eng, cfg.moe.n_experts, names)
+    epochs = record_epochs(eng) if sync is not None else None
     blocks = {n: record_blocks(eng.daemon[n]) for n in ("kv", "embeddings")}
+    check_every_step(torch, eng, arm)
     b, n, new = MOE_PROMPT
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (b, n))
     zero_counts(counters)
@@ -2371,53 +2532,201 @@ def moe_single(torch, counters, cfg, params, smi, device="cuda", phase="moe") ->
     tok = eng.prefill(prompts)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    out = [tok]
+    out, slow_rows = [tok], {"rows": 0}
+    stop = count_slow_rows(torch, eng, slow_rows)
     t0 = time.perf_counter()
     for _ in range(new - 1):
         tok = eng.step(tok)
         out.append(tok)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    stop()
     tokens = np.stack(out, axis=1)
     if not (tokens.shape == (b, new) and (tokens >= 0).all()
             and (tokens < cfg.vocab).all()):
-        raise AssertionError(f"{phase}: tokens of shape {tokens.shape} or out of the "
+        raise AssertionError(f"{arm}: tokens of shape {tokens.shape} or out of the "
                              "vocabulary")
-    # one more step, whose logits and page mass are checked: its daemon tick
-    # is the drive's first Algorithm-1 update (the histogram's launch)
-    logits = eng._advance(torch.as_tensor(tok, device=device)[:, None])
-    launches = read_counts(torch, counters, phase)
-    sums = eng._last_kv_mass.sum(dim=1)
-    if not (bool(torch.isfinite(logits).all()) and bool(((sums - 1).abs() < 1e-4).all())):
-        raise AssertionError(f"{phase}: non-finite logits or page mass sums "
-                             f"{sums.tolist()} != 1")
+    if sync is not None and not np.array_equal(tokens, sync["tokens"]):
+        raise AssertionError(f"async: tokens differ from the synchronous arm's:\n"
+                             f"{tokens}\n{sync['tokens']}")
+    # one more step (its logits and page mass checked as every step's): its
+    # daemon tick is the drive's first Algorithm-1 update (the histogram's
+    # launch)
+    eng._advance(torch.as_tensor(tok, device=device)[:, None])
+    launches = read_counts(torch, counters, arm)
+    served = eng.tier_stats()
+    if sync is not None:
+        eng.daemon.finalize()          # the end-of-run accounting barrier
+        left = {n: r["inflight_bytes"] for n, r in eng.tier_stats().items()}
+        if any(left.values()):
+            raise AssertionError(f"async: bytes in flight after finalize: {left}")
     for name, recorded in blocks.items():
         replay_resource(torch, eng.daemon[name], recorded)
-    placement = replay_experts(torch, eng, log)
+    placement = replay_experts(torch, eng, log, names, epochs)
     resident = check_expert_rows(torch, eng)
     hits, reads, err, scale = check_tiered_layer(torch, eng, params)
     stats = eng.tier_stats()
-    print(f"{phase}: single request, {b} x {n} prompt tokens and {new} new: bound the "
+    if sync is not None:
+        flush = {k: (stats[k]["flush_bytes"], sync["stats"][k]["flush_bytes"])
+                 for k in stats}
+        if any(a != c for a, c in flush.values()):
+            raise AssertionError(f"async: flush bytes differ from the synchronous "
+                                 f"arm's: {flush}")
+    print(f"{arm}: single request, {b} x {n} prompt tokens and {new} new: bound the "
           f"stores in {bind_s:.1f} s; prefill {prefill_s:.3f} s, decode "
           f"{b * (new - 1) / decode_s:.2f} tokens/s, {1e3 * decode_s / (new - 1):.2f} "
           f"ms/step on {smi}")
-    print(f"{phase}: sketches of kv and embeddings replayed bitwise; experts' "
+    what = ("experts'" if sync is None else
+            "tokens equal to the synchronous arm's; every resource's")
+    print(f"{arm}: sketches of kv and embeddings replayed bitwise; {what} "
           f"{placement['blocks']} blocks through a CPU daemon: {placement['epochs']} "
           f"promotion batches, {placement['rows']} rows moved, θ {placement['theta']} "
           f"all equal; {resident} resident expert rows equal their slow rows")
-    print(f"{phase}: tiered MoE layer against the dense one: {hits} of {reads} reads "
+    if sync is not None:
+        print(f"async: epochs issued and committed at the daemon's ticks "
+              f"{json.dumps(epochs)}: {json.dumps(epoch_ticks(epochs))}; flush bytes "
+              f"equal to the synchronous arm's; no byte in flight after finalize")
+    print(f"{arm}: tiered MoE layer against the dense one: {hits} of {reads} reads "
           f"fast, max |diff| {err:.4g} (limit {MOE_TOL} x {scale:.4g})")
     for name in ("experts", "embeddings", "kv"):
         row = stats[name]
-        print(f"{phase}: {name} hit rate {row['hit_rate']:.3f}, migration "
+        print(f"{arm}: {name} hit rate {row['hit_rate']:.3f}, migration "
               f"{row['migration_bytes']} B, flush {row['flush_bytes']} B "
               f"on {smi}")
-    print(f"{phase}: slow expert row read {slow_row_ms(torch, eng):.3f} ms per missed "
+    print(f"{arm}: while serving, {overlap_line(served, eng._decode_s)}; the "
+          f"{new - 1} decode steps read {slow_rows['rows']} expert rows from the "
+          f"slow tier on {smi}")
+    if sync is not None:
+        print(f"async: after finalize, {overlap_line(stats, eng._decode_s)} on {smi}")
+    print(f"{arm}: slow expert row read {slow_row_ms(torch, eng):.3f} ms per missed "
           f"row (88,080,384 B, pinned host to device, wall) on {smi}")
-    profile_decode(torch, eng, tok, steps=4)
-    print(f"{phase}: peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+    tok = profile_decode(torch, eng, tok, steps=4)
+    print(f"{arm}: peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
           f"GiB, pinned host stores {pinned_bytes(eng) / 2 ** 30:.2f} GiB on {smi}")
-    return launches
+    if sync is not None:
+        checkpoint_round_trip(torch, eng, tok, smi)
+    return {"launches": launches, "tokens": tokens, "stats": stats}
+
+
+def checkpoint_round_trip(torch, eng, tok, smi, steps: int = 4) -> None:
+    """PHASE async (c): ``save_tiering``, ``steps`` more decode steps, then
+    ``load_tiering``: every resource's state (placement tables, sketch,
+    counters) comes back bitwise, no epoch is in flight and every resident
+    expert row equals its slow row (the refill); prints the refill's wall
+    ms per resource."""
+    import tempfile
+    from repro_torch.ckpt.manager import CheckpointManager, tree_leaves
+    refill_ms = {}
+    for name, h in eng.daemon.resources.items():
+        refill = h.mem.refill_fast
+
+        def timed(state, _refill=refill, _name=name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _refill(state)
+            torch.cuda.synchronize()
+            refill_ms[_name] = 1e3 * (time.perf_counter() - t0)
+        h.mem.refill_fast = timed
+
+    def states():
+        return {n: [x.cpu().clone() for x in tree_leaves(h.state)]
+                for n, h in eng.daemon.resources.items()}
+
+    def differ(now, then):
+        return [n for n in then
+                if not all(torch.equal(a, c) for a, c in zip(now[n], then[n]))]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        mgr = CheckpointManager(d)
+        t0 = time.perf_counter()
+        eng.save_tiering(mgr, step=1)
+        save_s = time.perf_counter() - t0
+        saved = states()
+        for _ in range(steps):
+            tok = eng.step(tok)
+        moved = differ(states(), saved)
+        t0 = time.perf_counter()
+        eng.load_tiering(mgr, step=1)
+        load_s = time.perf_counter() - t0
+    wrong = differ(states(), saved)
+    if wrong:
+        raise AssertionError(f"async (c): the restored state of {wrong} differs from "
+                             "the saved one")
+    busy = [n for n, h in eng.daemon.resources.items() if h.mem.busy]
+    if busy:
+        raise AssertionError(f"async (c): an epoch is in flight after the restore: "
+                             f"{busy}")
+    resident = check_expert_rows(torch, eng)
+    print(f"async (c): save_tiering {1e3 * save_s:.1f} ms, {steps} more steps moved "
+          f"the state of {moved or 'no resource'}, load_tiering {1e3 * load_s:.1f} ms: "
+          f"every state leaf restored bitwise, no epoch in flight, {resident} "
+          f"resident expert rows equal their slow rows; refill ms "
+          + json.dumps({n: round(v, 3) for n, v in refill_ms.items()}) + f" on {smi}")
+
+
+def stream_hazards(torch, smi, device="cuda", shape=HAZARD_SHAPE) -> None:
+    """PHASE async (d): the side stream's hazards at the pinned store's scale.
+    One resource of ``shape`` rows (48 of 32 MB on the card; 16 fast slots,
+    16 promotions an epoch) ticks HAZARD_TICKS times on each plane, each
+    tick followed at once by a write of two rows and a copy of two (distinct
+    pages, landing while the epoch's copies run).  Every tick's reads of all
+    pages (an int64 sum of each row's bits, on the device) must be equal on
+    the two planes, some writes must have hit rows the epoch in flight
+    promotes, and after ``finalize`` every resident fast row must equal its
+    slow row."""
+    from repro_torch.tiering.memory import DaemonParams, TieredMemory
+    from repro_torch.tiering.resource import ResourceSpec
+    from repro_torch.tiering.stats import TierStats
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16).cpu()
+    n, slots = shape[0], shape[0] // 3
+    spec = ResourceSpec("hazards", n_pages=n, hot_slots=slots, quota_pages=slots,
+                        row_shape=tuple(shape[1:]), row_dtype="bfloat16")
+
+    def bits(x):
+        return x.view(torch.int16).reshape(x.shape[0], -1).sum(1, dtype=torch.int64).cpu()
+    sums, hits = {}, 0
+    for plane in (False, True):
+        mem = TieredMemory.from_spec(spec, DaemonParams(migration_interval=1,
+                                                        async_plane=plane), device=device)
+        mem.bind_data(rows.clone())        # each plane writes its own store
+        st, stats = mem.init(), TierStats("hazards")
+        rng, wgen = np.random.default_rng(1), torch.Generator(device=device).manual_seed(2)
+        sums[plane] = []
+        t0 = time.perf_counter()
+        for _ in range(HAZARD_TICKS):
+            mem.enqueue(rng.integers(0, n, slots))
+            st, _ = mem.tick(st, stats)
+            pick = rng.choice(n, 6, replace=False)
+            if plane and mem.busy:
+                staged = (mem._inflight_slots(torch.as_tensor(pick[[0, 1, 4, 5]])) >= 0) \
+                    & (mem.lookup_slots(st, torch.as_tensor(pick[[0, 1, 4, 5]])) < 0)
+                hits += int(staged.sum())
+            new = torch.randn((2,) + tuple(shape[1:]), generator=wgen,
+                              device=device).to(torch.bfloat16)
+            mem.write_rows(st, torch.as_tensor(pick[:2]), new)
+            mem.copy_rows(st, pick[2:4], pick[4:6])
+            sums[plane].append(bits(mem.read_rows(st, torch.arange(n))))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        mem.finalize_epoch(stats)
+        resident = torch.nonzero(st.tier.slot_page >= 0).reshape(-1)
+        pages = st.tier.slot_page[resident].cpu()
+        if not torch.equal(bits(mem.buffers.fast[resident.to(mem.buffers.fast.device)]),
+                           bits(mem.buffers.slow[pages.long()])):
+            raise AssertionError(f"async (d): a resident fast row differs from its slow "
+                                 f"row (async plane {plane})")
+        print(f"async (d): {'async' if plane else 'sync'} plane, {HAZARD_TICKS} ticks "
+              f"of {slots} promotions of {rows[0].nbytes} B rows in {wall_ms:.1f} ms, "
+              f"stall {1e3 * stats.stall_s:.1f} ms, {stats.migration_epochs} epochs, "
+              f"{resident.numel()} resident rows equal their slow rows on {smi}")
+    parted = [i for i, (a, b) in enumerate(zip(sums[False], sums[True]))
+              if not torch.equal(a, b)]
+    if parted or not hits:
+        raise AssertionError(f"async (d): the planes' reads part at ticks {parted}, or "
+                             f"no write hit a row in flight ({hits})")
+    print(f"async (d): every tick's reads equal on the two planes; {hits} writes and "
+          f"copies landed on rows the epoch in flight promotes on {smi}")
 
 
 def moe_dense(torch, counters, cfg, params, smi, device="cuda", phase="moe") -> dict:
@@ -2471,58 +2780,149 @@ def moe_dense(torch, counters, cfg, params, smi, device="cuda", phase="moe") -> 
     return launches
 
 
-def moe_path(torch, counters, smi, device="cuda", phase="moe"):
-    """PHASE moe (kimi-k2) or mla (deepseek-v3): the arch at full width
-    (depth cut), the single request, then the lane drive held to the CPU's
-    schedule at the smoke config."""
-    torch.cuda.reset_peak_memory_stats()
-    cfg, params = draw_moe_params(torch, phase)
-    launches = {"single": moe_single(torch, counters, cfg, params, smi, device,
-                                     phase)}
-    gc.collect()                       # the single request's stores
-    torch.cuda.empty_cache()
-    logs, blocks, checked = {}, {}, {"steps": 0, "chunks": 0}
+def count_mid_epoch(eng, seen) -> None:
+    """Count the lane verbs (preemption, resume, hand-off) that land while
+    an epoch of some resource is in flight."""
+    def counted(verb, fn):
+        def call(*args, **kw):
+            if any(h.mem.busy for h in eng.daemon.resources.values()):
+                seen[verb] += 1
+            return fn(*args, **kw)
+        return call
+    for verb in ("preempt_lane", "resume_lane", "install_handoff"):
+        seen.setdefault(verb, 0)
+        setattr(eng, verb, counted(verb, getattr(eng, verb)))
+
+
+def moe_lanes(torch, counters, cfg, params, smi, device="cuda", phase="moe",
+              arm=None, trace_kw=MOE_TRACE, sync=None) -> dict:
+    """PHASE moe (b), or mla's: the lane drive over ``trace_kw`` held to the
+    CPU's schedule at the smoke config.  With ``sync`` (this function's
+    result for the same trace on the synchronous plane) it is PHASE async's
+    arm (b): the drive on the asynchronous plane, every request's tokens
+    equal to the synchronous arm's, every resource's feed replayed at the
+    card's commit ticks, and at least one preemption and one resume landing
+    mid-epoch."""
+    arm = arm or f"{phase} lanes"
+    names = ("experts", "embeddings", "kv") if sync is not None else ("experts",)
+    logs, blocks, checked, mid = {}, {}, {"steps": 0, "chunks": 0}, {}
 
     def instrument(sched):
-        logs["experts"] = record_experts(sched.eng, cfg.moe.n_experts)
+        logs["feed"] = record_experts(sched.eng, cfg.moe.n_experts, names)
+        if sync is not None:
+            logs["epochs"] = record_epochs(sched.eng)
+            count_mid_epoch(sched.eng, mid)
         for name in ("kv", "embeddings"):
             blocks[name] = record_blocks(sched.eng.daemon[name])
         check_lane_steps(sched.eng, checked)
         zero_counts(counters)
     eng, sched, trace, wall_s = run_moe_lanes(cfg, params, device, instrument,
-                                              phase)
-    launches["lanes"] = read_counts(torch, counters, f"{phase} lanes")
+                                              phase, async_=sync is not None,
+                                              trace=trace_kw)
+    launches = read_counts(torch, counters, arm)
     rep = sched.report()
     check_report(rep, sched.finished, len(trace.arrivals), cfg.vocab)
+    served = eng.tier_stats()
+    tokens = {r.rid: list(r.out) for r in sched.finished}
+    if sync is not None:
+        if tokens != sync["tokens"]:
+            raise AssertionError("async lanes: tokens differ from the synchronous "
+                                 "arm's")
+        if not (mid["preempt_lane"] and mid["resume_lane"]):
+            raise AssertionError(f"async lanes: no preemption or resume landed "
+                                 f"mid-epoch: {mid}")
+        eng.daemon.finalize()
+        left = {n: r["inflight_bytes"] for n, r in eng.tier_stats().items()}
+        if any(left.values()):
+            raise AssertionError(f"async lanes: bytes in flight after finalize: "
+                                 f"{left}")
     for name, recorded in blocks.items():
         replay_resource(torch, eng.daemon[name], recorded)
-    placement = replay_experts(torch, eng, logs["experts"])
+    placement = replay_experts(torch, eng, logs["feed"], names, logs.get("epochs"))
     resident = check_expert_rows(torch, eng)
     t0 = time.perf_counter()
-    cpu = cpu_moe_lane_schedule(phase)
+    cpu = cpu_moe_lane_schedule(phase, async_=sync is not None, trace=trace_kw)
     card = lane_schedule(sched)
     if card != cpu:
-        raise AssertionError(f"{phase}: the card's schedule differs from the CPU's:\n"
+        raise AssertionError(f"{arm}: the card's schedule differs from the CPU's:\n"
                              f"{card}\n{cpu}")
-    print(f"{phase}: lanes, schedule equal to the CPU run at the smoke config "
+    what = ("experts'" if sync is None else "tokens equal to the synchronous arm's; "
+            "every resource's")
+    print(f"{arm}: schedule equal to the CPU run at the smoke config "
           f"({time.perf_counter() - t0:.1f} s): {len(sched.finished)} requests, "
-          f"{rep['steps']} steps, {rep['preemptions']} preemption(s); experts' "
+          f"{rep['steps']} steps, {rep['preemptions']} preemption(s); {what} "
           f"{placement['blocks']} blocks replayed ({placement['epochs']} batches, "
           f"{placement['rows']} rows, θ {placement['theta']}); {resident} resident "
           f"expert rows equal their slow rows; {checked['steps']} lane steps and "
-          f"{checked['chunks']} chunks with finite logits and unit page mass")
-    print_serving(rep, wall_s, f"{phase} lanes", smi)
-    print(f"{phase}: lanes peak device memory "
+          f"{checked['chunks']} chunks with finite logits and unit page mass"
+          if sync is None else
+          f"{arm}: schedule equal to the CPU run at the smoke config with async "
+          f"on ({time.perf_counter() - t0:.1f} s): {len(sched.finished)} requests, "
+          f"{rep['steps']} steps, {rep['preemptions']} preemption(s); {what} "
+          f"{placement['blocks']} "
+          f"experts blocks replayed at the card's commit ticks "
+          f"({placement['epochs']} experts batches, {placement['rows']} rows, θ "
+          f"{placement['theta']}); {resident} resident expert rows equal their slow "
+          f"rows; lane verbs landing mid-epoch {json.dumps(mid)}; epochs "
+          f"{json.dumps(epoch_ticks(logs['epochs']))}")
+    print_serving(rep, wall_s, arm, smi)
+    print(f"{arm}: while serving, {overlap_line(served, eng._decode_s)} on {smi}")
+    print(f"{arm}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, pinned host "
           f"stores {pinned_bytes(eng) / 2 ** 30:.2f} GiB on {smi}")
-    total = {k: launches["single"][k] + launches["lanes"][k] for k in launches["single"]}
-    del eng, sched                     # the lane engine's pinned expert store
+    return {"launches": launches, "rep": rep, "tokens": tokens}
+
+
+def release(torch) -> None:
+    """Free what the last engine held (its pinned stores and rings)."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+
+
+def moe_path(torch, counters, smi, device="cuda", phase="moe"):
+    """PHASE moe (kimi-k2) or mla (deepseek-v3): the arch at full width
+    (depth cut), the single request, then the lane drive held to the CPU's
+    schedule at the smoke config, then the single request's dense arm.
+    PHASE moe also runs PHASE async: each of the first two on the
+    asynchronous plane after its synchronous arm, and the checkpoint round
+    trip.  Returns the launches of the synchronous single request and lanes,
+    the lane report, and PHASE async's launches and seconds (None for
+    mla)."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = draw_moe_params(torch, phase)
+    arms = {"single": moe_single(torch, counters, cfg, params, smi, device, phase)}
+    release(torch)                     # each engine's pinned expert store
+    async_s = 0.0
+    if phase == "moe":
+        t0 = time.perf_counter()
+        arms["async single"] = moe_single(torch, counters, cfg, params, smi, device,
+                                          phase, sync=arms["single"])
+        release(torch)
+        async_s += time.perf_counter() - t0
+    arms["lanes"] = moe_lanes(torch, counters, cfg, params, smi, device, phase)
+    release(torch)
+    if phase == "moe":
+        t0 = time.perf_counter()
+        arms["sync lanes"] = moe_lanes(torch, counters, cfg, params, smi, device,
+                                       phase, "sync lanes", ASYNC_TRACE)
+        release(torch)
+        arms["async lanes"] = moe_lanes(torch, counters, cfg, params, smi, device,
+                                        phase, "async lanes", ASYNC_TRACE,
+                                        sync=arms["sync lanes"])
+        release(torch)
+        stream_hazards(torch, smi, device)
+        release(torch)
+        async_s += time.perf_counter() - t0
+    launches = {arm: r["launches"] for arm, r in arms.items()}
     launches["dense"] = moe_dense(torch, counters, cfg, params, smi, device, phase)
     print(f"{phase}: launches " + json.dumps(launches) + f" on {smi}")
-    return total, rep
+
+    def total(*keys):
+        return {k: sum(launches[a][k] for a in keys) for k in launches[keys[0]]}
+    phase_async = (total("async single", "sync lanes", "async lanes"), async_s) \
+        if phase == "moe" else None
+    return total("single", "lanes"), arms["lanes"]["rep"], phase_async
 
 
 def check_int8_encoding(torch, eng, checked, n_embed: int = 64) -> None:
@@ -3082,16 +3482,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    phases["moe"], rep = moe_path(torch, counters, smi)
-    print(f"PHASE moe: ok in {time.perf_counter() - t0:.1f} s, "
+    phases["moe"], rep, (phases["async"], async_s) = moe_path(torch, counters, smi)
+    print(f"PHASE moe: ok in {time.perf_counter() - t0 - async_s:.1f} s, "
           f"{rep['completed']} lane requests, "
           f"{rep['tokens'] / rep['clock']['decode_s']:.2f} tokens/s on the "
           f"decode clock, launches {json.dumps(phases['moe'])} on {smi}")
+    print(f"PHASE async: ok in {async_s:.1f} s, kimi-k2's single request and lane "
+          f"drive on the asynchronous plane, equal to the synchronous arms, and the "
+          f"tiering checkpoint round trip, launches {json.dumps(phases['async'])} "
+          f"on {smi}")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mla_counters = counters + (pa_ops.head_tiled,)
-    phases["mla"], rep = moe_path(torch, mla_counters, smi, phase="mla")
+    phases["mla"], rep, _ = moe_path(torch, mla_counters, smi, phase="mla")
     if phases["mla"]["paged_attention_raw"] != phases["mla"]["paged_attention_head_tiled"]:
         raise AssertionError("PHASE mla: an attention call missed the head-tiled "
                              f"kernel: {phases['mla']}")

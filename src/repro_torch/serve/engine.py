@@ -47,8 +47,11 @@ Lane mode also serves, as the reference does:
     engine over the owner's daemon, stores and reuse pool, handing
     finished prefills over through the slow store.
 
-The reference's asynchronous data plane waits for a later slice and raises
-``NotImplementedError``.
+Every mode serves on either data plane: the synchronous one, or with
+``ServeConfig.async_migration`` the asynchronous one (DESIGN.md §15),
+whose epoch copies run on a side CUDA stream while decode reads the last
+committed placement.  ``save_tiering`` / ``load_tiering`` checkpoint every
+resource's placement and profiling state (DESIGN.md §6).
 """
 from __future__ import annotations
 
@@ -112,14 +115,9 @@ class ServeConfig:
     # content-addressed KV reuse (repro_torch.cache, DESIGN.md §12): shared
     # pool pages appended to the KV slow store; lane mode only, 0 = off
     reuse_pages: int = 0
-    # a reference feature that waits for a later slice: True raises
+    # asynchronous data plane (DESIGN.md §15): epoch copies issued on a
+    # side stream and committed at a later tick, overlapped with decode
     async_migration: bool = False
-
-
-_NOT_YET_PORTED = {
-    "async_migration": (lambda s: s.async_migration,
-                        "the asynchronous data plane"),
-}
 
 
 class ServeEngine:
@@ -135,11 +133,6 @@ class ServeEngine:
         reuse pool are shared with ``attach_to``.  Only the lane count may
         differ (preemption residuals move between the two engines' lanes),
         and the worker never ticks the shared daemon."""
-        for field, (asks, what) in _NOT_YET_PORTED.items():
-            if asks(scfg):
-                raise NotImplementedError(
-                    f"ServeConfig.{field}={getattr(scfg, field)!r}: {what} is "
-                    "not yet ported to repro_torch")
         if scfg.lanes and not scfg.paged:
             raise ValueError("lane mode (ServeConfig.lanes) requires paged=True")
         if scfg.kv_mass_source not in ("kernel", "fill"):
@@ -168,7 +161,8 @@ class ServeEngine:
             self.reuse = attach_to.reuse
             self.reuse_mass = attach_to.reuse_mass
         else:
-            self.daemon = NeoMemDaemon(DaemonParams(), device=self.device)
+            self.daemon = NeoMemDaemon(
+                DaemonParams(async_plane=scfg.async_migration), device=self.device)
             self._register_resources(sketch_seeds)
             # the shared pool's page ids sit above every private segment
             self.reuse = None
@@ -817,6 +811,22 @@ class ServeEngine:
         row["shared_mass_share"] = (self.reuse_mass["shared"] / total
                                     if total > 0 else 0.0)
         return row
+
+    # -- tiering-state checkpoint (DESIGN.md §6) ------------------------------
+    def save_tiering(self, mgr, step: int) -> None:
+        """Checkpoint every resource's placement and profiling state through
+        ``ckpt/manager.py`` (an in-flight epoch is committed first)."""
+        mgr.save(step, self.daemon.state_dict())
+
+    def load_tiering(self, mgr, step: int) -> None:
+        """Warm-restore the placement maps from a checkpoint; resident fast
+        rows are refilled from the bound slow stores (``load_state``)."""
+        self.daemon.load_state(mgr.restore(step, self.daemon.state_dict()))
+
+    def read_rows(self, name: str, page_ids) -> torch.Tensor:
+        """Serve a resource's payload rows: the fast copy when the page is
+        resident, the slow row otherwise (bitwise either way)."""
+        return self.daemon[name].read_rows(page_ids)
 
     # -- the ring and the KV data plane ---------------------------------------
     def _paged_entry(self) -> dict | None:

@@ -1,23 +1,29 @@
 """Multiplexed NeoMem daemon: one cadence, N tiered resources, one budget.
 
-Port of ``repro/tiering/daemon.py`` on the synchronous data plane.  The
-owner (the serve engine) registers each resource once, and one host-side
-loop drives all of them on the shared cadence hierarchy
+Port of ``repro/tiering/daemon.py``.  The owner (the serve engine)
+registers each resource once, and one host-side loop drives all of them on
+the shared cadence hierarchy
 
     migration  <<  threshold-update  <=  sketch-clear
 
 with ONE migration-quota budget per interval, split across resources in
 proportion to their servable queued demand (:func:`split_quota`).
 Resources with bound payload buffers get each epoch's promotion batch
-applied through the migration data plane, with the moved bytes metered.
+applied through the migration data plane, with the moved bytes metered:
+at once under the synchronous plane, or issued on a side stream and
+committed at a later tick under the asynchronous one (DESIGN.md §15).
+:meth:`NeoMemDaemon.state_dict` / :meth:`NeoMemDaemon.load_state`
+checkpoint every resource's state (DESIGN.md §6), committing or dropping
+an in-flight epoch.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.ckpt.manager import tree_leaves, tree_structure, tree_unflatten
 from repro_torch.tiering.memory import (DaemonParams, MigrationEvent,
-                                        TieredMemory, lookup)
+                                        TieredMemory, TieredMemoryState, lookup)
 from repro_torch.tiering.resource import TieredResource
 from repro_torch.tiering.stats import TierStats
 
@@ -110,7 +116,9 @@ class ResourceHandle:
 
     def read_rows(self, page_ids) -> torch.Tensor:
         """Serve payload rows (fast copy on hit, slow fallback), metering the
-        served reads into ``stats.fast_reads`` / ``slow_reads``."""
+        served reads into ``stats.fast_reads`` / ``slow_reads``.  The one
+        placement lookup is against the committed view, so a read issued
+        mid-epoch resolves as its payload gather does."""
         ids = torch.as_tensor(page_ids, dtype=torch.long, device=self.mem.device)
         slots = self.mem.lookup_slots(self.state, ids)
         hits = int((slots >= 0).sum())
@@ -143,6 +151,12 @@ class ResourceHandle:
         row["fast_reads"] += int(self.state.tier.fast_reads)
         row["slow_reads"] += int(self.state.tier.slow_reads)
         row["hit_rate"] = self.hit_rate()
+        # fold the in-flight epoch the same way: its issued bytes count
+        # against the epoch quota the moment they are in flight, so a row
+        # taken mid-epoch keeps last <= max <= quota
+        if self.stats.inflight_bytes:
+            row["max_epoch_bytes"] = max(row["max_epoch_bytes"],
+                                         self.stats.inflight_bytes)
         return row
 
 
@@ -169,7 +183,8 @@ class NeoMemDaemon:
                 migration_interval=self.dp.migration_interval,
                 threshold_update_period=self.dp.threshold_update_period,
                 clear_interval=self.dp.clear_interval,
-                quota_pages=spec.quota_pages),
+                quota_pages=spec.quota_pages,
+                async_plane=self.dp.async_plane),
             policy_params=policy_params, fixed_theta=fixed_theta,
             device=self.device)
         handle = ResourceHandle(spec.name, resource, mem, weight=weight,
@@ -199,18 +214,30 @@ class NeoMemDaemon:
         t, dp = self._tick, self.dp
         events: dict[str, MigrationEvent] = {}
         if t % dp.migration_interval == 0:
-            # drain hot pages, split the shared budget, promote + move bytes
+            # COMMIT (async plane): land every epoch whose token is ready —
+            # never blocks; an epoch whose copy has not landed stays in flight
+            for h in self.resources.values():
+                if h.mem.async_on:
+                    h.mem.commit_migration(h.stats)
+            # PLAN: drain hot pages, split the shared budget; a busy resource
+            # is capped at 0 (no N+2 issue before N+1 commits) and its share
+            # flows to the others
             demands: dict[str, int] = {}
             for name, h in self.resources.items():
                 h.state, demands[name] = h.mem.collect(h.state, h.stats)
-            caps = {n: h.mem.quota for n, h in self.resources.items()}
+            caps = {n: (0 if h.mem.busy else h.mem.quota)
+                    for n, h in self.resources.items()}
             weights = {n: h.weight for n, h in self.resources.items()}
             shares = split_quota(self.budget, demands, caps, weights)
+            # ISSUE: promote, then move the bytes (async: issue on the side
+            # stream; sync: the blocking copy, metered as stall_s)
             for name, h in self.resources.items():
+                if h.mem.busy:
+                    continue
                 h.state, event = h.mem.migrate(h.state, h.stats,
                                                quota=shares.get(name, 0))
                 if event is not None:
-                    h.mem.apply_migration(event, h.stats)
+                    h.mem.dispatch_migration(h.state, event, h.stats)
                     h.resource.apply_migration(event.promoted, event.victims)
                     events[name] = event
         if t % dp.threshold_update_period == 0:
@@ -220,6 +247,53 @@ class NeoMemDaemon:
             for h in self.resources.values():
                 h.state = h.mem.clear(h.state)
         return events
+
+    # -- checkpointing (DESIGN.md §6) ----------------------------------------
+    def state_dict(self) -> dict[str, TieredMemoryState]:
+        """Every resource's TieredMemoryState, for ``ckpt/manager.py``; a
+        restored server resumes with a warm placement map.  The pending
+        FIFOs are best-effort and not included.  Any in-flight epoch is
+        FINALIZED first: the persisted placement map is the control table,
+        so the payload it implies must match it (DESIGN.md §15)."""
+        self.finalize()
+        return {n: h.state for n, h in self.resources.items()}
+
+    def finalize(self) -> None:
+        """Force-commit every in-flight epoch (checkpoint save, end-of-run
+        byte accounting, shutdown)."""
+        for h in self.resources.values():
+            h.mem.finalize_epoch(h.stats)
+
+    def load_state(self, states: dict[str, TieredMemoryState]) -> None:
+        """Restore a :meth:`state_dict` into the registered resources.
+
+        Structure and leaf shapes must match the registered geometry.  The
+        pending backlog and any in-flight epoch belong to the pre-restore
+        stream and are DROPPED (the other half of §15's commit-or-drop),
+        and the fast copy of every resident page is re-read from the slow
+        store, so the restored map never serves a stale fast row."""
+        for name, st in states.items():
+            if name not in self.resources:
+                raise KeyError(f"state for unregistered resource {name!r}")
+            h = self.resources[name]
+            if tree_structure(st) != tree_structure(h.state):
+                raise ValueError(
+                    f"{name}: checkpointed state structure does not match")
+            cur, new = tree_leaves(h.state), tree_leaves(st)
+            for c, n in zip(cur, new):
+                if tuple(np.shape(c)) != tuple(np.shape(n)):
+                    raise ValueError(
+                        f"{name}: leaf shape {tuple(np.shape(n))} != registered "
+                        f"geometry {tuple(np.shape(c))}")
+            h.state = tree_unflatten(h.state, [
+                (n if isinstance(n, torch.Tensor) else torch.from_numpy(
+                    np.array(n))).to(c.device, c.dtype)
+                for c, n in zip(cur, new)])
+            h.mem.clear_pending()
+            h.stats.pending = 0
+            h.mem.drop_inflight(h.stats)
+            h.mem.refill_fast(h.state)
+            h.mem.reset_committed(h.state)
 
     # -- telemetry -----------------------------------------------------------
     def stats(self) -> dict[str, TierStats]:

@@ -1,9 +1,8 @@
 """TieredMemory — profiling + placement for ONE resource.
 
-Port of ``repro/tiering/memory.py`` on the synchronous data plane.  All
-device-resident state (NeoProf sketch/buffers, TieredStore placement,
-Algorithm-1 scalars) lives in one :class:`TieredMemoryState` threaded
-through pure functions:
+Port of ``repro/tiering/memory.py``.  All device-resident state (NeoProf
+sketch/buffers, TieredStore placement, Algorithm-1 scalars) lives in one
+:class:`TieredMemoryState` threaded through pure functions:
 
   * :func:`observe` / :func:`lookup` — run beside the model step (the device
     side: NeoProf snoop + tier hit accounting);
@@ -14,8 +13,11 @@ The host keeps the overflow queue of hot pages awaiting quota (a numpy
 FIFO), the :class:`~repro_torch.tiering.stats.TierStats` accumulator and,
 once payload is bound, the :class:`~repro_torch.tiering.migrate.TierBuffers`
 in the resource's slow-tier wire format (:mod:`repro_torch.tiering.codec`);
-``row_bytes`` and every byte meter count wire bytes.
-The reference's asynchronous plane (issue/commit epochs) is not yet ported.
+``row_bytes`` and every byte meter count wire bytes.  Under the
+asynchronous plane (DESIGN.md §15, ``DaemonParams.async_plane``) an epoch
+is issued on a side CUDA stream and committed at a later tick once its
+token is ready; reads resolve against the committed placement table until
+then (:mod:`repro_torch.tiering.migrate` says how the rows are staged).
 """
 from __future__ import annotations
 
@@ -54,6 +56,11 @@ class DaemonParams:
     threshold_update_period: int = 8   # ticks between Algorithm-1 runs
     clear_interval: int = 64           # ticks between sketch resets
     quota_pages: int | None = None     # promotion budget per interval
+    # Asynchronous data plane (DESIGN.md §15): epochs are ISSUED on a side
+    # stream and COMMITTED at a later tick, once the copy's readiness token
+    # is witnessed — decode keeps reading the previous epoch's committed
+    # placement in between.
+    async_plane: bool = False
 
 
 class TieredMemoryState(NamedTuple):
@@ -74,6 +81,26 @@ class MigrationEvent:
     victims: torch.Tensor    # (k,) int32 slot ids, -1 = no-op lane
     n_promoted: int
     evicted: torch.Tensor | None = None   # (k,) int32 demoted page ids
+
+
+@dataclasses.dataclass
+class InFlightEpoch:
+    """One issued-but-uncommitted migration epoch (DESIGN.md §15).
+
+    ``rows`` are the epoch's promoted rows, decoded, staged for the victim
+    fast slots ``slots``; ``slot_row`` maps a fast slot to its staging row
+    (-1 elsewhere).  ``page_slot`` is the placement table the epoch was
+    built against (the control state already points at it — reads resolve
+    against the previous committed table until the commit).  ``token`` is
+    the CUDA event recorded after the copies (None on the CPU: always
+    ready)."""
+
+    rows: torch.Tensor
+    slots: np.ndarray
+    slot_row: np.ndarray
+    page_slot: torch.Tensor
+    token: object
+    bytes: int
 
 
 def observe(state: TieredMemoryState, pages: torch.Tensor,
@@ -123,6 +150,12 @@ class TieredMemory:
         self.row_bytes = 0           # WIRE bytes per page once data is bound
         self.quota_bytes = 0
         self.written: np.ndarray | None = None   # per-page write witness
+        # async data plane (DESIGN.md §15): the issued-but-uncommitted epoch,
+        # the placement table reads resolve against until it commits, and
+        # the side stream its copies run on (created at the first issue)
+        self._inflight: InFlightEpoch | None = None
+        self._committed_slot: torch.Tensor | None = None
+        self._stream = None
 
     @classmethod
     def from_spec(cls, spec, daemon_params=None, policy_params=None,
@@ -183,11 +216,157 @@ class TieredMemory:
             stats.migration_epochs += 1
         return moved
 
-    def lookup_slots(self, state: TieredMemoryState, page_ids) -> torch.Tensor:
-        """Placement lookup against the live table."""
-        ps = state.tier.page_slot
+    # -- async data plane (DESIGN.md §15) ------------------------------------
+    @property
+    def async_on(self) -> bool:
+        """Whether this resource runs the asynchronous plane."""
+        return self.dp.async_plane and self.buffers is not None
+
+    @property
+    def busy(self) -> bool:
+        """An epoch is issued but not yet committed — the daemon must not
+        issue N+2 (and excludes this resource from the quota split)."""
+        return self._inflight is not None
+
+    def _view_slot(self, state: TieredMemoryState) -> torch.Tensor:
+        """The placement table reads resolve against: the committed epoch's
+        under the async plane, the live control table otherwise."""
+        if self.async_on and self._committed_slot is not None:
+            return self._committed_slot
+        return state.tier.page_slot
+
+    @staticmethod
+    def _slots_in(ps: torch.Tensor, page_ids) -> torch.Tensor:
         ids = torch.as_tensor(page_ids, dtype=torch.long, device=ps.device)
         return torch.where(ids >= 0, ps[ids.clamp_min(0)], -1)
+
+    def lookup_slots(self, state: TieredMemoryState, page_ids) -> torch.Tensor:
+        """Placement lookup against the committed view (the live table under
+        the synchronous plane)."""
+        return self._slots_in(self._view_slot(state), page_ids)
+
+    def _side_stream(self):
+        if self.buffers.fast.device.type != "cuda":
+            return None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.buffers.fast.device)
+        return self._stream
+
+    def issue_migration(self, state: TieredMemoryState,
+                        event: MigrationEvent | None, stats: TierStats) -> int:
+        """Issue phase: dispatch the epoch's promotion copy on the side
+        stream WITHOUT blocking and record the in-flight epoch.  ``state`` is
+        the post-promote control state.  Returns the epoch's wire bytes,
+        metered as ``inflight_bytes`` until :meth:`commit_migration` folds
+        them into the lifetime counters.  The demotion write-back is elided
+        (every fast row already has an identical slow copy) but its bytes
+        are still metered."""
+        if self.buffers is None or event is None:
+            return 0
+        if self._inflight is not None:
+            raise RuntimeError(
+                "migration epoch already in flight — commit (or drop) epoch "
+                "N+1 before issuing N+2")
+        promoted, victims = _ids_np(event.promoted), _ids_np(event.victims)
+        ok = (promoted >= 0) & (victims >= 0)
+        n_down = (int(np.sum(ok & (_ids_np(event.evicted) >= 0)))
+                  if event.evicted is not None else 0)
+        rows, slots, token = migrate_lib.issue_migrate(
+            self.buffers, promoted, victims, stream=self._side_stream())
+        slot_row = np.full(self.tp.num_slots, -1, np.int64)
+        slot_row[slots] = np.arange(slots.size)
+        moved = (int(ok.sum()) + n_down) * self.row_bytes
+        self._inflight = InFlightEpoch(rows=rows, slots=slots, slot_row=slot_row,
+                                       page_slot=state.tier.page_slot,
+                                       token=token, bytes=moved)
+        stats.inflight_bytes = moved
+        stats.quota_bytes = self.quota_bytes
+        return moved
+
+    def commit_ready(self) -> bool:
+        """Non-blocking probe: has the in-flight epoch's copy landed?"""
+        return (self._inflight is not None
+                and migrate_lib.token_ready(self._inflight.token))
+
+    def commit_migration(self, stats: TierStats, block: bool = False) -> int:
+        """Commit phase: land the in-flight epoch's rows in the fast buffer
+        (after its token, on the compute stream), swap its table into the
+        committed view and fold its bytes into the lifetime counters.
+        Without ``block`` this is a no-op unless the token is already ready
+        — it never waits; ``block=True`` forces the commit (checkpoint
+        finalize) and meters the wait as ``stall_s``."""
+        fl = self._inflight
+        if fl is None:
+            return 0
+        if not migrate_lib.token_ready(fl.token):
+            if not block:
+                return 0
+            t0 = time.perf_counter()
+            migrate_lib.wait_token(fl.token)
+            stats.stall_s += time.perf_counter() - t0
+        migrate_lib.commit_rows(self.buffers.fast, fl.rows, fl.slots, fl.token)
+        self._committed_slot = fl.page_slot
+        self._inflight = None
+        moved = fl.bytes
+        stats.inflight_bytes = 0
+        stats.migration_bytes += moved
+        stats.last_epoch_bytes = moved
+        stats.max_epoch_bytes = max(stats.max_epoch_bytes, moved)
+        stats.quota_bytes = self.quota_bytes
+        if moved:
+            stats.migration_epochs += 1
+        return moved
+
+    def finalize_epoch(self, stats: TierStats) -> int:
+        """Force-commit any in-flight epoch (checkpoint save: the persisted
+        placement map is the control table, so the payload must match)."""
+        return self.commit_migration(stats, block=True)
+
+    def drop_inflight(self, stats: TierStats | None = None) -> None:
+        """Abandon the in-flight epoch (checkpoint restore: the issued copy
+        belongs to the pre-restore placement stream).  Its staged rows are
+        freed once the side stream is done with them."""
+        self._inflight = None
+        if stats is not None:
+            stats.inflight_bytes = 0
+
+    def reset_committed(self, state: TieredMemoryState) -> None:
+        """Align the committed view with the control state (restore path):
+        no epoch is in flight and decode reads the live table."""
+        self._inflight = None
+        self._committed_slot = (state.tier.page_slot if self.async_on
+                                else None)
+
+    def dispatch_migration(self, state: TieredMemoryState,
+                           event: MigrationEvent | None, stats: TierStats) -> int:
+        """Route one epoch's data movement: async issue or sync apply."""
+        if self.async_on:
+            return self.issue_migration(state, event, stats)
+        return self.apply_migration(event, stats)
+
+    def _inflight_slots(self, page_ids) -> torch.Tensor:
+        return self._slots_in(self._inflight.page_slot, page_ids)
+
+    def refill_fast(self, state: TieredMemoryState) -> None:
+        """Re-read the fast copy of every resident page from the slow store.
+
+        Used after restoring a checkpointed placement map (DESIGN.md §6):
+        the restored ``TierState`` says which pages are resident, but the
+        fast buffer holds the pre-restore rows — without the refill,
+        ``read_rows`` would serve stale rows for pages the map calls hits.
+        A no-op when no payload is bound.  A page id past the store reads
+        its last row (ROADMAP C4)."""
+        if self.buffers is None:
+            return
+        # a restored store is assumed fully materialized: the write witnesses
+        # that produced it did not survive the checkpoint, the payload did
+        if self.written is not None:
+            self.written[:] = True
+        slot_page = _ids_np(state.tier.slot_page)
+        occupied = np.flatnonzero(slot_page >= 0)
+        if occupied.size == 0:
+            return
+        migrate_lib.fill_slots(self.buffers, occupied, slot_page[occupied])
 
     def _require_data(self) -> None:
         if self.buffers is None:
@@ -197,7 +376,7 @@ class TieredMemory:
         """Placement-table gather over the bound buffers, slow fallback."""
         self._require_data()
         return migrate_lib.lookup_rows(self.buffers.fast, self.buffers.slow,
-                                       state.tier.page_slot, page_ids,
+                                       self._view_slot(state), page_ids,
                                        scale=self.buffers.scale)
 
     def tier_view(self, state: TieredMemoryState) -> dict:
@@ -205,7 +384,7 @@ class TieredMemory:
         (``scale`` is None except under the ``int8`` codec)."""
         self._require_data()
         return {"fast": self.buffers.fast, "slow": self.buffers.slow,
-                "page_slot": state.tier.page_slot, "scale": self.buffers.scale}
+                "page_slot": self._view_slot(state), "scale": self.buffers.scale}
 
     def read_rows(self, state: TieredMemoryState, page_ids,
                   slots: torch.Tensor | None = None) -> torch.Tensor:
@@ -224,6 +403,13 @@ class TieredMemory:
         slots = self.lookup_slots(state, page_ids)
         self.buffers = migrate_lib.write_rows(self.buffers, page_ids, slots,
                                               rows, codec=self.codec)
+        fl = self._inflight
+        if fl is not None:
+            # replay onto the in-flight epoch under ITS table, so a page it
+            # promotes does not keep a stale row past the commit (§15)
+            migrate_lib.refresh_rows(fl.rows, fl.slot_row,
+                                     self._inflight_slots(page_ids), rows,
+                                     self._stream, fl.token)
         return self._mark_written(page_ids)
 
     def write_pages(self, state: TieredMemoryState, page_ids, k_pages,
@@ -235,6 +421,11 @@ class TieredMemory:
         slots = self.lookup_slots(state, page_ids)
         self.buffers = migrate_lib.write_pages(self.buffers, page_ids, slots,
                                                k_pages, v_pages, codec=self.codec)
+        fl = self._inflight
+        if fl is not None:
+            migrate_lib.refresh_pages(fl.rows, fl.slot_row,
+                                      self._inflight_slots(page_ids), k_pages,
+                                      v_pages, self._stream, fl.token)
         return self._mark_written(page_ids)
 
     def copy_rows(self, state: TieredMemoryState, src_ids, dst_ids) -> int:
@@ -244,6 +435,11 @@ class TieredMemory:
         src, dst = _ids_np(src_ids), _ids_np(dst_ids)
         self.buffers = migrate_lib.copy_rows(self.buffers, src, dst,
                                              self.lookup_slots(state, dst))
+        fl = self._inflight
+        if fl is not None:
+            migrate_lib.refresh_copy(fl.rows, fl.slot_row, self.buffers, src,
+                                     self._inflight_slots(dst), self._stream,
+                                     fl.token)
         valid = (src >= 0) & (dst >= 0)
         if self.written is not None:
             self.written[dst[valid]] = True
@@ -334,7 +530,14 @@ class TieredMemory:
                 ) -> tuple[TieredMemoryState, MigrationEvent | None]:
         """Promote up to ``quota`` pending pages (batch width stays ``quota``)."""
         k = self.quota
-        stats.last_epoch_bytes = 0  # an epoch that moves nothing reports 0
+        if self.async_on:
+            # first promote under the async plane: the pre-promote table is
+            # epoch 0's committed view — from here on the control table runs
+            # ahead of what reads resolve against until each commit
+            if self._committed_slot is None:
+                self._committed_slot = state.tier.page_slot
+        else:
+            stats.last_epoch_bytes = 0  # an epoch that moves nothing reports 0
         take = min(quota if quota is not None else k, k, len(self._pending))
         if take <= 0:
             stats.pending = len(self._pending)
@@ -400,9 +603,12 @@ class TieredMemory:
         state = state._replace(tick=state.tick + 1)
         t, dp, event = int(state.tick), self.dp, None
         if t % dp.migration_interval == 0:
+            if self.async_on:
+                self.commit_migration(stats)   # commit FIRST, never blocks
             state, _ = self.collect(state, stats)
-            state, event = self.migrate(state, stats)
-            self.apply_migration(event, stats)
+            if not self.busy:                  # no N+2 issue before N+1 commit
+                state, event = self.migrate(state, stats)
+                self.dispatch_migration(state, event, stats)
         if t % dp.threshold_update_period == 0:
             state = self.update_threshold(state, stats)
         if t % dp.clear_interval == 0:

@@ -1,7 +1,7 @@
 """The migration data plane: real byte movement behind ``apply_migration``.
 
-Port of ``repro/tiering/migrate.py`` (synchronous plane).  A resource that
-binds payload data gets a :class:`TierBuffers` set (DESIGN.md §8):
+Port of ``repro/tiering/migrate.py``.  A resource that binds payload data
+gets a :class:`TierBuffers` set (DESIGN.md §8):
 
   * ``fast``: ``(num_slots, *row_shape)`` — promoted copies, on the device,
     always in the resource's native dtype;
@@ -23,10 +23,12 @@ back to their old slow pages, then the promoted pages are decoded into the
 freed fast slots.  Unlike the reference's
 donated functional copies, the verbs update the buffers IN PLACE (the
 fast buffer is the only copy the device holds) and return the same
-:class:`TierBuffers`.
+:class:`TierBuffers`.  The asynchronous plane (DESIGN.md §15) stages an
+epoch's promoted rows on a side CUDA stream instead (:func:`issue_migrate`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -178,6 +180,15 @@ def migrate(buffers: TierBuffers, promoted, victims, evicted,
     return buffers, int(ok.sum()), int(ev_ok.sum())
 
 
+def fill_slots(buffers: TierBuffers, slots: np.ndarray, pages: np.ndarray) -> None:
+    """Fast slots ``slots`` take slow pages ``pages``, decoded on the device
+    (a page past the store reads its last row, ROADMAP C4)."""
+    fast = buffers.fast
+    fast[torch.as_tensor(slots, device=fast.device)] = _slow_rows(
+        buffers.slow, buffers.scale,
+        np.minimum(pages, buffers.slow.shape[0] - 1), fast.device, fast.dtype)
+
+
 def read_rows(fast: torch.Tensor, slow: torch.Tensor, slots: torch.Tensor,
               page_ids: torch.Tensor, scale=None) -> torch.Tensor:
     """Serve a batch of page reads: the fast copy when resident, else the
@@ -239,6 +250,161 @@ def write_pages(buffers: TierBuffers, page_ids, slots, k_pages, v_pages,
     unchanged/dropped slot), ``slots`` its placement lookup."""
     return write_rows(buffers, page_ids, slots,
                       pages_to_rows(k_pages, v_pages), codec=codec)
+
+
+# -- async data plane (DESIGN.md §15) ---------------------------------------
+#
+# An asynchronous epoch is the promotion copy ONLY.  The reference produces
+# a whole second fast buffer (a non-donated gather) and commits by pointer
+# swap; here only the epoch's promoted rows are staged: they cross the link
+# and are decoded on a side CUDA stream into a staging buffer, a CUDA event
+# recorded after them is the readiness token, and the commit scatters them
+# into the live fast buffer at the victim slots on the compute stream.
+# That is bitwise the reference's swap: a promotion changes only the victim
+# slots, so a page outside them holds the same slot in the committed and
+# the in-flight table and the committed write verbs keep it coherent, a
+# write to a page being evicted lands in a slot the commit overwrites, and
+# a write to a page promoted in flight is replayed onto its staging row by
+# the ``refresh_*`` verbs below, on the side stream after the issue's
+# copies.  The demotion write-back is elided (every fast row equals its
+# decoded slow row under the write-both-tiers rule); the caller still meters
+# its bytes.  On the CPU there is no stream: the copy runs at issue and the
+# token (None) is always ready.
+
+
+def _on_side(stream):
+    """Run what follows on the side ``stream``, after all the work queued
+    so far on the compute stream (which produced the rows it reads), or
+    inline on the CPU (``stream`` None)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    return torch.cuda.stream(stream)
+
+
+def _used_on(stream, *tensors) -> None:
+    """Tell the caching allocator that the side ``stream`` uses tensors the
+    compute stream made (their memory is not reused before it is done).
+    Index tensors are made there too: a pageable copy to the device on the
+    side stream would wait for the epoch's copies."""
+    if stream is not None:
+        for t in tensors:
+            t.record_stream(stream)
+
+
+def _mark(stream, token) -> None:
+    """(Re-)record the epoch's token after the work just queued on the side
+    stream, so that the commit waits for it too."""
+    if stream is not None:
+        token.record(stream)
+
+
+def issue_migrate(buffers: TierBuffers, promoted, victims, stream=None):
+    """Dispatch one epoch's promotion copy without blocking: the rows of the
+    promoted pages cross to the device on ``stream`` (None on the CPU) and
+    are decoded there.  Returns ``(rows, slots, token)``: the staged rows,
+    the victim fast slot of each (host int64), and the readiness token (a
+    CUDA event recorded after the copies, None on the CPU).  A page id past
+    the store reads its last row (ROADMAP C4), as :func:`migrate` does."""
+    promoted, victims = _host(promoted), _host(victims)
+    ok = (promoted >= 0) & (victims >= 0)
+    fast, n_pages = buffers.fast, buffers.slow.shape[0]
+    token = None
+    with _on_side(stream):
+        rows = _slow_rows(buffers.slow, buffers.scale,
+                          np.minimum(promoted[ok], n_pages - 1), fast.device,
+                          fast.dtype)
+        if stream is not None:
+            token = torch.cuda.Event()
+            token.record(stream)
+    return rows, victims[ok].astype(np.int64), token
+
+
+def token_ready(token) -> bool:
+    """Non-blocking readiness probe of an issued epoch's token."""
+    return token is None or token.query()
+
+
+def wait_token(token) -> None:
+    """Block the host until an issued epoch's copy has landed (a forced
+    commit; the caller meters the wait as ``stall_s``)."""
+    if token is not None:
+        token.synchronize()
+
+
+def commit_rows(fast: torch.Tensor, rows: torch.Tensor, slots: np.ndarray,
+                token) -> None:
+    """Commit a staged epoch: scatter its rows into ``fast`` at their victim
+    slots on the compute stream, ordered after the token even when a probe
+    has already seen it ready."""
+    if slots.size == 0:
+        return
+    if token is not None:
+        cur = torch.cuda.current_stream(fast.device)
+        cur.wait_event(token)
+        rows.record_stream(cur)
+    fast[torch.as_tensor(slots, device=fast.device)] = rows
+
+
+def _staged(slot_row: np.ndarray, slots) -> tuple[np.ndarray, np.ndarray]:
+    """(write mask, staging row of each kept write) for in-flight ``slots``:
+    only a write to a page the epoch promotes has a staging row."""
+    slots = _host(slots).reshape(-1)
+    row = np.where(slots >= 0, slot_row[np.maximum(slots, 0)], -1)
+    keep = row >= 0
+    return keep, row[keep]
+
+
+def refresh_rows(staging: torch.Tensor, slot_row: np.ndarray, slots,
+                 rows: torch.Tensor, stream=None, token=None) -> None:
+    """Replay an owner write onto the in-flight epoch (native dtype, no slow
+    store touch: the committed write verb already encoded there): rows whose
+    page the epoch promotes land on their staging rows, on the side stream
+    after the issue's copies.  ``slots`` is the lookup under the in-flight
+    placement table, ``slot_row`` maps a fast slot to its staging row."""
+    keep, at = _staged(slot_row, slots)
+    if at.size == 0:
+        return
+    # selected on the compute stream: a copy the ring's next step cannot touch
+    src = rows[torch.as_tensor(keep, device=rows.device)].to(staging.device,
+                                                             staging.dtype)
+    idx = torch.as_tensor(at, device=staging.device)
+    with _on_side(stream):
+        _used_on(stream, src, idx)
+        staging[idx] = src
+    _mark(stream, token)
+
+
+def refresh_pages(staging: torch.Tensor, slot_row: np.ndarray, slots, k_pages,
+                  v_pages, stream=None, token=None) -> None:
+    """Bulk-flush analogue of :func:`refresh_rows` for KV ring views."""
+    refresh_rows(staging, slot_row, slots, pages_to_rows(k_pages, v_pages),
+                 stream, token)
+
+
+def refresh_copy(staging: torch.Tensor, slot_row: np.ndarray,
+                 buffers: TierBuffers, src_ids, dst_slots, stream=None,
+                 token=None) -> None:
+    """:func:`copy_rows` replay onto the in-flight epoch: the destinations
+    the epoch promotes take their source rows re-decoded from the slow
+    store.  The rows are gathered on the host at once, so a later write to
+    a source page cannot reach the copy."""
+    src = _host(src_ids).reshape(-1)
+    keep, at = _staged(slot_row, np.where(src >= 0, _host(dst_slots), -1))
+    if at.size == 0:
+        return
+    ids = np.maximum(src[keep], 0)
+    wire = _gather(buffers.slow, ids)
+    sc = _scale_at(buffers.scale, ids)
+    idx = torch.as_tensor(at, device=staging.device)
+    with _on_side(stream):
+        _used_on(stream, idx)
+        rows = codec_lib.decode_rows(
+            wire.to(staging.device, non_blocking=True),
+            None if sc is None else sc.to(staging.device, non_blocking=True),
+            staging.dtype)
+        staging[idx] = rows
+    _mark(stream, token)
 
 
 def copy_rows(buffers: TierBuffers, src_ids, dst_ids, dst_slots) -> TierBuffers:

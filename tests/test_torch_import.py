@@ -37,6 +37,16 @@ def test_import_all_submodules_loads_no_jax_or_reference():
     assert n_modules >= 30, proc.stdout
 
 
+def test_source_scan_covers_every_package():
+    """The scan below reads every package of the port, the checkpoint
+    manager's included."""
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
+               for p in PORT_SOURCES if p.is_relative_to(ROOT / "src")}
+    packages = {p.name for p in (ROOT / "src" / "repro_torch").iterdir()
+                if (p / "__init__.py").exists()}
+    assert "ckpt" in packages and packages <= scanned, packages - scanned
+
+
 @pytest.mark.parametrize("path", PORT_SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_SOURCES])
 def test_source_imports_no_jax_or_reference(path):

@@ -140,10 +140,11 @@ json.dump(res, open(sys.argv[3], "w"))
 """
 
 
-def start_reference(tmp, groups: list[dict]) -> list:
+def start_reference(tmp, groups: list[dict], prelude: str = "") -> list:
     """Start one reference subprocess per scenario group, with XLA's excess
-    precision off (ROADMAP C2); :func:`wait_reference` collects them."""
-    script = inspect.getsource(drive) + _REFERENCE_MAIN
+    precision off (ROADMAP C2); ``prelude`` is source run before the
+    scenarios.  :func:`wait_reference` collects them."""
+    script = inspect.getsource(drive) + prelude + _REFERENCE_MAIN
     flags = os.environ.get("XLA_FLAGS", "") + " --xla_allow_excess_precision=false"
     env = dict(os.environ, XLA_FLAGS=flags.strip(), JAX_PLATFORMS="cpu",
                PYTHONPATH=str(ROOT / "src"))

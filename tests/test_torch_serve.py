@@ -298,15 +298,13 @@ def _flatten(tree, prefix=""):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("resources", ("experts",)), ("async_migration", True),
-    ("paged", False),
+    ("resources", ("experts",)), ("paged", False),
 ])
 def test_engine_refuses_features_not_yet_ported(field, value):
-    """Features still to port raise ``NotImplementedError``; the experts
-    resource is ported, and on this dense arch it raises the reference's
-    ``ValueError`` (no MoE layers to tier).  Dense serving (``paged=False``)
-    is ported, and lane mode without ``paged=True`` raises the reference's
-    ``ValueError``."""
+    """No feature is left to port, and the engine refuses what the
+    reference refuses: the experts resource on this dense arch raises the
+    reference's ``ValueError`` (no MoE layers to tier), and lane mode
+    without ``paged=True`` its ``ValueError``."""
     tcfg = t_registry.get_smoke_config(ARCH)
     kw = dict(SCFG, **{field: value})
     if field == "paged":
@@ -315,7 +313,7 @@ def test_engine_refuses_features_not_yet_ported(field, value):
     error, match = {
         "resources": (ValueError, "has no MoE layers"),
         "paged": (ValueError, "lane mode .* requires paged=True"),
-    }.get(field, (NotImplementedError, "not yet ported"))
+    }[field]
     with pytest.raises(error, match=match):
         t_engine.ServeEngine(tcfg, None, scfg, device="cpu")
 
