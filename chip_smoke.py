@@ -203,6 +203,28 @@ Phases, one summary line each:
                 through PHASE moe's drives and checks with 64 of 256 experts
                 on the card (its dense arm on mla_decode); every attention
                 launch of the phase must be the head-tiled kernel's;
+  12'. train  — the train step (train/step.py), after PHASE mla: (a)
+                llama3.2-3b at full width and depth (3.213 B, bf16, seed
+                0), AdamW, 2 strided microbatches of 2 x 1,024 SyntheticLM
+                tokens, remat, TRAIN_STEPS steps: every loss and gradient
+                norm finite, the last 3 steps' mean loss below the first
+                3's, the parameters moved; prints ms a step, tokens/s, peak
+                memory and the model FLOP/s share of the bf16 dense peak,
+                then a profile of TRAIN_PROFILED steps (busy share,
+                launches, the plain float32 attention's ms a step); (b) one
+                float32 step of each of the ten archs at its smoke config
+                (TRAIN_FAMILIES: AdamW, Adafactor, ZeRO-1 with and without
+                its int8 delta and with offload_master, gradient
+                compression, 2 microbatches, remat off, the cross gate at
+                0.5, whisper's encoder) on the card against the CPU: loss, gradient norm
+                and every updated leaf within ATOL + RTOL*|ref|, kimi-k2's
+                and deepseek-v3's router streams equal to the CPU's and
+                their in-step sketches bitwise a CPU replay of the card's
+                stream (the update and mark kernels' launches are the
+                phase's); (c) one full-width block of each training-only
+                form (Mamba2, mLSTM, sLSTM, MLA) forward and backward over
+                256 positions at chunk 128 on the card against the CPU,
+                every gradient within ATOL*max(1, max|ref|) + RTOL*|ref|;
   13. sim     — the paper's evaluation path: fig11_main_speedup.py's grid
                 (8 workloads x 6 methods, benchmarks/common.py's scale)
                 through the port's tiering simulator on the card, every
@@ -229,6 +251,7 @@ exits 2.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import statistics
@@ -377,6 +400,36 @@ SSM_ATTN_SHAPES = ((2, 6, 8), (4, 8, 16))
 CROSS_ARCHS = ("llama-3.2-vision-11b", "whisper-base")
 CROSS_GATE = 0.5        # (c): the cross block's xgate, so that the image counts
 CROSS_LAYER_STEPS = 4   # (c): float32 decode steps of one full-width block
+# PHASE train: (a) llama3.2-3b at full width and depth trained TRAIN_STEPS
+# steps, AdamW, TRAIN_MICRO microbatches of SyntheticLM's 1,024-token
+# sequences; (b) one float32 step of each family at its smoke config on the
+# card against the CPU; (c) one full-width block of each training-only form,
+# forward and backward, on the card against the CPU
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_MICRO = 2
+TRAIN_STEPS = 8
+TRAIN_PROFILED = 2      # steps in the profile, after the gated ones
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+# (b)'s archs (all ten) and options: between them every single-device
+# TrainConfig option and both optimizers
+TRAIN_FAMILIES = (("llama3.2-3b", {}, "adamw"),
+                  ("kimi-k2-1t-a32b", dict(zero1=True, compress_collective=True,
+                                           grad_compression=True, microbatches=2),
+                   "adamw"),
+                  ("deepseek-v3-671b", {}, "adafactor"),
+                  ("qwen1.5-4b", dict(zero1=True, offload_master=True), "adamw"),
+                  ("stablelm-1.6b", dict(grad_compression=True, microbatches=2,
+                                         remat=False), "adamw"),
+                  ("gemma2-27b", dict(microbatches=2), "adafactor"),
+                  ("zamba2-2.7b", {}, "adamw"),
+                  ("xlstm-1.3b", dict(remat=False), "adamw"),
+                  ("llama-3.2-vision-11b", {}, "adamw"),
+                  ("whisper-base", {}, "adamw"))
+TRAIN_FORMS = (("zamba2-2.7b", "mamba"), ("xlstm-1.3b", "mlstm"),
+               ("xlstm-1.3b", "slstm"), ("deepseek-v3-671b", "mla"))
+TRAIN_FORM_SEQ, TRAIN_CHUNK = 256, 128
+BF16_PEAK = 989e12      # H100 SXM dense bf16 FLOP/s at 700 W (NVIDIA's data sheet)
 # PHASE sim: fig11_main_speedup.py's grid at benchmarks/common.py's scale
 # (N_PAGES, BLOCK, N_BLOCKS, FAST_RATIO, SIM_KW, METHODS; stream seed 11)
 SIM_WORKLOADS = ("deathstar", "pagerank", "xsbench", "gups", "silo", "btree",
@@ -3378,6 +3431,326 @@ def embed_gather_ms(torch, dec, eng, params, n: int = 50) -> tuple[float, float]
             wall(lambda: dec._embed_tokens(params, tok, None)))
 
 
+# -- PHASE train: the train step (train/step.py) ---------------------------------
+
+def _f32_tree(torch, tree):
+    return _tree_map(lambda v: v.float() if v.is_floating_point() else v, tree)
+
+
+def train_full(torch, smi, cfg=None, device="cuda", shape=(TRAIN_BATCH, TRAIN_SEQ),
+               steps=TRAIN_STEPS) -> dict:
+    """(a) TRAIN_ARCH at full width and depth (random bf16 weights from seed
+    0), AdamW, TRAIN_MICRO strided microbatches, remat on: ``steps`` steps
+    of SyntheticLM batches (vocab 128,256, seed 1,234).  Gates: every loss
+    and global gradient norm finite, the mean loss of the last 3 steps below
+    the first 3's, the parameters moved.  Prints ms a step, tokens/s, peak
+    memory and the model FLOP/s share of the card's bf16 dense peak, then a
+    profile of TRAIN_PROFILED more steps.  ``cfg`` (the smoke config) and
+    ``device="cpu"`` rehearse it."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train import step as ts
+    cfg = cfg or get_config(TRAIN_ARCH)
+    b, s = shape
+    tcfg = ts.TrainConfig(opt=OptConfig(**TRAIN_OPT), microbatches=TRAIN_MICRO,
+                          remat=True)
+    print(f"train: {cfg.name}, {cfg.n_layers} layers at d {cfg.d_model}, "
+          f"{tcfg.microbatches} microbatches of {b // tcfg.microbatches} x {s} "
+          f"tokens, remat, {tcfg.opt}")
+    release(torch)
+    t0 = time.perf_counter()
+    state = ts.init_state(cfg, tcfg, init_params(cfg, seed=0, device=device),
+                          device=device)
+    n_params = sum(x.numel() for x in _leaves(state["params"]))
+    watch = {"embed": state["params"]["embed"]["table"][:4].clone(),
+             "wq": state["params"]["blocks"][0]["attn"]["wq"][0, :4].clone(),
+             "final_norm": state["params"]["final_norm"]["scale"].clone()}
+    print(f"train: {n_params / 1e9:.3f} B params and AdamW state drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    data = SyntheticLM(DataConfig(seq_len=s, global_batch=b, vocab=cfg.vocab,
+                                  seed=1234))
+    fn = ts.build_train_step(cfg, None, tcfg)
+    losses, gnorms, wall = [], [], []
+    for i in range(steps):
+        batch = ts.to_batch(data.batch(i, 0, 1), device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, batch)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"train: a loss or gradient norm is not finite: "
+                             f"{losses} {gnorms}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    for k, v in watch.items():
+        now = {"embed": state["params"]["embed"]["table"][:4],
+               "wq": state["params"]["blocks"][0]["attn"]["wq"][0, :4],
+               "final_norm": state["params"]["final_norm"]["scale"]}[k]
+        if torch.equal(now, v):
+            raise AssertionError(f"train: the {k} parameters did not move")
+    step_s = statistics.median(wall[1:])
+    tokens = b * s
+    flops = 6 * n_params * tokens + 6 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.head_dim
+    print(f"train: losses {[round(x, 4) for x in losses]}, gradient norms "
+          f"{[round(x, 4) for x in gnorms]}")
+    print(f"train: {step_s * 1e3:.1f} ms/step (median of steps 2-{steps}; step 1 "
+          f"{wall[0] * 1e3:.1f} ms), {tokens / step_s:.0f} tokens/s, peak "
+          f"{peak:.2f} GiB; model FLOPs {flops / 1e12:.2f} T a step (6 N tokens + "
+          f"causal attention 6 L B S^2 H dh) = {flops / step_s / 1e12:.1f} TFLOP/s, "
+          f"{100 * flops / step_s / BF16_PEAK:.1f}% of the bf16 dense peak on {smi}")
+    prof = profile_train(torch, fn, state, data, steps, device, cfg, b, s)
+    return {"ms": step_s * 1e3, "tokens_per_s": tokens / step_s, "peak_gib": peak,
+            "losses": losses, **prof}
+
+
+def profile_train(torch, fn, state, data, start, device, cfg, b, s,
+                  steps=TRAIN_PROFILED) -> dict:
+    """torch.profiler over ``steps`` more train steps: the device's busy
+    share, launches a step and the device time inside a profiler range
+    around the plain attention (``attention.sdpa``: its forward, the remat
+    recompute included); the backward of one call at the step's shape,
+    timed apart with CUDA events, scales by the calls a step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import attention as attn
+    from repro_torch.train import step as ts
+    plain = attn.sdpa
+
+    def in_range(*a, **kw):
+        with record_function("sdpa"):
+            return plain(*a, **kw)
+    batches = [ts.to_batch(data.batch(start + i, 0, 1), device) for i in range(steps)]
+    torch.cuda.synchronize()
+    attn.sdpa = in_range
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for bt in batches:
+                state, m = fn(state, bt)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        attn.sdpa = plain
+    dev = [r for r in device_rows(torch, prof) if r[1] != "sdpa"]
+    busy_us = sum(t for t, _, _ in dev)
+    launches = sum(c for _, _, c in dev)
+    rng = [e for e in prof.events() if e.name == "sdpa"
+           and e.device_type == torch.autograd.DeviceType.CPU]
+    range_us = sum(e.device_time_total for e in rng)
+    calls = len(rng) / steps
+    # one attention call's forward and forward + backward at the step's shape
+    mb = b // TRAIN_MICRO
+    g = torch.Generator(device=device).manual_seed(5)
+    q = torch.randn((mb, s, cfg.n_heads, cfg.head_dim), generator=g, device=device,
+                    dtype=torch.bfloat16, requires_grad=True)
+    k, v = (torch.randn((mb, s, cfg.n_kv_heads, cfg.head_dim), generator=g,
+                        device=device, dtype=torch.bfloat16, requires_grad=True)
+            for _ in range(2))
+    ct = torch.randn((mb, s, cfg.n_heads, cfg.head_dim), generator=g, device=device,
+                     dtype=torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            attn.sdpa_chunked(q, k, v, causal=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(attn.sdpa_chunked(q, k, v, causal=True), (q, k, v), ct)
+    t_f = time_ms(fwd, n=10, graph=False)
+    t_fb = time_ms(fwd_bwd, n=10, graph=False)
+    fwd_calls = calls            # per step, the remat recompute included
+    bwd_calls = cfg.n_layers * TRAIN_MICRO
+    attn_ms = range_us / steps / 1e3 + bwd_calls * (t_fb - t_f)
+    top = ", ".join(f"{n[:48]} {t / steps / 1e3:.1f} ms" for t, n, _ in dev[:6])
+    print(f"train profile: {steps} steps, wall {wall_us / steps / 1e3:.1f} ms/step, "
+          f"device busy {busy_us / steps / 1e3:.1f} ms/step ({100 * busy_us / wall_us:.1f}% "
+          f"of wall), {launches / steps:.0f} device launches/step; plain float32 "
+          f"attention: {range_us / steps / 1e3:.1f} ms/step in its profiler range over "
+          f"{fwd_calls:.0f} forward calls (remat's recompute included) + "
+          f"{bwd_calls} backward calls x {t_fb - t_f:.2f} ms (one call's "
+          f"forward+backward {t_fb:.2f} ms less its forward {t_f:.2f} ms, CUDA events) "
+          f"= {attn_ms:.1f} ms/step ({100 * attn_ms * 1e3 / max(busy_us / steps, 1e-9):.1f}"
+          f"% of busy); top kernels: {top}")
+    return {"busy_share": busy_us / wall_us, "launches_per_step": launches / steps,
+            "attn_ms": attn_ms}
+
+
+def _family_params(torch, cfg):
+    """An arch's smoke params from seed 0 on the CPU in float32, every
+    ``cross`` gate at CROSS_GATE (drawn as zero, it would shut the image
+    out)."""
+    from repro_torch.models.transformer import init_params
+    params = _f32_tree(torch, init_params(cfg, seed=0, device="cpu"))
+    for blk in params["blocks"]:
+        if "xgate" in blk:
+            blk["xgate"] = torch.full_like(blk["xgate"], CROSS_GATE)
+    return params
+
+
+def train_family(torch, arch, kw, kind, device="cuda") -> dict:
+    """(b) One train step of ``arch``'s smoke config in float32 on ``device``
+    against the port on the CPU from the same params and batch: the loss,
+    gradient norm and every updated leaf within ATOL + RTOL*|ref|; for a MoE
+    arch the router stream fed to the sketch equal to the CPU's, and the
+    card's NeoProf state bitwise a CPU replay of the card's stream."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core import neoprof as npf
+    from repro_torch.core import sketch as sk
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train import step as ts
+    cfg = get_smoke_config(arch)
+    tcfg = ts.TrainConfig(opt=OptConfig(kind=kind), **kw)
+    host = _family_params(torch, cfg)
+    batch = SyntheticLM(DataConfig(seq_len=32, global_batch=4, vocab=cfg.vocab,
+                                   seed=1234)).batch(0, 0, 1)
+    if cfg.n_aux_tokens:
+        batch["aux_embeds"] = np.random.default_rng(3).normal(
+            0, 1, (4, cfg.n_aux_tokens, cfg.d_model)).astype(np.float32)
+    streams = {}
+    observe = ts.neoprof_observe
+
+    def recorded(side):
+        def fn(prof, ids, params):
+            streams[side] = ids.cpu()
+            return observe(prof, ids, params)
+        return fn
+    out = {}
+    for side, dev in (("card", device), ("host", "cpu")):
+        state = ts.init_state(cfg, tcfg, _tree_map(lambda v: v.to(dev, copy=True), host),
+                              device=dev)
+        ts.neoprof_observe = recorded(side)
+        try:
+            state, m = ts.build_train_step(cfg, None, tcfg)(state, ts.to_batch(batch, dev))
+        finally:
+            ts.neoprof_observe = observe
+        out[side] = (state, m)
+    (cs, cm), (hs, hm) = out["card"], out["host"]
+    err = max(held(torch, cm[k].reshape(1), hm[k].reshape(1), f"train {arch}: {k}")
+              for k in ("loss", "gnorm"))
+    for a, r in zip(_leaves(cs["params"]), _leaves(hs["params"])):
+        err = max(err, held(torch, a, r, f"train {arch}: a param"))
+    line = ""
+    if cfg.moe is not None:
+        if not torch.equal(streams["card"], streams["host"]):
+            raise AssertionError(f"train {arch}: the router stream differs from the CPU's")
+        pp = ts.prof_params(tcfg)
+        replay = npf.neoprof_observe(
+            npf.neoprof_init(pp, sk.key_seeds(pp.sketch.depth, pp.sketch.width),
+                             device="cpu"), streams["card"], pp)
+        got = cs["prof"]
+        for name, a, r in ((f, getattr(got.sketch, f), getattr(replay.sketch, f))
+                           for f in ("counts", "epochs", "hot", "n_seen")):
+            if not torch.equal(a.cpu(), r):
+                raise AssertionError(f"train {arch}: sketch {name} differs from the "
+                                     "CPU replay of the card's stream")
+        for f in ("hot_buf", "hot_count"):
+            if not torch.equal(getattr(got, f).cpu(), getattr(replay, f)):
+                raise AssertionError(f"train {arch}: {f} differs from the CPU replay")
+        line = (f"; router stream ({streams['card'].numel()} ids) equal to the CPU's, "
+                f"sketch ({int(got.sketch.n_seen)} ids seen, {int(got.hot_count)} hot) "
+                "bitwise a CPU replay of it")
+    opts = "".join(f", {k}={v}" for k, v in kw.items())
+    print(f"train: {arch} smoke, {kind}{opts}: one "
+          f"float32 step on the card against the CPU, loss {float(cm['loss']):.6f}, "
+          f"max abs err {err:.3g} over loss, gnorm and every updated leaf (within "
+          f"{ATOL} + {RTOL}*|ref|, TF32 off){line}")
+    return {"err": err}
+
+
+def _form(torch, arch, kind, gen):
+    """A full-width block of one training-only form: float32 weights drawn
+    on the CPU, its forward and its width."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention as attn, mamba2 as m2, xlstm as xl
+    cfg = get_config(arch)
+    d, f32 = cfg.d_model, torch.float32
+    if kind == "mamba":
+        sc = cfg.ssm
+        p = m2.mamba2_init(gen, d, d_state=sc.d_state, expand=sc.expand,
+                           headdim=sc.headdim, d_conv=sc.d_conv, n_groups=sc.n_groups,
+                           device="cpu", dtype=f32)
+        return p, lambda p, x: m2.mamba2_apply(p, x, headdim=sc.headdim,
+                                               n_groups=sc.n_groups,
+                                               d_state=sc.d_state, chunk=TRAIN_CHUNK), d
+    if kind == "mlstm":
+        p = xl.mlstm_init(gen, d, n_heads=cfg.mlstm_heads, device="cpu", dtype=f32)
+        return p, lambda p, x: xl.mlstm_apply(p, x, n_heads=cfg.mlstm_heads,
+                                              chunk=TRAIN_CHUNK), d
+    if kind == "slstm":
+        return xl.slstm_init(gen, d, device="cpu", dtype=f32), xl.slstm_apply, d
+    dims = dataclasses.asdict(cfg.mla)
+    p = attn.mla_init(gen, d, cfg.n_heads, device="cpu", dtype=f32, **dims)
+    return p, lambda p, x: attn.mla_apply(p, x, h=cfg.n_heads,
+                                          rope_theta=cfg.rope_theta, **dims), d
+
+
+def train_forms(torch, device="cuda", seq=TRAIN_FORM_SEQ) -> dict:
+    """(c) One full-width block of each training-only form (Mamba2's chunked
+    SSD, mLSTM's chunkwise form, sLSTM's scans, MLA's training attention),
+    forward and backward over (1, ``seq``, d) at chunk TRAIN_CHUNK, so that
+    the state crosses a chunk border, on the card against the CPU in
+    float32: the output and every gradient (params and input, one seeded
+    cotangent) within ATOL * max(1, max|ref|) + RTOL*|ref| of the leaf."""
+    errs = {}
+    for arch, kind in TRAIN_FORMS:
+        gen = torch.Generator().manual_seed(6)
+        p, fn, d = _form(torch, arch, kind, gen)
+        x = torch.randn((1, seq, d), generator=gen) * 0.5
+        res = {}
+        for side, dev in (("card", device), ("host", "cpu")):
+            pd = _tree_map(lambda v: v.to(dev).requires_grad_(), p)
+            xd = x.to(dev).requires_grad_()
+            y = fn(pd, xd)
+            if side == "host":
+                ct = torch.randn(y.shape, generator=gen)
+            res[side] = (y, pd, xd)
+        grads = {}
+        for side, dev in (("card", device), ("host", "cpu")):
+            y, pd, xd = res[side]
+            leaves = list(_leaves(pd)) + [xd]
+            grads[side] = [y.detach()] + list(torch.autograd.grad(
+                y, leaves, ct.to(dev), allow_unused=True))
+        err, scale = 0.0, 0.0
+        for i, (a, r) in enumerate(zip(grads["card"], grads["host"])):
+            if r is None:
+                continue
+            a, m = a.cpu(), float(r.abs().max())
+            bad = (a - r).abs() > ATOL * max(1.0, m) + RTOL * r.abs()
+            if bool(bad.any()):
+                raise AssertionError(f"train {arch} {kind}: output/gradient {i} on the "
+                                     f"card differs from the CPU: max err "
+                                     f"{float((a - r).abs().max())}, max |ref| {m}")
+            err, scale = max(err, float((a - r).abs().max())), max(scale, m)
+        errs[kind] = err
+        print(f"train: {arch} one {kind} block at full width (d "
+              f"{d}), forward and backward over {seq} positions at chunk "
+              f"{TRAIN_CHUNK} in float32 on the card against the CPU: max abs err "
+              f"{err:.3g} (max |ref| {scale:.3g}; within {ATOL}*max(1, max|ref|) + "
+              f"{RTOL}*|ref| per leaf, TF32 off)")
+    return errs
+
+
+def train_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
+    """PHASE train: (a) ``train_full``; (b) ``train_family`` over
+    TRAIN_FAMILIES, whose MoE steps launch the sketch update and mark
+    kernels (counted, and required); (c) ``train_forms``.  Returns the
+    launches and (a)'s figures."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = train_full(torch, smi, device=device)
+    release(torch)
+    zero_counts(counters)
+    for arch, kw, kind in TRAIN_FAMILIES:
+        train_family(torch, arch, kw, kind, device)
+    launches = read_counts(torch, counters, "train", required=counters[1:3])
+    train_forms(torch, device)
+    return launches, full
+
+
 def _tree_map(fn, tree):
     """``fn`` over every tensor of a tree of dicts and lists."""
     if isinstance(tree, dict):
@@ -3505,6 +3878,15 @@ def main() -> int:
           f"decode clock, launches {json.dumps(phases['mla'])} on {smi}")
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phases["train"], full = train_path(torch, counters, smi)
+    print(f"PHASE train: ok in {time.perf_counter() - t0:.1f} s, {TRAIN_ARCH} at full "
+          f"width and depth {full['ms']:.1f} ms/step, {full['tokens_per_s']:.0f} "
+          f"tokens/s, peak {full['peak_gib']:.2f} GiB, busy "
+          f"{100 * full['busy_share']:.1f}% (profiled); every arch's smoke step and "
+          f"every training-only form equal to the CPU's, launches "
+          f"{json.dumps(phases['train'])} on {smi}")
+    release(torch)
     for phase, path in (("sim", sim_path), ("sim-paper", sim_paper_path)):
         t0 = time.perf_counter()
         phases[phase] = path(torch, counters, smi)

@@ -11,8 +11,8 @@ decode reads MLA through the absorbed latent query of ``models/decode.py``.
 ``sdpa``, ``sdpa_chunked`` and ``gqa_apply`` attend over a whole sequence
 (whisper's bidirectional encoder) and ``cross_apply`` over another stream's
 keys and values (an image's patches, the encoder's output), plain torch in
-float32 as the reference's.  MLA's training form (``mla_apply``) comes with
-the training forward."""
+float32 as the reference's.  ``mla_apply`` is MLA's training form: the
+latent KV decompressed on the fly, then the causal ``sdpa_chunked``."""
 from __future__ import annotations
 
 import math
@@ -298,3 +298,27 @@ def mla_decode(p, x_t, cache, pos, *, h, q_lora=1536, kv_lora=512,
     o_lat = torch.einsum("bhqs,bsk->bqhk", w, c_kv)
     o = torch.einsum("bqhk,khd->bqhd", o_lat, w_v)
     return o.reshape(b, 1, h * d_v).to(x_t.dtype) @ p["wo"]
+
+
+def mla_apply(p, x, *, h, q_lora=1536, kv_lora=512, d_nope=128, d_rope=64,
+              d_v=128, rope_theta=10000.0, positions=None):
+    """Training-time MLA over x (B, S, D): the low-rank query, the latent
+    KV up-projected through ``wkv_b`` into per-head nope keys and values,
+    the one rope key broadcast over the heads, then causal
+    :func:`sdpa_chunked` at scale (d_nope + d_rope)^-1/2."""
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)[None, :] if positions is None \
+        else positions
+    q = _rms(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+    q = q.reshape(b, s, h, d_nope + d_rope)
+    q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
+    q_rope = apply_rope(q_rope, pos, rope_theta)
+    kv_a = x @ p["wkv_a"]                                  # (B, S, kv_lora + d_rope)
+    c_kv = _rms(kv_a[..., :kv_lora], p["kv_norm"])
+    k_rope = apply_rope(kv_a[..., None, kv_lora:], pos, rope_theta)  # (B, S, 1, dr)
+    kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, d_nope + d_v)
+    k_nope, v = kv[..., :d_nope], kv[..., d_nope:]
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, d_rope)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    o = sdpa_chunked(q_full, k, v, causal=True, scale=(d_nope + d_rope) ** -0.5)
+    return o.reshape(b, s, h * d_v) @ p["wo"]

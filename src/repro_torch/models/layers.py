@@ -1,4 +1,5 @@
-"""Shared model building blocks: norms, rotary embeddings, MLPs, embeddings.
+"""Shared model building blocks: norms, rotary embeddings, MLPs, embeddings
+and the training loss's cross entropy.
 
 Port of ``repro/models/layers.py``: params are bf16 by default with fp32
 norm scales, softmax/rotary math is fp32, and weights keep the reference
@@ -93,3 +94,14 @@ def logits_apply(p, x, softcap: float = 0.0):
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask=None) -> torch.Tensor:
+    """Mean token NLL, ``logsumexp - gold``; with a ``loss_mask`` the sum
+    over the masked tokens divided by max(their count, 1)."""
+    nll = torch.logsumexp(logits, dim=-1) - torch.take_along_dim(
+        logits, labels.long()[..., None], dim=-1)[..., 0]
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

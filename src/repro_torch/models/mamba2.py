@@ -1,12 +1,13 @@
-"""Mamba2 (SSD) block, the serving half: parameters and the single-token
-recurrent decode (port of ``repro/models/mamba2.py``).
+"""Mamba2 (SSD) block: parameters, the chunked training form and the
+single-token recurrent decode (port of ``repro/models/mamba2.py``).
 
 The decode state is O(1) in the sequence length: ``ssm`` (B, H, N, P)
 float32, the SSD state, and ``conv`` (B, K-1, C), the causal convolution's
 last K-1 input rows.  :func:`mamba2_decode` is pure — it returns the new
 state and the caller commits it (``models/decode.py`` writes it into the
-cache in place, under the lane mask).  The chunked training form
-(``mamba2_apply``) comes with the training forward.
+cache in place, under the lane mask).  :func:`mamba2_apply` is the training form, the
+chunked state-space duality scan: an attention-like term inside each chunk
+and the state carried across chunks.
 
 The reference has no Pallas kernel here; this is plain torch, op for op
 the reference's: the convolution sums its K bf16 products in order, and
@@ -115,3 +116,65 @@ def mamba2_decode(p, u_t, cache, *, headdim=64, n_groups=1, d_state=64):
     yf = yf * torch.rsqrt((yf * yf).mean(dim=-1, keepdim=True) + 1e-6) * p["norm"]
     return yf.to(u_t.dtype) @ p["out_proj"], {"ssm": st, "conv": conv}
 
+
+
+def mamba2_apply(p, u, *, headdim=64, n_groups=1, d_state=64, chunk=128):
+    """u (B, S, D) -> (B, S, D): the chunked SSD scan.  The causal decay
+    ``exp(cum[q] - cum[t])`` is masked to -1e30 BEFORE the ``exp``: the
+    discarded t > q entries overflow and would make the gradients NaN."""
+    bsz, s, _ = u.shape
+    d_inner = p["out_proj"].shape[0]
+    n_heads = d_inner // headdim
+    zxbcdt = u @ p["in_proj"]
+    z, x, b, c, dt = _split_proj(zxbcdt, d_inner, n_groups, d_state, n_heads)
+    xbc, _ = _conv1d(torch.cat([x, b, c], dim=-1), p["conv_w"], p["conv_b"])
+    x = xbc[..., :d_inner].reshape(bsz, s, n_heads, headdim)
+    b = xbc[..., d_inner:d_inner + n_groups * d_state].reshape(
+        bsz, s, n_groups, d_state)
+    c = xbc[..., d_inner + n_groups * d_state:].reshape(bsz, s, n_groups, d_state)
+    hpg = n_heads // n_groups                                 # groups over heads
+    b = b.repeat_interleave(hpg, dim=2)                      # (B, S, H, N)
+    c = c.repeat_interleave(hpg, dim=2)
+    dt = softplus(dt.float() + p["dt_bias"])                 # (B, S, H)
+    da = dt * -torch.exp(p["A_log"])                         # log-decay
+
+    chunk = min(chunk, s)
+    assert s % chunk == 0, f"seq {s} not divisible by chunk {chunk}"
+    nc = s // chunk
+    xc = x.reshape(bsz, nc, chunk, n_heads, headdim).float()
+    bc_ = b.reshape(bsz, nc, chunk, n_heads, d_state).float()
+    cc = c.reshape(bsz, nc, chunk, n_heads, d_state).float()
+    dac = da.reshape(bsz, nc, chunk, n_heads)
+    dtc = dt.reshape(bsz, nc, chunk, n_heads)
+
+    cum = torch.cumsum(dac, dim=2)                            # (B, NC, Q, H)
+    decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B, NC, Q, Q, H)
+    qi = torch.arange(chunk, device=u.device)
+    causal = (qi[:, None] >= qi[None, :])[None, None, :, :, None]
+    l_mat = torch.exp(torch.where(causal, decay, -1e30))
+    scores = torch.einsum("bnqhs,bnths->bnqth", cc, bc_)
+    y_intra = torch.einsum("bnqth,bnthp->bnqhp", scores * l_mat,
+                           xc * dtc[..., None])
+
+    # chunk states: S_n = sum_t exp(cum_end - cum_t) dt_t b_t x_t^T
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)         # (B, NC, Q, H)
+    states = torch.einsum("bnths,bnthp->bnhsp",
+                          (decay_to_end * dtc)[..., None] * bc_, xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                 # (B, NC, H)
+    st = torch.zeros((bsz, n_heads, d_state, headdim), dtype=torch.float32,
+                     device=u.device)
+    prev = []                                                 # state BEFORE chunk n
+    for n in range(nc):
+        prev.append(st)
+        st = st * chunk_decay[:, n, :, None, None] + states[:, n]
+    prev_states = torch.stack(prev, dim=1)                    # (B, NC, H, N, P)
+
+    # inter-chunk: y_t += C_t exp(cum_t) S_prev
+    y_inter = torch.einsum("bnqhs,bnhsp->bnqhp", cc * torch.exp(cum)[..., None],
+                           prev_states)
+    y = (y_intra + y_inter).reshape(bsz, s, n_heads, headdim)
+    y = y + xc.reshape(bsz, s, n_heads, headdim) * p["D"][None, None, :, None]
+    y = y.reshape(bsz, s, d_inner)
+    yf = y * F.silu(z.float())                                # gated RMSNorm
+    yf = yf * torch.rsqrt((yf * yf).mean(dim=-1, keepdim=True) + 1e-6) * p["norm"]
+    return yf.to(u.dtype) @ p["out_proj"]

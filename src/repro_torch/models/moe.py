@@ -1,23 +1,29 @@
-"""Mixture-of-Experts on one device: the top-k router, expert dispatch and the
-NeoMem-tiered expert read (port of ``repro/models/moe.py``, its single-device
-serving functions).
+"""Mixture-of-Experts on one device: the top-k router, expert dispatch, the
+NeoMem-tiered expert read and the load-balancing loss (port of
+``repro/models/moe.py``, its single-device functions).
 
 The router's token->expert ids are also the NeoMem profiling stream: the
 serve engine feeds them to the "experts" resource (page = group * n_experts
-+ expert).  Two ways to apply a layer:
++ expert), and the train step to its in-step NeoProf sketch.  The ways to
+apply a layer:
 
   * :func:`moe_apply_ep` — capacity dispatch over the dense (E, D, F)
-    weights (the reference's expert-parallel body without its collectives);
+    weights (the reference's expert-parallel body without its collectives),
+    the forward of serving and of the train step; it carries gradients
+    (the dispatch is an ``index_put`` with accumulation into a fresh zero
+    buffer, the combine a gather);
+  * :func:`moe_apply_dense` — every expert on every token, weighted by the
+    routing mask (collective-free, O(E));
+  * :func:`moe_apply_gather` — capacity dispatch by one-hot products
+    (token-dropping, ``capacity_factor * T * k / E`` slots an expert);
   * :func:`moe_apply_tiered` — each token's top-k experts' flattened
     ``[w_gate | w_in | w_out]`` rows read through the experts resource's
     placement table: the fast (device) copy when promoted, the slow store
     otherwise.
 
 The expert products are plain matrix products here, as the reference
-computes them outside any Pallas kernel.  The reference's ``dense`` and
-``gather`` dispatches, its load-balancing loss and its EP-sharded paths
-have no caller on a single-device serving path and wait for the training
-and distribution slices.
+computes them outside any Pallas kernel.  The EP-sharded paths
+(``EPContext``, resident experts) wait for the distribution layer.
 """
 from __future__ import annotations
 
@@ -145,13 +151,60 @@ def _ep_local_body(x, router_w, bias, wg, wi, wo, *, k: int, cap: int):
     return y.reshape(b, s, d).to(x.dtype), idx.reshape(b, s, k).to(torch.int32)
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.nn.one_hot`` in float32: an index outside [0, n) is all zeros."""
+    return (idx.long()[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def moe_apply_dense(p, x, k: int, *, bias=None):
+    """Collective-free dispatch: every expert on every token, combined by
+    the routing weights.  Returns (y, expert ids (B,S,k), router probs)."""
+    e = p["router"].shape[1]
+    gate, idx, probs = router_topk(p, x, k, bias=bias)
+    comb = (_one_hot(idx, e) * gate[..., None]).sum(dim=-2)   # (B, S, E)
+    h = _silu_glu(x, p["w_gate"], p["w_in"], "bsd,edf->bsef")
+    y = torch.einsum("bsef,efd->bsed", h, p["w_out"])
+    out = torch.einsum("bsed,bse->bsd", y.float(), comb).to(x.dtype)
+    return out + _shared_expert(p, x), idx, probs
+
+
+def moe_apply_gather(p, x, k: int, *, capacity_factor: float = 1.25, bias=None):
+    """Capacity dispatch by one-hot products: each expert takes its first
+    ``max(1, int(capacity_factor * T * k / E))`` assignments in token order
+    and drops the rest.  Returns (y, expert ids (B,S,k), router probs)."""
+    b, s, d = x.shape
+    e = p["router"].shape[1]
+    gate, idx, probs = router_topk(p, x, k, bias=bias)
+    xt = x.reshape(b * s, d)
+    cap = max(1, int(capacity_factor * b * s * k / e))
+    onehot = _one_hot(idx.reshape(b * s, k), e)               # (T, k, E)
+    pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(dim=-1)  # slot
+    keep = pos < cap
+    disp = onehot * keep[..., None]
+    slot_oh = _one_hot(pos.to(torch.int32), cap)              # (T, k, C)
+    xe = torch.einsum("td,tke,tkc->ecd", xt.float(), disp, slot_oh).to(x.dtype)
+    h = _silu_glu(xe, p["w_gate"], p["w_in"], "ecd,edf->ecf")
+    ye = torch.einsum("ecf,efd->ecd", h, p["w_out"])          # (E, C, D)
+    y = torch.einsum("ecd,tke,tkc,tk->td", ye.float(), disp, slot_oh,
+                     gate.reshape(b * s, k))
+    return y.reshape(b, s, d).to(x.dtype) + _shared_expert(p, x), idx, probs
+
+
+def aux_load_balance_loss(probs, idx, e: int, k: int) -> torch.Tensor:
+    """Switch-style load-balancing loss: E * sum_e mean prob_e * the share
+    of assignments to e."""
+    me = probs.reshape(-1, e).mean(dim=0)
+    ce = _one_hot(idx.reshape(-1, k), e).sum(dim=1).mean(dim=0) / k
+    return e * (me * ce).sum()
+
+
 def moe_apply_ep(p, x, k: int, *, bias=None, ep_axes=None):
     """One MoE layer over the dense expert weights, capacity-dispatched on
     this device.  Returns (y, expert ids (B,S,k), None)."""
     if ep_axes is not None or "residency" in p:
         raise NotImplementedError(
             "expert-parallel MoE dispatch (EPContext, resident experts) is not "
-            "yet ported to repro_torch")
+            "yet ported to repro_torch (ROADMAP item 10, the distribution layer)")
     b, s, _ = x.shape
     cap = _capacity(b * s, k, p["router"].shape[1], 2.0)
     y, idx = _ep_local_body(x, p["router"], bias, p["w_gate"], p["w_in"],

@@ -1,7 +1,7 @@
-"""Parameter init for every family the reference serves (port of
-``repro/models/transformer.py`` ``init_params``), and the encoder's forward
-(``encode``): the dense GQA family, the mixture-of-experts family, with GQA
-(kimi-k2) or MLA attention and the multi-token-prediction head's
+"""Parameter init for every family the reference serves, the training
+forward and loss, and the encoder's forward (port of
+``repro/models/transformer.py``): the dense GQA family, the
+mixture-of-experts family, with GQA (kimi-k2) or MLA attention and the multi-token-prediction head's
 parameters (deepseek-v3), the hybrid family (zamba2: Mamba2 blocks and one
 shared attention block), the recurrent ``ssm`` family (xlstm: mLSTM and
 sLSTM blocks), the ``vlm`` family (llama-3.2-vision: self-attention blocks
@@ -26,24 +26,29 @@ reuses.  A ``cross`` or ``dec`` block adds its cross attention's norm
 image changes no logit).  An encoder arch's blocks are
 ``params["encoder"]``, a list of unstacked self-attention blocks, and its
 final norm ``params["enc_norm"]``.  ``params["mtp"]`` (an unstacked block,
-the (2d, d) projection and a norm) is drawn so that both packages hold the
-same tree; its forward is the training loss's, which the port does not run
-yet.  Weights are drawn on the target device from a seeded
-``torch.Generator`` with the reference's init scales; the numbers differ
-from ``jax.random``'s.
+the (2d, d) projection and a norm) is the multi-token-prediction head,
+which only :func:`train_loss` runs.  Weights are drawn on the target
+device from a seeded ``torch.Generator`` with the reference's init scales;
+the numbers differ from ``jax.random``'s.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import _normal, gqa_apply, gqa_init, mla_init
-from repro_torch.models.layers import DTYPE, apply_norm, make_norm, mlp_apply
-from repro_torch.models.mamba2 import mamba2_init
-from repro_torch.models.moe import moe_init
-from repro_torch.models.xlstm import mlstm_init, slstm_init
+from repro_torch.models.attention import (_normal, cross_apply, gqa_apply,
+                                          gqa_init, mla_apply, mla_init)
+from repro_torch.models.layers import (DTYPE, apply_norm, cross_entropy,
+                                       embed_apply, logits_apply, make_norm,
+                                       mlp_apply)
+from repro_torch.models.mamba2 import mamba2_apply, mamba2_init
+from repro_torch.models.moe import moe_apply_ep, moe_init
+from repro_torch.models.xlstm import (mlstm_apply, mlstm_init, slstm_apply,
+                                      slstm_init)
 
 # the dense family's attention block kinds (gemma2 alternates local and global)
 DENSE_KINDS = {"attn", "attn_local", "attn_global"}
@@ -186,22 +191,148 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
     return params
 
 
-def _encoder_block(p, cfg: ArchConfig, x):
-    """One encoder block over the whole sequence (the reference's
-    ``_apply_attn_block`` of kind ``"enc_self"``): bidirectional GQA with
-    RoPE at positions 0..S-1, then the MLP, each behind its norm and
-    residual."""
+# -- the training forward (full sequence) ----------------------------------------
+
+def _attn_block(p, cfg: ArchConfig, kind: str, x, aux):
+    """One attention block over the whole sequence (the reference's
+    ``_apply_attn_block``): self-attention (MLA where the arch has it but
+    in a ``cross`` block; bidirectional for the encoder's ``enc_self``),
+    then a ``cross`` block's gated cross attention over
+    ``aux["aux_embeds"]`` or a ``dec`` block's over ``aux["enc_out"]``,
+    then the MLP or, in a ``moe`` block, the routed experts.  Returns (x,
+    the block's router ids (B, S, k) or None)."""
     h = apply_norm(cfg.norm, p["ln1"], x)
-    o = gqa_apply(p["attn"], h, h=cfg.n_heads, hkv=cfg.n_kv_heads,
-                  dh=cfg.head_dim, rope_theta=cfg.rope_theta, causal=False,
-                  softcap=cfg.attn_softcap, scale=cfg.attn_scale)
+    if cfg.mla is not None and kind != "cross":
+        o = mla_apply(p["attn"], h, h=cfg.n_heads, rope_theta=cfg.rope_theta,
+                      **dataclasses.asdict(cfg.mla))
+    else:
+        o = gqa_apply(p["attn"], h, h=cfg.n_heads, hkv=cfg.n_kv_heads,
+                      dh=cfg.head_dim, rope_theta=cfg.rope_theta,
+                      causal=kind != "enc_self",
+                      window=cfg.window if kind == "attn_local" else 0,
+                      softcap=cfg.attn_softcap, scale=cfg.attn_scale)
     if cfg.post_norm:
         o = apply_norm(cfg.norm, p["pn1"], o)
     x = x + o
-    y = mlp_apply(p["ffn"], apply_norm(cfg.norm, p["ln2"], x), cfg.mlp)
+    kv_src = aux.get("aux_embeds") if kind == "cross" else \
+        aux.get("enc_out") if kind == "dec" else None
+    if kv_src is not None:
+        xo = cross_apply(p["xattn"], apply_norm(cfg.norm, p["lnx"], x), kv_src,
+                         h=cfg.n_heads, hkv=cfg.n_kv_heads, dh=cfg.head_dim)
+        x = x + ((torch.tanh(p["xgate"]) * xo.float()).to(x.dtype)
+                 if kind == "cross" else xo)
+    h2 = apply_norm(cfg.norm, p["ln2"], x)
+    stream = None
+    if kind == "moe":
+        y, stream, _ = moe_apply_ep(p["ffn"], h2, cfg.moe.top_k,
+                                    bias=p.get("router_bias"))
+    else:
+        y = mlp_apply(p["ffn"], h2, cfg.mlp)
     if cfg.post_norm:
         y = apply_norm(cfg.norm, p["pn2"], y)
-    return x + y
+    return x + y, stream
+
+
+def _apply_block(p, shared, cfg: ArchConfig, kind: str, x, aux):
+    """One block of the body: a recurrent mixer behind its norm and
+    residual, the shared attention block, or an attention block."""
+    if kind in RECURRENT_KINDS:
+        h = apply_norm(cfg.norm, p["ln"], x)
+        if kind == "mamba":
+            s = cfg.ssm
+            y = mamba2_apply(p["mix"], h, headdim=s.headdim, n_groups=s.n_groups,
+                             d_state=s.d_state, chunk=s.chunk)
+        elif kind == "mlstm":
+            y = mlstm_apply(p["mix"], h, n_heads=cfg.mlstm_heads)
+        else:
+            y = slstm_apply(p["mix"], h)
+        return x + y, None
+    if kind == "shared_attn":
+        return _attn_block(shared, cfg, "attn", x, aux)
+    return _attn_block(p, cfg, kind, x, aux)
+
+
+def _unbind_groups(block, groups: int) -> list:
+    """A group-stacked block (every leaf (G, ...)) as G per-group blocks.
+    Each leaf is unbound once, so the backward stacks its G gradients once
+    instead of adding a full (G, ...) gradient per group."""
+    parts = [torch.unbind(leaf, 0) for leaf in tree_leaves(block)]
+    return [tree_unflatten(block, [p[g] for p in parts]) for g in range(groups)]
+
+
+def forward(cfg: ArchConfig, params, tokens, *, aux_embeds=None,
+            remat: bool = True):
+    """tokens (B, S) -> (final hidden states (B, S, D), aux).  ``aux``
+    holds ``token_stream``, the encoder's ``enc_out`` (an encoder arch, which
+    runs its encoder here over ``aux_embeds``) or the ``aux_embeds``
+    themselves, and for a MoE arch ``router_streams`` (G, n_moe_in_group,
+    B, S, k) int32, the reference's layout (the prologue adds none).  With
+    ``remat`` each pattern group runs under non-reentrant activation
+    checkpointing, its router ids an output of the checkpointed function so
+    that the recompute in the backward appends nothing."""
+    x = embed_apply(params["embed"], tokens)
+    if cfg.embed_scale:
+        x = (x.float() * cfg.d_model ** 0.5).to(x.dtype)
+    aux = {"token_stream": tokens}
+    if cfg.encoder_layers and aux_embeds is not None:
+        aux["enc_out"] = encode(cfg, params, aux_embeds)
+    elif aux_embeds is not None:
+        aux["aux_embeds"] = aux_embeds
+    for lp in params.get("prologue", []):
+        x, _ = _attn_block(lp, cfg, "attn_dense", x, aux)
+    shared = params.get("shared_attn")
+
+    def group_body(x, gp):
+        streams = []
+        for i, kind in enumerate(cfg.pattern):
+            x, stream = _apply_block(gp[i], shared, cfg, kind, x, aux)
+            if stream is not None:
+                streams.append(stream)
+        return x, (torch.stack(streams) if streams else None)
+
+    g = cfg.n_groups
+    per_pos = [_unbind_groups(b, g) for b in params["blocks"]]
+    streams = []
+    for gi in range(g):
+        gp = [pos[gi] for pos in per_pos]
+        if remat:
+            x, st = checkpoint(group_body, x, gp, use_reentrant=False)
+        else:
+            x, st = group_body(x, gp)
+        if st is not None:
+            streams.append(st)
+    if streams:
+        aux["router_streams"] = torch.stack(streams)
+    return apply_norm(cfg.norm, params["final_norm"], x), aux
+
+
+def train_loss(cfg: ArchConfig, params, batch, *, remat: bool = True):
+    """The training loss of ``batch`` (``tokens``, ``labels`` (B, S), and
+    optionally ``aux_embeds`` and ``loss_mask``): the cross entropy of the
+    tied-embedding logits, plus 0.3 x the multi-token head's (which
+    predicts t+2 from h_t and the embedding of token t+1, both rolled by
+    -1).  Returns (loss, (metrics, aux))."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    mask = batch.get("loss_mask")
+    x, aux = forward(cfg, params, tokens, aux_embeds=batch.get("aux_embeds"),
+                     remat=remat)
+    loss = cross_entropy(logits_apply(params["embed"], x, cfg.final_softcap),
+                         labels, mask)
+    metrics = {"loss": loss}
+    if cfg.mtp:
+        mp = params["mtp"]
+        emb_next = embed_apply(params["embed"], torch.roll(tokens, -1, dims=1))
+        h2 = torch.cat([x, emb_next.to(x.dtype)], dim=-1) @ mp["proj"]
+        h2, _ = _attn_block(mp["block"], cfg, "attn_dense" if cfg.moe else "attn",
+                            h2, {})
+        h2 = apply_norm(cfg.norm, mp["norm"], h2)
+        mtp_loss = cross_entropy(
+            logits_apply(params["embed"], h2, cfg.final_softcap),
+            torch.roll(labels, -1, dims=1), mask)
+        loss = loss + 0.3 * mtp_loss
+        metrics["mtp_loss"] = mtp_loss
+        metrics["loss"] = loss
+    return loss, (metrics, aux)
 
 
 def encode(cfg: ArchConfig, params, aux_embeds):
@@ -210,5 +341,5 @@ def encode(cfg: ArchConfig, params, aux_embeds):
     decode step's ``dec`` blocks attend over."""
     enc = aux_embeds
     for lp in params["encoder"]:
-        enc = _encoder_block(lp, cfg, enc)
+        enc, _ = _attn_block(lp, cfg, "enc_self", enc, {})
     return apply_norm(cfg.norm, params["enc_norm"], enc)

@@ -39,12 +39,13 @@ def test_import_all_submodules_loads_no_jax_or_reference():
 
 def test_source_scan_covers_every_package():
     """The scan below reads every package of the port, the checkpoint
-    manager's included."""
+    manager's and the training path's (data, dist, optim, train) included."""
     scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
                for p in PORT_SOURCES if p.is_relative_to(ROOT / "src")}
     packages = {p.name for p in (ROOT / "src" / "repro_torch").iterdir()
                 if (p / "__init__.py").exists()}
-    assert "ckpt" in packages and packages <= scanned, packages - scanned
+    assert {"ckpt", "data", "dist", "optim", "train"} <= packages
+    assert packages <= scanned, packages - scanned
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES,
@@ -52,3 +53,22 @@ def test_source_scan_covers_every_package():
 def test_source_imports_no_jax_or_reference(path):
     hits = [m.group(0).strip() for m in FORBIDDEN.finditer(path.read_text())]
     assert not hits, f"{path}: {hits}"
+
+
+_TRAIN_PROBE = """
+import sys
+import repro_torch.data.pipeline, repro_torch.dist.compression
+import repro_torch.optim.optimizers, repro_torch.optim.zero1, repro_torch.train.step
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_training_path_imports_no_jax_or_reference():
+    """The training packages alone (without the rest of the port) load
+    neither JAX nor the reference."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
