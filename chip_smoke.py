@@ -44,6 +44,31 @@ Phases, one summary line each:
                 the sketch kernels' library calls (index_put_ accumulate,
                 out-of-place index_put, bucketize + bincount) at every
                 shape they are timed at;
+  2'. dist    — the distribution layer (repro_torch.dist, launch/mesh.py),
+                right after PHASE kernels, while the card and the host hold
+                no model yet (its pinned master vectors take 36 GiB of the
+                machine's 96), in a process group of one rank over NCCL (a
+                HashStore in process: no address) and its ("data",
+                "model") 1 x 1 mesh, destroyed at the phase's end: (a)
+                llama3.2-3b at full width and depth, DIST_STEPS steps of
+                ZeRO-1 with its int8 delta, offload_master, local_grads and
+                fsdp without a mesh and over the mesh from the same weights,
+                deterministic algorithms on: losses, gradient norms and
+                params bitwise equal, m, v and ef pinned host tensors
+                between steps over the mesh; prints the device-resident GiB
+                between steps, each arm's peak and each step's fetch of the
+                master vectors on the side stream (CUDA events: ms, the part
+                before the update reached it, the stall); (b) its paged
+                decode with the ring's slots split over both axes against
+                the unsharded ring (B 4, 16 greedy steps): tokens equal,
+                logits within 1e-3, page mass within 1e-5, pages, page_len
+                and cur_slot bitwise (the attention launches counted); (c)
+                kimi-k2 and deepseek-v3 at their smoke configs: one float32
+                train step expert-parallel over the mesh against the CPU
+                (loss within ATOL + RTOL*|ref|, router stream equal, sketch
+                bitwise a CPU replay; the update and mark launches counted
+                and required) and one ServeEngine(ep_axes=) request against
+                the CPU engine fed its tokens;
   3. main     — ServeEngine on llama3.2-3b at full width (random weights
                 from a seed) serving a batch of 4 random 1024-token prompts
                 for 64 greedy tokens through the NeoMem loop; every kernel
@@ -3751,6 +3776,290 @@ def train_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
     return launches, full
 
 
+# -- PHASE dist: the distribution layer at world size 1 over NCCL ---------------
+
+DIST_STEPS = 3          # (a): steps of each arm
+DIST_TRAIN = dict(zero1=True, compress_collective=True, offload_master=True,
+                  local_grads=True, fsdp=True)
+DIST_DECODE = (4, 16, 8, 4)        # (b): batch, steps, ring slots, page tokens
+DIST_MOE = ("kimi-k2-1t-a32b", "deepseek-v3-671b")
+DIST_PROMPT = (2, 12, 8)           # (c): batch, prompt tokens, new tokens
+
+
+def dist_world(torch):
+    """A process group of one rank over NCCL, in process (a HashStore: no
+    address, no port), and its ("data", "model") 1 x 1 mesh, each of whose
+    process groups (one axis, both) makes its NCCL communicator here, while
+    the card is empty: NCCL allocates outside PyTorch's cache, and made
+    lazily inside a full-width step it finds no memory left."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives as col
+    from repro_torch.launch.mesh import backend_for, make_host_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend_for("cuda"), store=dist.HashStore(), rank=0,
+                            world_size=1)
+    mesh = make_host_mesh(model=1)
+    for axes in (("data",), ("model",), ("data", "model")):
+        col.all_reduce(torch.zeros(1, device="cuda"), mesh.group(axes))
+    return mesh
+
+
+def dist_train(torch, mesh, smi, cfg=None, device="cuda", shape=(TRAIN_BATCH, TRAIN_SEQ),
+               steps=DIST_STEPS) -> dict:
+    """(a) TRAIN_ARCH at full width and depth (seed 0, PHASE train's batch):
+    ``steps`` steps of ZeRO-1 with its int8 delta, the master vectors
+    offloaded, local_grads and fsdp, without a mesh (where those options are
+    no-ops) and over ``mesh``, in turn from the same weights; deterministic
+    algorithms on, so that the arms' losses, gradient norms and params must
+    be bitwise equal.  Over the mesh m, v and ef must be pinned host tensors
+    between steps; prints the device-resident GiB between steps, each arm's
+    peak, and each step's fetch of the master vectors (side-stream CUDA
+    events: its ms, how much of it ran before the update reached it, the
+    stall)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import zero1
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train import step as ts
+    cfg = cfg or get_config(TRAIN_ARCH)
+    b, s = shape
+    tcfg = ts.TrainConfig(opt=OptConfig(**TRAIN_OPT), microbatches=TRAIN_MICRO,
+                          remat=True, **DIST_TRAIN)
+    data = SyntheticLM(DataConfig(seq_len=s, global_batch=b, vocab=cfg.vocab, seed=1234))
+    fetch = zero1.fetch_opt
+    fetches, times = [], []
+
+    def recorded(state, m):
+        pre = fetch(state, m)
+        fetches.append(pre)
+        return pre
+    arms = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for arm, msh in (("meshless", None), ("mesh", mesh)):
+            release(torch)
+            state = ts.init_state(cfg, tcfg, init_params(cfg, seed=0, device=device),
+                                  device=device, mesh=msh)
+            fn = ts.build_train_step(cfg, msh, tcfg)
+            rec, resident, wall = [], [], []
+            zero1.fetch_opt = recorded
+            try:
+                for i in range(steps):
+                    batch = ts.to_batch(data.batch(i, 0, 1), device, mesh=msh)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = fn(state, batch)
+                    torch.cuda.synchronize()
+                    wall.append(time.perf_counter() - t0)
+                    times += _fetch_times(fetches)
+                    rec.append((float(m["loss"]), float(m["gnorm"])))
+                    resident.append(torch.cuda.memory_allocated() / 2 ** 30)
+                    if msh is not None and device == "cuda":
+                        for k in ("m", "v", "ef"):
+                            t = state["opt"][k]
+                            if t.device.type != "cpu" or not t.is_pinned():
+                                raise AssertionError(f"dist: {k} is not a pinned host "
+                                                     f"tensor between steps ({t.device})")
+            finally:
+                zero1.fetch_opt = fetch
+            arms[arm] = dict(metrics=rec, resident=resident, wall=wall,
+                             peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                             dp_bytes=m.get("dp_psum_bytes"),
+                             params=[p.cpu() for p in _leaves(state["params"])])
+            del state, fn
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, z = arms["meshless"], arms["mesh"]
+    if a["metrics"] != z["metrics"]:
+        raise AssertionError(f"dist: losses and norms differ: {a['metrics']} "
+                             f"{z['metrics']}")
+    for x, y in zip(a["params"], z["params"]):
+        if not torch.equal(x, y):
+            raise AssertionError("dist: the mesh arm's params differ from the meshless "
+                                 "arm's")
+    if device == "cuda" and len(times) != steps:
+        raise AssertionError(f"dist: {len(times)} fetches timed in {steps} steps")
+    print(f"dist (a): {cfg.name} at full width and depth, {steps} steps of "
+          f"{', '.join(k for k in DIST_TRAIN)} without a mesh and over the 1 x 1 "
+          f"NCCL mesh, bitwise equal (losses and gradient norms "
+          f"{[(round(l, 6), round(g, 6)) for l, g in a['metrics']]}, every param); "
+          f"dp_psum_bytes {z['dp_bytes']}")
+    print(f"dist (a): ms a step, meshless {[round(1e3 * x, 1) for x in a['wall']]}, "
+          f"mesh {[round(1e3 * x, 1) for x in z['wall']]} (step 1 included), on {smi}")
+    print(f"dist (a): device-resident GiB between steps: meshless "
+          f"{[round(x, 2) for x in a['resident']]}, mesh (m, v, ef pinned on the host) "
+          f"{[round(x, 2) for x in z['resident']]}; peak {a['peak']:.2f} / "
+          f"{z['peak']:.2f} GiB, on {smi}")
+    print(f"dist (a): the master vectors' fetch a step: "
+          + "; ".join(f"{ms:.1f} ms, {before:.1f} ms of it before the update reached it, "
+                      f"stall {stall:.1f} ms" for ms, before, stall in times)
+          + f", on {smi}")
+    return dict(peak=(a["peak"], z["peak"]), resident=(a["resident"][-1], z["resident"][-1]),
+                fetch=times, step_ms=(1e3 * statistics.median(a["wall"]),
+                                      1e3 * statistics.median(z["wall"])))
+
+
+def _fetch_times(fetches: list) -> list:
+    """(ms, ms before the update reached it, stall ms) of each timed
+    prefetch, which the list then lets go of (a prefetch refers to the
+    state it moved)."""
+    out = []
+    while fetches:
+        pre = fetches.pop(0)
+        if pre.start is not None:
+            ms = pre.start.elapsed_time(pre.end)
+            out.append((ms, min(ms, pre.start.elapsed_time(pre.waited)),
+                        max(0.0, pre.waited.elapsed_time(pre.end))))
+    return out
+
+
+def dist_decode(torch, mesh, params, cfg, smi, device="cuda", dims=DIST_DECODE) -> dict:
+    """(b) decode_step_paged with the ring's slots split over both mesh axes
+    (one rank) against the unsharded ring, greedy from the same token:
+    tokens equal, logits within 1e-3, page mass within 1e-5, pages,
+    page_len and cur_slot bitwise."""
+    from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
+    from repro_torch.dist.sharding import cache_pspecs, shard, spec_leaves
+    from repro_torch.models import decode as dec
+    b, steps, n_slots, page_t = dims
+    arms = {}
+    for arm, smesh in (("sharded", {"mesh": mesh, "axes": ("data", "model")}),
+                       ("unsharded", None)):
+        cache = dec.init_paged_cache(cfg, b, n_slots, page_t, device=device)
+        if smesh is not None:
+            specs = spec_leaves(cache_pspecs(cache, mesh, slot_axes=smesh["axes"]))
+            cache = tree_unflatten(cache, [shard(x, sp, mesh) for x, sp in
+                                           zip(tree_leaves(cache), specs)])
+        tok = torch.zeros((b, 1), dtype=torch.int32, device=device)
+        toks, logits, mass = [], [], []
+        for _ in range(steps):
+            lg, cache, st = dec.decode_step_paged(cfg, params, cache, tok, page_t=page_t,
+                                                  return_streams=True, smesh=smesh)
+            logits.append(lg[:, -1].float())
+            mass.append(st["kv_mass"])
+            tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        arms[arm] = dict(tokens=torch.cat(toks, 1), logits=torch.stack(logits),
+                         mass=torch.stack(mass), cache=cache)
+    sh, un = arms["sharded"], arms["unsharded"]
+    if not torch.equal(sh["tokens"], un["tokens"]):
+        raise AssertionError("dist (b): greedy tokens differ")
+    gap = float((sh["logits"] - un["logits"]).abs().max())
+    mgap = float((sh["mass"] - un["mass"]).abs().max())
+    if gap > 1e-3 or mgap > 1e-5:
+        raise AssertionError(f"dist (b): logits {gap} / mass {mgap} apart")
+    for i, (x, y) in enumerate(zip(sh["cache"]["blocks"], un["cache"]["blocks"])):
+        for k in ("k_pages", "v_pages", "page_len", "cur_slot"):
+            if not torch.equal(x[k], y[k]):
+                raise AssertionError(f"dist (b): {k} of pattern position {i} differs")
+    cur = int(un["cache"]["blocks"][0]["cur_slot"].max())
+    print(f"dist (b): {cfg.name} at full width, B {b}, {steps} greedy steps over "
+          f"{n_slots} slots of {page_t} tokens, the slots split over ('data', 'model'): "
+          f"tokens equal, logits {gap:.3g} apart (bound 1e-3), page mass {mgap:.3g} "
+          f"(bound 1e-5), k/v pages, page_len and cur_slot bitwise (cur_slot {cur}), "
+          f"on {smi}")
+    return dict(logit_gap=gap, mass_gap=mgap)
+
+
+def dist_moe(torch, mesh, arch, smi, device="cuda") -> dict:
+    """(c) ``arch`` at its smoke config: one float32 train step expert-
+    parallel over the mesh (``EPContext``) on the card against the meshless
+    step on the CPU from the same params and batch (the loss within ATOL +
+    RTOL*|ref|, the router stream fed to the sketch equal, the card's
+    NeoProf state bitwise a CPU replay of the card's stream); then one
+    request through ``ServeEngine(ep_axes=)`` on the card against the
+    meshless engine on the CPU fed the card's tokens (``hold_logits``)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core import neoprof as npf
+    from repro_torch.core import sketch as sk
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.train import step as ts
+    cfg = get_smoke_config(arch)
+    tcfg = ts.TrainConfig(microbatches=2)
+    host = _family_params(torch, cfg)
+    batch = SyntheticLM(DataConfig(seq_len=32, global_batch=4, vocab=cfg.vocab,
+                                   seed=1234)).batch(0, 0, 1)
+    streams, observe = {}, ts.neoprof_observe
+
+    def recorded(side):
+        def fn(prof, ids, params):
+            streams[side] = ids.cpu()
+            return observe(prof, ids, params)
+        return fn
+    out = {}
+    for side, dev, msh in (("card", device, mesh), ("host", "cpu", None)):
+        state = ts.init_state(cfg, tcfg, _tree_map(lambda v: v.to(dev, copy=True), host),
+                              device=dev, mesh=msh)
+        ts.neoprof_observe = recorded(side)
+        try:
+            state, m = ts.build_train_step(cfg, msh, tcfg)(
+                state, ts.to_batch(batch, dev, mesh=msh))
+        finally:
+            ts.neoprof_observe = observe
+        out[side] = (state, m)
+    (cs, cm), (_, hm) = out["card"], out["host"]
+    err = held(torch, cm["loss"].reshape(1), hm["loss"].reshape(1), f"dist {arch}: loss")
+    if not torch.equal(streams["card"], streams["host"]):
+        raise AssertionError(f"dist {arch}: the router stream differs from the CPU's")
+    pp = ts.prof_params(tcfg)
+    replay = npf.neoprof_observe(
+        npf.neoprof_init(pp, sk.key_seeds(pp.sketch.depth, pp.sketch.width),
+                         device="cpu"), streams["card"], pp)
+    for f in ("counts", "epochs", "hot", "n_seen"):
+        if not torch.equal(getattr(cs["prof"].sketch, f).cpu(), getattr(replay.sketch, f)):
+            raise AssertionError(f"dist {arch}: sketch {f} differs from the CPU replay")
+    ep = ts._ep_context(cfg, mesh)
+    b, p_len, new = DIST_PROMPT
+    prompts = np.random.default_rng(7).integers(0, cfg.vocab, (b, p_len)).astype(np.int32)
+    serve = dict(max_seq=64, paged=True, page_t=4, hot_slots=6, resources=("experts",),
+                 expert_hot_slots=4)
+    eng = ServeEngine(cfg, _tree_map(lambda v: v.to(device), host), ServeConfig(**serve),
+                      device=device, ep_axes=ep)
+    if "experts" in eng._tier_reads():
+        raise AssertionError(f"dist {arch}: the experts tier view reached the EP engine")
+    card = drive_arm(torch, eng, prompts, new)
+    cpu = drive_arm(torch, ServeEngine(cfg, host, ServeConfig(**serve), device="cpu"),
+                    prompts, new, feed=card["tokens"].cpu())
+    hold_logits(torch, cfg, card["logits"].float().cpu(), cpu["logits"].float(), "dist",
+                "ServeEngine(ep_axes=) and the CPU engine")
+    print(f"dist (c): {arch} smoke, one float32 train step expert-parallel over the "
+          f"mesh: loss {float(cm['loss']):.6f} within {err:.3g} of the CPU's (bound "
+          f"{ATOL} + {RTOL}*|ref|), router stream ({streams['card'].numel()} ids) equal, "
+          f"sketch bitwise a CPU replay; ServeEngine(ep_axes=) served {new} tokens "
+          f"x {b} rows, on {smi}")
+    return {"loss_err": err}
+
+
+def dist_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
+    """PHASE dist: a world of one rank over NCCL and its 1 x 1 mesh; (a)
+    ``dist_train``, then, counts at 0, (b) ``dist_decode`` on (a)'s weights
+    (the attention launches) and (c) ``dist_moe`` on each DIST_MOE arch
+    (the sketch update and mark launches, required).  The process group is
+    destroyed at the end, whatever happens."""
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_params
+    mesh = dist_world(torch)
+    try:
+        full = dist_train(torch, mesh, smi)
+        release(torch)
+        cfg = get_config(TRAIN_ARCH)
+        params = init_params(cfg, seed=0, device=device)
+        zero_counts(counters)
+        dec = dist_decode(torch, mesh, params, cfg, smi, device)
+        del params
+        release(torch)
+        for arch in DIST_MOE:
+            dist_moe(torch, mesh, arch, smi, device)
+        launches = read_counts(torch, counters, "dist", required=counters[:3])
+    finally:
+        dist.destroy_process_group()
+    return launches, dict(full, **dec)
+
+
 def _tree_map(fn, tree):
     """``fn`` over every tensor of a tree of dicts and lists."""
     if isinstance(tree, dict):
@@ -3813,11 +4122,24 @@ def main() -> int:
 
     counters = (pa_ops.paged_attention_raw, np_ops.sketch_update_kernel,
                 np_ops.sketch_mark_hot_kernel, hist_ops.hist_kernel)
+    t0 = time.perf_counter()
+    phases = {}
+    phases["dist"], dres = dist_path(torch, counters, smi)
+    print(f"PHASE dist: ok in {time.perf_counter() - t0:.1f} s, world size 1 over NCCL: "
+          f"(a) {TRAIN_ARCH}'s ZeRO-1 / offload / local_grads / fsdp step over the mesh "
+          f"bitwise the meshless step, m, v and ef pinned on the host between steps "
+          f"(median {dres['step_ms'][0]:.1f} / {dres['step_ms'][1]:.1f} ms a step, peak "
+          f"{dres['peak'][0]:.2f} / {dres['peak'][1]:.2f} GiB, fetch "
+          f"{statistics.median(t[0] for t in dres['fetch']):.1f} ms a step); (b) the "
+          f"slot-split paged decode equal to the unsharded ring; (c) "
+          f"{' and '.join(DIST_MOE)} expert-parallel train step and ServeEngine(ep_axes=) "
+          f"equal to the CPU; launches {json.dumps(phases['dist'])} on {smi}")
+    release(torch)
     cfg, params = draw_params(torch)
     launches, e2e = main_path(torch, counters, cfg, params)
     print(f"PHASE main: ok, {e2e['decode_tokens_per_s']:.2f} decode tokens/s "
           f"on {smi}")
-    phases = {"main": launches}
+    phases["main"] = launches
     for phase, path in (("lanes", lanes_path), ("reuse", reuse_path),
                         ("disagg", disagg_path), ("fill", fill_path)):
         gc.collect()                   # the previous phase's rings and stores

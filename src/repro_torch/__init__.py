@@ -9,7 +9,8 @@ nothing of JAX or of the reference package.
 It serves all ten of the reference's archs (single-request and lane mode,
 the multi-tenant scheduler, unified or with disaggregated prefill,
 sampling, the slow-store codecs, content-addressed KV reuse, both data
-planes) and trains them on one device (``repro_torch.train.step``).
+planes) and trains them, on one device or over a mesh of ranks
+(``repro_torch.train.step``, ``repro_torch.dist``, ``repro_torch.launch``).
 
 Entry points (``ServeEngine``, ``init_params``, ``neoprof_init``,
 ``tier_init``, ``train.step.init_state``, ...) run on ``device="cuda"``

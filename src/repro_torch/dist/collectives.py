@@ -1,0 +1,196 @@
+"""Collectives over a process group, and the autograd rules of the
+per-rank code that stands in for the reference's ``shard_map`` bodies.
+
+Compute over a mesh is data-parallel over the data axes and replicated over
+``'model'``: every rank of a ``'model'`` group sees the same tokens and
+computes the same loss.  A gradient therefore flows across a collective by
+what the ranks on its other side computed:
+
+  * :func:`gather` (an all-gather forward) returns, backward, the rank's
+    block of the gradient: summed over the group (a reduce-scatter) where
+    the ranks saw different tokens (``reduce=True``: the data axes), taken
+    as it is (a slice) where they computed the same gradient (``'model'``);
+  * :func:`enter` marks a tensor entering a region whose ranks each
+    compute a part of the result (the expert-parallel MoE body): identity
+    forward, a sum of the parts' input gradients (an all-reduce) backward;
+  * :func:`sum_parts` leaves that region: the parts summed (an all-reduce)
+    forward, the replicated gradient passed through (identity) backward.
+
+``torch.distributed.nn.functional.all_reduce`` differs: its backward is an
+all-reduce, which counts a replicated gradient once per rank.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's blocks of ``x`` concatenated along ``dim``, in group
+    rank order."""
+    n = group_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The rank's block along ``dim`` of the group's sum of ``x``."""
+    n = group_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _reduce_scatter(out, xt, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The rank's block of ``x`` along ``dim`` (no communication)."""
+    n = group_size(group)
+    return x.chunk(n, dim)[dist.get_rank(group)]
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced over the group, in place (through a contiguous copy
+    where ``x`` is a strided view: NCCL takes contiguous buffers only);
+    returns ``x``."""
+    y = x if x.is_contiguous() else x.contiguous()
+    dist.all_reduce(y, op=op, group=group)
+    if y is not x:
+        x.copy_(y)
+    return x
+
+
+BUCKET_BYTES = 1 << 28    # a bucketed collective's buffer, at most
+
+
+def _buckets(items, key, nbytes):
+    """``items`` in their order, grouped by ``key(item)`` and cut so that
+    each bucket's ``nbytes`` stay within BUCKET_BYTES."""
+    open_, out = {}, []
+    for it in items:
+        k = key(it)
+        b = open_.get(k)
+        if b is None or (b[1] and b[1] + nbytes(it) > BUCKET_BYTES):
+            b = open_[k] = [[], 0]
+            out.append(b)
+        b[0].append(it)
+        b[1] += nbytes(it)
+    return [b[0] for b in out]
+
+
+def _key(x, group):
+    return (id(group), x.dtype, x.device)
+
+
+def all_gather_many(items) -> list:
+    """:func:`all_gather` of many ``(x, dim, group)``, one collective a
+    bucket of tensors that share a group, dtype and device."""
+    out = [None] * len(items)
+    for bucket in _buckets(list(enumerate(items)), lambda it: _key(it[1][0], it[1][2]),
+                           lambda it: it[1][0].numel() * it[1][0].element_size()):
+        group = bucket[0][1][2]
+        n = group_size(group)
+        moved = [x.movedim(d, 0).contiguous() for _, (x, d, _) in bucket]
+        flat = torch.cat([m.reshape(-1) for m in moved])
+        whole = torch.empty((n * flat.numel(),), dtype=flat.dtype, device=flat.device)
+        dist.all_gather_into_tensor(whole, flat, group=group)
+        whole = whole.view(n, -1)
+        off = 0
+        for (i, (_, d, _)), m in zip(bucket, moved):
+            part = whole[:, off:off + m.numel()].reshape((n * m.shape[0],) + tuple(m.shape[1:]))
+            out[i] = part.movedim(0, d).contiguous()
+            off += m.numel()
+    return out
+
+
+def reduce_scatter_many(items) -> list:
+    """:func:`reduce_scatter` of many ``(x, dim, group)``, bucketed as
+    :func:`all_gather_many`."""
+    out = [None] * len(items)
+    for bucket in _buckets(list(enumerate(items)), lambda it: _key(it[1][0], it[1][2]),
+                           lambda it: it[1][0].numel() * it[1][0].element_size()):
+        group = bucket[0][1][2]
+        n = group_size(group)
+        moved = [x.movedim(d, 0).contiguous() for _, (x, d, _) in bucket]
+        rows = [m.reshape(n, -1) for m in moved]           # rank r's block: row r
+        flat = torch.cat(rows, dim=1).reshape(-1)
+        mine = torch.empty(flat.numel() // n, dtype=flat.dtype, device=flat.device)
+        _reduce_scatter(mine, flat, group=group)
+        off = 0
+        for (i, (_, d, _)), m, r in zip(bucket, moved, rows):
+            part = mine[off:off + r.shape[1]].reshape((m.shape[0] // n,) + tuple(m.shape[1:]))
+            out[i] = part.movedim(0, d).contiguous()
+            off += r.shape[1]
+    return out
+
+
+def all_reduce_many(tensors, group) -> None:
+    """:func:`all_reduce` of many tensors in place, one collective a bucket
+    (tensors that share a dtype and device)."""
+    for bucket in _buckets(list(tensors), lambda x: _key(x, group),
+                           lambda x: x.numel() * x.element_size()):
+        flat = torch.cat([x.reshape(-1) for x in bucket])
+        dist.all_reduce(flat, group=group)
+        off = 0
+        for x in bucket:
+            x.copy_(flat[off:off + x.numel()].view(x.shape))
+            off += x.numel()
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, reduce):
+        ctx.dim, ctx.group, ctx.reduce = dim, group, reduce
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce:
+            return reduce_scatter(g, ctx.dim, ctx.group), None, None, None
+        return block(g, ctx.dim, ctx.group).contiguous(), None, None, None
+
+
+def gather(x: torch.Tensor, dim: int, group, *, reduce: bool) -> torch.Tensor:
+    """All-gather along ``dim``; backward, the block of the gradient summed
+    over the group (``reduce``) or as it is (see the module docstring)."""
+    return _Gather.apply(x, dim, group, reduce)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def enter(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the group's input gradients summed backward."""
+    return _Enter.apply(x, group)
+
+
+class _SumParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_parts(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's parts summed forward; the gradient passed through."""
+    return _SumParts.apply(x, group)

@@ -5,19 +5,27 @@ on CUDA tensors and runs the plain version on CPU tensors: the grouped
 kernel for up to ``MAX_GROUP`` query heads per kv head, the head-tiled
 kernel above that (MLA's latent attention, a group of 128 on deepseek-v3).
 The normalisation ``acc / max(l, 1e-30)`` and :func:`page_mass` stay plain
-torch, as they stay jnp around the reference's Pallas kernel.  The sharded
-path's ``paged_attention_local_stats`` / ``combine_stats`` come with the
-distribution layer.
+torch, as they stay jnp around the reference's Pallas kernel.
+
+For page slots split over ranks (``models/decode.py``'s sharded paged
+decode) each rank runs :func:`paged_attention_local_stats` (the same kernel)
+over its local slots, and :func:`combine_stats` merges the ranks' (m, l,
+acc) with an all-reduce MAX of m and one SUM each of ``l * w`` and
+``acc * w``; given the page partials it also returns each local page's
+share of the global softmax mass, normalised by the same pair.  These are
+collectives around the kernel, not a kernel.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.collectives import all_reduce
 from repro_torch.kernels import _lib
 from repro_torch.kernels.dispatch import kernel_device, require
 from repro_torch.kernels.paged_attn.ref import paged_attention_raw_ref
 
-__all__ = ["paged_attention_raw", "paged_attention", "page_mass", "head_tiled"]
+__all__ = ["paged_attention_raw", "paged_attention", "page_mass", "head_tiled",
+           "paged_attention_local_stats", "combine_stats"]
 
 SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block may use
 MAX_GROUP = 8            # query heads per kv head the grouped kernel's registers hold
@@ -128,3 +136,26 @@ def page_mass(m, l, page_m, page_l):
     l_glob = l.transpose(1, 2)
     mass = page_l * torch.exp(page_m - m_glob) / torch.clamp_min(l_glob, 1e-30)
     return mass.mean(dim=-1)
+
+
+def paged_attention_local_stats(q, k_pages, v_pages, page_lengths, *, scale=None,
+                                softcap: float = 0.0, return_page_stats: bool = False):
+    """The raw flash-decode stats of a rank's local page slots
+    (:func:`paged_attention_raw`), for :func:`combine_stats`."""
+    return paged_attention_raw(q, k_pages, v_pages, page_lengths, scale=scale,
+                               softcap=softcap, return_page_stats=return_page_stats)
+
+
+def combine_stats(m, l, acc, group, page_m=None, page_l=None):
+    """The flash-decoding softmax combine of every rank's (m, l, acc) over
+    ``group`` -> the normalised output (B, H, dv) f32; with the page
+    partials (each rank's (B, P_local, H)) also the (B, P_local) share of
+    the GLOBAL attention mass each local page holds."""
+    m_glob = all_reduce(m.clone(), group, torch.distributed.ReduceOp.MAX)
+    w = torch.exp(m - m_glob)
+    l_glob = all_reduce(l * w, group)
+    acc_glob = all_reduce(acc * w, group)
+    out = acc_glob / torch.clamp_min(l_glob, 1e-30)
+    if page_m is None:
+        return out
+    return out, page_mass(m_glob, l_glob, page_m, page_l)

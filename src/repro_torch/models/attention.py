@@ -31,7 +31,10 @@ def _normal(shape, std, generator, device, dtype):
     """N(0, std^2) weights in ``dtype``, drawn in float32 from ``generator``.
     A tensor of more than 2^30 elements (kimi-k2's expert stacks, 5.6 G
     elements each) is filled 2^28 elements at a time, scaled in place, so
-    the float32 temporaries stay at 1 GiB instead of twice the tensor."""
+    the float32 temporaries stay at 1 GiB instead of twice the tensor.  On
+    the meta device: the shape alone."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     n = math.prod(shape)
     if n <= _WHOLE_DRAW:
         return (torch.randn(shape, generator=generator, device=device,

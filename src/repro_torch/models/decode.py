@@ -1,8 +1,8 @@
 """Serving decode: the NeoMem paged decode over the fast-tier ring of hot
 KV pages, and the full (dense) cache decode.
 
-Port of the single-device serving paths of ``repro/models/decode.py`` for
-the dense GQA family (llama3.2-3b, qwen1.5-4b, stablelm-1.6b, gemma2-27b),
+Port of the serving paths of ``repro/models/decode.py`` for the dense GQA
+family (llama3.2-3b, qwen1.5-4b, stablelm-1.6b, gemma2-27b),
 the mixture-of-experts family with GQA (kimi-k2) or MLA (deepseek-v3)
 attention, the Mamba2 hybrid with one shared attention block (zamba2) and
 the recurrent xLSTM (xlstm), the vision decoder with gated cross attention
@@ -74,6 +74,14 @@ unchanged ring and are not to be read.  ``merge_cache`` therefore has no
 counterpart: the paged writes are masked in place, and the dense cache has
 no lanes.
 
+Over a mesh (the reference's ``smesh`` and ``ep_axes``): the paged decode
+and prefill take ``smesh`` ({"mesh", "axes"}), which splits the ring's page
+slots over those axes, each rank holding its slots, appending where it owns
+the current slot and merging the ranks' attention statistics
+(:func:`_append_attend_sharded`); every decode and prefill takes
+``ep_axes``, an :class:`repro_torch.models.moe.EPContext` that runs the MoE
+layers expert-parallel.
+
 Also here, as in the reference: ``install_pages``, which fast-forwards one
 lane over complete KV pages from the reuse pool (in place, that lane
 only), and the lane sampler (``fold_lane_keys``, ``sample_tokens``) over
@@ -85,6 +93,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.collectives import all_reduce
 from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -92,7 +101,7 @@ from repro_torch.models import prng
 from repro_torch.models.layers import (apply_norm, apply_rope, embed_apply,
                                        logits_apply, mlp_apply)
 from repro_torch.models.mamba2 import mamba2_decode, mamba2_init_cache
-from repro_torch.models.transformer import RECURRENT_KINDS, check_ported
+from repro_torch.models.transformer import RECURRENT_KINDS, check_ported, forward
 from repro_torch.models.xlstm import (mlstm_decode, mlstm_init_cache,
                                       slstm_decode, slstm_init_cache)
 from repro_torch.tiering.migrate import lookup_rows as _tier_lookup_rows
@@ -253,17 +262,65 @@ def _append_attend_local(kp, vp, plen, cur_slot, k_new, v_new, q_eff, *,
                                   softcap=softcap), None
 
 
-def _moe_block(p, cfg: ArchConfig, h2, tiered_moe, router: list):
+def _append_attend_sharded(kp, vp, plen, cur_slot, k_new, v_new, q_eff, *,
+                           scale, softcap, page_t, collect_mass, smesh,
+                           active=None):
+    """:func:`_append_attend_local` with the ring's page slots split over
+    ``smesh["axes"]`` of ``smesh["mesh"]``: ``kp``/``vp``/``plen`` are the
+    rank's (B, S_local, ...) slots (slots ``rank * S_local`` onwards, the
+    rank linear over the axes), ``cur_slot`` the global slot, the same on
+    every rank.  The rank owning the current slot appends; whether it
+    filled is summed over the ranks, and the next slot's length is zeroed
+    wherever it lives.  Each rank runs the attention kernel over its slots
+    and :func:`repro_torch.kernels.paged_attn.ops.combine_stats` merges
+    them (the page mass comes back for the local slots).  Returns (o (B,
+    H, dv) f32, the local mass (B, S_local) or None)."""
+    mesh, axes = smesh["mesh"], tuple(smesh["axes"])
+    group = mesh.group(axes)
+    b, n_local = plen.shape
+    lo = mesh.coord(axes) * n_local
+    bidx = torch.arange(b, device=plen.device)
+    lslot = cur_slot.long() - lo
+    own = (lslot >= 0) & (lslot < n_local)
+    if active is not None:
+        own = own & active
+    safe = lslot.clamp(0, n_local - 1)
+    off = plen[bidx, safe]
+    at = off.long().clamp_max(kp.shape[2] - 1)      # a rank that does not own
+    keep = own[:, None, None]                        # the slot writes back
+    kp[bidx, safe, at] = torch.where(keep, k_new.to(kp.dtype), kp[bidx, safe, at])
+    vp[bidx, safe, at] = torch.where(keep, v_new.to(vp.dtype), vp[bidx, safe, at])
+    plen[bidx, safe] = off + own.to(plen.dtype)
+    full_here = own & (off + 1 >= page_t)
+    full = all_reduce(full_here.to(torch.int32), group) > 0
+    n_total = n_local * mesh.axis_size(axes)
+    new_slot = torch.where(full, (cur_slot + 1) % n_total, cur_slot)
+    nls = new_slot.long() - lo
+    nown = (nls >= 0) & (nls < n_local) & full & (new_slot != cur_slot)
+    slots = torch.arange(n_local, device=plen.device)
+    plen.masked_fill_(nown[:, None] & (slots[None] == nls[:, None]), 0)
+    cur_slot.copy_(new_slot)
+    stats = pa_ops.paged_attention_local_stats(q_eff, kp, vp, plen, scale=scale,
+                                               softcap=softcap,
+                                               return_page_stats=collect_mass)
+    if collect_mass:
+        m, l, acc, page_m, page_l = stats
+        return pa_ops.combine_stats(m, l, acc, group, page_m=page_m, page_l=page_l)
+    return pa_ops.combine_stats(*stats, group), None
+
+
+def _moe_block(p, cfg: ArchConfig, h2, tiered_moe, router: list, ep_axes=None):
     """The MoE FFN of a block: through the experts resource's placement
     table when the engine bound its view for this position, else over the
-    dense expert weights.  The router's (B, 1, k) ids go to ``router``."""
+    dense expert weights (expert-parallel under ``ep_axes``).  The router's
+    (B, 1, k) ids go to ``router``."""
     if tiered_moe is not None:
         y, idx, _ = moe_lib.moe_apply_tiered(
             p["ffn"], h2, cfg.moe.top_k, bias=p.get("router_bias"),
             tier=tiered_moe["view"], group_id=tiered_moe["group_id"])
     else:
         y, idx, _ = moe_lib.moe_apply_ep(p["ffn"], h2, cfg.moe.top_k,
-                                         bias=p.get("router_bias"))
+                                         bias=p.get("router_bias"), ep_axes=ep_axes)
     router.append(idx)
     return y
 
@@ -311,10 +368,12 @@ def _mla_out(pa, cfg: ArchConfig, o, dtype):
 
 def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
                       page_t: int, collect_mass: bool = False, active=None,
-                      tiered_moe=None, router: list | None = None):
+                      tiered_moe=None, router: list | None = None, smesh=None,
+                      ep_axes=None):
     """One decoder block over the paged ring (the GQA and MLA branches of
-    the reference's ``_paged_attn_block``); ``kind`` "moe" runs the expert
-    layer as its FFN.  Returns (x_t, mass or None)."""
+    the reference's ``_paged_attn_block``), its slots split over ``smesh``
+    when given; ``kind`` "moe" runs the expert layer as its FFN.  Returns
+    (x_t, mass or None)."""
     h = apply_norm(cfg.norm, p["ln1"], x_t)
     b = x_t.shape[0]
     pos_b = attn._pos_col(pos, b)
@@ -328,20 +387,24 @@ def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
             k = apply_rope(k, pos_b, cfg.rope_theta)
         q_eff, k_new, v_new = q[:, 0].float().contiguous(), k[:, 0], v[:, 0]
         scale = (cfg.head_dim ** -0.5) if cfg.attn_scale is None else cfg.attn_scale
-    o, mass = _append_attend_local(
+    kw = dict(scale=scale, softcap=cfg.attn_softcap, page_t=page_t,
+              collect_mass=collect_mass, active=active)
+    if smesh is not None:
+        kw["smesh"] = smesh
+    o, mass = (_append_attend_local if smesh is None else _append_attend_sharded)(
         cache["k_pages"], cache["v_pages"], cache["page_len"], cache["cur_slot"],
-        k_new, v_new, q_eff, scale=scale, softcap=cfg.attn_softcap,
-        page_t=page_t, collect_mass=collect_mass, active=active)
+        k_new, v_new, q_eff, **kw)
     if cfg.mla is not None:
         o = _mla_out(p["attn"], cfg, o, x_t.dtype)
     else:
         o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x_t.dtype) \
             @ p["attn"]["wo"]
-    return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router), mass
+    return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router,
+                       ep_axes=ep_axes), mass
 
 
 def _block_tail(p, cfg: ArchConfig, kind: str, x_t, o, tiered_moe, router,
-                kv_src=None):
+                kv_src=None, ep_axes=None):
     """Everything of a decoder block after its attention output ``o``: the
     residual, the cross step over ``kv_src`` where the dense path gives one,
     the FFN (the expert layer for ``kind`` "moe") and, where the arch has
@@ -353,7 +416,7 @@ def _block_tail(p, cfg: ArchConfig, kind: str, x_t, o, tiered_moe, router,
         x_t = _cross_step(p, cfg, kind, x_t, kv_src)
     h2 = apply_norm(cfg.norm, p["ln2"], x_t)
     if kind == "moe":
-        y = _moe_block(p, cfg, h2, tiered_moe, router)
+        y = _moe_block(p, cfg, h2, tiered_moe, router, ep_axes)
     else:
         y = mlp_apply(p["ffn"], h2, cfg.mlp)
     if cfg.post_norm:
@@ -387,7 +450,7 @@ def _cross_source(cfg: ArchConfig, kind: str, aux_embeds):
 def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
                       return_streams: bool = False,
                       collect_mass: bool | None = None, tiered=None,
-                      active=None):
+                      active=None, ep_axes=None, smesh=None):
     """One decode step over the NeoMem fast tier (hot pages only).
 
     ``token`` (B, 1) int.  Returns ``(logits (B, 1, V) f32, cache)`` and,
@@ -403,6 +466,13 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     (:func:`_tiered_moe_for`) through the tiered store.  ``active`` (B,)
     bool masks whole lanes: an inactive lane's cache leaves stay bitwise
     unchanged (needs per-lane positions).  The cache is updated in place.
+
+    Over a mesh: ``smesh`` ({"mesh", "axes"}) splits the ring's page slots
+    over those axes (the cache holds the rank's slots, as
+    :func:`repro_torch.dist.sharding.cache_pspecs` with ``slot_axes``
+    places them; :func:`_append_attend_sharded`), and the kv mass comes
+    back for the local slots; ``ep_axes`` runs the MoE layers
+    expert-parallel (``params``' expert stacks the rank's blocks).
     """
     check_ported(cfg)
     collect_mass = return_streams if collect_mass is None else collect_mass
@@ -413,7 +483,7 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     x = _embed(cfg, params, token, tiered)
     for lp, lc in zip(params.get("prologue", []), cache.get("prologue", [])):
         x, _ = _paged_attn_block(lp, cfg, "attn", x, lc, pos, page_t,
-                                 active=active)
+                                 active=active, smesh=smesh)
     masses, routers = [], []
     for g in range(cfg.n_groups):
         group, router = [], []
@@ -426,7 +496,8 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
                 p, kind = params["shared_attn"], "attn"
             x, mass = _paged_attn_block(
                 p, cfg, kind, x, c, pos, page_t, collect_mass, active,
-                tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router)
+                tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router,
+                smesh=smesh, ep_axes=ep_axes)
             if mass is not None:
                 group.append(mass)
         masses.append(group)
@@ -456,7 +527,7 @@ def _stack_steps(steps: list, fill):
 
 def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
                   valid=None, active=None, tiered=None,
-                  collect_mass: bool = False):
+                  collect_mass: bool = False, ep_axes=None, smesh=None):
     """Prefill a (B, C) prompt chunk through the paged ring, one token
     column at a time — each step IS :func:`decode_step_paged`, so the ring
     after the chunk equals C streaming calls.
@@ -468,6 +539,7 @@ def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
     streams stacks the per-step ``kv_mass`` and ``router`` on a leading
     chunk axis, (C, G, n_attn, B, S) and (C, G, n_moe, B, 1, k): a skipped
     column's mass is zeros and its router ids -1 (padding to every reader).
+    ``ep_axes`` and ``smesh`` as in :func:`decode_step_paged`.
     """
     tokens = torch.as_tensor(tokens)
     b, c = tokens.shape
@@ -491,7 +563,7 @@ def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
         logits, cache, streams = decode_step_paged(
             cfg, params, cache, tokens[:, col:col + 1], page_t=page_t,
             return_streams=True, collect_mass=collect_mass, tiered=tiered,
-            active=act)
+            active=act, ep_axes=ep_axes, smesh=smesh)
         step = logits[:, -1].float()
         last = step if act is None else torch.where(act[:, None], step, last)
         kv_mass.append(streams["kv_mass"])
@@ -540,7 +612,7 @@ def init_cache(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16, *,
 
 def _decode_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
                        tiered_moe=None, router: list | None = None,
-                       kv_src=None):
+                       kv_src=None, ep_axes=None):
     """One decoder block over the full cache (the reference's
     ``_decode_attn_block``): GQA with the sliding window on ``attn_local``
     positions, or MLA's absorbed decode, then the cross step over
@@ -558,11 +630,11 @@ def _decode_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
                             rope_theta=cfg.rope_theta,
                             window=cfg.window if kind == "attn_local" else 0,
                             softcap=cfg.attn_softcap, scale=cfg.attn_scale)
-    return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router, kv_src)
+    return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router, kv_src, ep_axes)
 
 
 def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
-                return_streams: bool = False, tiered=None):
+                return_streams: bool = False, tiered=None, ep_axes=None):
     """One decode step over the full cache: ``token`` (B, 1) int ->
     ``(logits (B, 1, V) f32, cache)``, and with ``return_streams`` a
     streams dict whose ``"router"`` is the (G, n_moe, B, 1, k) token->expert
@@ -570,13 +642,14 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
     cross blocks attend over: an image's patch embeddings, or for an
     encoder arch the encoder's output, encoded once beforehand.  ``tiered``
     serves the token embedding and the first MoE position's expert weights
-    through the tiered store, as in :func:`decode_step_paged`.  The cache
-    is updated in place."""
+    through the tiered store, as in :func:`decode_step_paged`, and
+    ``ep_axes`` runs the MoE layers expert-parallel.  The cache is updated
+    in place."""
     check_ported(cfg)
     pos = cache["pos"]
     x = _embed(cfg, params, token, tiered)
     for lp, lc in zip(params.get("prologue", []), cache.get("prologue", [])):
-        x = _decode_attn_block(lp, cfg, "attn", x, lc, pos)
+        x = _decode_attn_block(lp, cfg, "attn", x, lc, pos, ep_axes=ep_axes)
     routers = []
     for g in range(cfg.n_groups):
         router = []
@@ -590,7 +663,7 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
             x = _decode_attn_block(
                 p, cfg, kind, x, c, pos,
                 tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router,
-                kv_src=_cross_source(cfg, kind, aux_embeds))
+                kv_src=_cross_source(cfg, kind, aux_embeds), ep_axes=ep_axes)
         routers.append(router)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = logits_apply(params["embed"], x, cfg.final_softcap)
@@ -602,8 +675,19 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
     return logits, cache, {"router": router}
 
 
+def prefill(cfg: ArchConfig, params, tokens, *, aux_embeds=None, remat=True,
+            ep_axes=None):
+    """The last token's logits of a full-sequence forward, and the
+    forward's aux (the reference's dry-run prefill: it builds no cache;
+    serving fills one with :func:`prefill_dense` or
+    :func:`prefill_paged`)."""
+    x, aux = forward(cfg, params, tokens, aux_embeds=aux_embeds, remat=remat,
+                     ep_axes=ep_axes)
+    return logits_apply(params["embed"], x[:, -1:], cfg.final_softcap), aux
+
+
 def prefill_dense(cfg: ArchConfig, params, cache, tokens, *, aux_embeds=None,
-                  tiered=None):
+                  tiered=None, ep_axes=None):
     """Single-pass dense prefill: :func:`decode_step` over each prompt
     column in turn (``aux_embeds`` passed to each), filling the cache and
     keeping the last logits (the prompt runs once).  Returns ``(last logits (B, V) f32, cache,
@@ -614,7 +698,7 @@ def prefill_dense(cfg: ArchConfig, params, cache, tokens, *, aux_embeds=None,
     for col in range(tokens.shape[1]):
         logits, cache, streams = decode_step(
             cfg, params, cache, tokens[:, col:col + 1], aux_embeds=aux_embeds,
-            return_streams=True, tiered=tiered)
+            return_streams=True, tiered=tiered, ep_axes=ep_axes)
         routers.append(streams["router"])
     router = torch.stack(routers) if routers[0] is not None else None
     return logits[:, -1], cache, {"router": router}

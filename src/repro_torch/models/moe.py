@@ -8,8 +8,9 @@ serve engine feeds them to the "experts" resource (page = group * n_experts
 apply a layer:
 
   * :func:`moe_apply_ep` — capacity dispatch over the dense (E, D, F)
-    weights (the reference's expert-parallel body without its collectives),
-    the forward of serving and of the train step; it carries gradients
+    weights (the reference's expert-parallel body), the forward of serving
+    and of the train step, on one device or expert-parallel over a mesh; it
+    carries gradients
     (the dispatch is an ``index_put`` with accumulation into a fresh zero
     buffer, the combine a gather);
   * :func:`moe_apply_dense` — every expert on every token, weighted by the
@@ -21,15 +22,31 @@ apply a layer:
     placement table: the fast (device) copy when promoted, the slow store
     otherwise.
 
+Expert parallelism (:class:`EPContext`): over a mesh the expert stacks are
+split over ``expert_axis`` (each rank owns ``E / n`` experts) and may be
+split over ``fsdp_axis`` on their dim 1 (ZeRO-3 storage, gathered for the
+layer).  Every rank of an ``expert_axis`` group routes the same tokens,
+dispatches those routed to its own experts (ids offset by its coordinate
+times ``E / n``) and the partial outputs are summed over the group, with
+the autograd rules of :mod:`repro_torch.dist.collectives`.  The tokens are
+the rank's own (the train step's data-parallel rows, or every token where
+the caller runs replicated); ``dp_axes`` names the axes they arrive split
+over.  The NeoMem-tiered serving arm (``"residency"`` params: only the hot
+experts resident, plus a per-interval fetch buffer of cold ones) runs with
+and without a mesh.
+
 The expert products are plain matrix products here, as the reference
-computes them outside any Pallas kernel.  The EP-sharded paths
-(``EPContext``, resident experts) wait for the distribution layer.
+computes them outside any Pallas kernel.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives as col
 from repro_torch.models.attention import _normal
 from repro_torch.models.layers import DTYPE
 from repro_torch.tiering.migrate import lookup_rows
@@ -115,10 +132,42 @@ def _silu_glu(x, wg, wi, eq: str):
     return F.silu(torch.einsum(eq, x, wg)) * torch.einsum(eq, x, wi)
 
 
-def _ep_local_body(x, router_w, bias, wg, wi, wo, *, k: int, cap: int):
-    """Capacity dispatch of x (B,S,D) to the E experts of (E,D,F) weights:
-    the reference's expert-parallel body on one device (no all-gather, no
-    psum).  Returns (y (B,S,D), expert ids (B,S,k))."""
+def _dispatch(x, gate, lid, keep_pre, n_loc: int, cap: int, experts, combine=None):
+    """Capacity dispatch of the assignments ``keep_pre`` to the ``n_loc``
+    local experts ``lid`` (the first ``cap`` of each in token order), the
+    expert products, and the gated combine over each token's k
+    assignments; ``combine`` sums the float32 partial outputs over the
+    ranks.  -> y (B,S,D) in x's dtype."""
+    b, s, d = x.shape
+    t, k = gate.shape
+    rank = _rank_in_bins(torch.where(keep_pre, lid, n_loc), n_loc)
+    keep = keep_pre & (rank < cap)
+    se = torch.where(keep, lid, 0).long()
+    sc = torch.where(keep, rank, 0).long()
+    tok = torch.arange(t * k, device=x.device) // k
+    contrib = torch.where(keep[:, None], x.reshape(t, d)[tok],
+                          torch.zeros((), dtype=x.dtype, device=x.device))
+    # the reference's .at[se, sc].add: kept lanes own distinct (expert, rank)
+    # cells, and the dropped lanes all add zeros to cell (0, 0), so the
+    # accumulation is exact whatever order it runs in
+    xe = torch.zeros((n_loc, cap, d), dtype=x.dtype, device=x.device)
+    xe.index_put_((se, sc), contrib, accumulate=True)
+    wg, wi, wo = experts
+    h = _silu_glu(xe, wg, wi, "ecd,edf->ecf")
+    ye = torch.einsum("ecf,efd->ecd", h, wo)               # (E_loc, C, D)
+    y_asn = ye[se, sc].float() * (keep[:, None] * gate.reshape(t * k)[:, None])
+    y = y_asn.reshape(t, k, d).sum(dim=1)
+    if combine is not None:
+        y = combine(y)
+    return y.reshape(b, s, d).to(x.dtype)
+
+
+def _ep_local_body(x, router_w, bias, wg, wi, wo, *, k: int, cap: int,
+                   midx: int = 0, combine=None):
+    """Capacity dispatch of x (B,S,D) to the experts of the (E_loc,D,F)
+    weights, which are experts ``midx * E_loc`` onwards of the router's
+    (the reference's expert-parallel body; ``combine`` is its psum over the
+    expert axis).  Returns (y (B,S,D), expert ids (B,S,k))."""
     e_loc = wg.shape[0]
     b, s, d = x.shape
     t = b * s
@@ -126,29 +175,41 @@ def _ep_local_body(x, router_w, bias, wg, wi, wo, *, k: int, cap: int):
     sel, gate_src = _scores(logits, bias)
     idx = _top_k(sel, k)                                   # (T, k)
     gate = _gates(gate_src, idx)
+    lid = idx.reshape(t * k).to(torch.int32) - midx * e_loc
+    mine = (lid >= 0) & (lid < e_loc)
+    y = _dispatch(x, gate, lid, mine, e_loc, cap, (wg, wi, wo), combine)
+    return y, idx.reshape(b, s, k).to(torch.int32)
 
-    eid = idx.reshape(t * k).to(torch.int32)
-    mine = (eid >= 0) & (eid < e_loc)
-    rank = _rank_in_bins(torch.where(mine, eid, e_loc), e_loc)
-    keep = mine & (rank < cap)
-    se = torch.where(keep, eid, 0).long()
-    sc = torch.where(keep, rank, 0).long()
 
-    tok = torch.arange(t * k, device=x.device) // k
-    contrib = torch.where(keep[:, None], x.reshape(t, d)[tok],
-                          torch.zeros((), dtype=x.dtype, device=x.device))
-    # the reference's .at[se, sc].add: kept lanes own distinct (expert, rank)
-    # cells, and the dropped lanes all add zeros to cell (0, 0), so the
-    # accumulation is exact whatever order it runs in
-    xe = torch.zeros((e_loc, cap, d), dtype=x.dtype, device=x.device)
-    xe.index_put_((se, sc), contrib, accumulate=True)
-
-    h = _silu_glu(xe, wg, wi, "ecd,edf->ecf")
-    ye = torch.einsum("ecf,efd->ecd", h, wo)               # (E, C, D)
-
-    y_asn = ye[se, sc].float() * (keep[:, None] * gate.reshape(t * k)[:, None])
-    y = y_asn.reshape(t, k, d).sum(dim=1)
-    return y.reshape(b, s, d).to(x.dtype), idx.reshape(b, s, k).to(torch.int32)
+def _ep_resident_body(x, router_w, bias, res_map, wg, wi, wo, fw_g, fw_i, fw_o,
+                      fetch_ids, *, k: int, cap: int, midx: int = 0, combine=None):
+    """NeoMem-tiered serving dispatch: only the HOT experts are resident
+    (``wg/wi/wo``: this rank's (E_hot_loc, D, F) slots of the fast tier,
+    ``res_map`` (E,) each expert's global hot slot or -1), plus this rank's
+    fetch buffer of cold experts (``fw_*``, ids ``fetch_ids``) brought in
+    under the migration quota.  A token routed to an expert neither
+    resident nor fetched takes the shared expert alone.  Selection is by
+    ``sigmoid(logits) + bias``, as the reference's.  Returns (y, ids)."""
+    e_hot_loc, n_fetch = wg.shape[0], fw_g.shape[0]
+    b, s, d = x.shape
+    t = b * s
+    logits = x.float().reshape(t, d) @ router_w
+    sig = torch.sigmoid(logits)
+    sel = sig + (bias if bias is not None else 0.0)
+    idx = _top_k(sel, k)
+    gate = _gates(sig if bias is not None else torch.softmax(logits, dim=-1), idx)
+    eid = idx.reshape(t * k)
+    slot = res_map[eid].to(torch.int32)
+    mine_hot = (slot >= 0) & (torch.div(slot, e_hot_loc, rounding_mode="floor") == midx)
+    fmatch = eid[:, None] == fetch_ids.long()[None, :]         # (T*k, n_fetch)
+    fslot = fmatch.int().argmax(dim=1).to(torch.int32)          # the first match
+    is_fetched = fmatch.any(dim=1) & (slot < 0)
+    n_loc = e_hot_loc + n_fetch
+    lid = torch.where(mine_hot, slot - midx * e_hot_loc,
+                      torch.where(is_fetched, e_hot_loc + fslot, n_loc))
+    experts = (torch.cat([wg, fw_g]), torch.cat([wi, fw_i]), torch.cat([wo, fw_o]))
+    y = _dispatch(x, gate, lid, mine_hot | is_fetched, n_loc, cap, experts, combine)
+    return y, idx.reshape(b, s, k).to(torch.int32)
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -198,17 +259,57 @@ def aux_load_balance_loss(probs, idx, e: int, k: int) -> torch.Tensor:
     return e * (me * ce).sum()
 
 
-def moe_apply_ep(p, x, k: int, *, bias=None, ep_axes=None):
-    """One MoE layer over the dense expert weights, capacity-dispatched on
-    this device.  Returns (y, expert ids (B,S,k), None)."""
-    if ep_axes is not None or "residency" in p:
-        raise NotImplementedError(
-            "expert-parallel MoE dispatch (EPContext, resident experts) is not "
-            "yet ported to repro_torch (ROADMAP item 10, the distribution layer)")
-    b, s, _ = x.shape
-    cap = _capacity(b * s, k, p["router"].shape[1], 2.0)
-    y, idx = _ep_local_body(x, p["router"], bias, p["w_gate"], p["w_in"],
-                            p["w_out"], k=k, cap=cap)
+@dataclasses.dataclass(frozen=True)
+class EPContext:
+    """Expert-parallel execution context: the experts split over
+    ``expert_axis``, their dim 1 over ``fsdp_axis`` where stored so (the
+    layer gathers it), the tokens split over ``dp_axes`` by the caller.
+    A layer costs one gather of its expert weights over the data axis and
+    one sum of the partial outputs over the expert axis."""
+
+    mesh: Any
+    expert_axis: str = "model"
+    fsdp_axis: str | None = "data"
+    dp_axes: tuple = ("data",)
+    capacity_factor: float = 2.0
+
+
+def moe_apply_ep(p, x, k: int, *, bias=None, ep_axes: EPContext | None = None):
+    """One MoE layer over the dense expert weights, capacity-dispatched; on
+    one device, or expert-parallel over ``ep_axes`` (``p``'s expert stacks
+    then the rank's blocks).  ``"residency"`` params take the NeoMem-tiered
+    serving arm.  Returns (y, expert ids (B,S,k), None)."""
+    e = p["router"].shape[-1]
+    b, s, d = x.shape
+    combine, midx, router = None, 0, p["router"]
+    if ep_axes is not None:
+        mesh = ep_axes.mesh
+        group = mesh.group(ep_axes.expert_axis)
+        midx = mesh.coord(ep_axes.expert_axis)
+        combine = lambda y: col.sum_parts(y, group)
+        x_in, router = col.enter(x, group), col.enter(router, group)
+    else:
+        x_in = x
+    if "residency" in p:
+        # dispatch buffers sized to the expected load (x8 headroom), not to
+        # the no-drop bound: with E_hot + fetch local experts a t*k capacity
+        # would pad the expert products ~10x
+        cap = min(b * s * k, max(64, int(8.0 * b * s * k / e)))
+        y, idx = _ep_resident_body(
+            x_in, router, bias, p["residency"], p["w_gate"], p["w_in"], p["w_out"],
+            p["fetch_gate"], p["fetch_in"], p["fetch_out"], p["fetch_ids"],
+            k=k, cap=cap, midx=midx, combine=combine)
+        return y + _shared_expert(p, x), idx, None
+    ws = (p["w_gate"], p["w_in"], p["w_out"])
+    cf = 2.0
+    if ep_axes is not None:
+        cf = ep_axes.capacity_factor
+        if ep_axes.fsdp_axis is not None and ws[0].shape[1] != d:
+            fg = mesh.group(ep_axes.fsdp_axis)
+            ws = tuple(col.gather(w, 1, fg, reduce=True) for w in ws)
+    y, idx = _ep_local_body(x_in, router, bias, *ws, k=k,
+                            cap=_capacity(b * s, k, e, cf), midx=midx,
+                            combine=combine)
     return y + _shared_expert(p, x), idx, None
 
 

@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import per_group
 from repro_torch.models.attention import (_normal, cross_apply, gqa_apply,
                                           gqa_init, mla_apply, mla_init)
 from repro_torch.models.layers import (DTYPE, apply_norm, cross_entropy,
@@ -163,8 +164,12 @@ def _block(gen, cfg: ArchConfig, kind: str, groups: int, device):
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
+    """The params tree of ``cfg`` drawn from ``seed`` on ``device``; on
+    ``"meta"`` the shapes and dtypes alone (``jax.eval_shape``'s
+    counterpart)."""
     check_ported(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if torch.device(device).type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     # draw order: the body, the shared attention block, the prologue, the
     # encoder, the embedding, then the MTP head
     params = {"blocks": [_block(gen, cfg, kind, cfg.n_groups, device)
@@ -193,14 +198,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
 
 # -- the training forward (full sequence) ----------------------------------------
 
-def _attn_block(p, cfg: ArchConfig, kind: str, x, aux):
+def _attn_block(p, cfg: ArchConfig, kind: str, x, aux, ep_axes=None):
     """One attention block over the whole sequence (the reference's
     ``_apply_attn_block``): self-attention (MLA where the arch has it but
     in a ``cross`` block; bidirectional for the encoder's ``enc_self``),
     then a ``cross`` block's gated cross attention over
     ``aux["aux_embeds"]`` or a ``dec`` block's over ``aux["enc_out"]``,
-    then the MLP or, in a ``moe`` block, the routed experts.  Returns (x,
-    the block's router ids (B, S, k) or None)."""
+    then the MLP or, in a ``moe`` block, the routed experts (expert-parallel
+    under ``ep_axes``).  Returns (x, the block's router ids (B, S, k) or
+    None)."""
     h = apply_norm(cfg.norm, p["ln1"], x)
     if cfg.mla is not None and kind != "cross":
         o = mla_apply(p["attn"], h, h=cfg.n_heads, rope_theta=cfg.rope_theta,
@@ -225,7 +231,7 @@ def _attn_block(p, cfg: ArchConfig, kind: str, x, aux):
     stream = None
     if kind == "moe":
         y, stream, _ = moe_apply_ep(p["ffn"], h2, cfg.moe.top_k,
-                                    bias=p.get("router_bias"))
+                                    bias=p.get("router_bias"), ep_axes=ep_axes)
     else:
         y = mlp_apply(p["ffn"], h2, cfg.mlp)
     if cfg.post_norm:
@@ -233,7 +239,7 @@ def _attn_block(p, cfg: ArchConfig, kind: str, x, aux):
     return x + y, stream
 
 
-def _apply_block(p, shared, cfg: ArchConfig, kind: str, x, aux):
+def _apply_block(p, shared, cfg: ArchConfig, kind: str, x, aux, ep_axes=None):
     """One block of the body: a recurrent mixer behind its norm and
     residual, the shared attention block, or an attention block."""
     if kind in RECURRENT_KINDS:
@@ -248,8 +254,8 @@ def _apply_block(p, shared, cfg: ArchConfig, kind: str, x, aux):
             y = slstm_apply(p["mix"], h)
         return x + y, None
     if kind == "shared_attn":
-        return _attn_block(shared, cfg, "attn", x, aux)
-    return _attn_block(p, cfg, kind, x, aux)
+        return _attn_block(shared, cfg, "attn", x, aux, ep_axes)
+    return _attn_block(p, cfg, kind, x, aux, ep_axes)
 
 
 def _unbind_groups(block, groups: int) -> list:
@@ -260,8 +266,18 @@ def _unbind_groups(block, groups: int) -> list:
     return [tree_unflatten(block, [p[g] for p in parts]) for g in range(groups)]
 
 
+def _top(params, layout):
+    """``params`` with every leaf outside ``params["blocks"]`` gathered
+    under ``layout`` (one autograd function); the blocks stay stored."""
+    if layout is None:
+        return params
+    top = {k: v for k, v in params.items() if k != "blocks"}
+    specs = {k: layout.specs[k] for k in top}
+    return dict(layout.gather(top, specs), blocks=params["blocks"])
+
+
 def forward(cfg: ArchConfig, params, tokens, *, aux_embeds=None,
-            remat: bool = True):
+            remat: bool = True, ep_axes=None, layout=None):
     """tokens (B, S) -> (final hidden states (B, S, D), aux).  ``aux``
     holds ``token_stream``, the encoder's ``enc_out`` (an encoder arch, which
     runs its encoder here over ``aux_embeds``) or the ``aux_embeds``
@@ -269,23 +285,37 @@ def forward(cfg: ArchConfig, params, tokens, *, aux_embeds=None,
     B, S, k) int32, the reference's layout (the prologue adds none).  With
     ``remat`` each pattern group runs under non-reentrant activation
     checkpointing, its router ids an output of the checkpointed function so
-    that the recompute in the backward appends nothing."""
+    that the recompute in the backward appends nothing.
+
+    Over a mesh ``params`` are the rank's stored blocks and ``layout``
+    (:class:`repro_torch.dist.sharding.Layout`) gathers them: the leaves
+    outside the body once, each pattern group's inside its checkpoint, so
+    that remat gathers again; ``ep_axes`` runs the MoE layers
+    expert-parallel."""
+    return _forward(cfg, _top(params, layout), tokens, aux_embeds, remat,
+                    ep_axes, layout)
+
+
+def _forward(cfg: ArchConfig, params, tokens, aux_embeds, remat, ep_axes, layout):
     x = embed_apply(params["embed"], tokens)
     if cfg.embed_scale:
         x = (x.float() * cfg.d_model ** 0.5).to(x.dtype)
     aux = {"token_stream": tokens}
     if cfg.encoder_layers and aux_embeds is not None:
-        aux["enc_out"] = encode(cfg, params, aux_embeds)
+        aux["enc_out"] = encode(cfg, params, aux_embeds, ep_axes=ep_axes)
     elif aux_embeds is not None:
         aux["aux_embeds"] = aux_embeds
     for lp in params.get("prologue", []):
-        x, _ = _attn_block(lp, cfg, "attn_dense", x, aux)
+        x, _ = _attn_block(lp, cfg, "attn_dense", x, aux, ep_axes)
     shared = params.get("shared_attn")
+    gspecs = None if layout is None else per_group(layout.specs["blocks"])
 
     def group_body(x, gp):
+        if layout is not None:
+            gp = layout.gather(gp, gspecs)
         streams = []
         for i, kind in enumerate(cfg.pattern):
-            x, stream = _apply_block(gp[i], shared, cfg, kind, x, aux)
+            x, stream = _apply_block(gp[i], shared, cfg, kind, x, aux, ep_axes)
             if stream is not None:
                 streams.append(stream)
         return x, (torch.stack(streams) if streams else None)
@@ -306,16 +336,19 @@ def forward(cfg: ArchConfig, params, tokens, *, aux_embeds=None,
     return apply_norm(cfg.norm, params["final_norm"], x), aux
 
 
-def train_loss(cfg: ArchConfig, params, batch, *, remat: bool = True):
+def train_loss(cfg: ArchConfig, params, batch, *, remat: bool = True,
+               ep_axes=None, layout=None):
     """The training loss of ``batch`` (``tokens``, ``labels`` (B, S), and
     optionally ``aux_embeds`` and ``loss_mask``): the cross entropy of the
     tied-embedding logits, plus 0.3 x the multi-token head's (which
     predicts t+2 from h_t and the embedding of token t+1, both rolled by
-    -1).  Returns (loss, (metrics, aux))."""
+    -1).  ``ep_axes`` and ``layout`` as in :func:`forward`.  Returns (loss,
+    (metrics, aux))."""
     tokens, labels = batch["tokens"], batch["labels"]
     mask = batch.get("loss_mask")
-    x, aux = forward(cfg, params, tokens, aux_embeds=batch.get("aux_embeds"),
-                     remat=remat)
+    params = _top(params, layout)
+    x, aux = _forward(cfg, params, tokens, batch.get("aux_embeds"), remat,
+                      ep_axes, layout)
     loss = cross_entropy(logits_apply(params["embed"], x, cfg.final_softcap),
                          labels, mask)
     metrics = {"loss": loss}
@@ -324,7 +357,7 @@ def train_loss(cfg: ArchConfig, params, batch, *, remat: bool = True):
         emb_next = embed_apply(params["embed"], torch.roll(tokens, -1, dims=1))
         h2 = torch.cat([x, emb_next.to(x.dtype)], dim=-1) @ mp["proj"]
         h2, _ = _attn_block(mp["block"], cfg, "attn_dense" if cfg.moe else "attn",
-                            h2, {})
+                            h2, {}, ep_axes)
         h2 = apply_norm(cfg.norm, mp["norm"], h2)
         mtp_loss = cross_entropy(
             logits_apply(params["embed"], h2, cfg.final_softcap),
@@ -335,11 +368,11 @@ def train_loss(cfg: ArchConfig, params, batch, *, remat: bool = True):
     return loss, (metrics, aux)
 
 
-def encode(cfg: ArchConfig, params, aux_embeds):
+def encode(cfg: ArchConfig, params, aux_embeds, *, ep_axes=None):
     """The encoder stack (whisper): frame embeddings (B, S, D) -> the
     encoder's output, which serving computes once at prefill and every
     decode step's ``dec`` blocks attend over."""
     enc = aux_embeds
     for lp in params["encoder"]:
-        enc, _ = _attn_block(lp, cfg, "enc_self", enc, {})
+        enc, _ = _attn_block(lp, cfg, "enc_self", enc, {}, ep_axes)
     return apply_norm(cfg.norm, params["enc_norm"], enc)

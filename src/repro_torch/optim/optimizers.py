@@ -10,6 +10,11 @@ int32 that counts from 1 and the bias corrections ``b ** step`` in float32.
 Adafactor keeps a factored second moment (row and column means) for every
 leaf whose last two dims exceed 1, and clips its update to RMS 1.
 
+Over a mesh (:mod:`repro_torch.train.step`) the gradients are full and the
+params the rank's blocks: ``block(i, x)`` takes leaf i's block of a full
+tensor, which AdamW applies to the clipped gradient (its m and v are
+blocks too) and Adafactor to the update (its factored moments are full).
+
 The update writes the params and the moments in place and returns them, so
 that a step at full width holds one copy of each: a caller that needs the
 old values keeps a clone.  Products and sums are separate ops (no fused
@@ -112,8 +117,12 @@ def adamw_init(params):
                                 device=leaves[0].device)}
 
 
+def _whole(_, x):
+    return x
+
+
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, params, grads, state):
+def adamw_update(cfg: OptConfig, params, grads, state, block=_whole):
     """-> (params, state, {"gnorm", "lr"}); ``grads`` a tree like
     ``params`` (float32 gradients are clipped in place)."""
     step = state["step"] + 1
@@ -121,8 +130,10 @@ def adamw_update(cfg: OptConfig, params, grads, state):
     gl, gnorm = clip_by_global_norm(tree_leaves(grads), cfg.grad_clip)
     bc1, bc2 = bias_corrections(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
-    for p, g, m, v in zip(tree_leaves(params), gl, tree_leaves(state["m"]),
-                          tree_leaves(state["v"])):
+    for i, (p, g, m, v) in enumerate(zip(tree_leaves(params), gl,
+                                         tree_leaves(state["m"]),
+                                         tree_leaves(state["v"]))):
+        g = block(i, g)
         m.mul_(b1).add_(g * (1 - b1))
         v.mul_(b2).add_(g * (1 - b2) * g)
         u = (m / bc1) / (sqrt(v / bc2) + cfg.eps)
@@ -151,7 +162,7 @@ def adafactor_init(params):
 
 
 @torch.no_grad()
-def adafactor_update(cfg: OptConfig, params, grads, state):
+def adafactor_update(cfg: OptConfig, params, grads, state, block=_whole):
     step = state["step"] + 1
     lr = schedule(cfg, step)
     gl, gnorm = clip_by_global_norm(tree_leaves(grads), cfg.grad_clip)
@@ -159,7 +170,7 @@ def adafactor_update(cfg: OptConfig, params, grads, state):
     flat_p = tree_leaves(params)
     flat_s = _leaf_states(params, state["s"])
     new_s = []
-    for p, g, s in zip(flat_p, gl, flat_s):
+    for i, (p, g, s) in enumerate(zip(flat_p, gl, flat_s)):
         g2 = g * g + 1e-30
         if "vr" in s:
             vr = decay * s["vr"] + (1 - decay) * g2.mean(dim=-1)
@@ -173,7 +184,7 @@ def adafactor_update(cfg: OptConfig, params, grads, state):
             new_s.append({"v": v})
         del g2
         rms = sqrt((u * u).mean() + 1e-30)           # update clipping
-        u = u / torch.clamp_min(rms, 1.0)
+        u = block(i, u / torch.clamp_min(rms, 1.0))
         u = u + cfg.weight_decay * p.float()
         _apply(p, lr, u)
     return params, {"s": tree_unflatten(params, new_s), "step": step}, \
@@ -191,5 +202,6 @@ def _leaf_states(params, s_tree) -> list:
 
 def make_optimizer(cfg: OptConfig):
     if cfg.kind == "adafactor":
-        return adafactor_init, lambda p, g, s: adafactor_update(cfg, p, g, s)
-    return adamw_init, lambda p, g, s: adamw_update(cfg, p, g, s)
+        return adafactor_init, lambda p, g, s, block=_whole: \
+            adafactor_update(cfg, p, g, s, block)
+    return adamw_init, lambda p, g, s, block=_whole: adamw_update(cfg, p, g, s, block)

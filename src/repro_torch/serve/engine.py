@@ -123,7 +123,7 @@ class ServeConfig:
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, scfg: ServeConfig, *,
                  device="cuda", sketch_seeds: torch.Tensor | None = None,
-                 attach_to: "ServeEngine | None" = None):
+                 ep_axes=None, attach_to: "ServeEngine | None" = None):
         """``sketch_seeds`` are every resource's (D, 30) H3 seeds (default:
         drawn from a generator seeded with 0), as the reference seeds every
         resource's sketch from one key.
@@ -132,7 +132,13 @@ class ServeEngine:
         store (DESIGN.md §13): the daemon, every resource handle and the
         reuse pool are shared with ``attach_to``.  Only the lane count may
         differ (preemption residuals move between the two engines' lanes),
-        and the worker never ticks the shared daemon."""
+        and the worker never ticks the shared daemon.
+
+        ``ep_axes`` (a :class:`repro_torch.models.moe.EPContext`) runs every
+        decode and prefill's MoE layers expert-parallel over its mesh
+        (``params``' expert stacks then this rank's blocks); the experts
+        resource still profiles the router stream, but its tier view is
+        withheld, so that the expert-parallel layer serves."""
         if scfg.lanes and not scfg.paged:
             raise ValueError("lane mode (ServeConfig.lanes) requires paged=True")
         if scfg.kv_mass_source not in ("kernel", "fill"):
@@ -152,6 +158,7 @@ class ServeEngine:
         self.cfg = cfg
         self.params = params
         self.scfg = scfg
+        self.ep = ep_axes
         self.device = torch.device(device)
         self._embed_rpp = scfg.embed_rows_per_page or EMBED_ROWS_PER_PAGE
         self._daemon_owner = attach_to is None
@@ -308,7 +315,9 @@ class ServeEngine:
         if "embeddings" in self.daemon:
             out["embeddings"] = self.daemon["embeddings"].tier_view()
             out["embeddings"]["rows_per_page"] = self._embed_rpp
-        if "experts" in self.daemon:
+        # expert-parallel serving keeps moe_apply_ep's dispatch: the
+        # replicated per-token row read is the single-device tiered path
+        if "experts" in self.daemon and self.ep is None:
             out["experts"] = self.daemon["experts"].tier_view()
         return out
 
@@ -347,7 +356,7 @@ class ServeEngine:
         self.aux = None if aux_embeds is None else tensor_from_numpy(
             aux_embeds, self.device)
         if self.cfg.encoder_layers and self.aux is not None:
-            self.aux = encode(self.cfg, self.params, self.aux)
+            self.aux = encode(self.cfg, self.params, self.aux, ep_axes=self.ep)
         if not self.scfg.paged:
             # one pass fills the full cache and gives the last logits; the
             # prompt's streams are observed as one batch each
@@ -355,7 +364,7 @@ class ServeEngine:
                                         device=self.device)
             logits, self.cache, streams = dec.prefill_dense(
                 self.cfg, self.params, self.cache, tokens, aux_embeds=self.aux,
-                tiered=self._tier_reads())
+                tiered=self._tier_reads(), ep_axes=self.ep)
             self._observe_common(tokens, streams["router"])
             self._maybe_tick(s)
             return logits.argmax(-1).cpu().numpy()
@@ -374,7 +383,8 @@ class ServeEngine:
         n = tok.shape[1]
         logits, self.cache, streams = dec.prefill_paged(
             self.cfg, self.params, self.cache, tok, page_t=self.scfg.page_t,
-            tiered=self._tier_reads(), collect_mass=self._kernel_mass)
+            tiered=self._tier_reads(), collect_mass=self._kernel_mass,
+            ep_axes=self.ep)
         self._observe_common(tok, streams["router"])
         view = self._kv_page_stream()
         if view is not None:
@@ -409,11 +419,11 @@ class ServeEngine:
             logits, self.cache, streams = dec.decode_step_paged(
                 self.cfg, self.params, self.cache, tok, page_t=self.scfg.page_t,
                 return_streams=True, collect_mass=self._kernel_mass,
-                tiered=self._tier_reads())
+                tiered=self._tier_reads(), ep_axes=self.ep)
         else:
             logits, self.cache, streams = dec.decode_step(
                 self.cfg, self.params, self.cache, tok, aux_embeds=self.aux,
-                return_streams=True, tiered=self._tier_reads())
+                return_streams=True, tiered=self._tier_reads(), ep_axes=self.ep)
         self._set_kv_mass(streams)
         self._observe(tok, streams["router"])
         self._maybe_tick()
@@ -494,7 +504,8 @@ class ServeEngine:
             self.cfg, self.params, self.cache, self._tokens(tokens)[:, None],
             page_t=self.scfg.page_t, return_streams=True,
             collect_mass=self._kernel_mass, tiered=self._tier_reads(),
-            active=torch.as_tensor(self._lane_active, device=self.device))
+            active=torch.as_tensor(self._lane_active, device=self.device),
+            ep_axes=self.ep)
         self._set_kv_mass(streams)
         self._observe_lanes(tokens, streams["router"])
         self._maybe_tick()
@@ -540,7 +551,8 @@ class ServeEngine:
         logits, self.cache, streams = dec.prefill_paged(
             self.cfg, self.params, self.cache, self._tokens(tok),
             page_t=self.scfg.page_t, valid=valid, active=active,
-            tiered=self._tier_reads(), collect_mass=self._kernel_mass)
+            tiered=self._tier_reads(), collect_mass=self._kernel_mass,
+            ep_axes=self.ep)
         self._lane_active = active.copy()
         self._observe_lane_chunk(tok, valid, streams, active)
         self._flush_kv_lanes(lanes=[lane])

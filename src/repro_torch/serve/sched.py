@@ -191,7 +191,8 @@ class Scheduler:
             pcfg = dataclasses.replace(engine.scfg,
                                        lanes=self.scfg.prefill_lanes)
             self.peng = ServeEngine(engine.cfg, engine.params, pcfg,
-                                    device=engine.device, attach_to=engine)
+                                    device=engine.device, ep_axes=engine.ep,
+                                    attach_to=engine)
             self.pre_lanes = [None] * self.scfg.prefill_lanes
         if engine.cache is None:
             engine.start_lanes()

@@ -1,4 +1,5 @@
-"""The train step on one device (port of ``repro/train/step.py``).
+"""The train step, on one device or over a mesh (port of
+``repro/train/step.py``).
 
 ``build_train_step(cfg, mesh=None, tcfg)`` returns ``train_step(state,
 batch) -> (state, metrics)``, which
@@ -16,16 +17,32 @@ batch) -> (state, metrics)``, which
   3. with ``grad_compression`` passes the gradients through the int8+EF
      link (:mod:`repro_torch.dist.compression`);
   4. updates with AdamW, Adafactor or flat ZeRO-1 (with
-     ``compress_collective`` its int8+EF delta; ``offload_master`` is the
-     identity on one device).
+     ``compress_collective`` its int8+EF delta).
+
+Over a mesh (:class:`repro_torch.launch.mesh.Mesh`) every rank runs the
+step on its own tensors.  The params are stored as
+:func:`repro_torch.dist.sharding.param_pspecs` places them (``fsdp`` adds a
+data-axis split); each pattern group gathers its weights before it runs
+(:class:`repro_torch.dist.sharding.Layout`), the batch rows are split over
+the data axes, and compute is replicated over 'model' but in the MoE
+layers, which run expert-parallel (``_ep_context``).  The gradients are
+summed over the data axes after every microbatch, or once after the loop
+under ``local_grads`` (where the params enter the loop gathered over the
+data axes, and ``grad_compression`` makes that sum
+:func:`repro_torch.dist.compression.compress_psum`), then divided by M
+times the data ranks, so that they equal the single-device gradients of
+the whole batch.  The update reads the full gradients and writes each
+rank's blocks: AdamW's m and v are blocks, Adafactor's factored moments
+full, ZeRO-1's vectors the rank's flat slices; ``offload_master`` keeps
+those in pinned host memory between steps and fetches them on a side
+stream during the backward.  XLA's automatic tensor parallelism has no
+counterpart: the dense layers compute on gathered weights.
 
 The state is ``{"params", "opt", "prof"[, "ef"]}``, the reference's tree
-(:func:`init_state` builds it).  The step writes the params and optimizer
-moments in place and returns the state.  Every tensor lives on the state's
-device; nothing moves to the host but the metrics the caller reads.  The
-mesh-only options (a mesh, ``fsdp``, ``local_grads`` with a mesh, the
-expert-parallel context) raise ``NotImplementedError``: they belong to the
-distribution layer (ROADMAP item 10).
+(:func:`init_state` builds and places it).  The step writes the params
+and optimizer moments in place and returns the state.  Every tensor lives
+on the state's device (or the master vectors on its host); nothing moves
+to the host but the metrics the caller reads.
 """
 from __future__ import annotations
 
@@ -40,8 +57,14 @@ from repro_torch.convert import tensor_from_numpy
 from repro_torch.core import sketch as sk
 from repro_torch.core.neoprof import NeoProfParams, neoprof_init, neoprof_observe
 from repro_torch.core.sketch import SketchParams
+from repro_torch.dist import collectives as col
 from repro_torch.dist import compression
+from repro_torch.dist.sharding import (Layout, batch_pspec, drop_axes, gather_many,
+                                       param_pspecs, shard, spec_leaves,
+                                       tree_map_with_path)
+from repro_torch.launch.mesh import DP_AXES, dp_axes
 from repro_torch.models import transformer as tr
+from repro_torch.models.moe import EPContext
 from repro_torch.optim import zero1
 from repro_torch.optim.optimizers import OptConfig, make_optimizer
 
@@ -56,19 +79,74 @@ class TrainConfig:
     grad_compression: bool = False
     zero1: bool = False
     compress_collective: bool = False  # int8+EF ZeRO-1 delta (DESIGN.md §14)
-    fsdp: bool = False                 # ZeRO-3 over 'data' (a mesh)
-    local_grads: bool = False          # the DP reduce out of the loop (a mesh)
-    offload_master: bool = False       # ZeRO-1 m/v/ef in the slow tier
+    fsdp: bool = False                 # ZeRO-3 weight storage over 'data'
+    local_grads: bool = False          # one data-parallel reduce after the
+                                       # microbatch loop (a mesh)
+    offload_master: bool = False       # ZeRO-1 m/v/ef in pinned host memory
+                                       # between steps (a mesh on the card)
     profile_experts: bool = True       # NeoMem router-stream profiling
     sketch_width: int = 1 << 14
 
 
-def _check_single_device(mesh, tcfg: TrainConfig) -> None:
-    if mesh is not None or tcfg.fsdp:
-        raise NotImplementedError(
-            "training over a mesh (fsdp, local_grads, the expert-parallel "
-            "context) is not yet ported to repro_torch (ROADMAP item 10, the "
-            "distribution layer)")
+def _ep_context(cfg: ArchConfig, mesh) -> EPContext | None:
+    if cfg.moe is None or mesh is None:
+        return None
+    return EPContext(mesh=mesh, expert_axis="model", fsdp_axis="data",
+                     dp_axes=dp_axes(mesh))
+
+
+def _expert_stack(path: str, spec) -> bool:
+    """A MoE layer's (G, E, D, F) expert weights, which stay split over
+    'model' for the expert-parallel body."""
+    return path.startswith("blocks") and len(spec) == 4 \
+        and path.rsplit("/", 1)[-1] in ("w_gate", "w_in", "w_out")
+
+
+class _Placement:
+    """Where a step's tensors live over ``mesh``: ``stored``, each param's
+    spec at rest; ``live``, the blocks the microbatch loop takes gradients
+    of (``stored``, or under ``local_grads`` gathered over the data axes);
+    ``layout``, what each group gathers before it runs (``live``, but the
+    expert stacks' 'model' split under expert parallelism)."""
+
+    def __init__(self, cfg: ArchConfig, mesh, tcfg: "TrainConfig"):
+        self.mesh = mesh
+        self.dp = dp_axes(mesh)
+        self.n_dp = mesh.axis_size(self.dp) if self.dp else 1
+        shapes = tr.init_params(cfg, device="meta")
+        self.stored = param_pspecs(shapes, mesh, fsdp=tcfg.fsdp)
+        live = self.stored
+        if tcfg.local_grads:
+            live = tree_map_with_path(lambda _, s: drop_axes(s, DP_AXES), live)
+        self.live = spec_leaves(live)
+        ep = cfg.moe is not None
+        self.layout = Layout(mesh, tree_map_with_path(
+            lambda p, s: drop_axes(s, ("model",)) if ep and _expert_stack(p, s) else s,
+            live))
+        self.stored_leaves = spec_leaves(self.stored)
+        self.zspec = zero1.flat_spec(shapes, mesh.size) if tcfg.zero1 else None
+
+    def dp_group(self):
+        return self.mesh.group(self.dp) if self.dp else None
+
+    def reduce_data(self, grads) -> None:
+        """Sum a microbatch's gradients over the data axes the backward has
+        not summed them over (the group gather reduce-scatters over the
+        axes a leaf is split on), one bucketed all-reduce a set of axes."""
+        by_axes = {}
+        for g, spec in zip(grads, self.live):
+            if g is None:
+                continue
+            split = {a for e in spec if e is not None
+                     for a in ((e,) if isinstance(e, str) else e)}
+            axes = tuple(a for a in self.dp if a not in split)
+            if axes:
+                by_axes.setdefault(axes, []).append(g)
+        for axes, gs in by_axes.items():
+            col.all_reduce_many(gs, self.mesh.group(axes))
+
+    def block(self, i: int, x):
+        return shard(x, self.stored_leaves[i], self.mesh)
 
 
 def prof_params(tcfg: TrainConfig) -> NeoProfParams:
@@ -76,96 +154,187 @@ def prof_params(tcfg: TrainConfig) -> NeoProfParams:
 
 
 def init_state(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig(), params=None,
-               *, seed: int = 0, device="cuda"):
+               *, seed: int = 0, device="cuda", mesh=None):
     """The train state the reference's step takes: ``params`` (drawn from
     ``seed`` unless given), ``opt`` (the optimizer's state, or ZeRO-1's
     flat vectors), ``prof`` (a NeoProf state whose sketch has the
-    reference's seeds) and, with ``grad_compression``, ``ef``."""
-    _check_single_device(None, tcfg)
+    reference's seeds) and, with ``grad_compression``, ``ef``.
+
+    With a mesh (the counterpart of the reference's ``state_shardings``)
+    ``params`` is the full tree, drawn on the mesh's device unless given,
+    and the state holds the rank's blocks of it: the params and AdamW's
+    moments under :func:`repro_torch.dist.sharding.param_pspecs` (with
+    ``tcfg.fsdp``), ZeRO-1's slices (pinned on the host with
+    ``offload_master`` on the card); Adafactor's factored moments, ``ef``
+    and ``prof`` whole on every rank.  The params' blocks may share storage
+    with the tree given."""
     if params is None:
-        params = tr.init_params(cfg, seed, device=device)
+        params = tr.init_params(cfg, seed, device=device if mesh is None
+                                else mesh.device)
     dev = tree_leaves(params)[0].device
     pp = prof_params(tcfg)
     seeds = sk.key_seeds(pp.sketch.depth, pp.sketch.width)
-    state = {"params": params, "prof": neoprof_init(pp, seeds, device=dev)}
+    local = params
+    if mesh is not None:
+        specs = spec_leaves(param_pspecs(params, mesh, fsdp=tcfg.fsdp))
+        local = tree_unflatten(params, [shard(x, sp, mesh) for x, sp in
+                                        zip(tree_leaves(params), specs)])
+    state = {"params": local, "prof": neoprof_init(pp, seeds, device=dev)}
     if tcfg.zero1:
         state["opt"], _ = zero1.zero1_init(
-            params, None, compress_collective=tcfg.compress_collective,
+            params, mesh, compress_collective=tcfg.compress_collective,
             offload=tcfg.offload_master)
     else:
-        state["opt"] = make_optimizer(tcfg.opt)[0](params)
+        init = make_optimizer(tcfg.opt)[0]
+        state["opt"] = init(params if tcfg.opt.kind == "adafactor" else local)
     if tcfg.grad_compression:
         state["ef"] = compression.ef_init(params)
     return state
 
 
-def to_batch(batch: dict, device) -> dict:
-    """A numpy batch (``data.pipeline``'s) as tensors on ``device``."""
-    return {k: tensor_from_numpy(np.ascontiguousarray(v), device)
-            for k, v in batch.items()}
+def to_batch(batch: dict, device, mesh=None) -> dict:
+    """A numpy batch (``data.pipeline``'s) as tensors on ``device``; with a
+    mesh, the rank's rows (split over the data axes, as the reference's
+    ``batch_shardings``)."""
+    out = {k: tensor_from_numpy(np.ascontiguousarray(v), device)
+           for k, v in batch.items()}
+    if mesh is None:
+        return out
+    rows = batch_pspec(mesh)[0]
+    return {k: shard(v, (rows,) + (None,) * (v.dim() - 1), mesh)
+            for k, v in out.items()}
 
 
 def build_train_step(cfg: ArchConfig, mesh=None, tcfg: TrainConfig = TrainConfig()):
     """-> ``train_step(state, batch) -> (state, metrics)``; metrics
-    ``loss``, ``gnorm``, ``lr`` (() float32 tensors on the device) and with
-    ZeRO-1 ``collective_bytes``."""
-    _check_single_device(mesh, tcfg)
+    ``loss``, ``gnorm``, ``lr`` (() float32 tensors on the device), with
+    ZeRO-1 ``collective_bytes``, and with ``local_grads`` over a mesh
+    ``dp_psum_bytes`` (the wire bytes one rank adds to the data-parallel
+    gradient sum).  Over a mesh ``state`` comes from ``init_state(...,
+    mesh=mesh)`` and ``batch`` from ``to_batch(..., mesh=mesh)``."""
     _, opt_update = make_optimizer(tcfg.opt)
     pp = prof_params(tcfg)
     m = tcfg.microbatches
     spec = None             # ZeRO-1's flat layout: shapes only, built at step 1
+    place = None if mesh is None else _Placement(cfg, mesh, tcfg)
+    ep = _ep_context(cfg, mesh)
+    local = place is not None and tcfg.local_grads
 
     def grads_and_loss(params, batch):
         leaves = tree_leaves(params)
+        if local:           # the loop takes the params whole over the data axes
+            leaves = gather_many(leaves, [_data_splits(st, mesh)
+                                          for st in place.stored_leaves], mesh)
         live_leaves = [p.detach().requires_grad_() for p in leaves]
         live = tree_unflatten(params, live_leaves)
         gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for p in leaves]
         lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         streams = []
+        kw = {} if place is None else {"ep_axes": ep, "layout": place.layout}
         for i in range(m):
             mb = {k: v[i::m] for k, v in batch.items()}
-            loss, (_, aux) = tr.train_loss(cfg, live, mb, remat=tcfg.remat)
+            loss, (_, aux) = tr.train_loss(cfg, live, mb, remat=tcfg.remat, **kw)
             grads = torch.autograd.grad(loss, live_leaves, allow_unused=True)
             with torch.no_grad():
+                if place is not None and not local:
+                    place.reduce_data(grads)
                 for a, g in zip(gacc, grads):
                     if g is not None:      # a leaf off the loss's path: zero
                         a.add_(g)
                 lsum = lsum + loss.detach()
             del grads, loss
-            if "router_streams" in aux:
-                streams.append(aux["router_streams"])
-        div = torch.tensor(float(m), device=lsum.device)
-        for a in gacc:
-            a.div_(div)
-        return gacc, lsum / div, streams
+            if "router_streams" in aux and not local:
+                st = aux["router_streams"]
+                if place is not None and place.dp:   # the whole microbatch's rows
+                    st = col.all_gather(st, 2, place.dp_group())
+                streams.append(st)
+        return gacc, lsum, streams
+
+    def full_grads(gacc, state, new_state):
+        """The gradients summed over the data axes, whole on every rank ->
+        (leaves, metrics); under ``local_grads`` the one data-parallel sum
+        (compressed with ``grad_compression``) runs here."""
+        gl, j = [], 0
+        while j < len(gacc):            # a bucket's float32 copies at a time
+            k, size = j, 0
+            while k < len(gacc) and (k == j or size + gacc[k].numel() * 4 <= col.BUCKET_BYTES):
+                size += gacc[k].numel() * 4
+                k += 1
+            gl += gather_many(gacc[j:k], place.live[j:k], mesh)
+            gacc[j:k] = [None] * (k - j)
+            j = k
+        if not local:
+            return gl, {}
+        metrics = {"dp_psum_bytes": compression.psum_bytes(
+            gl, compressed=tcfg.grad_compression)}
+        if not place.dp:
+            return gl, metrics
+        if tcfg.grad_compression:
+            gl, new_state["ef"] = compression.compress_psum(
+                gl, tree_leaves(state["ef"]), place.dp_group())
+            new_state["ef"] = tree_unflatten(state["ef"], new_state["ef"])
+        else:
+            col.all_reduce_many(gl, place.dp_group())
+        return gl, metrics
 
     def train_step(state, batch):
         nonlocal spec
         params, opt_state, prof = state["params"], state["opt"], state["prof"]
+        pending = None
         if tcfg.zero1 and tcfg.offload_master:
-            opt_state = zero1.fetch_opt(opt_state)
-        gl, loss, streams = grads_and_loss(params, batch)
+            pending = zero1.fetch_opt(opt_state, mesh)
+        gl, lsum, streams = grads_and_loss(params, batch)
+        new_state = dict(state)
+        metrics = {}
+        if place is None:
+            div = torch.tensor(float(m), device=lsum.device)
+        else:
+            gl, metrics = full_grads(gl, state, new_state)
+            if place.dp:
+                col.all_reduce(lsum, place.dp_group())
+            div = torch.tensor(float(m * place.n_dp), device=lsum.device)
+        for a in gl:
+            a.div_(div)
+        loss = lsum / div
         if tcfg.profile_experts and cfg.moe is not None and streams:
             page_stream = torch.stack(streams).reshape(-1)[:PROFILE_IDS]
             prof = neoprof_observe(prof, page_stream.to(torch.int32), pp)
         grads = tree_unflatten(params, gl)
         del gl
-        new_state = dict(state)
-        if tcfg.grad_compression:
+        if tcfg.grad_compression and not local:
             qs, new_state["ef"] = compression.compress_grads(grads, state["ef"])
             grads = compression.decompress_grads(qs)
             del qs
+        if pending is not None:
+            opt_state = pending.wait()
         if tcfg.zero1:
-            spec = spec or zero1.flat_spec(params)
+            if place is None:
+                spec = spec or zero1.flat_spec(params)
+            gl = tree_leaves(grads)
+            del grads                   # the update lets go of each leaf it read
             params, opt_state, om = zero1.zero1_update(
-                tcfg.opt, params, grads, opt_state, spec,
-                compress_collective=tcfg.compress_collective)
-            if tcfg.offload_master:
-                opt_state = zero1.offload_opt(opt_state)
-        else:
+                tcfg.opt, params, gl, opt_state, place.zspec if place else spec,
+                mesh, compress_collective=tcfg.compress_collective,
+                pspecs=place and place.stored)
+            if pending is not None:
+                opt_state = zero1.offload_opt(opt_state, mesh, into=pending.source)
+        elif place is None:
             params, opt_state, om = opt_update(params, grads, opt_state)
+        else:
+            params, opt_state, om = opt_update(params, grads, opt_state, place.block)
         new_state.update(params=params, opt=opt_state, prof=prof)
-        return new_state, {"loss": loss, **om}
+        return new_state, {"loss": loss, **om, **metrics}
 
     return train_step
+
+
+def _data_splits(spec, mesh) -> tuple:
+    """``spec``'s splits over the data axes alone (a block that a single
+    data rank holds is whole already)."""
+    out = []
+    for e in spec:
+        axes = () if e is None else (e,) if isinstance(e, str) else tuple(e)
+        keep = axes and all(a in DP_AXES for a in axes) and mesh.axis_size(axes) > 1
+        out.append(e if keep else None)
+    return tuple(out)

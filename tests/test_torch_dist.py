@@ -1,0 +1,401 @@
+"""The port's distribution layer against the reference, on the CPU.
+
+The multi-rank checks run in one gloo world of 8 ranks
+(``tests/torch_dist_world.py``), started by a module fixture at this
+file's first test and carrying the (2, 4) ``("data", "model")`` mesh and
+the (1, 8) one; the 4-rank checks run on the (2, 4) mesh's 'model' ranks.
+Each is held to the reference's single-device function, run here on the
+same numpy inputs (weights through ``convert.py``), and the port's
+meshless path where it has one:
+
+* placement specs (``param_pspecs`` with and without ``fsdp``,
+  ``batch_pspec``, ``cache_pspecs`` full and paged) equal to the
+  reference's as tuples, for every arch's smoke params and caches and, by
+  shape, its full params, on (2, 4), (1, 8) and (2, 16, 16) meshes (shape
+  stand-ins);
+* ``shard`` / ``gather`` round trips bitwise; ``host_offload`` bitwise and
+  the identity on the CPU;
+* ``compress_psum`` over 4 ranks within 1e-6 |x| + 1e-7 of the
+  reference's formula evaluated in one process, sum and residual;
+* ``pipeline_apply`` (4 stages, 8 microbatches) within 1e-5 of the stages
+  applied in turn;
+* ``combine_stats`` over 4 ranks' slots within 1e-5 + 1e-5 |ref| of the
+  unsharded Pallas attention (interpret mode), the page mass within 1e-6;
+* ``decode_step_paged(smesh=)``, 16 float32 steps of llama3.2-3b-smoke
+  with the slots over 4 ranks: ring integers bitwise the reference's
+  unsharded decode, pages and logits within 1e-5, kv mass within 1e-6
+  (and the port's meshless decode the same; the first group's pages,
+  which no attention output reaches, bitwise between the two);
+* ``moe_apply_ep`` on (2, 4) with capacity factor 8: ids bitwise the
+  reference's ``moe_apply_ep(ep_axes=None)``, y and every gradient (x,
+  router, the expert stacks, the shared expert) within 1e-5 of the
+  reference's single-device autograd; the ``"residency"`` arm against the
+  reference's ``_ep_resident_body`` without a mesh;
+* ZeRO-1 over 8 shards: m, v, step and params bitwise the meshless update
+  (the reference's); with ``compress_collective`` bitwise the reference's
+  update with ``compress_delta(..., n_shards=8)``; ``offload_master``
+  bitwise the resident arm.
+"""
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+from repro.configs.registry import ARCHS as J_ARCHS  # noqa: E402
+from repro.configs.registry import get_config as j_config  # noqa: E402
+from repro.configs.registry import get_smoke_config as j_smoke  # noqa: E402
+from repro.dist import sharding as j_sh  # noqa: E402
+from repro.kernels.paged_attn import ops as j_pa  # noqa: E402
+from repro.models import decode as j_dec  # noqa: E402
+from repro.models import moe as j_moe  # noqa: E402
+from repro.models import transformer as j_tr  # noqa: E402
+from repro.optim import zero1 as j_z1  # noqa: E402
+from repro.optim.optimizers import OptConfig as JOpt  # noqa: E402
+from repro.tiering import codec as j_codec  # noqa: E402
+from repro_torch.configs.registry import get_config, get_smoke_config  # noqa: E402
+from repro_torch.dist import host_offload  # noqa: E402
+from repro_torch.dist import sharding as t_sh  # noqa: E402
+from repro_torch.launch.mesh import MeshShape, production_shape  # noqa: E402
+from repro_torch.models import decode as t_dec  # noqa: E402
+from repro_torch.models import transformer as t_tr  # noqa: E402
+
+import torch_dist_world as tw  # noqa: E402
+
+LLAMA = "llama3.2-3b"
+MESHES = {"2x4": MeshShape(("data", "model"), (2, 4)),
+          "1x8": MeshShape(("data", "model"), (1, 8)),
+          "pods": production_shape(multi_pod=True)}
+SLOTS, PAGE_T, STEPS = 8, 4, 16
+ZERO1_OPT = dict(lr=1e-2, weight_decay=0.1, warmup_steps=1, total_steps=6)
+MOE = dict(d=32, e=8, f=64, k=2, shared=32)
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_params(arch):
+    """An arch's smoke params in float32 as numpy, both sides' weights (the
+    port's draw from seed 0: the reference's own init takes seconds
+    eagerly, and only the values' equality matters)."""
+    p = t_tr.init_params(get_smoke_config(arch), 0, device="cpu")
+    return t_sh.tree_map_with_path(lambda _, x: x.float().numpy(), p)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+# -- the inputs both sides see --------------------------------------------------
+
+def _compress_inputs():
+    r = _rng(11)
+    shapes = {"a": (6, 10), "b": (33,), "c": (4, 3, 5)}
+    grads = [{k: r.normal(0, 1 + i, s).astype(np.float32) for k, s in shapes.items()}
+             for i in range(4)]
+    ef = {k: r.normal(0, 0.01, s).astype(np.float32) for k, s in shapes.items()}
+    return grads, ef
+
+
+def _pipeline_inputs():
+    r = _rng(12)
+    d = 16
+    return (r.normal(0, d ** -0.5, (4, d, d)).astype(np.float32),
+            r.normal(0, 0.1, (4, d)).astype(np.float32),
+            r.normal(0, 1, (8, 3, d)).astype(np.float32))
+
+
+def _attention_inputs(softcap):
+    r = _rng(13)
+    b, h, hkv, p, t, d = 2, 8, 2, 8, 4, 16
+    pl = r.integers(0, t + 1, (b, p)).astype(np.int32)
+    pl[0, :3] = 0                                  # slots with no token
+    return dict(q=r.normal(0, 1, (b, h, d)).astype(np.float32),
+                k_pages=r.normal(0, 1, (b, p, t, hkv, d)).astype(np.float32),
+                v_pages=r.normal(0, 1, (b, p, t, hkv, d)).astype(np.float32),
+                page_lengths=pl, softcap=softcap)
+
+
+def _decode_tokens():
+    return _rng(14).integers(0, j_smoke(LLAMA).vocab, (2, STEPS)).astype(np.int32)
+
+
+def _moe_inputs(bias):
+    m = MOE
+    p = _np_tree(j_moe.moe_init(jax.random.PRNGKey(0), m["d"], m["e"], m["f"],
+                                shared_f=m["shared"], dtype=jnp.float32))
+    r = _rng(15)
+    x = r.normal(0, 1, (4, 16, m["d"])).astype(np.float32)
+    ct = r.normal(0, 1, x.shape).astype(np.float32)
+    b = r.normal(0, 0.05, m["e"]).astype(np.float32) if bias else None
+    return p, x, ct, b
+
+
+def _resident_inputs():
+    p, x, _, b = _moe_inputs(True)
+    hot, fetch = (5, 1, 3, 6), (0, 2, 4, 7)
+    res = np.full(MOE["e"], -1, np.int32)
+    res[list(hot)] = np.arange(len(hot), dtype=np.int32)
+    rp = {k: v for k, v in p.items() if not k.startswith("w_")}
+    for name, key in (("w_gate", "fetch_gate"), ("w_in", "fetch_in"),
+                      ("w_out", "fetch_out")):
+        rp[name] = p[name][list(hot)]
+        rp[key] = p[name][list(fetch)]
+    rp["residency"] = res
+    rp["fetch_ids"] = np.asarray(fetch, np.int32)
+    return rp, x[:2, :3], b
+
+
+def _zero1_inputs():
+    params = _f32_params(LLAMA)
+    r = _rng(16)
+    # a global norm below grad_clip: the clip's scale is exactly 1
+    grads = [jax.tree.map(lambda a: r.normal(0, 1e-3, a.shape).astype(np.float32), params)
+             for _ in range(3)]
+    return params, grads
+
+
+def _checks():
+    grads, ef = _compress_inputs()
+    w, b, x = _pipeline_inputs()
+    zp, zg = _zero1_inputs()
+    out = [("shard_gather", "check_shard_gather",
+            dict(full=_rng(10).normal(0, 1, (8, 16, 4)).astype(np.float32))),
+           ("compress_psum", "check_compress_psum", dict(grads=grads, ef=ef)),
+           ("pipeline", "check_pipeline", dict(w=w, b=b, x=x))]
+    for softcap in (0.0, 5.0):
+        out.append((f"combine_{softcap}", "check_combine_stats", _attention_inputs(softcap)))
+    out.append(("decode", "check_sharded_decode",
+                dict(params=_f32_params(LLAMA), tokens=_decode_tokens(),
+                     n_slots=SLOTS, page_t=PAGE_T)))
+    for bias in (False, True):
+        p, x, ct, bb = _moe_inputs(bias)
+        out.append((f"moe_{bias}", "check_moe_ep", dict(p=p, x=x, ct=ct, k=MOE["k"], bias=bb)))
+    rp, rx, rb = _resident_inputs()
+    out.append(("resident", "check_moe_resident", dict(rp=rp, x=rx, k=MOE["k"], bias=rb)))
+    for compress, offload in ((False, False), (True, False), (True, True)):
+        out.append((f"zero1_{compress}_{offload}", "check_zero1",
+                    dict(params=zp, grads=zg, opt=ZERO1_OPT, compress=compress,
+                         offload=offload)))
+    return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def world():
+    w = tw.World(_checks())
+    try:
+        yield w
+    finally:
+        w.close()
+
+
+def _result(world, name, rank=0):
+    res = world.results()[rank][name]
+    if isinstance(res, dict) and "error" in res:
+        pytest.fail(f"rank {rank}, check {name}:\n{res['error']}")
+    return res
+
+
+# -- placement specs --------------------------------------------------------------
+
+def _ref_specs(tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, P))
+    return {j_sh.path_str(kp): tuple(s) for kp, s in flat}
+
+
+def _port_specs(tree):
+    out = {}
+    t_sh.tree_map_with_path(lambda p, s: out.__setitem__(p, tuple(s)), tree)
+    return out
+
+
+@pytest.mark.parametrize("arch", sorted(J_ARCHS))
+def test_param_specs_match_reference(arch):
+    """Smoke and full params (by shape), every mesh, with and without fsdp."""
+    smoke, full = (jax.eval_shape(lambda c=c: j_tr.init_params(c, jax.random.PRNGKey(0)))
+                   for c in (j_smoke(arch), j_config(arch)))
+    ports = {"smoke": t_tr.init_params(get_smoke_config(arch), device="meta"),
+             "full": t_tr.init_params(get_config(arch), device="meta")}
+    for which, ref in (("smoke", smoke), ("full", full)):
+        for mesh in MESHES.values():
+            for fsdp in (False, True):
+                want = _ref_specs(j_sh.param_pspecs(ref, mesh, fsdp=fsdp))
+                got = _port_specs(t_sh.param_pspecs(ports[which], mesh, fsdp=fsdp))
+                assert got == want, (which, mesh, fsdp)
+
+
+@pytest.mark.parametrize("arch", sorted(J_ARCHS))
+def test_cache_and_batch_specs_match_reference(arch):
+    jc, tc = j_smoke(arch), get_smoke_config(arch)
+    caches = [(j_dec.init_cache(jc, 4, 32), t_dec.init_cache(tc, 4, 32, device="cpu"), None),
+              (j_dec.init_paged_cache(jc, 4, SLOTS, PAGE_T),
+               t_dec.init_paged_cache(tc, 4, SLOTS, PAGE_T, device="cpu"), ("model",))]
+    for mesh in MESHES.values():
+        assert tuple(j_sh.batch_pspec(mesh)) == t_sh.batch_pspec(mesh)
+        for ref, port, slots in caches:
+            want = _ref_specs(j_sh.cache_pspecs(ref, mesh, slot_axes=slots))
+            got = _port_specs(t_sh.cache_pspecs(port, mesh, slot_axes=slots))
+            assert got == want, (mesh, slots)
+
+
+def test_host_offload_is_bitwise_and_logical_on_the_cpu():
+    x = torch.from_numpy(_rng(17).normal(0, 1, (5, 7)).astype(np.float32))
+    y = host_offload.to_slow_tier(x, None, (None, None))
+    z = host_offload.to_fast_tier(y, None, (None, None))
+    assert y is x and z is x
+    assert host_offload.supports_memory_kinds("cpu") is False
+    pre = host_offload.Prefetch({"m": x, "step": torch.zeros(())}, None)
+    got = pre.wait()
+    assert got["m"] is x and pre.start is None
+    assert torch.equal(got["m"], torch.from_numpy(_rng(17).normal(0, 1, (5, 7))
+                                                  .astype(np.float32)))
+
+
+# -- the multi-rank checks --------------------------------------------------------
+
+def test_shard_gather_round_trips(world):
+    for rank in range(tw.WORLD):
+        res = _result(world, "shard_gather", rank)
+        assert all(ok for *_, ok in res), res
+
+
+def test_compress_psum_matches_reference_formula(world):
+    grads, ef = _compress_inputs()
+    res = _result(world, "compress_psum")
+    for i, k in enumerate(sorted(ef)):
+        xs = [jnp.asarray(g[k]) + ef[k] for g in grads]
+        qs = [j_codec.quantize_int8(x) for x in xs]
+        applied = [j_codec.dequantize_int8(q, s, jnp.float32) for q, s in qs]
+        total = functools.reduce(lambda a, b: a + b, applied)
+        resid = functools.reduce(lambda a, b: a + b,
+                                 [x - a for x, a in zip(xs, applied)]) / 4.0
+        scale = max(float(jnp.abs(x).max()) for x in xs)
+        assert np.abs(res["sum"][i] - np.asarray(total)).max() <= 1e-6 * scale + 1e-7
+        assert np.abs(res["ef"][i] - np.asarray(resid)).max() <= 1e-6 * scale + 1e-7
+    for rank in range(1, tw.WORLD):           # every rank holds the same sum
+        other = _result(world, "compress_psum", rank)
+        for a, b in zip(res["sum"], other["sum"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_pipeline_matches_sequential_stages(world):
+    w, b, x = _pipeline_inputs()
+    h = jnp.asarray(x)
+    for i in range(4):
+        h = jnp.tanh(h @ w[i] + b[i])
+    for rank in (0, 5):
+        got = _result(world, "pipeline", rank)
+        assert got.shape == x.shape
+        assert np.abs(got - np.asarray(h)).max() < 1e-5
+
+
+@pytest.mark.parametrize("softcap", [0.0, 5.0])
+def test_combine_stats_match_unsharded_attention(world, softcap):
+    inp = _attention_inputs(softcap)
+    want, mass = j_pa.paged_attention(
+        jnp.asarray(inp["q"]), jnp.asarray(inp["k_pages"]), jnp.asarray(inp["v_pages"]),
+        jnp.asarray(inp["page_lengths"]), softcap=softcap, return_mass=True)
+    want, mass = np.asarray(want), np.asarray(mass)
+    res = _result(world, f"combine_{softcap}")
+    for key in ("out", "out_mass"):
+        assert np.all(np.abs(res[key] - want) <= 1e-5 + 1e-5 * np.abs(want)), key
+    assert np.abs(res["mass"] - mass).max() <= 1e-6
+
+
+def test_sharded_paged_decode_matches_reference(world):
+    cfg = j_smoke(LLAMA)
+    params = jax.tree.map(jnp.asarray, _f32_params(LLAMA))
+    tokens = _decode_tokens()
+    cache = j_dec.init_paged_cache(cfg, 2, SLOTS, PAGE_T, dtype=jnp.float32)
+    step = jax.jit(lambda p, c, t: j_dec.decode_step_paged(
+        cfg, p, c, t, page_t=PAGE_T, return_streams=True))
+    logits, masses = [], []
+    for t in range(STEPS):
+        lg, cache, st = step(params, cache, jnp.asarray(tokens[:, t:t + 1]))
+        logits.append(np.asarray(lg))
+        masses.append(np.asarray(st["kv_mass"]))
+    blk = cache["blocks"][0]
+    assert int(np.asarray(blk["cur_slot"]).max()) >= 2     # the ring advanced
+    res = _result(world, "decode")
+    for arm in ("sharded", "meshless"):
+        got = res[arm]
+        np.testing.assert_array_equal(got["page_len"], np.asarray(blk["page_len"]))
+        np.testing.assert_array_equal(got["cur_slot"], np.asarray(blk["cur_slot"]))
+        np.testing.assert_array_equal(got["pos"], np.asarray(cache["pos"]))
+        assert np.abs(got["k_pages"] - np.asarray(blk["k_pages"])).max() <= 1e-5
+        assert np.abs(got["logits"] - np.stack(logits)).max() <= 1e-5
+        assert np.abs(got["kv_mass"] - np.stack(masses)).max() <= 1e-6
+    for key in ("k_pages", "v_pages"):    # the first group's rows see no attention
+        np.testing.assert_array_equal(res["sharded"][key][0], res["meshless"][key][0])
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_moe_apply_ep_matches_single_device(world, bias):
+    p, x, ct, b = _moe_inputs(bias)
+    jb = None if b is None else jnp.asarray(b)
+
+    def loss(p, x):
+        y, idx, _ = j_moe.moe_apply_ep(p, x, MOE["k"], bias=jb)
+        return jnp.sum(y * ct), (y, idx)
+    jp = jax.tree.map(jnp.asarray, p)
+    (gp, gx), (y, idx) = jax.jit(jax.grad(loss, argnums=(0, 1), has_aux=True))(
+        jp, jnp.asarray(x))
+    res = _result(world, f"moe_{bias}")
+    np.testing.assert_array_equal(res["idx"], np.asarray(idx))
+    assert np.abs(res["y"] - np.asarray(y)).max() <= 1e-5
+    want = dict(_np_tree(gp), x=np.asarray(gx))
+    assert set(res["grads"]) == set(want)
+    for k, g in want.items():
+        assert np.abs(res["grads"][k] - g).max() <= 1e-5 * max(1.0, np.abs(g).max()), k
+
+
+def test_moe_resident_arm_matches_reference(world):
+    rp, x, b = _resident_inputs()
+    y, idx, _ = jax.jit(lambda p, x, b: j_moe.moe_apply_ep(p, x, MOE["k"], bias=b))(
+        jax.tree.map(jnp.asarray, rp), jnp.asarray(x), jnp.asarray(b))
+    for rank in (0, 6):
+        res = _result(world, "resident", rank)
+        np.testing.assert_array_equal(res["idx"], np.asarray(idx))
+        assert np.abs(res["y"] - np.asarray(y)).max() <= 1e-5
+
+
+def _ref_zero1(compress):
+    """The reference's ZeRO-1 over 8 shards, evaluated in one process."""
+    params, grads = _zero1_inputs()
+    params = jax.tree.map(jnp.asarray, params)
+    n_shards = j_z1._n_shards
+    j_z1._n_shards = lambda mesh: 8
+    try:
+        st, spec = j_z1.zero1_init(params, None, compress_collective=compress)
+        for g in grads:
+            params, st, om = j_z1.zero1_update(JOpt(**ZERO1_OPT), params,
+                                               jax.tree.map(jnp.asarray, g), st, spec,
+                                               None, compress_collective=compress)
+    finally:
+        j_z1._n_shards = n_shards
+    return params, st, om, spec
+
+
+@pytest.mark.parametrize("compress,offload", [(False, False), (True, False), (True, True)])
+def test_zero1_over_eight_shards_matches_reference(world, compress, offload):
+    params, st, om, spec = _ref_zero1(compress)
+    res = _result(world, f"zero1_{compress}_{offload}")
+    assert res["padded"] == spec.padded
+    assert res["collective_bytes"] == om["collective_bytes"]
+    assert res["step"] == int(st["step"])
+    for k in ("m", "v") + (("ef",) if compress else ()):
+        np.testing.assert_array_equal(res[k], np.asarray(st[k]), err_msg=k)
+    for a, b in zip(res["params"], jax.tree_util.tree_leaves(params)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    if offload:
+        resident = _result(world, "zero1_True_False")
+        for k in ("m", "v", "ef"):
+            np.testing.assert_array_equal(res[k], resident[k])

@@ -39,12 +39,13 @@ def test_import_all_submodules_loads_no_jax_or_reference():
 
 def test_source_scan_covers_every_package():
     """The scan below reads every package of the port, the checkpoint
-    manager's and the training path's (data, dist, optim, train) included."""
+    manager's, the training path's (data, dist, optim, train) and the
+    meshes' (launch) included."""
     scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
                for p in PORT_SOURCES if p.is_relative_to(ROOT / "src")}
     packages = {p.name for p in (ROOT / "src" / "repro_torch").iterdir()
                 if (p / "__init__.py").exists()}
-    assert {"ckpt", "data", "dist", "optim", "train"} <= packages
+    assert {"ckpt", "data", "dist", "launch", "optim", "train"} <= packages
     assert packages <= scanned, packages - scanned
 
 
@@ -70,5 +71,26 @@ def test_training_path_imports_no_jax_or_reference():
     neither JAX nor the reference."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_DIST_PROBE = """
+import sys
+import torch
+import repro_torch.dist, repro_torch.launch.mesh
+from repro_torch.dist import collectives, compression, host_offload, pipeline, sharding
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(bad, torch.distributed.is_initialized(), torch.cuda.is_initialized())
+sys.exit(1 if bad or torch.distributed.is_initialized() or torch.cuda.is_initialized() else 0)
+"""
+
+
+def test_distribution_layer_imports_touch_no_process_group_or_device():
+    """``repro_torch.dist`` and ``repro_torch.launch`` load neither JAX nor
+    the reference, and importing them initialises no process group and no
+    CUDA context."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _DIST_PROBE], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

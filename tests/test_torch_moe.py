@@ -179,13 +179,40 @@ def test_moe_apply_tiered_matches_reference_and_the_dense_layer(shape, bias):
     np.testing.assert_allclose(ty.numpy(), dense.numpy(), atol=1e-5, rtol=0)
 
 
-def test_moe_apply_ep_refuses_expert_parallel_contexts():
-    _, tp, _ = _layer(SHAPES[0], 5, False)
-    x = torch.zeros((1, 1, SHAPES[0][0]))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_moe.moe_apply_ep(tp, x, 2, ep_axes=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_moe.moe_apply_ep(dict(tp, residency=None), x, 2)
+def _resident(p, hot, fetch):
+    """A layer's NeoMem-tiered serving params: the ``hot`` experts resident
+    (in slot order), the ``fetch`` experts in the cold-fetch buffer."""
+    e = p["router"].shape[-1]
+    res = np.full(e, -1, np.int32)
+    res[list(hot)] = np.arange(len(hot), dtype=np.int32)
+    out = {k: v for k, v in p.items() if not k.startswith("w_")}
+    for name, key in (("w_gate", "fetch_gate"), ("w_in", "fetch_in"),
+                      ("w_out", "fetch_out")):
+        out[name] = np.asarray(p[name])[list(hot)]
+        out[key] = np.asarray(p[name])[list(fetch)]
+    out["residency"] = res
+    out["fetch_ids"] = np.asarray(fetch, np.int32)
+    return out
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_moe_apply_ep_refuses_expert_parallel_contexts(bias):
+    """Once a refusal of the expert-parallel arms, now their parity on one
+    device: the ``"residency"`` arm (three hot experts, two fetched, the
+    rest served by the shared expert alone) against the reference's
+    ``_ep_resident_body`` through its ``moe_apply_ep``."""
+    shape = SHAPES[0]
+    jp, _, b = _layer(shape, 5, bias)
+    rp = _resident(jax.tree.map(np.asarray, jp), hot=(5, 1, 3), fetch=(0, 6))
+    x = _x(shape, 5, b=4, s=3)
+    jy, jidx, _ = j_moe.moe_apply_ep(jax.tree.map(jnp.asarray, rp), jnp.asarray(x),
+                                     shape[2], bias=None if b is None else jnp.asarray(b))
+    ty, tidx, _ = t_moe.moe_apply_ep(params_from_jax(rp, device="cpu"), _t(x),
+                                     shape[2], bias=_t(b))
+    np.testing.assert_array_equal(np.asarray(jidx), tidx.numpy())
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-5, rtol=1e-5)
+    served = np.isin(np.asarray(jidx), (5, 1, 3, 0, 6))
+    assert served.any() and not served.all()       # both kinds of assignment
 
 
 def _expert_resources(cap):

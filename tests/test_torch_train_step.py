@@ -15,8 +15,8 @@ reference, on the CPU at smoke configs.
   the int8 codecs turn the gradients' float32 rounding differences into whole
   quanta, and the router ids then part at near-ties: the bitwise sketch
   holds at the default schedule's small steps.
-* ``offload_master`` is the identity on one device (bitwise); the
-  mesh-only options raise ``NotImplementedError``.
+* ``offload_master`` is the identity on one device (bitwise), and so are
+  ``fsdp`` and ``local_grads`` without a mesh.
 * Every arch's train step with ``chip_smoke.py``'s PHASE train (b)
   options (``TRAIN_FAMILIES``: between them every single-device option),
   two steps on the CPU: finite losses and gradient norms, every param
@@ -269,13 +269,26 @@ def test_train_step_every_arch(arch, kw, kind):
 
 
 def test_mesh_only_options_raise():
+    """Once a refusal of the mesh options, now the reference's no-ops
+    without a mesh: ``fsdp`` and ``local_grads`` leave the meshless step
+    bitwise unchanged (params, moments, metrics), as the reference's
+    ``state_shardings`` apply only on a mesh and its ``local_grads`` branch
+    needs one."""
     cfg = get_smoke_config(LLAMA)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        t_step.build_train_step(cfg, object(), t_step.TrainConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        t_step.build_train_step(cfg, None, t_step.TrainConfig(fsdp=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        t_step.init_state(cfg, t_step.TrainConfig(fsdp=True), device="cpu")
+    runs = []
+    for kw in ({}, {"fsdp": True, "local_grads": True}):
+        tcfg = t_step.TrainConfig(opt=E2E_OPT, microbatches=2, **kw)
+        state = t_step.init_state(cfg, tcfg, device="cpu")
+        fn = t_step.build_train_step(cfg, None, tcfg)
+        metrics = []
+        for b in _batches(cfg.vocab, n=2):
+            state, m = fn(state, t_step.to_batch(b, "cpu"))
+            metrics.append(sorted((k, float(v)) for k, v in m.items()))
+        runs.append((metrics, tree_leaves(state)))
+    (ma, la), (mb, lb) = runs
+    assert ma == mb
+    for x, y in zip(la, lb):
+        np.testing.assert_array_equal(_np(x), _np(y))
 
 
 @pytest.mark.parametrize("step,rank,size", [(0, 0, 1), (7, 0, 1), (3, 1, 2), (11, 3, 4)])

@@ -1,0 +1,376 @@
+"""A gloo world of CPU ranks for the distribution-layer tests, and the
+checks its ranks run (port side only: this module imports no JAX, so that
+the spawned ranks start fast).
+
+``World(checks)`` spawns ``WORLD`` processes (``spawn`` context, one
+intra-op thread each) that join one gloo process group through a file
+store in a temporary directory (no port is opened), build the meshes the
+checks ask for and run every check in order; each returns plain numpy
+results to the parent, which ``World.results()`` collects (rank -> {check
+name: result}).  A check that raises records its traceback instead, and a
+collective that waits for a failed rank gives up after ``TIMEOUT_S``.
+The test files start the world in a module-scoped fixture, work out the
+reference's oracles meanwhile, then compare.
+"""
+from __future__ import annotations
+
+import datetime
+import importlib
+import multiprocessing as mp
+import shutil
+import tempfile
+import traceback
+
+import numpy as np
+
+WORLD = 8
+TIMEOUT_S = 120
+
+
+class World:
+    def __init__(self, checks, n: int = WORLD):
+        """``checks``: (name, function name in this module, kwargs) triples."""
+        ctx = mp.get_context("spawn")
+        self._dir = tempfile.mkdtemp(prefix="gloo-world-")
+        self._q = ctx.Queue()
+        self._n = n
+        self._procs = [ctx.Process(target=_rank_main,
+                                   args=(r, n, self._dir, list(checks), self._q),
+                                   daemon=True) for r in range(n)]
+        for p in self._procs:
+            p.start()
+        self._results = None
+
+    def results(self, timeout: float = 900.0) -> dict:
+        if self._results is None:
+            out = {}
+            try:
+                for _ in range(self._n):
+                    rank, res = self._q.get(timeout=timeout)
+                    out[rank] = res
+            finally:
+                self.close()
+            self._results = out
+        return self._results
+
+    def close(self) -> None:
+        for p in self._procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+
+def _contiguous_only(fn):
+    """A collective that refuses strided buffers, as NCCL does (gloo takes
+    them), so that the CPU ranks catch what the card would refuse."""
+    import torch
+
+    def run(*args, **kwargs):
+        for t in args:
+            if isinstance(t, torch.Tensor) and not t.is_contiguous():
+                raise ValueError(f"{fn.__name__}: a strided buffer {tuple(t.shape)}")
+        return fn(*args, **kwargs)
+    return run
+
+
+def _rank_main(rank, n, path, checks, q):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+                 "reduce_scatter_single"):
+        if hasattr(dist, name):
+            setattr(dist, name, _contiguous_only(getattr(dist, name)))
+    dist.init_process_group("gloo", init_method=f"file://{path}/store", rank=rank,
+                            world_size=n,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    meshes = _Meshes()
+    out = {}
+    mod = importlib.import_module(__name__)
+    for name, fn, kw in checks:
+        try:
+            out[name] = getattr(mod, fn)(meshes, **kw)
+        except Exception:                  # reported to the parent, per check
+            out[name] = {"error": traceback.format_exc()}
+    q.put((rank, out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+class _Meshes:
+    """The world's meshes, built once each, in the order the checks ask."""
+
+    def __init__(self):
+        self._built = {}
+
+    def __call__(self, name: str):
+        if name not in self._built:
+            from torch.distributed.device_mesh import init_device_mesh
+            from repro_torch.launch.mesh import Mesh, make_mesh
+            if name == "2x4":
+                m = make_mesh((2, 4), ("data", "model"))
+            elif name == "1x8":
+                m = make_mesh((1, 8), ("data", "model"))
+            elif name == "4x1":        # two (4, 1) meshes, one a half of the world
+                dm = init_device_mesh("cpu", (2, 4, 1),
+                                      mesh_dim_names=("rep", "data", "model"))
+                m = Mesh(dm["data", "model"])
+            else:
+                raise KeyError(name)
+            self._built[name] = m
+        return self._built[name]
+
+
+# -- helpers --------------------------------------------------------------------
+
+def _t(a):
+    import torch
+    from repro_torch.convert import tensor_from_numpy
+    return tensor_from_numpy(a, "cpu")
+
+
+def _tree_t(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_t(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_t(v) for v in tree]
+    return _t(tree)
+
+
+def _np(x):
+    """A numpy copy (never a view of a tensor the check goes on writing)."""
+    return (x.detach().float() if x.is_floating_point() else x).numpy().copy()
+
+
+def _tree_np(tree):
+    from repro_torch.ckpt.manager import tree_leaves
+    return [_np(x) for x in tree_leaves(tree)]
+
+
+def _place(tree, specs, mesh):
+    """Every leaf's block under its spec."""
+    from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
+    from repro_torch.dist.sharding import shard, spec_leaves
+    return tree_unflatten(tree, [shard(x, s, mesh) for x, s in
+                                 zip(tree_leaves(tree), spec_leaves(specs))])
+
+
+def _whole(tree, specs, mesh):
+    from repro_torch.ckpt.manager import tree_leaves
+    from repro_torch.dist.sharding import gather, spec_leaves
+    return [_np(gather(x, s, mesh)) for x, s in
+            zip(tree_leaves(tree), spec_leaves(specs))]
+
+
+# -- checks of tests/test_torch_dist.py -------------------------------------------
+
+SHARD_SPECS = [("data", "model", None), (None, ("data", "model"), None),
+               ("model", None, "data"), (None, None, None), (("data", "model"), None, None)]
+
+
+def check_shard_gather(meshes, full):
+    """Every spec's block gathered back, on the (2, 4) and (1, 8) meshes."""
+    x = _t(full)
+    from repro_torch.dist.sharding import gather, shard
+    out = []
+    for name in ("2x4", "1x8"):
+        mesh = meshes(name)
+        for spec in SHARD_SPECS:
+            back = gather(shard(x, spec, mesh), spec, mesh)
+            out.append((name, spec, bool(back.shape == x.shape and (back == x).all())))
+    return out
+
+
+def check_compress_psum(meshes, grads, ef):
+    """compress_psum over the (2, 4) mesh's 'model' ranks (4), each rank's
+    gradients ``grads[coordinate]``."""
+    from repro_torch.dist.compression import compress_psum
+    mesh = meshes("2x4")
+    mine = _tree_t(grads[mesh.coord("model")])
+    total, new_ef = compress_psum(mine, _tree_t(ef), mesh.group("model"))
+    return {"sum": _tree_np(total), "ef": _tree_np(new_ef)}
+
+
+def check_pipeline(meshes, w, b, x):
+    """pipeline_apply over the (2, 4) mesh's 'model' axis: 4 stages."""
+    import torch
+    from repro_torch.dist.pipeline import pipeline_apply
+    from repro_torch.dist.sharding import shard
+    mesh = meshes("2x4")
+    stage = {"w": shard(_t(w), ("model", None, None), mesh),
+             "b": shard(_t(b), ("model", None), mesh)}
+    y = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"] + p["b"]), stage, _t(x),
+                       mesh=mesh, axis="model")
+    return _np(y)
+
+
+def check_combine_stats(meshes, q, k_pages, v_pages, page_lengths, softcap):
+    """The slot-split attention over the (2, 4) mesh's 'model' ranks:
+    local stats and combine, with and without the page stats."""
+    from repro_torch.dist.collectives import all_gather
+    from repro_torch.dist.sharding import shard
+    from repro_torch.kernels.paged_attn import ops
+    mesh = meshes("2x4")
+    group = mesh.group("model")
+    kp = shard(_t(k_pages), (None, "model"), mesh)
+    vp = shard(_t(v_pages), (None, "model"), mesh)
+    pl = shard(_t(page_lengths), (None, "model"), mesh)
+    qt = _t(q)
+    out = ops.combine_stats(*ops.paged_attention_local_stats(qt, kp, vp, pl,
+                                                             softcap=softcap), group)
+    m, l, acc, pm, pls = ops.paged_attention_local_stats(qt, kp, vp, pl, softcap=softcap,
+                                                         return_page_stats=True)
+    out2, mass = ops.combine_stats(m, l, acc, group, page_m=pm, page_l=pls)
+    return {"out": _np(out), "out_mass": _np(out2),
+            "mass": _np(all_gather(mass, 1, group))}
+
+
+def check_sharded_decode(meshes, params, tokens, n_slots, page_t):
+    """decode_step_paged with the ring's slots over the (2, 4) mesh's
+    'model' ranks (4), float32, one teacher-forced token column a step, and
+    the same steps without a mesh."""
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.dist.collectives import all_gather
+    from repro_torch.dist.sharding import cache_pspecs
+    from repro_torch.models import decode as dec
+    cfg = get_smoke_config("llama3.2-3b")
+    mesh = meshes("2x4")
+    group = mesh.group("model")
+    p = _tree_t(params)
+    b = tokens.shape[0]
+    out = {}
+    for arm, smesh in (("sharded", {"mesh": mesh, "axes": ("model",)}), ("meshless", None)):
+        cache = dec.init_paged_cache(cfg, b, n_slots, page_t, dtype=torch.float32,
+                                     device="cpu")
+        if smesh:
+            cache = _place(cache, cache_pspecs(cache, mesh, slot_axes=("model",)), mesh)
+        logits, masses = [], []
+        for t in range(tokens.shape[1]):
+            lg, cache, st = dec.decode_step_paged(cfg, p, cache, _t(tokens[:, t:t + 1]),
+                                                  page_t=page_t, return_streams=True,
+                                                  smesh=smesh)
+            logits.append(_np(lg))
+            mass = st["kv_mass"]
+            masses.append(_np(all_gather(mass, 3, group) if smesh else mass))
+        blk = cache["blocks"][0]
+        whole = (lambda x: all_gather(x, 2, group)) if smesh else (lambda x: x)
+        out[arm] = {"logits": np.stack(logits), "kv_mass": np.stack(masses),
+                    "page_len": _np(whole(blk["page_len"])),
+                    "cur_slot": _np(blk["cur_slot"]), "pos": _np(cache["pos"]),
+                    "k_pages": _np(whole(blk["k_pages"])),
+                    "v_pages": _np(whole(blk["v_pages"]))}
+    return out
+
+
+def check_moe_ep(meshes, p, x, ct, k, bias):
+    """moe_apply_ep expert-parallel on the (2, 4) mesh (capacity factor 8):
+    the tokens' rows over 'data', the experts over 'model' and their dim 1
+    over 'data'; y, ids and every gradient of sum(y * ct), gathered."""
+    import torch
+    from repro_torch.dist.collectives import all_gather, all_reduce
+    from repro_torch.dist.sharding import gather, shard
+    from repro_torch.models import moe
+    mesh = meshes("2x4")
+    ep = moe.EPContext(mesh=mesh, expert_axis="model", fsdp_axis="data",
+                       dp_axes=("data",), capacity_factor=8.0)
+    wspec = ("model", "data", None)
+    full = _tree_t(p)
+    local = {kk: (shard(v, wspec, mesh) if kk.startswith("w_") else v)
+             for kk, v in full.items()}
+    local = {kk: v.clone().requires_grad_() for kk, v in local.items()}
+    rows = lambda a: shard(_t(a), ("data", None, None), mesh)
+    xl = rows(x).requires_grad_()
+    y, idx, _ = moe.moe_apply_ep(local, xl, k, bias=None if bias is None else _t(bias),
+                                 ep_axes=ep)
+    (y * rows(ct)).sum().backward()
+    dgroup = mesh.group("data")
+    grads = {}
+    for kk, v in local.items():
+        if kk.startswith("w_"):        # summed over 'data' by the gather's backward
+            grads[kk] = _np(gather(v.grad, wspec, mesh))
+        else:                          # this data shard's part
+            grads[kk] = _np(all_reduce(v.grad.clone(), dgroup))
+    grads["x"] = _np(all_gather(xl.grad, 0, dgroup))
+    return {"y": _np(all_gather(y.detach(), 0, dgroup)),
+            "idx": _np(all_gather(idx, 0, dgroup)), "grads": grads}
+
+
+def check_moe_resident(meshes, rp, x, k, bias):
+    """The "residency" arm expert-parallel on the (2, 4) mesh: hot slots,
+    fetch buffers and fetch ids split over 'model', the tokens whole."""
+    from repro_torch.dist.sharding import shard
+    from repro_torch.models import moe
+    mesh = meshes("2x4")
+    ep = moe.EPContext(mesh=mesh, expert_axis="model", fsdp_axis=None, dp_axes=())
+    p = {kk: (shard(v, ("model",) + (None,) * (v.dim() - 1), mesh)
+              if kk.startswith(("w_", "fetch_")) else v)
+         for kk, v in _tree_t(rp).items()}
+    y, idx, _ = moe.moe_apply_ep(p, _t(x), k, bias=None if bias is None else _t(bias),
+                                 ep_axes=ep)
+    return {"y": _np(y), "idx": _np(idx)}
+
+
+def check_zero1(meshes, params, grads, opt, compress, offload):
+    """ZeRO-1 over the 8 ranks of the (2, 4) mesh, the params stored under
+    param_pspecs with fsdp: 3 updates of the same full gradients on every
+    rank; m and v gathered from the slices, the params from the blocks."""
+    import torch
+    from repro_torch.dist.collectives import all_gather
+    from repro_torch.dist.sharding import param_pspecs
+    from repro_torch.optim import zero1
+    from repro_torch.optim.optimizers import OptConfig
+    mesh = meshes("2x4")
+    full = _tree_t(params)
+    specs = param_pspecs(full, mesh, fsdp=True)
+    local = _place(full, specs, mesh)
+    state, spec = zero1.zero1_init(full, mesh, compress_collective=compress,
+                                   offload=offload)
+    cfg = OptConfig(**opt)
+    for g in grads:
+        pending = zero1.fetch_opt(state, mesh) if offload else None
+        if pending is not None:
+            state = pending.wait()
+        local, state, om = zero1.zero1_update(cfg, local, _tree_t(g), state, spec,
+                                              mesh, compress_collective=compress,
+                                              pspecs=specs)
+        if offload:
+            state = zero1.offload_opt(state, mesh, into=pending.source)
+    group = mesh.group(mesh.axis_names)
+    out = {k: _np(all_gather(v, 0, group)) for k, v in state.items() if k != "step"}
+    out["step"] = int(state["step"])
+    out["params"] = _whole(local, specs, mesh)
+    out["collective_bytes"] = om["collective_bytes"]
+    out["padded"] = spec.padded
+    return out
+
+
+# -- checks of tests/test_torch_dist_train.py -------------------------------------
+
+def check_train(meshes, mesh, arch, params, batches, kw, opt):
+    """Two train steps over ``mesh`` from the full float32 ``params``: the
+    losses, gradient norms and ``dp_psum_bytes``, the params gathered, the
+    sketch's arrays and ``ef``."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.dist.sharding import param_pspecs
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train import step as ts
+    cfg = get_smoke_config(arch)
+    msh = meshes(mesh)
+    tcfg = ts.TrainConfig(opt=OptConfig(**opt), **kw)
+    full = _tree_t(params)
+    state = ts.init_state(cfg, tcfg, full, device="cpu", mesh=msh)
+    fn = ts.build_train_step(cfg, msh, tcfg)
+    metrics = []
+    for b in batches:
+        state, m = fn(state, ts.to_batch(b, "cpu", mesh=msh))
+        metrics.append({k: (float(v) if hasattr(v, "dim") else v) for k, v in m.items()})
+    prof = state["prof"]
+    return {"metrics": metrics,
+            "params": _whole(state["params"], param_pspecs(full, msh, fsdp=tcfg.fsdp), msh),
+            "sketch": [_np(getattr(prof.sketch, f)) for f in ("counts", "epochs", "hot",
+                                                              "n_seen")]
+            + [_np(prof.hot_buf), _np(prof.hot_count)],
+            "ef": _tree_np(state["ef"]) if "ef" in state else None}
