@@ -134,9 +134,10 @@ Phases, one summary line each:
                 prints wall, prefill s, tokens/s, ms per step, peak memory
                 per arm and a 4-step profile of the dense arm (busy share,
                 launches a step, the plain dense attention's ms a step);
-  9. ssm      — zamba2-2.7b (45 Mamba2 blocks and one shared attention
-                block used at 9 positions) and xlstm-1.3b (42 mLSTM and 6
-                sLSTM blocks, no attention) at full width and depth, each
+  9. ssm      — zamba2-2.7b (its depth cut from 54 to 18 layers: 15
+                Mamba2 blocks and one shared attention block used at 3
+                positions) and xlstm-1.3b (cut from 48 to 16: 14 mLSTM and
+                2 sLSTM blocks, no attention) at full width (SSM_DEPTH), each
                 drawn after the previous one is released: (c) one block of
                 each recurrent kind at full width, SSM_LAYER_STEPS float32
                 steps on the card against the CPU within ATOL + RTOL*|ref|;
@@ -218,7 +219,7 @@ Phases, one summary line each:
                 load_tiering: every resource's state bitwise the saved
                 one, no epoch in flight, resident expert rows equal their
                 slow rows, the refill's ms printed; (d) the side stream's
-                hazards: 48 rows of 32 MB through 16 epochs on each plane,
+                hazards: 48 rows of 32 MB through HAZARD_TICKS epochs on each plane,
                 a write and a copy landing during each epoch's copies,
                 every tick's reads equal on the two planes;
   12. mla     — deepseek-v3 at full width (d 7168, 128 heads, MLA
@@ -251,7 +252,8 @@ Phases, one summary line each:
                 256 positions at chunk 128 on the card against the CPU,
                 every gradient within ATOL*max(1, max|ref|) + RTOL*|ref|;
   13. sim     — the paper's evaluation path: fig11_main_speedup.py's grid
-                (8 workloads x 6 methods, benchmarks/common.py's scale)
+                (8 workloads x 6 methods, benchmarks/common.py's scale, its
+                240 blocks cut to 64)
                 through the port's tiering simulator on the card, every
                 result (counts, θ and error traces exactly; modeled runtime
                 and bandwidth trace within SIM_RUNTIME_RTOL / SIM_BW_ATOL)
@@ -261,9 +263,10 @@ Phases, one summary line each:
   14. sim-paper — gups at the paper's scale (4M pages, W=512K, blocks of
                 16384) through all six methods on the card: hits must sum
                 to the accesses, promotions stay within the quota, and
-                neomem's sketch over its last clear interval (recorded in a
-                second neomem run, equal to the timed one) must replay
-                bitwise on the CPU; prints ms per block, a profile of 16
+                neomem's sketch over the last PAPER_REPLAY blocks of its
+                last clear interval (recorded in a second neomem run, equal
+                to the timed one) must replay bitwise on the CPU from the
+                sketch before them; prints ms per block, a profile of 16
                 neomem blocks (device busy share, top kernels) and the
                 cost of the sketch's O(S^2) first-occurrence dedup.
 The line before the last is a JSON object with every kernel's numbers (its
@@ -299,7 +302,8 @@ SKETCH_SETS = 24        # sketch input sets rotated through (151 MB at W=512K > 
 PAPER_W = 1 << 19       # the paper's sketch width (Table III: W=512K, D=2)
 # PHASE lanes: traffic_bench.py's SERVE_KW shape at llama3.2-3b full width
 # (4 lanes, 6 KV segments, the embeddings resource; 128256 / 64 = 2004 vocab
-# pages), a 48-step two-tenant zipf-hot mmpp trace, 32-token prefill chunks
+# pages), a two-tenant zipf-hot mmpp trace cut from 48 to 32 arrival steps
+# (95 scheduler steps against 113, two preemptions), 32-token prefill chunks
 LANE_SERVE = dict(max_seq=256, paged=True, page_t=16, hot_slots=8,
                   migration_interval=8, resources=["embeddings"],
                   embed_hot_slots=64, embed_quota=64, kv_quota=16,
@@ -308,7 +312,7 @@ LANE_SERVE = dict(max_seq=256, paged=True, page_t=16, hot_slots=8,
 LANE_SCHED = dict(prefill_chunk=32, preempt_patience=4)
 LANE_TENANTS = (("interactive", 2.0, 0.22, (16, 49), (8, 33)),
                 ("batch", 1.0, 0.12, (64, 161), (16, 49)))
-LANE_TRACE = dict(kind="zipf-hot", n_steps=48, seed=0, arrival="mmpp")
+LANE_TRACE = dict(kind="zipf-hot", n_steps=32, seed=0, arrival="mmpp")
 # PHASE reuse: traffic_bench.py's kv_reuse arm (SERVE_KW, REUSE_TENANTS,
 # REUSE_TRACE_KW, REUSE_PAGES, REUSE_CHUNK, REUSE_STEPS) at full width, the
 # slow stores int8 at rest, greedy
@@ -325,14 +329,14 @@ REUSE_TRACE = dict(kind="agentic", n_steps=224, seed=0, turn_gap=16, sys_len=12,
                    n_convs=2, work_len=4, max_total=56)
 # PHASE disagg: traffic_bench.py's disagg arm (DISAGG_KW, 3 lanes of which
 # 1 prefills, 6 segments, 16-token chunks) at full width over a prefill-heavy
-# mmpp trace cut from DISAGG_STEPS = 240 to 100 steps, sampled at
-# temperature 0.8, top-p 0.9
+# mmpp trace cut from DISAGG_STEPS = 240 to 50 arrival steps (97 scheduler
+# steps, 16 hand-offs, two preemptions), sampled at temperature 0.8, top-p 0.9
 DISAGG_SERVE = dict(max_seq=56, paged=True, page_t=4, hot_slots=6,
                     migration_interval=4, kv_quota=16, kv_tier_slots=12,
                     kv_mass_threshold=0.01, lanes=2, kv_segments=6)
 DISAGG_SCHED = dict(preempt_patience=24, seed=0, prefill_chunk=16,
                     prefill_lanes=1, temperature=0.8, top_p=0.9)
-DISAGG_TRACE = dict(kind="prefill-heavy", n_steps=100, seed=0, arrival="mmpp")
+DISAGG_TRACE = dict(kind="prefill-heavy", n_steps=50, seed=0, arrival="mmpp")
 # PHASE fill: ServeConfig.kv_mass_source="fill" at full width, the kv stream
 # fed each ring page's fill and the attention kernel's mass export off: one
 # request of 2 x 30 prompt tokens and 16 new ones (test_torch_sched.py's
@@ -366,7 +370,7 @@ MOE_TRACE = FILL_TRACE
 ASYNC_TRACE = dict(LANE_TRACE, n_steps=32)
 # (d): 48 rows of 32 MB (bf16), HAZARD_TICKS epochs on each plane
 HAZARD_SHAPE = (48, 4, 1 << 22)
-HAZARD_TICKS = 16
+HAZARD_TICKS = 8
 # PHASE mla: deepseek-v3 at full width (MLA attention, 256 experts top-8),
 # depth cut to its 3 dense prologue layers and its first MoE layer, with
 # PHASE moe's drives: a quarter of the experts on the card in each
@@ -403,12 +407,15 @@ DENSE_ATTN_SHAPES = (("group 1, dk 64 (stablelm-1.6b)", 32, 32, 64, 0.0, None),
                      ("group 4 (llama-3.2-vision-11b)", 32, 8, 128, 0.0, None))
 # PHASE ssm: zamba2-2.7b (Mamba2 blocks, one shared attention block every
 # sixth layer) and xlstm-1.3b (mLSTM and sLSTM blocks, no attention) at full
-# width and depth, seed 0, each drawn after the previous one is released:
+# width, a third of their depth, seed 0, each drawn after the previous one is
+# released:
 # (a) PHASE dense's two arms, (b) the lane phase's drive over SSM_LANE_TRACE,
 # (c) one layer of each recurrent kind on the card against the CPU
 SSM_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
+# their depth cut to a third, whole pattern groups (3 of 9, 2 of 6)
+SSM_DEPTH = {"zamba2-2.7b": 18, "xlstm-1.3b": 16}
 # (b)'s cut of the lane trace: the shortest (16 arrival steps, 66 scheduler
-# steps against the whole trace's 113) that still preempts and resumes a
+# steps against PHASE lanes' 95) that still preempts and resumes a
 # request and serves a second request on a lane (PHASE fill's cut)
 SSM_LANE_TRACE = FILL_TRACE
 SSM_LAYER_STEPS = 8     # (c): float32 decode steps of one full-width layer
@@ -454,13 +461,18 @@ TRAIN_FAMILIES = (("llama3.2-3b", {}, "adamw"),
 TRAIN_FORMS = (("zamba2-2.7b", "mamba"), ("xlstm-1.3b", "mlstm"),
                ("xlstm-1.3b", "slstm"), ("deepseek-v3-671b", "mla"))
 TRAIN_FORM_SEQ, TRAIN_CHUNK = 256, 128
-BF16_PEAK = 989e12      # H100 SXM dense bf16 FLOP/s at 700 W (NVIDIA's data sheet)
+# (a)'s census gates: the card's census FLOPs against the census of the same
+# step on meta tensors, and the census over analysis.model_flops (remat runs
+# the forward twice, 4/3; the plain attention counts the full square)
+CENSUS_RTOL = 1e-3
+REMAT_FACTOR_MAX = 2.0
 # PHASE sim: fig11_main_speedup.py's grid at benchmarks/common.py's scale
-# (N_PAGES, BLOCK, N_BLOCKS, FAST_RATIO, SIM_KW, METHODS; stream seed 11)
+# (N_PAGES, BLOCK, FAST_RATIO, SIM_KW, METHODS; stream seed 11), its
+# N_BLOCKS = 240 cut to 64 (four clear intervals, 16 threshold updates)
 SIM_WORKLOADS = ("deathstar", "pagerank", "xsbench", "gups", "silo", "btree",
                  "bwaves", "roms")
 SIM_METHODS = ("neomem", "pebs", "tpp", "autonuma", "pte-scan", "first-touch")
-SIM_STREAM = dict(n_pages=4096, block=2048, n_blocks=240, seed=11)
+SIM_STREAM = dict(n_pages=4096, block=2048, n_blocks=64, seed=11)
 SIM_KW = dict(fast_ratio=1 / 3, quota_pages=128, sketch_width=1 << 14,
               migration_interval=1, threshold_update_period=4, clear_interval=16)
 SIM_RUNTIME_RTOL, SIM_BW_ATOL = 1e-12, 1e-6   # card vs CPU: modeled runtime, bw trace
@@ -470,6 +482,7 @@ SIM_RUNTIME_RTOL, SIM_BW_ATOL = 1e-12, 1e-6   # card vs CPU: modeled runtime, bw
 PAPER_STREAM = dict(n_pages=1 << 22, block=1 << 14, n_blocks=256, seed=11)
 PAPER_KW = dict(fast_ratio=1 / 3, sketch_width=PAPER_W, sketch_depth=2)
 PAPER_QUOTA = 256
+PAPER_REPLAY = 16       # blocks at the end of neomem's last clear interval replayed
 # datasheet memory bandwidth (bytes/s), float32 non-tensor peak and dense
 # TF32 tensor-core peak (flop/s)
 CARDS = (("H200", 4.8e12, 67e12, 495e12), ("H100 NVL", 3.9e12, 60e12, 417e12),
@@ -1350,7 +1363,7 @@ def profile_decode(torch, eng, tok, steps: int = 8):
     return tok
 
 
-def silu_ab(torch, eng, tok, steps: int = 8, rounds: int = 5):
+def silu_ab(torch, eng, tok, steps: int = 8, rounds: int = 2):
     """Unprofiled decode ms/step with swiglu's activation as shipped
     (``F.silu``, one launch) and as the reference's formula written op by
     op (four launches), in ``2 * rounds`` pairs run A B B A on this host."""
@@ -1499,9 +1512,9 @@ def run_reuse(cfg, params, device, on_sched=None, codec="int8"):
                      REUSE_SCHED, REUSE_TRACE, REUSE_TENANTS, on_sched)
 
 
-def run_disagg(cfg, params, device, on_sched=None):
+def run_disagg(cfg, params, device, on_sched=None, trace=DISAGG_TRACE):
     return run_trace(cfg, params, device, DISAGG_SERVE, DISAGG_SCHED,
-                     DISAGG_TRACE, None, on_sched)
+                     trace, None, on_sched)
 
 
 def cpu_reuse(codec: str = "int8") -> tuple[dict, dict]:
@@ -1516,10 +1529,11 @@ def cpu_reuse_schedule() -> dict:
     return cpu_reuse()[0]
 
 
-def cpu_disagg_schedule() -> dict:
-    """The disaggregation phase's schedule from the port on the CPU at the
-    smoke config: no step depends on a sampled token's value."""
-    eng, sched, _, _ = run_disagg(*_smoke_cpu(), "cpu")
+def cpu_disagg_schedule(trace=DISAGG_TRACE) -> dict:
+    """The disaggregation phase's schedule (over ``trace``) from the port
+    on the CPU at the smoke config: no step depends on a sampled token's
+    value."""
+    eng, sched, _, _ = run_disagg(*_smoke_cpu(), "cpu", trace=trace)
     return disagg_schedule(eng, sched)
 
 
@@ -1739,12 +1753,15 @@ def fill_path(torch, counters, cfg, params, smi):
 SKETCH_COUNTERS = slice(1, 4)   # update, mark and histogram among the counters
 
 
-def draw_dense_params(torch, arch, phase="dense"):
+def draw_dense_params(torch, arch, phase="dense", depth=None):
     """An arch at full width and depth (gemma2-27b's 54.5 GB of bf16
-    weights fit the card with no cut), random bf16 weights from seed 0."""
+    weights fit the card with no cut) or cut to ``depth`` layers, random
+    bf16 weights from seed 0."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.transformer import init_params
     cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1979,7 +1996,7 @@ def dense_path(torch, counters, models: dict, smi) -> dict:
     return total
 
 
-# -- PHASE ssm: zamba2-2.7b and xlstm-1.3b at full width and depth --------------
+# -- PHASE ssm: zamba2-2.7b and xlstm-1.3b at full width, a third of their depth -
 
 def held(torch, got, want, what) -> float:
     """``got`` (any device) within ATOL + RTOL*|want| of ``want`` (CPU);
@@ -2134,7 +2151,7 @@ def ssm_lanes(torch, counters, arch, cfg, params, smi, device="cuda") -> dict:
 
 
 def ssm_path(torch, counters, smi, device="cuda") -> dict:
-    """PHASE ssm: each SSM_ARCHS model in turn at full width and depth, its
+    """PHASE ssm: each SSM_ARCHS model in turn at full width, SSM_DEPTH, its
     params released before the next is drawn: (c) one layer of each
     recurrent kind against the CPU, (a) the dense and paged arms, (b) the
     lane drive."""
@@ -2142,7 +2159,8 @@ def ssm_path(torch, counters, smi, device="cuda") -> dict:
     for arch in SSM_ARCHS:
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
-        cfg, params = draw_dense_params(torch, arch, phase="ssm")
+        cfg, params = draw_dense_params(torch, arch, phase="ssm",
+                                        depth=SSM_DEPTH[arch])
         ssm_layer_check(torch, cfg, params, device)
         arms = dense_model(torch, counters, cfg, params, smi, device, phase="ssm")
         gc.collect()
@@ -3301,30 +3319,33 @@ def sim_path(torch, counters, smi) -> dict:
     return launches
 
 
-def record_sketch_intervals() -> tuple[dict, callable]:
-    """Record every TieredMemory's sketch between clears: the sketch as the
-    interval starts, each block's (ids, θ, epoch) as device tensors (no
-    host sync), and the sketch as the clear ends it.  Returns the record
-    ({"last": (start, blocks, end)} of the latest complete interval) and a
-    function that undoes the patch."""
+def record_sketch_intervals(tail: int) -> tuple[dict, callable]:
+    """Record every TieredMemory's sketch between clears: the last ``tail``
+    blocks of the interval (ids, θ, epoch, as device tensors, no host
+    sync), the sketch before the first of them, and the sketch as the
+    clear ends the interval.  Returns the record ({"last": (start, blocks,
+    end)} of the latest complete interval) and a function that undoes the
+    patch."""
     from repro_torch.tiering.memory import TieredMemory
     profile, clear = TieredMemory.profile, TieredMemory.clear
-    rec = {"start": None, "blocks": [], "last": None}
+    rec = {"window": [], "last": None}
 
     def snap(sk):
         return sk._replace(**{f: getattr(sk, f).clone() for f in sk._fields})
 
     def recording_profile(self, state, pages, **kw):
-        if rec["start"] is None:
-            rec["start"] = snap(state.prof.sketch)
-        rec["blocks"].append((pages.clone(), state.prof.theta.clone(),
-                              state.prof.sketch.cur_epoch.clone()))
+        rec["window"].append((snap(state.prof.sketch),
+                              (pages.clone(), state.prof.theta.clone(),
+                               state.prof.sketch.cur_epoch.clone())))
+        del rec["window"][:-tail]
         return profile(self, state, pages, **kw)
 
     def recording_clear(self, state):
-        rec["last"] = (rec["start"], rec["blocks"], snap(state.prof.sketch))
+        win = rec["window"]
+        rec["last"] = (win[0][0] if win else None, [b for _, b in win],
+                       snap(state.prof.sketch))
         out = clear(self, state)
-        rec["start"], rec["blocks"] = snap(out.prof.sketch), []
+        rec["window"] = []
         return out
 
     def undo():
@@ -3372,8 +3393,8 @@ def profile_sim(torch, blocks, smi, n: int = 16) -> None:
 
 def sim_paper_path(torch, counters, smi) -> dict:
     """PHASE sim-paper: gups at the paper's scale through every method on
-    the card; neomem's sketch over its last clear interval replayed
-    bitwise on the CPU."""
+    the card; neomem's sketch over the last PAPER_REPLAY blocks of its last
+    clear interval replayed bitwise on the CPU."""
     from repro_torch.core.simulator import run_sim
     from repro_torch.core.sketch import SketchParams
     n_pages, n_blocks = PAPER_STREAM["n_pages"], PAPER_STREAM["n_blocks"]
@@ -3398,7 +3419,7 @@ def sim_paper_path(torch, counters, smi) -> dict:
     launches = read_counts(torch, counters, "sim-paper", counters[1:])
     # the replay's record comes from a second neomem run, so the timed runs
     # above pay for no snapshot
-    rec, undo = record_sketch_intervals()      # only neomem profiles and clears
+    rec, undo = record_sketch_intervals(PAPER_REPLAY)  # only neomem profiles and clears
     try:
         res = run_sim("neomem", iter(blocks), n_pages=n_pages, device="cuda",
                       **PAPER_KW)
@@ -3413,8 +3434,8 @@ def sim_paper_path(torch, counters, smi) -> dict:
     start, recorded, end = rec["last"]
     replay_sketch(torch, SketchParams(width=PAPER_W, depth=2), recorded, end,
                   start=start, what="sim-paper sketch")
-    print(f"sim-paper: neomem's last clear interval ({len(recorded)} blocks "
-          f"of {PAPER_STREAM['block']} ids at W={PAPER_W}) replayed bitwise on the "
+    print(f"sim-paper: the last {len(recorded)} blocks of neomem's last clear "
+          f"interval (of {PAPER_STREAM['block']} ids at W={PAPER_W}) replayed bitwise on the "
           f"CPU ({time.perf_counter() - t0:.1f} s) from a second, recorded run "
           f"equal to the timed one")
     for m, r in rows.items():
@@ -3476,6 +3497,7 @@ def train_full(torch, smi, cfg=None, device="cuda", shape=(TRAIN_BATCH, TRAIN_SE
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.transformer import init_params
     from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.roofline import analysis
     from repro_torch.train import step as ts
     cfg = cfg or get_config(TRAIN_ARCH)
     b, s = shape
@@ -3521,17 +3543,89 @@ def train_full(torch, smi, cfg=None, device="cuda", shape=(TRAIN_BATCH, TRAIN_SE
             raise AssertionError(f"train: the {k} parameters did not move")
     step_s = statistics.median(wall[1:])
     tokens = b * s
-    flops = 6 * n_params * tokens + 6 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.head_dim
+    mf = analysis.model_flops(TRAIN_ARCH, "train_4k", cfg=cfg, batch=b, seq=s)
+    # the inline formula this phase printed before roofline/analysis.py
+    # was ported (n_params counts the embedding; attention by n_layers)
+    inline = 6 * n_params * tokens + 6 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.head_dim
     print(f"train: losses {[round(x, 4) for x in losses]}, gradient norms "
           f"{[round(x, 4) for x in gnorms]}")
     print(f"train: {step_s * 1e3:.1f} ms/step (median of steps 2-{steps}; step 1 "
           f"{wall[0] * 1e3:.1f} ms), {tokens / step_s:.0f} tokens/s, peak "
-          f"{peak:.2f} GiB; model FLOPs {flops / 1e12:.2f} T a step (6 N tokens + "
-          f"causal attention 6 L B S^2 H dh) = {flops / step_s / 1e12:.1f} TFLOP/s, "
-          f"{100 * flops / step_s / BF16_PEAK:.1f}% of the bf16 dense peak on {smi}")
+          f"{peak:.2f} GiB; model FLOPs (analysis.model_flops) {mf / 1e12:.2f} T a "
+          f"step = {mf / step_s / 1e12:.1f} TFLOP/s, "
+          f"{100 * mf / step_s / analysis.PEAK_FLOPS:.1f}% of the bf16 dense peak "
+          f"(analysis.PEAK_FLOPS {analysis.PEAK_FLOPS:.3e}) on {smi}; the inline "
+          f"formula this phase printed before (6 N tokens + 6 L B S^2 H dh) "
+          f"{inline / 1e12:.2f} T, "
+          f"{100 * inline / step_s / analysis.PEAK_FLOPS:.1f}%")
     prof = profile_train(torch, fn, state, data, steps, device, cfg, b, s)
+    cen = census_train(torch, smi, fn, state, data, steps + TRAIN_PROFILED, device,
+                       cfg, tcfg, b, s, step_s)
     return {"ms": step_s * 1e3, "tokens_per_s": tokens / step_s, "peak_gib": peak,
-            "losses": losses, **prof}
+            "losses": losses, **prof, **cen}
+
+
+def census_train(torch, smi, fn, state, data, start, device, cfg, tcfg, b, s,
+                 step_s) -> dict:
+    """(a)'s census: one more step on the card under
+    ``repro_torch.roofline.census``, and the same step (``launch/specs.py``'s
+    cell at PHASE train's batch, length, microbatches and optimizer) on
+    meta tensors on the host.  Gates: the two FLOP counts within
+    CENSUS_RTOL, and the census over ``analysis.model_flops`` (the remat
+    factor) in [1, REMAT_FACTOR_MAX].  Prints the three-term row with the
+    H100's rates at the step's measured ms, and the census's peak beside
+    ``max_memory_allocated`` for the step (not gated)."""
+    from repro_torch.launch.specs import cell_specs
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline.census import census
+    from repro_torch.train import step as ts
+    batch = ts.to_batch(data.batch(start, 0, 1), device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (state, _), card = census(fn, state, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    max_alloc = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    cell = cell_specs(TRAIN_ARCH, "train_4k", None, tcfg=tcfg, cfg=cfg, batch=b, seq=s)
+    _, meta = census(cell["fn"], *cell["args"])
+    meta_s = time.perf_counter() - t0
+    mf = analysis.model_flops(TRAIN_ARCH, "train_4k", cfg=cfg, batch=b, seq=s)
+    gap = card["flops_per_device"] - meta["flops_per_device"]
+    remat = card["flops_per_device"] / mf
+    row = analysis.row(TRAIN_ARCH, "train_4k", "card", card, n=1, mf=mf,
+                       peak_bytes=card["peak_bytes"])
+    print(f"train census: the card's step {card['flops_per_device']:.6e} FLOP, "
+          f"{card['bytes_per_device']:.6e} B (aten ops' inputs and outputs, before "
+          f"fusion), collectives {card['collective_bytes_per_device']} B; the same "
+          f"step on meta (launch/specs.py, {b} x {s}, {tcfg.microbatches} "
+          f"microbatches, {tcfg.opt.kind}) {meta['flops_per_device']:.6e} FLOP, "
+          f"{meta['bytes_per_device']:.6e} B; gap {gap:.6e} FLOP "
+          f"({gap / meta['flops_per_device']:.3e} of it); analysis.model_flops "
+          f"{mf:.6e}, census / model {remat:.4f} (the remat factor); census step "
+          f"{card_s * 1e3:.1f} ms on the card, meta census {meta_s:.1f} s on the host")
+    print(f"train roofline (H100 rates: {analysis.PEAK_FLOPS:.3e} FLOP/s, "
+          f"{analysis.HBM_BW:.3e} B/s): compute {row.compute_s * 1e3:.1f} ms, memory "
+          f"{row.memory_s * 1e3:.1f} ms, collective {row.collective_s * 1e3:.1f} ms, "
+          f"dominant {row.dominant}; measured {step_s * 1e3:.1f} ms a step, the "
+          f"bound {100 * row.step_time_lower_bound / step_s:.1f}% of it, model "
+          f"FLOPs {100 * mf / step_s / analysis.PEAK_FLOPS:.1f}% of the peak; "
+          f"census peak {card['peak_bytes'] / 2 ** 30:.2f} GiB, max_memory_allocated "
+          f"{max_alloc / 2 ** 30:.2f} GiB for the step, on {smi}")
+    if abs(gap) > CENSUS_RTOL * meta["flops_per_device"]:
+        raise AssertionError(f"train census: the card counts {card['flops_per_device']:.6e} "
+                             f"FLOP, meta {meta['flops_per_device']:.6e}: a gap of "
+                             f"{gap:.6e}")
+    if not 1.0 <= remat <= REMAT_FACTOR_MAX:
+        raise AssertionError(f"train census: census / model_flops {remat:.4f} is outside "
+                             f"[1, {REMAT_FACTOR_MAX}]")
+    return {"census_flops": card["flops_per_device"],
+            "meta_census_flops": meta["flops_per_device"], "model_flops": mf,
+            "remat_factor": remat, "census_bytes": card["bytes_per_device"],
+            "compute_ms": row.compute_s * 1e3, "memory_ms": row.memory_s * 1e3,
+            "census_peak_gib": card["peak_bytes"] / 2 ** 30,
+            "max_alloc_gib": max_alloc / 2 ** 30}
 
 
 def profile_train(torch, fn, state, data, start, device, cfg, b, s,
@@ -3778,7 +3872,7 @@ def train_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
 
 # -- PHASE dist: the distribution layer at world size 1 over NCCL ---------------
 
-DIST_STEPS = 3          # (a): steps of each arm
+DIST_STEPS = 2          # (a): steps of each arm
 DIST_TRAIN = dict(zero1=True, compress_collective=True, offload_master=True,
                   local_grads=True, fsdp=True)
 DIST_DECODE = (4, 16, 8, 4)        # (b): batch, steps, ring slots, page tokens
@@ -4164,7 +4258,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phases["ssm"] = ssm_path(torch, counters, smi)
     print(f"PHASE ssm: ok in {time.perf_counter() - t0:.1f} s, "
-          f"{', '.join(SSM_ARCHS)} at full width and depth, dense and paged arms "
+          f"{', '.join(SSM_ARCHS)} at full width, depth cut to a third, dense and paged arms "
           f"and lanes, launches {json.dumps(phases['ssm'])} on {smi}")
     gc.collect()
     torch.cuda.empty_cache()

@@ -3,6 +3,7 @@ port imports nothing of it)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,3 +139,26 @@ class ArchConfig:
             # counted per-use for FLOPs purposes (active) — weight reuse.
             return attn + ffn
         return attn + ffn
+
+
+# ---------------------------------------------------------------------------
+# The dry run's input shapes (identical across the 10 archs)
+# ---------------------------------------------------------------------------
+
+SHAPES: dict[str, dict[str, Any]] = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode_paged", seq_len=524288, global_batch=1),
+}
+
+# per-arch skips, with reasons recorded in DESIGN.md §5
+SKIPS: dict[tuple[str, str], str] = {
+    ("whisper-base", "long_500k"):
+        "enc-dec audio model; 500K-token decoder context is meaningless "
+        "(30s audio, 448-token decoder). Noted in DESIGN.md.",
+}
+
+
+def cell_is_skipped(arch: str, shape: str) -> str | None:
+    return SKIPS.get((arch, shape))

@@ -31,6 +31,20 @@ def group_size(group) -> int:
     return dist.get_world_size(group)
 
 
+# () -> the census counting this thread's ops, or None; set by
+# repro_torch.roofline.census while a census runs, None otherwise
+census_hook = None
+
+
+def record(op: str, result: torch.Tensor, group) -> None:
+    """Report one collective to an active census (``census_hook``): its
+    result's bytes, nothing over a group of one rank."""
+    c = census_hook() if census_hook is not None else None
+    n = group_size(group) if c is not None else 1
+    if n > 1:
+        c.record(op, result.numel() * result.element_size(), n)
+
+
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The group's blocks of ``x`` concatenated along ``dim``, in group
     rank order."""
@@ -38,6 +52,7 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]), dtype=x.dtype,
                       device=x.device)
+    record("all-gather", out, group)
     dist.all_gather_into_tensor(out, xt, group=group)
     return out.movedim(0, dim).contiguous()
 
@@ -48,6 +63,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]), dtype=x.dtype,
                       device=x.device)
+    record("reduce-scatter", out, group)
     _reduce_scatter(out, xt, group=group)
     return out.movedim(0, dim).contiguous()
 
@@ -63,6 +79,7 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     where ``x`` is a strided view: NCCL takes contiguous buffers only);
     returns ``x``."""
     y = x if x.is_contiguous() else x.contiguous()
+    record("all-reduce", y, group)
     dist.all_reduce(y, op=op, group=group)
     if y is not x:
         x.copy_(y)
@@ -102,6 +119,7 @@ def all_gather_many(items) -> list:
         moved = [x.movedim(d, 0).contiguous() for _, (x, d, _) in bucket]
         flat = torch.cat([m.reshape(-1) for m in moved])
         whole = torch.empty((n * flat.numel(),), dtype=flat.dtype, device=flat.device)
+        record("all-gather", whole, group)
         dist.all_gather_into_tensor(whole, flat, group=group)
         whole = whole.view(n, -1)
         off = 0
@@ -124,6 +142,7 @@ def reduce_scatter_many(items) -> list:
         rows = [m.reshape(n, -1) for m in moved]           # rank r's block: row r
         flat = torch.cat(rows, dim=1).reshape(-1)
         mine = torch.empty(flat.numel() // n, dtype=flat.dtype, device=flat.device)
+        record("reduce-scatter", mine, group)
         _reduce_scatter(mine, flat, group=group)
         off = 0
         for (i, (_, d, _)), m, r in zip(bucket, moved, rows):
@@ -139,6 +158,7 @@ def all_reduce_many(tensors, group) -> None:
     for bucket in _buckets(list(tensors), lambda x: _key(x, group),
                            lambda x: x.numel() * x.element_size()):
         flat = torch.cat([x.reshape(-1) for x in bucket])
+        record("all-reduce", flat, group)
         dist.all_reduce(flat, group=group)
         off = 0
         for x in bucket:

@@ -39,15 +39,17 @@ _REPLICATED = ("router", "router_bias", "residency", "fetch_ids", "xgate")
 
 
 def tree_map_with_path(fn, tree, path: str = ""):
-    """``fn("blocks/0/ffn/w_in", leaf)`` over a tree of dicts and lists
-    (the reference's ``path_str`` of every leaf); a tuple is a leaf, so
-    spec trees map too."""
+    """``fn("blocks/0/ffn/w_in", leaf)`` over a tree of dicts, lists and
+    NamedTuples (the reference's ``path_str`` of every leaf, a NamedTuple's
+    fields by name); a plain tuple is a leaf, so spec trees map too."""
+    sub = lambda k: f"{path}/{k}" if path else str(k)
     if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, f"{path}/{k}" if path else str(k))
-                for k, v in tree.items()}
+        return {k: tree_map_with_path(fn, v, sub(k)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
-                for i, v in enumerate(tree)]
+        return [tree_map_with_path(fn, v, sub(i)) for i, v in enumerate(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[tree_map_with_path(fn, getattr(tree, f), sub(f))
+                            for f in tree._fields])
     return fn(path, tree)
 
 

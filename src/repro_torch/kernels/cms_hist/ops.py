@@ -9,14 +9,19 @@ from repro_torch.core import sketch as sk
 from repro_torch.core.sketch import HIST_BINS, SketchParams, SketchState
 from repro_torch.kernels import _lib
 from repro_torch.kernels.cms_hist.ref import hist_ref
-from repro_torch.kernels.dispatch import kernel_device, require
+from repro_torch.kernels.dispatch import counted, kernel_device, require
 
 
+@counted("cms_hist")
 def hist_kernel(counts_row0, epochs_row0, cur_epoch, edges):
     """(W,) int32 counters + (W,) uint8 tags + () uint8 epoch + (65,) int32
-    edges -> (64,) int32 histogram of the live counters."""
-    if kernel_device(counts_row0, epochs_row0, cur_epoch, edges) == "cpu":
+    edges -> (64,) int32 histogram of the live counters (meta inputs: a
+    meta output, no launch)."""
+    kind = kernel_device(counts_row0, epochs_row0, cur_epoch, edges)
+    if kind == "cpu":
         return hist_ref(counts_row0, epochs_row0, cur_epoch, edges)
+    if kind == "meta":
+        return torch.empty((HIST_BINS,), dtype=torch.int32, device=counts_row0.device)
     w = counts_row0.shape[0]
     require(counts_row0, "counts_row0", torch.int32, (w,))
     require(epochs_row0, "epochs_row0", torch.uint8, (w,))

@@ -15,19 +15,28 @@ import torch
 from repro_torch.core.sketch import (PAGE_ID_BITS, SketchParams, SketchState,
                                      _first_occurrence)
 from repro_torch.kernels import _lib
-from repro_torch.kernels.dispatch import kernel_device, require
+from repro_torch.kernels.dispatch import counted, kernel_device, require
 from repro_torch.kernels.neoprof_update.ref import mark_hot_ref, update_ref
 
 
+@counted("neoprof_update")
 def sketch_update_kernel(counts, epochs, hot, page_ids, seeds, cur_epoch,
                          counter_max: int):
     """One block of ids into the sketch: -> (new_counts, new_epochs, est,
-    hot_before), see :func:`.ref.update_ref`."""
-    if kernel_device(counts, epochs, hot, page_ids, seeds, cur_epoch) == "cpu":
+    hot_before), see :func:`.ref.update_ref` (meta inputs: meta outputs,
+    no launch)."""
+    kind = kernel_device(counts, epochs, hot, page_ids, seeds, cur_epoch)
+    if kind == "cpu":
         return update_ref(counts, epochs, hot, page_ids, seeds, cur_epoch,
                           counter_max)
     d, w = counts.shape
     s = page_ids.shape[0]
+    if kind == "meta":
+        dev = counts.device
+        return (torch.empty((d, w), dtype=torch.int32, device=dev),
+                torch.empty((d, w), dtype=torch.uint8, device=dev),
+                torch.empty((d, s), dtype=torch.int32, device=dev),
+                torch.empty((d, s), dtype=torch.int32, device=dev))
     require(counts, "counts", torch.int32)
     require(epochs, "epochs", torch.uint8, (d, w))
     require(hot, "hot", torch.bool, (d, w))
@@ -52,12 +61,17 @@ def sketch_update_kernel(counts, epochs, hot, page_ids, seeds, cur_epoch,
 sketch_update_kernel.launches = 0
 
 
+@counted("neoprof_mark")
 def sketch_mark_hot_kernel(hot, page_ids, is_hot, seeds):
-    """Set the hot bits of every valid id flagged hot: -> new hot (D, W) bool."""
-    if kernel_device(hot, page_ids, is_hot, seeds) == "cpu":
+    """Set the hot bits of every valid id flagged hot: -> new hot (D, W)
+    bool (meta inputs: a meta output, no launch)."""
+    kind = kernel_device(hot, page_ids, is_hot, seeds)
+    if kind == "cpu":
         return mark_hot_ref(hot, page_ids, is_hot, seeds)
     d, w = hot.shape
     s = page_ids.shape[0]
+    if kind == "meta":
+        return torch.empty((d, w), dtype=torch.bool, device=hot.device)
     require(hot, "hot", torch.bool)
     require(page_ids, "page_ids", torch.int32, (s,))
     require(is_hot, "is_hot", torch.bool, (s,))

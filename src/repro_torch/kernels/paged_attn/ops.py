@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.dist.collectives import all_reduce
 from repro_torch.kernels import _lib
-from repro_torch.kernels.dispatch import kernel_device, require
+from repro_torch.kernels.dispatch import counted, kernel_device, require
 from repro_torch.kernels.paged_attn.ref import paged_attention_raw_ref
 
 __all__ = ["paged_attention_raw", "paged_attention", "page_mass", "head_tiled",
@@ -52,12 +52,23 @@ def _tma_rows(t: torch.Tensor, width: int) -> bool:
     return t.data_ptr() % 16 == 0 and (width * t.element_size()) % 16 == 0
 
 
+def _attn_flops(out, q, k_pages, v_pages, *args, **kwargs) -> float:
+    """q.k and p.v over every token slot of every page: 2 B H P T (dk + dv)
+    (the kernel's work at full pages; ``analysis._attn_decode_flops``'s
+    2 * 2 * B * cached tokens * H * dh where dk = dv = dh)."""
+    b, h, dk = q.shape
+    _, p, t = k_pages.shape[:3]
+    return 2.0 * b * h * p * t * (dk + v_pages.shape[-1])
+
+
+@counted("paged_attn", _attn_flops)
 def paged_attention_raw(q, k_pages, v_pages, page_lengths, *, scale=None,
                         softcap: float = 0.0, return_page_stats: bool = False):
     """Unnormalised flash-decode stats (m, l, acc) [+ (page_m, page_l)].
 
     q (B,H,dk) f32; k_pages (B,P,T,Hkv,dk), v_pages (B,P,T,Hkv,dv), both
-    bf16 or both f32; page_lengths (B,P) int32, 0 = invalid page.
+    bf16 or both f32; page_lengths (B,P) int32, 0 = invalid page.  Meta
+    inputs give meta outputs of those shapes and launch nothing.
     """
     b, h, dk = q.shape
     _, p, t, hkv, _ = k_pages.shape
@@ -65,10 +76,18 @@ def paged_attention_raw(q, k_pages, v_pages, page_lengths, *, scale=None,
     if h % hkv:
         raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
     scale = (dk ** -0.5) if scale is None else float(scale)
-    if kernel_device(q, k_pages, v_pages, page_lengths) == "cpu":
+    kind = kernel_device(q, k_pages, v_pages, page_lengths)
+    if kind == "cpu":
         out = paged_attention_raw_ref(q, k_pages, v_pages, page_lengths,
                                       scale=scale, softcap=softcap)
         return out if return_page_stats else out[:3]
+    if kind == "meta":
+        f32 = dict(dtype=torch.float32, device=q.device)
+        out = (torch.empty((b, h, 1), **f32), torch.empty((b, h, 1), **f32),
+               torch.empty((b, h, dv), **f32))
+        if return_page_stats:
+            out += (torch.empty((b, p, h), **f32), torch.empty((b, p, h), **f32))
+        return out
     require(q, "q", torch.float32, (b, h, dk))
     if k_pages.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"k_pages: dtype {k_pages.dtype}, kernel takes bf16 or f32")

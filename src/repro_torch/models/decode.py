@@ -94,6 +94,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.collectives import all_reduce
+from repro_torch.dist.sharding import per_group, shard
 from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -101,7 +102,7 @@ from repro_torch.models import prng
 from repro_torch.models.layers import (apply_norm, apply_rope, embed_apply,
                                        logits_apply, mlp_apply)
 from repro_torch.models.mamba2 import mamba2_decode, mamba2_init_cache
-from repro_torch.models.transformer import RECURRENT_KINDS, check_ported, forward
+from repro_torch.models.transformer import RECURRENT_KINDS, _top, check_ported, forward
 from repro_torch.models.xlstm import (mlstm_decode, mlstm_init_cache,
                                       slstm_decode, slstm_init_cache)
 from repro_torch.tiering.migrate import lookup_rows as _tier_lookup_rows
@@ -112,6 +113,37 @@ def _take(tree, g: int):
     if isinstance(tree, dict):
         return {k: _take(v, g) for k, v in tree.items()}
     return tree[g]
+
+
+class _MeshBlocks:
+    """Over a mesh, a group's params and cache as a block computes with
+    them: the params gathered under ``layout``
+    (:class:`repro_torch.dist.sharding.Layout`), the cache whole under
+    ``cache_layout`` (its sequence dim over 'model' gathered; the batch
+    stays split, compute is data-parallel) and written back to the rank's
+    blocks after the block ran."""
+
+    def __init__(self, layout, cache_layout):
+        self.layout, self.cache_layout = layout, cache_layout
+        self.gp = None if layout is None else per_group(layout.specs["blocks"])
+        self.gc = (None if cache_layout is None
+                   else per_group(cache_layout.specs["blocks"]))
+
+    def params(self, p, i: int):
+        return p if self.layout is None else self.layout.gather(p, self.gp[i])
+
+    def cache(self, c, specs):
+        """-> (the cache the block runs on, write-back)."""
+        if self.cache_layout is None or not any(
+                e is not None for sp in specs.values() for e in sp):
+            return c, lambda: None
+        full = self.cache_layout.gather(c, specs)
+
+        def write_back():
+            mesh = self.cache_layout.mesh
+            for k in c:
+                c[k].copy_(shard(full[k], specs[k], mesh))
+        return full, write_back
 
 
 def _embed_tokens(params, token, tiered):
@@ -450,7 +482,7 @@ def _cross_source(cfg: ArchConfig, kind: str, aux_embeds):
 def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
                       return_streams: bool = False,
                       collect_mass: bool | None = None, tiered=None,
-                      active=None, ep_axes=None, smesh=None):
+                      active=None, ep_axes=None, smesh=None, layout=None):
     """One decode step over the NeoMem fast tier (hot pages only).
 
     ``token`` (B, 1) int.  Returns ``(logits (B, 1, V) f32, cache)`` and,
@@ -472,9 +504,13 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     :func:`repro_torch.dist.sharding.cache_pspecs` with ``slot_axes``
     places them; :func:`_append_attend_sharded`), and the kv mass comes
     back for the local slots; ``ep_axes`` runs the MoE layers
-    expert-parallel (``params``' expert stacks the rank's blocks).
+    expert-parallel (``params``' expert stacks the rank's blocks);
+    ``layout`` gathers the rank's stored param blocks a group at a time, as
+    :func:`decode_step`'s.
     """
     check_ported(cfg)
+    mb = _MeshBlocks(layout, None)
+    params = _top(params, layout)
     collect_mass = return_streams if collect_mass is None else collect_mass
     pos = cache["pos"]
     if active is not None and pos.dim() == 0:
@@ -488,7 +524,8 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     for g in range(cfg.n_groups):
         group, router = [], []
         for i, kind in enumerate(cfg.pattern):
-            p, c = _take(params["blocks"][i], g), _take(cache["blocks"][i], g)
+            p = mb.params(_take(params["blocks"][i], g), i)
+            c = _take(cache["blocks"][i], g)
             if kind in RECURRENT_KINDS:
                 x = _recurrent_block(p, cfg, kind, x, c, active)
                 continue
@@ -634,7 +671,8 @@ def _decode_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
 
 
 def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
-                return_streams: bool = False, tiered=None, ep_axes=None):
+                return_streams: bool = False, tiered=None, ep_axes=None,
+                layout=None, cache_layout=None):
     """One decode step over the full cache: ``token`` (B, 1) int ->
     ``(logits (B, 1, V) f32, cache)``, and with ``return_streams`` a
     streams dict whose ``"router"`` is the (G, n_moe, B, 1, k) token->expert
@@ -644,26 +682,42 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
     serves the token embedding and the first MoE position's expert weights
     through the tiered store, as in :func:`decode_step_paged`, and
     ``ep_axes`` runs the MoE layers expert-parallel.  The cache is updated
-    in place."""
+    in place.
+
+    Over a mesh ``params`` and ``cache`` are the rank's blocks:
+    ``layout`` gathers a group's params before it runs (as
+    :func:`repro_torch.models.transformer.forward`'s), ``cache_layout``
+    (specs without their data axes) a block's cache, which is written back
+    to the rank's blocks after it (the reference's partitioner gathers the
+    sequence-split cache a layer at a time)."""
     check_ported(cfg)
+    mb = _MeshBlocks(layout, cache_layout)
+    params = _top(params, layout)
     pos = cache["pos"]
     x = _embed(cfg, params, token, tiered)
-    for lp, lc in zip(params.get("prologue", []), cache.get("prologue", [])):
+    for j, (lp, lc) in enumerate(zip(params.get("prologue", []),
+                                     cache.get("prologue", []))):
+        lc, write_back = mb.cache(lc, None if cache_layout is None
+                                  else cache_layout.specs["prologue"][j])
         x = _decode_attn_block(lp, cfg, "attn", x, lc, pos, ep_axes=ep_axes)
+        write_back()
     routers = []
     for g in range(cfg.n_groups):
         router = []
         for i, kind in enumerate(cfg.pattern):
-            p, c = _take(params["blocks"][i], g), _take(cache["blocks"][i], g)
+            p = mb.params(_take(params["blocks"][i], g), i)
+            c, write_back = mb.cache(_take(cache["blocks"][i], g),
+                                     None if mb.gc is None else mb.gc[i])
             if kind in RECURRENT_KINDS:
                 x = _recurrent_block(p, cfg, kind, x, c)
-                continue
-            if kind == "shared_attn":
-                p, kind = params["shared_attn"], "attn"
-            x = _decode_attn_block(
-                p, cfg, kind, x, c, pos,
-                tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router,
-                kv_src=_cross_source(cfg, kind, aux_embeds), ep_axes=ep_axes)
+            else:
+                if kind == "shared_attn":
+                    p, kind = params["shared_attn"], "attn"
+                x = _decode_attn_block(
+                    p, cfg, kind, x, c, pos,
+                    tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router,
+                    kv_src=_cross_source(cfg, kind, aux_embeds), ep_axes=ep_axes)
+            write_back()
         routers.append(router)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = logits_apply(params["embed"], x, cfg.final_softcap)
@@ -676,14 +730,16 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
 
 
 def prefill(cfg: ArchConfig, params, tokens, *, aux_embeds=None, remat=True,
-            ep_axes=None):
+            ep_axes=None, layout=None):
     """The last token's logits of a full-sequence forward, and the
     forward's aux (the reference's dry-run prefill: it builds no cache;
     serving fills one with :func:`prefill_dense` or
-    :func:`prefill_paged`)."""
+    :func:`prefill_paged`).  ``ep_axes`` and ``layout`` as
+    :func:`repro_torch.models.transformer.forward`'s."""
     x, aux = forward(cfg, params, tokens, aux_embeds=aux_embeds, remat=remat,
-                     ep_axes=ep_axes)
-    return logits_apply(params["embed"], x[:, -1:], cfg.final_softcap), aux
+                     ep_axes=ep_axes, layout=layout)
+    embed = _top(params, layout)["embed"]
+    return logits_apply(embed, x[:, -1:], cfg.final_softcap), aux
 
 
 def prefill_dense(cfg: ArchConfig, params, cache, tokens, *, aux_embeds=None,

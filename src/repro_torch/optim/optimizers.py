@@ -13,7 +13,10 @@ leaf whose last two dims exceed 1, and clips its update to RMS 1.
 Over a mesh (:mod:`repro_torch.train.step`) the gradients are full and the
 params the rank's blocks: ``block(i, x)`` takes leaf i's block of a full
 tensor, which AdamW applies to the clipped gradient (its m and v are
-blocks too) and Adafactor to the update (its factored moments are full).
+blocks too) and Adafactor to the update.  Adafactor's moments rest as
+blocks too (``vr`` under the param's spec without its last dim, ``vc``
+without its second last): ``moments = (whole, blocks)`` gathers every
+leaf's moments before the update and takes the blocks of the new ones.
 
 The update writes the params and the moments in place and returns them, so
 that a step at full width holds one copy of each: a caller that needs the
@@ -145,14 +148,15 @@ def adamw_update(cfg: OptConfig, params, grads, state, block=_whole):
 
 # -- Adafactor (factored, momentum-free) ----------------------------------------
 
-def _factored(shape) -> bool:
+def factored(shape) -> bool:
+    """Adafactor keeps a leaf of this shape as row and column means."""
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
 
 def adafactor_init(params):
     def st(p):
         f32 = dict(dtype=torch.float32, device=p.device)
-        if _factored(p.shape):
+        if factored(p.shape):
             return {"vr": torch.zeros(p.shape[:-1], **f32),
                     "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
         return {"v": torch.zeros(p.shape, **f32)}
@@ -162,13 +166,16 @@ def adafactor_init(params):
 
 
 @torch.no_grad()
-def adafactor_update(cfg: OptConfig, params, grads, state, block=_whole):
+def adafactor_update(cfg: OptConfig, params, grads, state, block=_whole,
+                     moments=None):
     step = state["step"] + 1
     lr = schedule(cfg, step)
     gl, gnorm = clip_by_global_norm(tree_leaves(grads), cfg.grad_clip)
     decay = 1.0 - step.float() ** -0.8
     flat_p = tree_leaves(params)
     flat_s = _leaf_states(params, state["s"])
+    if moments is not None:
+        flat_s = moments[0](flat_s)
     new_s = []
     for i, (p, g, s) in enumerate(zip(flat_p, gl, flat_s)):
         g2 = g * g + 1e-30
@@ -187,6 +194,8 @@ def adafactor_update(cfg: OptConfig, params, grads, state, block=_whole):
         u = block(i, u / torch.clamp_min(rms, 1.0))
         u = u + cfg.weight_decay * p.float()
         _apply(p, lr, u)
+    if moments is not None:
+        new_s = moments[1](new_s)
     return params, {"s": tree_unflatten(params, new_s), "step": step}, \
         {"gnorm": gnorm, "lr": lr}
 
@@ -202,6 +211,7 @@ def _leaf_states(params, s_tree) -> list:
 
 def make_optimizer(cfg: OptConfig):
     if cfg.kind == "adafactor":
-        return adafactor_init, lambda p, g, s, block=_whole: \
-            adafactor_update(cfg, p, g, s, block)
-    return adamw_init, lambda p, g, s, block=_whole: adamw_update(cfg, p, g, s, block)
+        return adafactor_init, lambda p, g, s, block=_whole, moments=None: \
+            adafactor_update(cfg, p, g, s, block, moments)
+    return adamw_init, lambda p, g, s, block=_whole, moments=None: \
+        adamw_update(cfg, p, g, s, block)

@@ -32,15 +32,17 @@ data axes, and ``grad_compression`` makes that sum
 :func:`repro_torch.dist.compression.compress_psum`), then divided by M
 times the data ranks, so that they equal the single-device gradients of
 the whole batch.  The update reads the full gradients and writes each
-rank's blocks: AdamW's m and v are blocks, Adafactor's factored moments
-full, ZeRO-1's vectors the rank's flat slices; ``offload_master`` keeps
-those in pinned host memory between steps and fetches them on a side
-stream during the backward.  XLA's automatic tensor parallelism has no
+rank's blocks: AdamW's m and v are blocks, Adafactor's moments blocks
+gathered for the update, ZeRO-1's vectors the rank's flat slices;
+``offload_master`` keeps those in pinned host memory between steps and
+fetches them on a side stream during the backward.  XLA's automatic tensor parallelism has no
 counterpart: the dense layers compute on gathered weights.
 
 The state is ``{"params", "opt", "prof"[, "ef"]}``, the reference's tree
-(:func:`init_state` builds and places it).  The step writes the params
-and optimizer moments in place and returns the state.  Every tensor lives
+(:func:`init_state` builds and places it; :func:`make_state_shapes` builds
+it on the meta device and :func:`state_specs` names where each leaf rests
+over a mesh).  The step writes the params and optimizer moments in place
+and returns the state.  Every tensor lives
 on the state's device (or the master vectors on its host); nothing moves
 to the host but the metrics the caller reads.
 """
@@ -59,14 +61,14 @@ from repro_torch.core.neoprof import NeoProfParams, neoprof_init, neoprof_observ
 from repro_torch.core.sketch import SketchParams
 from repro_torch.dist import collectives as col
 from repro_torch.dist import compression
-from repro_torch.dist.sharding import (Layout, batch_pspec, drop_axes, gather_many,
-                                       param_pspecs, shard, spec_leaves,
+from repro_torch.dist.sharding import (Layout, _entry, batch_pspec, drop_axes,
+                                       gather_many, param_pspecs, shard, spec_leaves,
                                        tree_map_with_path)
 from repro_torch.launch.mesh import DP_AXES, dp_axes
 from repro_torch.models import transformer as tr
 from repro_torch.models.moe import EPContext
 from repro_torch.optim import zero1
-from repro_torch.optim.optimizers import OptConfig, make_optimizer
+from repro_torch.optim.optimizers import OptConfig, factored, make_optimizer
 
 PROFILE_IDS = 8192      # router ids a step feeds the sketch
 
@@ -95,11 +97,26 @@ def _ep_context(cfg: ArchConfig, mesh) -> EPContext | None:
                      dp_axes=dp_axes(mesh))
 
 
+_EXPERT_LEAVES = ("w_gate", "w_in", "w_out", "fetch_gate", "fetch_in", "fetch_out")
+
+
 def _expert_stack(path: str, spec) -> bool:
-    """A MoE layer's (G, E, D, F) expert weights, which stay split over
+    """A MoE layer's (G, E, D, F) expert weights (the tiered arm's hot
+    slots and fetch buffers too) and the fetch ids, which stay split over
     'model' for the expert-parallel body."""
-    return path.startswith("blocks") and len(spec) == 4 \
-        and path.rsplit("/", 1)[-1] in ("w_gate", "w_in", "w_out")
+    name = path.rsplit("/", 1)[-1]
+    return path.startswith("blocks") and (
+        (len(spec) == 4 and name in _EXPERT_LEAVES) or name == "fetch_ids")
+
+
+def compute_layout(cfg: ArchConfig, mesh, specs) -> Layout:
+    """What a group gathers before it runs, from the specs its leaves are
+    held under: everything, but the expert stacks' 'model' split under
+    expert parallelism (a MoE arch)."""
+    ep = cfg.moe is not None
+    return Layout(mesh, tree_map_with_path(
+        lambda p, s: drop_axes(s, ("model",)) if ep and _expert_stack(p, s) else s,
+        specs))
 
 
 class _Placement:
@@ -119,12 +136,11 @@ class _Placement:
         if tcfg.local_grads:
             live = tree_map_with_path(lambda _, s: drop_axes(s, DP_AXES), live)
         self.live = spec_leaves(live)
-        ep = cfg.moe is not None
-        self.layout = Layout(mesh, tree_map_with_path(
-            lambda p, s: drop_axes(s, ("model",)) if ep and _expert_stack(p, s) else s,
-            live))
+        self.layout = compute_layout(cfg, mesh, live)
         self.stored_leaves = spec_leaves(self.stored)
         self.zspec = zero1.flat_spec(shapes, mesh.size) if tcfg.zero1 else None
+        self.moment_specs = [moment_specs(x.shape, sp) for x, sp in
+                             zip(tree_leaves(shapes), self.stored_leaves)]
 
     def dp_group(self):
         return self.mesh.group(self.dp) if self.dp else None
@@ -148,9 +164,71 @@ class _Placement:
     def block(self, i: int, x):
         return shard(x, self.stored_leaves[i], self.mesh)
 
+    def moments(self):
+        """Adafactor's ``moments`` hooks: every leaf's moments gathered
+        whole (one bucketed round), and the blocks of new ones."""
+        def whole(flat_s):
+            keys = [(i, k) for i, s in enumerate(flat_s) for k in sorted(s)]
+            got = gather_many([flat_s[i][k] for i, k in keys],
+                              [self.moment_specs[i][k] for i, k in keys], self.mesh)
+            out = [dict(s) for s in flat_s]
+            for (i, k), x in zip(keys, got):
+                out[i][k] = x
+            return out
+
+        def blocks(flat_s):
+            return [{k: shard(v, self.moment_specs[i][k], self.mesh)
+                     for k, v in s.items()} for i, s in enumerate(flat_s)]
+        return whole, blocks
+
 
 def prof_params(tcfg: TrainConfig) -> NeoProfParams:
     return NeoProfParams(sketch=SketchParams(width=tcfg.sketch_width))
+
+
+def moment_specs(shape, spec) -> dict:
+    """Adafactor's moments of a leaf of ``shape`` stored under ``spec``:
+    ``vr`` under the spec without its last dim, ``vc`` without its second
+    last (a factored leaf), else ``v`` under the spec itself."""
+    if factored(shape):
+        return {"vr": tuple(spec[:-1]), "vc": tuple(spec[:-2]) + tuple(spec[-1:])}
+    return {"v": tuple(spec)}
+
+
+def make_state_shapes(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig(), mesh=None):
+    """The train state on the meta device, no storage (the dry run's):
+    :func:`init_state`'s tree over shape-only params; with a mesh, the
+    rank's blocks of it."""
+    return init_state(cfg, tcfg, tr.init_params(cfg, device="meta"), mesh=mesh)
+
+
+def state_specs(state, mesh, fsdp: bool = False):
+    """Where each leaf of a (global) train state rests over ``mesh``, a tree
+    of specs like the state (the reference's ``state_shardings``): the
+    params and AdamW's m and v by :func:`repro_torch.dist.sharding.param_pspecs`,
+    Adafactor's moments by :func:`moment_specs`, ZeRO-1's flat vectors
+    over every mesh axis, ``prof``, ``ef`` and every step whole.  (The
+    reference places ``ef`` like the params; the port's compressed link
+    runs on full gradients, so it keeps ``ef`` whole.)"""
+    pspecs = param_pspecs(state["params"], mesh, fsdp=fsdp)
+    whole = lambda _, x: (None,) * x.dim()
+    opt = state["opt"]
+    if "s" in opt:
+        sl = [moment_specs(x.shape, sp) for x, sp in
+              zip(tree_leaves(state["params"]), spec_leaves(pspecs))]
+        ospecs = {"s": tree_unflatten(state["params"], sl), "step": ()}
+    elif isinstance(opt.get("m"), dict):
+        ospecs = {"m": pspecs, "v": pspecs, "step": ()}
+    else:
+        every = _entry(tuple(mesh.axis_names))
+        ospecs = tree_map_with_path(
+            lambda _, x: (every,) if x.dim() == 1 and x.shape[0] > 1 << 16
+            else (None,) * x.dim(), opt)
+    specs = {"params": pspecs, "opt": ospecs,
+             "prof": tree_map_with_path(whole, state["prof"])}
+    if "ef" in state:
+        specs["ef"] = tree_map_with_path(whole, state["ef"])
+    return specs
 
 
 def init_state(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig(), params=None,
@@ -164,9 +242,9 @@ def init_state(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig(), params=None,
     ``params`` is the full tree, drawn on the mesh's device unless given,
     and the state holds the rank's blocks of it: the params and AdamW's
     moments under :func:`repro_torch.dist.sharding.param_pspecs` (with
-    ``tcfg.fsdp``), ZeRO-1's slices (pinned on the host with
-    ``offload_master`` on the card); Adafactor's factored moments, ``ef``
-    and ``prof`` whole on every rank.  The params' blocks may share storage
+    ``tcfg.fsdp``), Adafactor's moments under :func:`moment_specs`,
+    ZeRO-1's slices (pinned on the host with ``offload_master`` on the
+    card); ``ef`` and ``prof`` whole on every rank (:func:`state_specs`).  The params' blocks may share storage
     with the tree given."""
     if params is None:
         params = tr.init_params(cfg, seed, device=device if mesh is None
@@ -176,20 +254,29 @@ def init_state(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig(), params=None,
     seeds = sk.key_seeds(pp.sketch.depth, pp.sketch.width)
     local = params
     if mesh is not None:
-        specs = spec_leaves(param_pspecs(params, mesh, fsdp=tcfg.fsdp))
-        local = tree_unflatten(params, [shard(x, sp, mesh) for x, sp in
-                                        zip(tree_leaves(params), specs)])
+        local = _place_tree(params, param_pspecs(params, mesh, fsdp=tcfg.fsdp), mesh)
     state = {"params": local, "prof": neoprof_init(pp, seeds, device=dev)}
     if tcfg.zero1:
         state["opt"], _ = zero1.zero1_init(
             params, mesh, compress_collective=tcfg.compress_collective,
             offload=tcfg.offload_master)
+    elif tcfg.opt.kind == "adafactor":
+        state["opt"] = make_optimizer(tcfg.opt)[0](params)
+        if mesh is not None:            # the moments' blocks (state_specs)
+            sspecs = state_specs({"params": params, "opt": state["opt"],
+                                  "prof": state["prof"]}, mesh, fsdp=tcfg.fsdp)
+            state["opt"]["s"] = _place_tree(state["opt"]["s"], sspecs["opt"]["s"], mesh)
     else:
-        init = make_optimizer(tcfg.opt)[0]
-        state["opt"] = init(params if tcfg.opt.kind == "adafactor" else local)
+        state["opt"] = make_optimizer(tcfg.opt)[0](local)
     if tcfg.grad_compression:
         state["ef"] = compression.ef_init(params)
     return state
+
+
+def _place_tree(tree, specs, mesh):
+    """Every leaf's block under the matching spec of ``specs``."""
+    return tree_unflatten(tree, [shard(x, sp, mesh) for x, sp in
+                                 zip(tree_leaves(tree), spec_leaves(specs))])
 
 
 def to_batch(batch: dict, device, mesh=None) -> dict:
@@ -322,7 +409,8 @@ def build_train_step(cfg: ArchConfig, mesh=None, tcfg: TrainConfig = TrainConfig
         elif place is None:
             params, opt_state, om = opt_update(params, grads, opt_state)
         else:
-            params, opt_state, om = opt_update(params, grads, opt_state, place.block)
+            params, opt_state, om = opt_update(params, grads, opt_state, place.block,
+                                               moments=place.moments())
         new_state.update(params=params, opt=opt_state, prof=prof)
         return new_state, {"loss": loss, **om, **metrics}
 

@@ -47,10 +47,15 @@ SCENARIOS = {
         "ops": [["submit", t, s, n, m] for t, s, n, m in _WORK] + [["run"]],
         "sched": dict(preempt_patience=16, prefill_chunk=CHUNK, prefill_lanes=1,
                       seed=7)},
+    # PHASE disagg's trace at 100 arrival steps, and cut as the phase runs it
     "chip-disagg": {"kind": "trace", "serve": CHIP.DISAGG_SERVE,
                     "sched": CHIP.DISAGG_SCHED, "profiles": None,
-                    "trace": CHIP.DISAGG_TRACE},
+                    "trace": dict(CHIP.DISAGG_TRACE, n_steps=100)},
+    "chip-disagg-cut": {"kind": "trace", "serve": CHIP.DISAGG_SERVE,
+                        "sched": CHIP.DISAGG_SCHED, "profiles": None,
+                        "trace": CHIP.DISAGG_TRACE},
 }
+CHIP_DISAGG = ("chip-disagg", "chip-disagg-cut")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -129,8 +134,9 @@ def test_disagg_matches_reference(reference, port_params, generate,
 
 def test_sampled_disagg_trace_matches_reference(reference, port_params,
                                                 reference_rounding):
-    """PHASE disagg's trace at smoke width, sampled at temperature 0.8 and
-    top-p 0.9 through the threefry port: everything equal, tokens too."""
+    """PHASE disagg's trace at smoke width (at 100 arrival steps), sampled
+    at temperature 0.8 and top-p 0.9 through the threefry port: everything
+    equal, tokens too."""
     port = port_run(SCENARIOS["chip-disagg"], port_params, reference["seeds"])
     ref = reference["chip-disagg"]
     for key in ref:
@@ -138,23 +144,25 @@ def test_sampled_disagg_trace_matches_reference(reference, port_params,
 
 
 def test_chip_smoke_disagg_schedule_matches_reference(reference):
-    """The schedule ``chip_smoke.py`` computes on the CPU for PHASE disagg,
-    to hold the card's run to: steps, each request's steps, hand-offs (in
-    pages), equal to the reference's."""
-    ref = reference["chip-disagg"]
+    """The schedule ``chip_smoke.py`` computes on the CPU for PHASE disagg
+    (at 100 arrival steps, and at the phase's cut, which it holds the
+    card's run to): steps, each request's steps, hand-offs (in pages),
+    equal to the reference's."""
     cfg = t_registry.get_smoke_config(ARCH)
     kv_row = cfg.n_groups * CHIP.DISAGG_SERVE["page_t"] * cfg.n_kv_heads * 2 \
         * cfg.head_dim * 2                           # bf16 [K | V] page
-    ho = ref["report"]["handoff"]
-    assert CHIP.cpu_disagg_schedule() == {
-        "steps": ref["report"]["steps"],
-        "preemptions": ref["report"]["preemptions"],
-        "requests": [[rid, adm, fin, pre, steps]
-                     for rid, _, _, _, adm, fin, pre, steps in ref["requests"]],
-        "handoff": {"count": ho["count"], "pages_out": ho["bytes_out"] // kv_row,
-                    "pages_in": ho["bytes_in"] // kv_row,
-                    "depth_peak": ho["depth_peak"]}}
-    assert ho["bytes_out"] % kv_row == 0 and ho["bytes_in"] % kv_row == 0
+    for name in CHIP_DISAGG:
+        ref = reference[name]
+        ho = ref["report"]["handoff"]
+        assert CHIP.cpu_disagg_schedule(SCENARIOS[name]["trace"]) == {
+            "steps": ref["report"]["steps"],
+            "preemptions": ref["report"]["preemptions"],
+            "requests": [[rid, adm, fin, pre, steps]
+                         for rid, _, _, _, adm, fin, pre, steps in ref["requests"]],
+            "handoff": {"count": ho["count"], "pages_out": ho["bytes_out"] // kv_row,
+                        "pages_in": ho["bytes_in"] // kv_row,
+                        "depth_peak": ho["depth_peak"]}}, name
+        assert ho["bytes_out"] % kv_row == 0 and ho["bytes_in"] % kv_row == 0
 
 
 def test_mid_prefill_preempt_resume_parity(port_params, generate):

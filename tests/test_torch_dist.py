@@ -17,8 +17,9 @@ meshless path where it has one:
   the identity on the CPU;
 * ``compress_psum`` over 4 ranks within 1e-6 |x| + 1e-7 of the
   reference's formula evaluated in one process, sum and residual;
-* ``pipeline_apply`` (4 stages, 8 microbatches) within 1e-5 of the stages
-  applied in turn;
+* ``pipeline_apply`` (4 stages, 8 microbatches, a tree a stage) within
+  1e-5 of the stages applied in turn, and its gradients (stage weights and
+  input) within 1e-5 of ``jax.grad`` of them;
 * ``combine_stats`` over 4 ranks' slots within 1e-5 + 1e-5 |ref| of the
   unsharded Pallas attention (interpret mode), the page mass within 1e-6;
 * ``decode_step_paged(smesh=)``, 16 float32 steps of llama3.2-3b-smoke
@@ -109,6 +110,7 @@ def _pipeline_inputs():
     d = 16
     return (r.normal(0, d ** -0.5, (4, d, d)).astype(np.float32),
             r.normal(0, 0.1, (4, d)).astype(np.float32),
+            r.normal(0, 1, (8, 3, d)).astype(np.float32),
             r.normal(0, 1, (8, 3, d)).astype(np.float32))
 
 
@@ -125,6 +127,15 @@ def _attention_inputs(softcap):
 
 def _decode_tokens():
     return _rng(14).integers(0, j_smoke(LLAMA).vocab, (2, STEPS)).astype(np.int32)
+
+
+def _cell_inputs():
+    """The serving cells' decode columns (B 2 over a 16-token dense cache)
+    and prefill prompt (B 2, 8 tokens)."""
+    r = _rng(17)
+    v = j_smoke(LLAMA).vocab
+    return dict(tokens=r.integers(0, v, (2, 16)).astype(np.int32),
+                prompt=r.integers(0, v, (2, 8)).astype(np.int32))
 
 
 def _moe_inputs(bias):
@@ -164,17 +175,19 @@ def _zero1_inputs():
 
 def _checks():
     grads, ef = _compress_inputs()
-    w, b, x = _pipeline_inputs()
+    w, b, x, ct = _pipeline_inputs()
     zp, zg = _zero1_inputs()
     out = [("shard_gather", "check_shard_gather",
             dict(full=_rng(10).normal(0, 1, (8, 16, 4)).astype(np.float32))),
            ("compress_psum", "check_compress_psum", dict(grads=grads, ef=ef)),
-           ("pipeline", "check_pipeline", dict(w=w, b=b, x=x))]
+           ("pipeline", "check_pipeline", dict(w=w, b=b, x=x, ct=ct))]
     for softcap in (0.0, 5.0):
         out.append((f"combine_{softcap}", "check_combine_stats", _attention_inputs(softcap)))
     out.append(("decode", "check_sharded_decode",
                 dict(params=_f32_params(LLAMA), tokens=_decode_tokens(),
                      n_slots=SLOTS, page_t=PAGE_T)))
+    out.append(("cells", "check_cell_serving",
+                dict(params=_f32_params(LLAMA), **_cell_inputs())))
     for bias in (False, True):
         p, x, ct, bb = _moe_inputs(bias)
         out.append((f"moe_{bias}", "check_moe_ep", dict(p=p, x=x, ct=ct, k=MOE["k"], bias=bb)))
@@ -286,15 +299,35 @@ def test_compress_psum_matches_reference_formula(world):
             np.testing.assert_array_equal(a, b)
 
 
-def test_pipeline_matches_sequential_stages(world):
-    w, b, x = _pipeline_inputs()
-    h = jnp.asarray(x)
+def _sequential_stages(w, b, x):
+    h = x
     for i in range(4):
         h = jnp.tanh(h @ w[i] + b[i])
+    return h
+
+
+def test_pipeline_matches_sequential_stages(world):
+    w, b, x, _ = _pipeline_inputs()
+    h = _sequential_stages(jnp.asarray(w), jnp.asarray(b), jnp.asarray(x))
     for rank in (0, 5):
-        got = _result(world, "pipeline", rank)
+        got = _result(world, "pipeline", rank)["y"]
         assert got.shape == x.shape
         assert np.abs(got - np.asarray(h)).max() < 1e-5
+
+
+def test_pipeline_gradients_match_sequential_stages(world):
+    """The pipeline's backward (the reverse ring, the identity through the
+    final sum, the input's all-reduce) against ``jax.grad`` of the four
+    stages applied one after another, on every rank of both 'model' rings."""
+    w, b, x, ct = _pipeline_inputs()
+    loss = lambda w_, b_, x_: jnp.sum(_sequential_stages(w_, b_, x_) * ct)
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(w), jnp.asarray(b),
+                                             jnp.asarray(x))
+    for rank in range(tw.WORLD):
+        got = _result(world, "pipeline", rank)
+        for key, ref in zip(("w", "b", "x"), want):
+            assert got[key].shape == ref.shape, key
+            assert np.abs(got[key] - np.asarray(ref)).max() < 1e-5, (rank, key)
 
 
 @pytest.mark.parametrize("softcap", [0.0, 5.0])
@@ -325,7 +358,7 @@ def test_sharded_paged_decode_matches_reference(world):
     blk = cache["blocks"][0]
     assert int(np.asarray(blk["cur_slot"]).max()) >= 2     # the ring advanced
     res = _result(world, "decode")
-    for arm in ("sharded", "meshless"):
+    for arm in ("sharded", "layout", "meshless"):
         got = res[arm]
         np.testing.assert_array_equal(got["page_len"], np.asarray(blk["page_len"]))
         np.testing.assert_array_equal(got["cur_slot"], np.asarray(blk["cur_slot"]))
@@ -335,6 +368,40 @@ def test_sharded_paged_decode_matches_reference(world):
         assert np.abs(got["kv_mass"] - np.stack(masses)).max() <= 1e-6
     for key in ("k_pages", "v_pages"):    # the first group's rows see no attention
         np.testing.assert_array_equal(res["sharded"][key][0], res["meshless"][key][0])
+
+
+def test_dry_run_serving_cells_match_meshless_and_reference(world):
+    """launch/specs.py's prefill_32k and decode_32k callables on values over
+    the (2, 4) mesh (params gathered a group at a time, the dense cache's
+    'model'-split sequence gathered a block at a time and written back):
+    every rank's logits and final cache equal to the meshless run's and to
+    the reference's."""
+    cfg = j_smoke(LLAMA)
+    params = jax.tree.map(jnp.asarray, _f32_params(LLAMA))
+    inp = _cell_inputs()
+    tokens = inp["tokens"]
+    want_pre, _ = j_dec.prefill(cfg, params, jnp.asarray(inp["prompt"]))
+    cache = j_dec.init_cache(cfg, 2, tokens.shape[1], dtype=jnp.float32)
+    step = jax.jit(lambda p, c, t: j_dec.decode_step(cfg, p, c, t))
+    logits = []
+    for t in range(tokens.shape[1]):
+        lg, cache = step(params, cache, jnp.asarray(tokens[:, t:t + 1]))
+        logits.append(np.asarray(lg))
+    want = {"prefill": np.asarray(want_pre), "logits": np.stack(logits),
+            "k": np.asarray(cache["blocks"][0]["k"]),
+            "v": np.asarray(cache["blocks"][0]["v"])}
+    for rank in range(tw.WORLD):
+        res = _result(world, "cells", rank)
+        # the mesh arm's matmuls take a rank's row, the meshless arm's both:
+        # float32 sums in another order, so the arms agree within 1e-5, not
+        # bitwise
+        for key, got in want.items():
+            for arm in ("mesh", "meshless"):
+                assert np.abs(res[arm][key] - got).max() <= 1e-5, (rank, arm, key)
+            assert np.abs(res["mesh"][key] - res["meshless"][key]).max() <= 1e-5, \
+                (rank, key)
+        assert int(res["mesh"]["pos"]) == int(res["meshless"]["pos"]) \
+            == int(np.asarray(cache["pos"])) == tokens.shape[1]
 
 
 @pytest.mark.parametrize("bias", [False, True])

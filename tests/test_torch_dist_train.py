@@ -3,7 +3,8 @@
 Two float32 steps of the smoke configs (8 x 32 tokens, 2 strided
 microbatches) run in one gloo world of 8 ranks
 (``tests/torch_dist_world.py``): llama3.2-3b on the (2, 4) ``("data",
-"model")`` mesh with ``fsdp`` and with ZeRO-1 (``compress_collective``,
+"model")`` mesh with ``fsdp`` (AdamW, and Adafactor, whose factored
+moments rest as blocks) and with ZeRO-1 (``compress_collective``,
 ``offload_master``, ``fsdp``), and on (2, 4) and (4, 1) meshes (two, each a
 half of the world) with ``local_grads`` with and without
 ``grad_compression``; kimi-k2 expert-parallel (``EPContext``) on (2, 4),
@@ -69,13 +70,16 @@ CASES = {
     "local-int8": (LLAMA, dict(local_grads=True, grad_compression=True), {}),
     "zero1": (LLAMA, dict(zero1=True, compress_collective=True, offload_master=True,
                           fsdp=True), {}),
+    # Adafactor's factored moments rest as blocks (vr, vc under the param's
+    # spec less a dim), gathered for the update
+    "adafactor": (LLAMA, dict(fsdp=True), dict(FAST, kind="adafactor")),
 }
 
 
 # the data-parallel reduce's cases on both meshes; the rest on (2, 4) (the
 # ranks' gloo collectives are what a loaded suite waits on)
 MESHES = {"fsdp": ("2x4",), "local": ("2x4", "4x1"), "local-int8": ("2x4", "4x1"),
-          "zero1": ("2x4",), "kimi-ep": ("2x4",)}
+          "zero1": ("2x4",), "adafactor": ("2x4",), "kimi-ep": ("2x4",)}
 
 
 def _runs():

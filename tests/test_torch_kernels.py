@@ -439,11 +439,20 @@ def test_ops_sketch_update_matches_core_bitwise(theta):
 
 
 def test_kernel_wrappers_refuse_other_devices():
-    """No silent fallback: tensors on a device without a kernel path raise."""
+    """No silent fallback: tensors on a device without a kernel path raise.
+    Meta tensors (the dry run's) have one: shape-only, meta outputs, no
+    values and no launch (tests/test_torch_roofline.py holds it further)."""
+    from repro_torch.kernels.dispatch import kernel_device
     q = torch.zeros((1, 2, 4), device="meta")
     kp = torch.zeros((1, 1, 2, 2, 4), device="meta")
-    with pytest.raises(ValueError):
-        t_pa_ops.paged_attention_raw(q, kp, kp, torch.zeros((1, 1), device="meta"))
+    out = t_pa_ops.paged_attention_raw(q, kp, kp, torch.zeros((1, 1), dtype=torch.int32,
+                                                              device="meta"))
+    assert [t.device.type for t in out] == ["meta"] * 3
+
+    class _On:                        # a tensor's device, on a type with no path
+        device = torch.device("mps")
+    with pytest.raises(ValueError, match="no kernel path"):
+        kernel_device(_On(), _On())
     with pytest.raises(ValueError):   # mixed devices
         t_pa_ops.paged_attention_raw(torch.zeros((1, 2, 4)), kp, kp,
                                      torch.zeros((1, 1), dtype=torch.int32))

@@ -110,11 +110,17 @@ SCENARIOS = {
                       kv_quota=16, max_seq=64, resources=["embeddings"],
                       embed_hot_slots=4, embed_rows_per_page=8,
                       jit_tier_reads=True)},
+    # the lane phase's trace at 48 arrival steps, and cut as the phase runs it
     "chip-smoke-lanes": {
+        "kind": "trace", "serve": CHIP.LANE_SERVE, "sched": CHIP.LANE_SCHED,
+        "profiles": [list(p) for p in CHIP.LANE_TENANTS],
+        "trace": dict(CHIP.LANE_TRACE, n_steps=48)},
+    "chip-smoke-lanes-cut": {
         "kind": "trace", "serve": CHIP.LANE_SERVE, "sched": CHIP.LANE_SCHED,
         "profiles": [list(p) for p in CHIP.LANE_TENANTS],
         "trace": CHIP.LANE_TRACE},
 }
+CHIP_LANES = ("chip-smoke-lanes", "chip-smoke-lanes-cut")
 
 
 def drive(spec, cfg, params, eng_mod, sched_mod, wl_mod, **eng_kw):
@@ -212,8 +218,8 @@ def _reference_runs(tmp_path_factory):
     flags = os.environ.get("XLA_FLAGS", "") + " --xla_allow_excess_precision=false"
     env = dict(os.environ, XLA_FLAGS=flags.strip(), JAX_PLATFORMS="cpu",
                PYTHONPATH=str(ROOT / "src"))
-    names = [n for n in SCENARIOS if n != "chip-smoke-lanes"]
-    groups = [["chip-smoke-lanes"]] + [names[i::3] for i in range(3)]
+    names = [n for n in SCENARIOS if n not in CHIP_LANES]
+    groups = [[n] for n in CHIP_LANES] + [names[i::3] for i in range(3)]
     runs = []
     for i, group in enumerate(groups):
         spec, out = tmp / f"spec{i}.json", tmp / f"out{i}.json"
@@ -499,7 +505,7 @@ def test_lifecycle_fuzz_seeded(port_params, seed, chunk):
 
 # -- engine and scheduler against the reference (runs started at module start) --
 
-@pytest.mark.parametrize("name", [n for n in SCENARIOS if n != "chip-smoke-lanes"])
+@pytest.mark.parametrize("name", [n for n in SCENARIOS if n not in CHIP_LANES])
 def test_engine_and_scheduler_match_reference(name, reference, port_params,
                                               reference_rounding):
     """Requests (tokens, admitted/finished steps, preemptions), the report's
@@ -517,25 +523,28 @@ def test_engine_and_scheduler_match_reference(name, reference, port_params,
 
 def test_chip_smoke_lanes_schedule_matches_reference(reference):
     """The chip_smoke.py lane phase's trace and configuration at smoke
-    width: the schedule chip_smoke.py computes from the port on the CPU,
-    to hold the card's run to, equals the reference's.  Tokens
+    width, at 48 arrival steps and at the phase's cut: the schedule
+    chip_smoke.py computes from the port on the CPU (at the cut, the one it
+    holds the card's run to) equals the reference's.  Tokens
     are not compared here: with 16-token pages the bf16 K/V part by an ulp
     from the first 32-token chunk on, as the reference's interpret-mode
     Pallas kernel sums the softmax page by page and the port's plain
     version in one pass (float32 agrees within 1e-5).  The trace's arrivals
     do not depend on the vocabulary (the content stream is separate), and
     the phase needs a preemption."""
-    ref = reference["chip-smoke-lanes"]
-    assert ref["report"]["preemptions"] >= 1
-    assert ref["report"]["completed"] == ref["report"]["submitted"]
-    assert CHIP.cpu_lane_schedule() == {
-        "steps": ref["report"]["steps"],
-        "preemptions": ref["report"]["preemptions"],
-        "queued_peak": ref["report"]["queued_peak"],
-        "requests": [[rid, admitted, finished, n_pre] for rid, _, _, _,
-                     admitted, finished, n_pre in ref["requests"]]}
-    small, full = (t_wl.make_trace(vocab=v, tenants=tuple(
-        t_wl.TenantProfile(*p) for p in CHIP.LANE_TENANTS), **CHIP.LANE_TRACE)
-        for v in (256, 128256))
-    assert [(a.step, a.tenant, a.tokens.size, a.max_new) for a in small.arrivals] \
-        == [(a.step, a.tenant, a.tokens.size, a.max_new) for a in full.arrivals]
+    for name in CHIP_LANES:
+        ref = reference[name]
+        trace = SCENARIOS[name]["trace"]
+        assert ref["report"]["preemptions"] >= 1, name
+        assert ref["report"]["completed"] == ref["report"]["submitted"], name
+        assert CHIP.cpu_lane_schedule(trace=trace) == {
+            "steps": ref["report"]["steps"],
+            "preemptions": ref["report"]["preemptions"],
+            "queued_peak": ref["report"]["queued_peak"],
+            "requests": [[rid, admitted, finished, n_pre] for rid, _, _, _,
+                         admitted, finished, n_pre in ref["requests"]]}, name
+        small, full = (t_wl.make_trace(vocab=v, tenants=tuple(
+            t_wl.TenantProfile(*p) for p in CHIP.LANE_TENANTS), **trace)
+            for v in (256, 128256))
+        assert [(a.step, a.tenant, a.tokens.size, a.max_new) for a in small.arrivals] \
+            == [(a.step, a.tenant, a.tokens.size, a.max_new) for a in full.arrivals]

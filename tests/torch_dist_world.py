@@ -193,17 +193,25 @@ def check_compress_psum(meshes, grads, ef):
     return {"sum": _tree_np(total), "ef": _tree_np(new_ef)}
 
 
-def check_pipeline(meshes, w, b, x):
-    """pipeline_apply over the (2, 4) mesh's 'model' axis: 4 stages."""
+def check_pipeline(meshes, w, b, x, ct):
+    """pipeline_apply over the (2, 4) mesh's 'model' axis: 4 stages, each a
+    tree (a nested dict and a list); y, and the gradients of sum(y * ct)
+    with respect to the stage weights (gathered over 'model') and x."""
     import torch
+    from repro_torch.dist.collectives import all_gather
     from repro_torch.dist.pipeline import pipeline_apply
     from repro_torch.dist.sharding import shard
     mesh = meshes("2x4")
-    stage = {"w": shard(_t(w), ("model", None, None), mesh),
-             "b": shard(_t(b), ("model", None), mesh)}
-    y = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"] + p["b"]), stage, _t(x),
-                       mesh=mesh, axis="model")
-    return _np(y)
+    stage = {"lin": {"w": shard(_t(w), ("model", None, None), mesh).requires_grad_()},
+             "bias": [shard(_t(b), ("model", None), mesh).requires_grad_()]}
+    xt = _t(x).requires_grad_()
+    y = pipeline_apply(lambda p, h: torch.tanh(h @ p["lin"]["w"] + p["bias"][0]),
+                       stage, xt, mesh=mesh, axis="model")
+    (y * _t(ct)).sum().backward()
+    group = mesh.group("model")
+    return {"y": _np(y), "x": _np(xt.grad),
+            "w": _np(all_gather(stage["lin"]["w"].grad, 0, group)),
+            "b": _np(all_gather(stage["bias"][0].grad, 0, group))}
 
 
 def check_combine_stats(meshes, q, k_pages, v_pages, page_lengths, softcap):
@@ -229,39 +237,95 @@ def check_combine_stats(meshes, q, k_pages, v_pages, page_lengths, softcap):
 
 def check_sharded_decode(meshes, params, tokens, n_slots, page_t):
     """decode_step_paged with the ring's slots over the (2, 4) mesh's
-    'model' ranks (4), float32, one teacher-forced token column a step, and
-    the same steps without a mesh."""
+    'model' ranks (4), float32, one teacher-forced token column a step; as
+    the dry run's long_500k cell runs it (the slots over both axes, the
+    params stored under param_pspecs, a group gathered before it runs:
+    ``layout``); and the same steps without a mesh."""
     import torch
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.dist.collectives import all_gather
-    from repro_torch.dist.sharding import cache_pspecs
+    from repro_torch.dist.sharding import cache_pspecs, param_pspecs
     from repro_torch.models import decode as dec
+    from repro_torch.train.step import compute_layout
     cfg = get_smoke_config("llama3.2-3b")
     mesh = meshes("2x4")
-    group = mesh.group("model")
     p = _tree_t(params)
     b = tokens.shape[0]
     out = {}
-    for arm, smesh in (("sharded", {"mesh": mesh, "axes": ("model",)}), ("meshless", None)):
+    for arm, axes, stored in (("sharded", ("model",), False),
+                              ("layout", ("data", "model"), True),
+                              ("meshless", None, False)):
+        smesh = {"mesh": mesh, "axes": axes} if axes else None
         cache = dec.init_paged_cache(cfg, b, n_slots, page_t, dtype=torch.float32,
                                      device="cpu")
         if smesh:
-            cache = _place(cache, cache_pspecs(cache, mesh, slot_axes=("model",)), mesh)
+            cache = _place(cache, cache_pspecs(cache, mesh, slot_axes=axes), mesh)
+        pp, layout = p, None
+        if stored:
+            pspecs = param_pspecs(p, mesh)
+            pp, layout = _place(p, pspecs, mesh), compute_layout(cfg, mesh, pspecs)
         logits, masses = [], []
         for t in range(tokens.shape[1]):
-            lg, cache, st = dec.decode_step_paged(cfg, p, cache, _t(tokens[:, t:t + 1]),
+            lg, cache, st = dec.decode_step_paged(cfg, pp, cache, _t(tokens[:, t:t + 1]),
                                                   page_t=page_t, return_streams=True,
-                                                  smesh=smesh)
+                                                  smesh=smesh, layout=layout)
             logits.append(_np(lg))
             mass = st["kv_mass"]
-            masses.append(_np(all_gather(mass, 3, group) if smesh else mass))
+            masses.append(_np(all_gather(mass, 3, mesh.group(axes)) if smesh else mass))
         blk = cache["blocks"][0]
-        whole = (lambda x: all_gather(x, 2, group)) if smesh else (lambda x: x)
+        whole = ((lambda x: all_gather(x, 2, mesh.group(axes))) if smesh
+                 else (lambda x: x))
         out[arm] = {"logits": np.stack(logits), "kv_mass": np.stack(masses),
                     "page_len": _np(whole(blk["page_len"])),
                     "cur_slot": _np(blk["cur_slot"]), "pos": _np(cache["pos"]),
                     "k_pages": _np(whole(blk["k_pages"])),
                     "v_pages": _np(whole(blk["v_pages"]))}
+    return out
+
+
+def check_cell_serving(meshes, params, tokens, prompt):
+    """The dry run's prefill_32k and decode_32k callables
+    (:func:`repro_torch.launch.specs.cell_specs` at the llama3.2-3b smoke
+    config, B 2) on values, float32, over the (2, 4) mesh and without one.
+    Over the mesh the params rest under the cell's specs and each group
+    gathers them (``layout``); decode runs over the dense cache, its
+    sequence split over 'model', gathered a block at a time and written
+    back (``cache_layout``), one teacher-forced token column a step until
+    the cache is full.  Returns the prefill's and every step's logits
+    (rows gathered over 'data') and the final cache, gathered."""
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.dist.collectives import all_gather
+    from repro_torch.dist.sharding import gather, shard
+    from repro_torch.launch.specs import cell_specs
+    from repro_torch.models import decode as dec
+    cfg = get_smoke_config("llama3.2-3b")
+    mesh = meshes("2x4")
+    dgroup = mesh.group("data")
+    full = _tree_t(params)
+    b, s = tokens.shape
+    out = {}
+    for arm, m in (("mesh", mesh), ("meshless", None)):
+        rows = (lambda x: all_gather(x, 0, dgroup)) if m else (lambda x: x)
+        pre = cell_specs("llama3.2-3b", "prefill_32k", m, cfg=cfg, batch=b,
+                         seq=prompt.shape[1])
+        cell = cell_specs("llama3.2-3b", "decode_32k", m, cfg=cfg, batch=b, seq=s)
+        cache = dec.init_cache(cfg, b, s, dtype=torch.float32, device="cpu")
+        pp, batch = full, {"tokens": _t(prompt)}
+        column = lambda t: _t(tokens[:, t:t + 1])
+        if m:
+            pspec, cspec, tspec = cell["specs"]
+            pp, cache = _place(full, pspec, m), _place(cache, cspec, m)
+            batch = _place(batch, pre["specs"][1], m)
+            column = lambda t: shard(_t(tokens[:, t:t + 1]), tspec, m)
+        res = {"prefill": _np(rows(pre["fn"](pp, batch)))}
+        res["logits"] = np.stack([_np(rows(cell["fn"](pp, cache, column(t))))
+                                  for t in range(s)])
+        blk = cache["blocks"][0]
+        for k in ("k", "v"):
+            res[k] = _np(gather(blk[k], cspec["blocks"][0][k], m) if m else blk[k])
+        res["pos"] = _np(cache["pos"])
+        out[arm] = res
     return out
 
 
