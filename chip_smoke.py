@@ -53,14 +53,18 @@ Phases, one summary line each:
                 llama3.2-3b at full width and depth, DIST_STEPS steps of
                 ZeRO-1 with its int8 delta, offload_master, local_grads and
                 fsdp without a mesh and over the mesh from the same weights,
-                deterministic algorithms on: losses, gradient norms and
-                params bitwise equal, m, v and ef pinned host tensors
-                between steps over the mesh; prints the device-resident GiB
+                deterministic algorithms on, the mesh arm partitioned over
+                its one 'model' rank (the dense decoders' tensor-parallel
+                forms): losses, gradient norms and params bitwise equal, m,
+                v and ef pinned host tensors between steps over the mesh;
+                prints the leaves computed split over 'model' and those
+                gathered whole (none), the device-resident GiB
                 between steps, each arm's peak and each step's fetch of the
                 master vectors on the side stream (CUDA events: ms, the part
                 before the update reached it, the stall); (b) its paged
-                decode with the ring's slots split over both axes against
-                the unsharded ring (B 4, 16 greedy steps): tokens equal,
+                decode with the ring's slots split over both axes and the
+                params partitioned over 'model' (``layout``) against the
+                unsharded ring (B 4, 16 greedy steps): tokens equal,
                 logits within 1e-3, page mass within 1e-5, pages, page_len
                 and cur_slot bitwise (the attention launches counted); (c)
                 kimi-k2 and deepseek-v3 at their smoke configs: one float32
@@ -3905,11 +3909,15 @@ def dist_train(torch, mesh, smi, cfg=None, device="cuda", shape=(TRAIN_BATCH, TR
     offloaded, local_grads and fsdp, without a mesh (where those options are
     no-ops) and over ``mesh``, in turn from the same weights; deterministic
     algorithms on, so that the arms' losses, gradient norms and params must
-    be bitwise equal.  Over the mesh m, v and ef must be pinned host tensors
-    between steps; prints the device-resident GiB between steps, each arm's
-    peak, and each step's fetch of the master vectors (side-stream CUDA
-    events: its ms, how much of it ran before the update reached it, the
-    stall)."""
+    be bitwise equal.  Over the mesh the dense decoder computes its share
+    over 'model' (the partitioned embedding, attention, MLPs and head of
+    ``models/layers.py`` and ``models/attention.py``, one rank of 'model'
+    here); prints how many leaves computed split over 'model' and how many
+    were gathered whole.  Over the mesh m, v and ef must be pinned host
+    tensors between steps; prints the device-resident GiB between steps,
+    each arm's peak, and each step's fetch of the master vectors
+    (side-stream CUDA events: its ms, how much of it ran before the update
+    reached it, the stall)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.transformer import init_params
@@ -3974,11 +3982,16 @@ def dist_train(torch, mesh, smi, cfg=None, device="cuda", shape=(TRAIN_BATCH, TR
                                  "arm's")
     if device == "cuda" and len(times) != steps:
         raise AssertionError(f"dist: {len(times)} fetches timed in {steps} steps")
+    n_split, n_gathered = split_leaves(cfg, mesh, fsdp=tcfg.fsdp)
+    if n_split == 0 or n_gathered:
+        raise AssertionError(f"dist (a): {n_split} leaves computed split over 'model', "
+                             f"{n_gathered} gathered: not the partitioned path")
     print(f"dist (a): {cfg.name} at full width and depth, {steps} steps of "
           f"{', '.join(k for k in DIST_TRAIN)} without a mesh and over the 1 x 1 "
           f"NCCL mesh, bitwise equal (losses and gradient norms "
           f"{[(round(l, 6), round(g, 6)) for l, g in a['metrics']]}, every param); "
-          f"dp_psum_bytes {z['dp_bytes']}")
+          f"dp_psum_bytes {z['dp_bytes']}; over the mesh {n_split} leaves computed "
+          f"split over 'model', {n_gathered} gathered whole")
     print(f"dist (a): ms a step, meshless {[round(1e3 * x, 1) for x in a['wall']]}, "
           f"mesh {[round(1e3 * x, 1) for x in z['wall']]} (step 1 included), on {smi}")
     print(f"dist (a): device-resident GiB between steps: meshless "
@@ -3992,6 +4005,16 @@ def dist_train(torch, mesh, smi, cfg=None, device="cuda", shape=(TRAIN_BATCH, TR
     return dict(peak=(a["peak"], z["peak"]), resident=(a["resident"][-1], z["resident"][-1]),
                 fetch=times, step_ms=(1e3 * statistics.median(a["wall"]),
                                       1e3 * statistics.median(z["wall"])))
+
+
+def split_leaves(cfg, mesh, fsdp: bool = False) -> tuple:
+    """(leaves that compute their share over 'model', leaves gathered whole
+    over 'model') of ``cfg``'s params stored over ``mesh``."""
+    from repro_torch.dist.sharding import param_pspecs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import step as ts
+    specs = param_pspecs(init_params(cfg, device="meta"), mesh, fsdp=fsdp)
+    return ts.split_counts(ts.compute_layout(cfg, mesh, specs), specs)
 
 
 def _fetch_times(fetches: list) -> list:
@@ -4010,13 +4033,20 @@ def _fetch_times(fetches: list) -> list:
 
 def dist_decode(torch, mesh, params, cfg, smi, device="cuda", dims=DIST_DECODE) -> dict:
     """(b) decode_step_paged with the ring's slots split over both mesh axes
-    (one rank) against the unsharded ring, greedy from the same token:
-    tokens equal, logits within 1e-3, page mass within 1e-5, pages,
-    page_len and cur_slot bitwise."""
+    (one rank) and the params stored under ``param_pspecs``, each group
+    gathered and partitioned over 'model' (``layout``), against the
+    unsharded ring without a mesh, greedy from the same token: tokens
+    equal, logits within 1e-3, page mass within 1e-5, pages, page_len and
+    cur_slot bitwise."""
     from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
-    from repro_torch.dist.sharding import cache_pspecs, shard, spec_leaves
+    from repro_torch.dist.sharding import cache_pspecs, param_pspecs, shard, spec_leaves
     from repro_torch.models import decode as dec
+    from repro_torch.train.step import compute_layout
     b, steps, n_slots, page_t = dims
+    pspecs = param_pspecs(params, mesh)
+    stored = tree_unflatten(params, [shard(x, sp, mesh) for x, sp in
+                                     zip(tree_leaves(params), spec_leaves(pspecs))])
+    layout = compute_layout(cfg, mesh, pspecs)
     arms = {}
     for arm, smesh in (("sharded", {"mesh": mesh, "axes": ("data", "model")}),
                        ("unsharded", None)):
@@ -4028,8 +4058,9 @@ def dist_decode(torch, mesh, params, cfg, smi, device="cuda", dims=DIST_DECODE) 
         tok = torch.zeros((b, 1), dtype=torch.int32, device=device)
         toks, logits, mass = [], [], []
         for _ in range(steps):
-            lg, cache, st = dec.decode_step_paged(cfg, params, cache, tok, page_t=page_t,
-                                                  return_streams=True, smesh=smesh)
+            lg, cache, st = dec.decode_step_paged(
+                cfg, params if smesh is None else stored, cache, tok, page_t=page_t,
+                return_streams=True, smesh=smesh, layout=None if smesh is None else layout)
             logits.append(lg[:, -1].float())
             mass.append(st["kv_mass"])
             tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
@@ -4049,8 +4080,13 @@ def dist_decode(torch, mesh, params, cfg, smi, device="cuda", dims=DIST_DECODE) 
             if not torch.equal(x[k], y[k]):
                 raise AssertionError(f"dist (b): {k} of pattern position {i} differs")
     cur = int(un["cache"]["blocks"][0]["cur_slot"].max())
+    n_split, n_gathered = split_leaves(cfg, mesh)
+    if n_split == 0 or n_gathered:
+        raise AssertionError(f"dist (b): {n_split} leaves computed split over 'model', "
+                             f"{n_gathered} gathered: not the partitioned path")
     print(f"dist (b): {cfg.name} at full width, B {b}, {steps} greedy steps over "
-          f"{n_slots} slots of {page_t} tokens, the slots split over ('data', 'model'): "
+          f"{n_slots} slots of {page_t} tokens, the slots split over ('data', 'model'), "
+          f"{n_split} leaves computed split over 'model' and {n_gathered} gathered: "
           f"tokens equal, logits {gap:.3g} apart (bound 1e-3), page mass {mgap:.3g} "
           f"(bound 1e-5), k/v pages, page_len and cur_slot bitwise (cur_slot {cur}), "
           f"on {smi}")
@@ -4220,12 +4256,13 @@ def main() -> int:
     phases = {}
     phases["dist"], dres = dist_path(torch, counters, smi)
     print(f"PHASE dist: ok in {time.perf_counter() - t0:.1f} s, world size 1 over NCCL: "
-          f"(a) {TRAIN_ARCH}'s ZeRO-1 / offload / local_grads / fsdp step over the mesh "
-          f"bitwise the meshless step, m, v and ef pinned on the host between steps "
+          f"(a) {TRAIN_ARCH}'s ZeRO-1 / offload / local_grads / fsdp step over the mesh, "
+          f"partitioned over 'model', bitwise the meshless step, m, v and ef pinned on "
+          f"the host between steps "
           f"(median {dres['step_ms'][0]:.1f} / {dres['step_ms'][1]:.1f} ms a step, peak "
           f"{dres['peak'][0]:.2f} / {dres['peak'][1]:.2f} GiB, fetch "
           f"{statistics.median(t[0] for t in dres['fetch']):.1f} ms a step); (b) the "
-          f"slot-split paged decode equal to the unsharded ring; (c) "
+          f"slot-split, partitioned paged decode equal to the unsharded ring; (c) "
           f"{' and '.join(DIST_MOE)} expert-parallel train step and ServeEngine(ep_axes=) "
           f"equal to the CPU; launches {json.dumps(phases['dist'])} on {smi}")
     release(torch)

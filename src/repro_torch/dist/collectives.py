@@ -1,25 +1,36 @@
 """Collectives over a process group, and the autograd rules of the
-per-rank code that stands in for the reference's ``shard_map`` bodies.
+per-rank code that stands in for the reference's ``shard_map`` bodies and
+for the partitioner's collectives.
 
-Compute over a mesh is data-parallel over the data axes and replicated over
-``'model'``: every rank of a ``'model'`` group sees the same tokens and
-computes the same loss.  A gradient therefore flows across a collective by
-what the ranks on its other side computed:
+Compute over a mesh is data-parallel over the data axes.  Over ``'model'``
+every rank of a group sees the same tokens and computes the same loss; in
+between, a region's ranks each compute a share of it (the tensor-parallel
+layers of the dense decoders, the expert-parallel MoE body: a
+:class:`Part`).  A gradient therefore flows across a collective by what
+the ranks on its other side computed:
 
   * :func:`gather` (an all-gather forward) returns, backward, the rank's
     block of the gradient: summed over the group (a reduce-scatter) where
-    the ranks saw different tokens (``reduce=True``: the data axes), taken
-    as it is (a slice) where they computed the same gradient (``'model'``);
-  * :func:`enter` marks a tensor entering a region whose ranks each
-    compute a part of the result (the expert-parallel MoE body): identity
-    forward, a sum of the parts' input gradients (an all-reduce) backward;
+    the ranks computed different things with the whole (``reduce=True``:
+    the data axes, a partitioned attention core's keys and values), taken
+    as it is (a slice) where they computed the same gradient;
+  * :func:`enter` marks a replicated tensor entering a region whose ranks
+    each compute a part of the result (a column-parallel matmul's input,
+    the expert-parallel MoE body): identity forward, a sum of the parts'
+    input gradients (an all-reduce) backward;
   * :func:`sum_parts` leaves that region: the parts summed (an all-reduce)
-    forward, the replicated gradient passed through (identity) backward.
+    forward, the replicated gradient passed through (identity) backward;
+  * :func:`exchange` (an all-to-all) trades a split over one dim for a
+    split over another, backward the inverse all-to-all;
+  * :func:`max_over` is a MAX all-reduce without a gradient (the
+    vocab-parallel loss's shift).
 
 ``torch.distributed.nn.functional.all_reduce`` differs: its backward is an
 all-reduce, which counts a replicated gradient once per rank.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.distributed as dist
@@ -29,6 +40,20 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 
 def group_size(group) -> int:
     return dist.get_world_size(group)
+
+
+@dataclasses.dataclass(frozen=True)
+class Part:
+    """A rank's share of a partitioned computation: the 'model' group, the
+    rank's coordinate in it and its size; the rank holds block ``rank`` of
+    ``size`` along every split dim."""
+    group: object
+    rank: int
+    size: int
+
+    def block(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The rank's block of ``x`` along ``dim`` (a view)."""
+        return x.chunk(self.size, dim)[self.rank]
 
 
 # () -> the census counting this thread's ops, or None; set by
@@ -84,6 +109,24 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     if y is not x:
         x.copy_(y)
     return x
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int, group) -> torch.Tensor:
+    """``x`` cut into the group's number of blocks along ``split_dim``,
+    block j sent to rank j, and the blocks received concatenated along
+    ``cat_dim`` in group rank order."""
+    n = group_size(group)
+    send = torch.stack(x.chunk(n, split_dim)).contiguous()
+    recv = torch.empty_like(send)
+    record("all-to-all", recv, group)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=cat_dim)
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over the group (a new tensor, no
+    gradient)."""
+    return all_reduce(x.detach().clone(), group, op=dist.ReduceOp.MAX)
 
 
 BUCKET_BYTES = 1 << 28    # a bucketed collective's buffer, at most
@@ -214,3 +257,22 @@ class _SumParts(torch.autograd.Function):
 def sum_parts(x: torch.Tensor, group) -> torch.Tensor:
     """The group's parts summed forward; the gradient passed through."""
     return _SumParts.apply(x, group)
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, cat_dim, group):
+        ctx.dims, ctx.group = (split_dim, cat_dim), group
+        return all_to_all(x, split_dim, cat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return all_to_all(g, cat_dim, split_dim, ctx.group), None, None, None
+
+
+def exchange(x: torch.Tensor, split_dim: int, cat_dim: int, group) -> torch.Tensor:
+    """:func:`all_to_all` forward: a tensor split over the group along
+    ``cat_dim`` becomes one split along ``split_dim``; backward the inverse
+    all-to-all."""
+    return _Exchange.apply(x, split_dim, cat_dim, group)

@@ -23,8 +23,16 @@ meta-device tensors.
 full tensor from the blocks.  :class:`Layout` gathers a pattern group's
 stored blocks before the group runs (one autograd function a call, with
 :mod:`repro_torch.dist.collectives`' backward rules), where XLA's
-partitioner would have placed the collectives: compute is data-parallel
-over the data axes and replicated over 'model'.
+partitioner would have placed the collectives.  Compute is data-parallel
+over the data axes.  Over 'model' the leaves of the subtrees a layout
+names in ``split`` compute split: the dense decoders' attention weights
+(``wq``/``wk``/``wv`` column-parallel, ``wo`` row-parallel), their MLPs
+(``w_gate``/``w_in`` column-parallel, ``w_out`` row-parallel) and the
+embedding table (vocab-parallel embedding and head), each gathered over
+the data axes alone so that the rank computes with its 'model' block
+(``models/layers.py``, ``models/attention.py``).  Every other leaf is
+gathered whole and computes replicated over 'model', but the MoE expert
+stacks, which stay split for the expert-parallel body.
 """
 from __future__ import annotations
 
@@ -163,10 +171,16 @@ def cache_pspecs(cache, mesh, *, slot_axes: tuple | None = None):
     return tree_map_with_path(leaf_full, cache)
 
 
+def entry_axes(entry) -> tuple:
+    """The axes a spec entry splits over (None: none)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
 def _split_dims(spec):
     """(dim, axes tuple) of every split dim of a spec."""
-    return [(d, (a,) if isinstance(a, str) else tuple(a))
-            for d, a in enumerate(spec) if a is not None]
+    return [(d, entry_axes(a)) for d, a in enumerate(spec) if a is not None]
 
 
 def shard(full: torch.Tensor, spec, mesh) -> torch.Tensor:
@@ -241,13 +255,28 @@ class _GatherTree(torch.autograd.Function):
 
 
 class Layout:
-    """How a rank's stored blocks become the full weights a group computes
-    with: ``specs`` (a tree like the params) names each leaf's split dims;
-    a dim split over the data axes reduce-scatters its gradient, one split
-    over 'model' takes its block (:mod:`repro_torch.dist.collectives`)."""
+    """How a rank's stored blocks become the weights a group computes
+    with: ``specs`` (a tree like the params) names each leaf's split dims
+    left to gather; a dim split over the data axes reduce-scatters its
+    gradient, one split over 'model' takes its block
+    (:mod:`repro_torch.dist.collectives`).  ``split`` names the subtrees
+    ("embed", "blocks/0/attn", ...) whose specs keep no 'model' split, so
+    that they compute their share: :meth:`part_of` gives those the
+    rank's :class:`repro_torch.dist.collectives.Part` of 'model'."""
 
-    def __init__(self, mesh, specs):
+    def __init__(self, mesh, specs, split=()):
         self.mesh, self.specs = mesh, specs
+        self.split = frozenset(split)
+        self.part = (col.Part(mesh.group("model"), mesh.coord("model"),
+                              mesh.axis_size("model")) if self.split else None)
+
+    def part_of(self, path: str):
+        """The rank's Part where subtree ``path`` computes split, else None."""
+        return self.part if path in self.split else None
+
+    def parts(self, i: int) -> dict:
+        """Pattern position ``i``'s attention and MLP parts."""
+        return {k: self.part_of(f"blocks/{i}/{k}") for k in ("attn", "ffn")}
 
     def _plan(self, spec) -> tuple:
         plan = []

@@ -12,14 +12,41 @@ decode reads MLA through the absorbed latent query of ``models/decode.py``.
 (whisper's bidirectional encoder) and ``cross_apply`` over another stream's
 keys and values (an image's patches, the encoder's output), plain torch in
 float32 as the reference's.  ``mla_apply`` is MLA's training form: the
-latent KV decompressed on the fly, then the causal ``sdpa_chunked``."""
+latent KV decompressed on the fly, then the causal ``sdpa_chunked``.
+
+Partitioned over 'model' (``part``, a
+:class:`repro_torch.dist.collectives.Part`; the dense decoders over a
+mesh), ``wq``/``wk``/``wv`` are the rank's column blocks and ``wo`` its
+row block: the input enters the region, the rank projects its columns
+(plus its block of a replicated bias) and ``wo``'s partial products are
+summed over the ranks.  The core of :func:`gqa_apply` (train, forward and
+prefill) is split n ways in one of two forms:
+
+  * heads: where the query heads and the kv heads both divide n, a column
+    block is whole heads, and the core runs on the rank's heads;
+  * rows: where they do not (llama3.2-3b's 24/8 and qwen1.5-4b's 20/20 on
+    16), the projected query columns are exchanged (an all-to-all) into a
+    split over the query rows, K and V are all-gathered (backward a
+    reduce-scatter: each rank's rows reach every key), the core runs on
+    the rank's rows over every key, and its output is exchanged back into
+    column blocks for ``wo`` — what XLA's partitioner does with the
+    reference's program.  A sequence that does not divide n takes the
+    whole core on gathered q, k and v instead, then the output's block.
+
+The decode cores (:func:`gqa_decode` over the dense cache,
+``decode._paged_attn_block`` over the ring) attend at one query position
+on q, k and v gathered over the ranks, replicated, and hand the rank's
+block of the output columns to the row-parallel ``wo``; the cache is
+written whole, as without a part.  With one rank in the part every form is
+today's arithmetic."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from repro_torch.models.layers import DTYPE, apply_rope
+from repro_torch.dist import collectives as col
+from repro_torch.models.layers import DTYPE, _col_bias, apply_rope
 
 NEG_INF = -1e30
 
@@ -67,15 +94,38 @@ def gqa_init(generator: torch.Generator, d, h, hkv, dh, *, groups: int = 0,
     return p
 
 
-def _proj_qkv(p, x, h, hkv, dh):
-    b, s, _ = x.shape
+def _proj_cols(p, x, part=None):
+    """q, k and v flat (B, S, columns): every column, or with ``part`` the
+    rank's blocks (``x`` entering the region)."""
+    if part is not None:
+        x = col.enter(x, part.group)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = (q + _col_bias(p["bq"], part), k + _col_bias(p["bk"], part),
+                   v + _col_bias(p["bv"], part))
+    return q, k, v
+
+
+def _proj_qkv(p, x, h, hkv, dh, part=None):
+    """q (B, S, H, dh), k and v (B, S, Hkv, dh); with ``part`` projected on
+    the rank's column blocks and gathered whole over its ranks (the decode
+    cores' replicated form)."""
+    b, s, _ = x.shape
+    q, k, v = _proj_cols(p, x, part)
+    if part is not None:
+        q, k, v = (col.gather(t, 2, part.group, reduce=True) for t in (q, k, v))
     return (q.reshape(b, s, h, dh), k.reshape(b, s, hkv, dh),
             v.reshape(b, s, hkv, dh))
+
+
+def out_proj(p, o, part=None):
+    """``o`` (B, S, H*dv) through ``wo``: whole, or with ``part`` the rank's
+    block of o's columns through its row block, the parts summed."""
+    if part is None:
+        return o @ p["wo"]
+    return col.sum_parts(part.block(o, -1) @ p["wo"], part.group)
 
 
 def gqa_init_cache(batch, smax, hkv, dh, dtype=DTYPE, device="cuda"):
@@ -122,11 +172,12 @@ def dense_attend(q, ck, cv, pos, *, window=0, softcap=0.0, scale):
 
 
 def gqa_decode(p, x_t, cache, pos, *, h, hkv, dh, rope_theta=10000.0,
-               window=0, softcap=0.0, scale=None):
+               window=0, softcap=0.0, scale=None, part=None):
     """x_t (B, 1, D) at position ``pos``: the full-cache decode.  Writes the
-    new K/V into ``cache`` in place; returns (B, 1, D)."""
+    new K/V into ``cache`` in place; returns (B, 1, D).  ``part``: the
+    module docstring's decode form."""
     b = x_t.shape[0]
-    q, k, v = _proj_qkv(p, x_t, h, hkv, dh)
+    q, k, v = _proj_qkv(p, x_t, h, hkv, dh, part)
     if rope_theta > 0:
         pos_b = _pos_col(pos, b)
         q = apply_rope(q, pos_b, rope_theta)
@@ -136,7 +187,7 @@ def gqa_decode(p, x_t, cache, pos, *, h, hkv, dh, rope_theta=10000.0,
     scale = (dh ** -0.5) if scale is None else scale
     o = dense_attend(q, cache["k"], cache["v"], pos, window=window,
                      softcap=softcap, scale=scale)
-    return o.reshape(b, 1, h * dh).to(x_t.dtype) @ p["wo"]
+    return out_proj(p, o.reshape(b, 1, h * dh).to(x_t.dtype), part)
 
 
 # -- full-sequence attention (the encoder) and cross attention -------------------
@@ -172,41 +223,76 @@ CHUNK_Q = 512          # query-chunked attention kicks in above this length
 
 
 def sdpa_chunked(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
-                 chunk=CHUNK_Q):
+                 chunk=CHUNK_Q, q_offset: int = 0):
     """:func:`sdpa` one chunk of ``chunk`` queries at a time, as the
     reference's scan; a length of at most ``chunk`` or not a multiple of it
     (whisper's 1,500 frames) takes the plain path.  A causal sliding-window
-    chunk attends over only the ``window + chunk`` keys it can reach."""
+    chunk attends over only the ``window + chunk`` keys it can reach.
+    ``q_offset`` is q[0]'s position among the keys (a rank's query rows)."""
     sq = q.shape[1]
     if sq <= chunk or sq % chunk != 0:
         return sdpa(q, k, v, causal=causal, window=window, softcap=softcap,
-                    scale=scale)
+                    scale=scale, q_offset=q_offset)
     sk = k.shape[1]
     kv_span = min(sk, window + chunk) if (window > 0 and causal) else sk
     outs = []
     for i in range(sq // chunk):
-        start = min(max(i * chunk - (kv_span - chunk), 0), sk - kv_span)
+        at = q_offset + i * chunk
+        start = min(max(at - (kv_span - chunk), 0), sk - kv_span)
         outs.append(sdpa(q[:, i * chunk:(i + 1) * chunk],
                          k[:, start:start + kv_span], v[:, start:start + kv_span],
                          causal=causal, window=window, softcap=softcap,
-                         scale=scale, q_offset=i * chunk, k_offset=start))
+                         scale=scale, q_offset=at, k_offset=start))
     return torch.cat(outs, dim=1)
 
 
+def core_form(h: int, hkv: int, s: int, n: int) -> str:
+    """How :func:`gqa_apply` splits its core over n ranks: "heads", "rows"
+    or "whole" (the module docstring)."""
+    if h % n == 0 and hkv % n == 0:
+        return "heads"
+    return "rows" if s % n == 0 else "whole"
+
+
 def gqa_apply(p, x, *, h, hkv, dh, rope_theta=10000.0, causal=True,
-              window=0, softcap=0.0, positions=None, scale=None):
+              window=0, softcap=0.0, positions=None, scale=None, part=None):
     """Full-sequence GQA over x (B, S, D): RoPE at ``positions`` (default
-    0..S-1), :func:`sdpa_chunked`, then ``wo``."""
+    0..S-1), :func:`sdpa_chunked`, then ``wo``; with ``part`` partitioned
+    (the module docstring)."""
     b, s, _ = x.shape
-    q, k, v = _proj_qkv(p, x, h, hkv, dh)
     pos = torch.arange(s, device=x.device)[None, :] if positions is None \
         else positions
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    form = "whole" if part is None else core_form(h, hkv, s, part.size)
+    if form == "rows":
+        n, r = part.size, part.rank
+        q, k, v = _proj_cols(p, x, part)
+        q = col.exchange(q, 1, 2, part.group)              # (B, S/n, H*dh)
+        k, v = (col.gather(t, 2, part.group, reduce=True) for t in (k, v))
+        rows = s // n
+        q = q.reshape(b, rows, h, dh)
+        k, v = k.reshape(b, s, hkv, dh), v.reshape(b, s, hkv, dh)
+        if rope_theta > 0:
+            q = apply_rope(q, pos[..., r * rows:(r + 1) * rows], rope_theta)
+            k = apply_rope(k, pos, rope_theta)
+        o = sdpa_chunked(q, k, v, q_offset=r * rows, **kw)
+        o = col.exchange(o.reshape(b, rows, h * dh), 2, 1, part.group)
+        return col.sum_parts(o @ p["wo"], part.group)
+    if form == "heads":
+        n = part.size
+        q, k, v = _proj_cols(p, x, part)
+        q, k, v = (q.reshape(b, s, h // n, dh), k.reshape(b, s, hkv // n, dh),
+                   v.reshape(b, s, hkv // n, dh))
+    else:
+        q, k, v = _proj_qkv(p, x, h, hkv, dh, part)
     if rope_theta > 0:
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
-    o = sdpa_chunked(q, k, v, causal=causal, window=window, softcap=softcap,
-                     scale=scale)
-    return o.reshape(b, s, h * dh) @ p["wo"]
+    o = sdpa_chunked(q, k, v, **kw)
+    o = o.reshape(b, s, q.shape[2] * dh)
+    if form == "heads":
+        return col.sum_parts(o @ p["wo"], part.group)
+    return out_proj(p, o, part)
 
 
 def cross_apply(p, x, kv_src, *, h, hkv, dh):

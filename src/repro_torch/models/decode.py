@@ -78,9 +78,16 @@ Over a mesh (the reference's ``smesh`` and ``ep_axes``): the paged decode
 and prefill take ``smesh`` ({"mesh", "axes"}), which splits the ring's page
 slots over those axes, each rank holding its slots, appending where it owns
 the current slot and merging the ranks' attention statistics
-(:func:`_append_attend_sharded`); every decode and prefill takes
+(:func:`_append_attend_sharded`; the query it attends with is gathered
+whole over 'model' first); every decode and prefill takes
 ``ep_axes``, an :class:`repro_torch.models.moe.EPContext` that runs the MoE
-layers expert-parallel.
+layers expert-parallel, and ``layout``, which gathers the rank's stored
+param blocks a group at a time and, for the dense decoders, partitions the
+embedding, each block's q/k/v, ``wo`` and MLP and the head over 'model'
+(:mod:`repro_torch.models.attention`'s decode form: the core at one query
+position runs replicated on gathered q, k and v).  The logits are gathered
+whole over 'model' before they are returned, so that greedy ids and
+:func:`sample_tokens` read the whole vocab.
 
 Also here, as in the reference: ``install_pages``, which fast-forwards one
 lane over complete KV pages from the reuse pool (in place, that lane
@@ -100,9 +107,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import prng
 from repro_torch.models.layers import (apply_norm, apply_rope, embed_apply,
-                                       logits_apply, mlp_apply)
+                                       gather_logits, logits_apply, mlp_apply)
 from repro_torch.models.mamba2 import mamba2_decode, mamba2_init_cache
-from repro_torch.models.transformer import RECURRENT_KINDS, _top, check_ported, forward
+from repro_torch.models.transformer import (RECURRENT_KINDS, _head_part, _top,
+                                            check_ported, forward)
 from repro_torch.models.xlstm import (mlstm_decode, mlstm_init_cache,
                                       slstm_decode, slstm_init_cache)
 from repro_torch.tiering.migrate import lookup_rows as _tier_lookup_rows
@@ -132,6 +140,10 @@ class _MeshBlocks:
     def params(self, p, i: int):
         return p if self.layout is None else self.layout.gather(p, self.gp[i])
 
+    def parts(self, i: int) -> dict:
+        """Pattern position ``i``'s {"attn", "ffn"} parts of 'model'."""
+        return {} if self.layout is None else self.layout.parts(i)
+
     def cache(self, c, specs):
         """-> (the cache the block runs on, write-back)."""
         if self.cache_layout is None or not any(
@@ -146,7 +158,7 @@ class _MeshBlocks:
         return full, write_back
 
 
-def _embed_tokens(params, token, tiered):
+def _embed_tokens(params, token, tiered, part=None):
     """Token embedding, served from the NeoMem tiered store when bound.
 
     With a ``tiered["embeddings"]`` view ({"fast", "slow", "page_slot",
@@ -154,10 +166,12 @@ def _embed_tokens(params, token, tiered):
     placement table (:func:`repro_torch.tiering.migrate.lookup_rows`): the
     fast-buffer copy when promoted, the slow store otherwise — bitwise the
     table's row either way (the tiers are inclusive).  On the card the slow
-    store is pinned host memory, so the gather goes through a staging copy."""
+    store is pinned host memory, so the gather goes through a staging copy.
+    Without it, ``part`` looks up the rank's vocab rows of the table
+    (:func:`repro_torch.models.layers.embed_apply`)."""
     tv = (tiered or {}).get("embeddings")
     if tv is None:
-        return embed_apply(params["embed"], token)
+        return embed_apply(params["embed"], token, part)
     rpp = tv["rows_per_page"]
     rows = _tier_lookup_rows(tv["fast"], tv["slow"], tv["page_slot"],
                              torch.div(token, rpp, rounding_mode="floor"),
@@ -166,10 +180,10 @@ def _embed_tokens(params, token, tiered):
     return torch.take_along_dim(rows, r, dim=-2)[..., 0, :]
 
 
-def _embed(cfg: ArchConfig, params, token, tiered):
+def _embed(cfg: ArchConfig, params, token, tiered, part=None):
     """The step's token embedding, scaled by sqrt(d) where the arch asks
     (gemma), in float32 and rounded back as the reference's."""
-    x = _embed_tokens(params, token, tiered)
+    x = _embed_tokens(params, token, tiered, part)
     if cfg.embed_scale:
         x = (x.float() * cfg.d_model ** 0.5).to(x.dtype)
     return x
@@ -401,11 +415,13 @@ def _mla_out(pa, cfg: ArchConfig, o, dtype):
 def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
                       page_t: int, collect_mass: bool = False, active=None,
                       tiered_moe=None, router: list | None = None, smesh=None,
-                      ep_axes=None):
+                      ep_axes=None, parts=None):
     """One decoder block over the paged ring (the GQA and MLA branches of
     the reference's ``_paged_attn_block``), its slots split over ``smesh``
-    when given; ``kind`` "moe" runs the expert layer as its FFN.  Returns
-    (x_t, mass or None)."""
+    when given; ``kind`` "moe" runs the expert layer as its FFN; ``parts``
+    ({"attn", "ffn"}) partitions the projections and the MLP over 'model'.
+    Returns (x_t, mass or None)."""
+    parts = parts or {}
     h = apply_norm(cfg.norm, p["ln1"], x_t)
     b = x_t.shape[0]
     pos_b = attn._pos_col(pos, b)
@@ -413,7 +429,7 @@ def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
         q_eff, k_new, v_new, scale = _mla_qkv(p["attn"], cfg, h, pos_b)
     else:
         q, k, v = attn._proj_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
-                                 cfg.head_dim)
+                                 cfg.head_dim, parts.get("attn"))
         if cfg.rope_theta > 0:
             q = apply_rope(q, pos_b, cfg.rope_theta)
             k = apply_rope(k, pos_b, cfg.rope_theta)
@@ -429,18 +445,19 @@ def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
     if cfg.mla is not None:
         o = _mla_out(p["attn"], cfg, o, x_t.dtype)
     else:
-        o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x_t.dtype) \
-            @ p["attn"]["wo"]
+        o = attn.out_proj(p["attn"], o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+                          .to(x_t.dtype), parts.get("attn"))
     return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router,
-                       ep_axes=ep_axes), mass
+                       ep_axes=ep_axes, ffn_part=parts.get("ffn")), mass
 
 
 def _block_tail(p, cfg: ArchConfig, kind: str, x_t, o, tiered_moe, router,
-                kv_src=None, ep_axes=None):
+                kv_src=None, ep_axes=None, ffn_part=None):
     """Everything of a decoder block after its attention output ``o``: the
     residual, the cross step over ``kv_src`` where the dense path gives one,
-    the FFN (the expert layer for ``kind`` "moe") and, where the arch has
-    them (gemma2), the post-norms of both branches."""
+    the FFN (the expert layer for ``kind`` "moe"; the MLP over the rank's
+    blocks with ``ffn_part``) and, where the arch has them (gemma2), the
+    post-norms of both branches."""
     if cfg.post_norm:
         o = apply_norm(cfg.norm, p["pn1"], o)
     x_t = x_t + o
@@ -450,7 +467,7 @@ def _block_tail(p, cfg: ArchConfig, kind: str, x_t, o, tiered_moe, router,
     if kind == "moe":
         y = _moe_block(p, cfg, h2, tiered_moe, router, ep_axes)
     else:
-        y = mlp_apply(p["ffn"], h2, cfg.mlp)
+        y = mlp_apply(p["ffn"], h2, cfg.mlp, part=ffn_part)
     if cfg.post_norm:
         y = apply_norm(cfg.norm, p["pn2"], y)
     return x_t + y
@@ -506,17 +523,18 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     back for the local slots; ``ep_axes`` runs the MoE layers
     expert-parallel (``params``' expert stacks the rank's blocks);
     ``layout`` gathers the rank's stored param blocks a group at a time, as
-    :func:`decode_step`'s.
+    :func:`decode_step`'s, and partitions a dense decoder over 'model'.
     """
     check_ported(cfg)
     mb = _MeshBlocks(layout, None)
     params = _top(params, layout)
+    head = _head_part(layout)
     collect_mass = return_streams if collect_mass is None else collect_mass
     pos = cache["pos"]
     if active is not None and pos.dim() == 0:
         raise ValueError("a lane mask needs per-lane positions "
                          "(init_paged_cache(per_lane_pos=True))")
-    x = _embed(cfg, params, token, tiered)
+    x = _embed(cfg, params, token, tiered, head)
     for lp, lc in zip(params.get("prologue", []), cache.get("prologue", [])):
         x, _ = _paged_attn_block(lp, cfg, "attn", x, lc, pos, page_t,
                                  active=active, smesh=smesh)
@@ -534,13 +552,14 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
             x, mass = _paged_attn_block(
                 p, cfg, kind, x, c, pos, page_t, collect_mass, active,
                 tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router,
-                smesh=smesh, ep_axes=ep_axes)
+                smesh=smesh, ep_axes=ep_axes, parts=mb.parts(i))
             if mass is not None:
                 group.append(mass)
         masses.append(group)
         routers.append(router)
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    logits = logits_apply(params["embed"], x, cfg.final_softcap)
+    logits = gather_logits(logits_apply(params["embed"], x, cfg.final_softcap, head),
+                           head)
     cache["pos"] = pos + (1 if active is None else active.to(pos.dtype))
     if not return_streams:
         return logits, cache
@@ -564,7 +583,8 @@ def _stack_steps(steps: list, fill):
 
 def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
                   valid=None, active=None, tiered=None,
-                  collect_mass: bool = False, ep_axes=None, smesh=None):
+                  collect_mass: bool = False, ep_axes=None, smesh=None,
+                  layout=None):
     """Prefill a (B, C) prompt chunk through the paged ring, one token
     column at a time — each step IS :func:`decode_step_paged`, so the ring
     after the chunk equals C streaming calls.
@@ -576,7 +596,7 @@ def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
     streams stacks the per-step ``kv_mass`` and ``router`` on a leading
     chunk axis, (C, G, n_attn, B, S) and (C, G, n_moe, B, 1, k): a skipped
     column's mass is zeros and its router ids -1 (padding to every reader).
-    ``ep_axes`` and ``smesh`` as in :func:`decode_step_paged`.
+    ``ep_axes``, ``smesh`` and ``layout`` as in :func:`decode_step_paged`.
     """
     tokens = torch.as_tensor(tokens)
     b, c = tokens.shape
@@ -600,7 +620,7 @@ def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
         logits, cache, streams = decode_step_paged(
             cfg, params, cache, tokens[:, col:col + 1], page_t=page_t,
             return_streams=True, collect_mass=collect_mass, tiered=tiered,
-            active=act, ep_axes=ep_axes, smesh=smesh)
+            active=act, ep_axes=ep_axes, smesh=smesh, layout=layout)
         step = logits[:, -1].float()
         last = step if act is None else torch.where(act[:, None], step, last)
         kv_mass.append(streams["kv_mass"])
@@ -649,11 +669,12 @@ def init_cache(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16, *,
 
 def _decode_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
                        tiered_moe=None, router: list | None = None,
-                       kv_src=None, ep_axes=None):
+                       kv_src=None, ep_axes=None, parts=None):
     """One decoder block over the full cache (the reference's
     ``_decode_attn_block``): GQA with the sliding window on ``attn_local``
     positions, or MLA's absorbed decode, then the cross step over
-    ``kv_src`` when given."""
+    ``kv_src`` when given; ``parts`` as in :func:`_paged_attn_block`."""
+    parts = parts or {}
     h = apply_norm(cfg.norm, p["ln1"], x_t)
     if cfg.mla is not None:
         o = attn.mla_decode(p["attn"], h, cache, pos, h=cfg.n_heads,
@@ -666,8 +687,10 @@ def _decode_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
                             hkv=cfg.n_kv_heads, dh=cfg.head_dim,
                             rope_theta=cfg.rope_theta,
                             window=cfg.window if kind == "attn_local" else 0,
-                            softcap=cfg.attn_softcap, scale=cfg.attn_scale)
-    return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router, kv_src, ep_axes)
+                            softcap=cfg.attn_softcap, scale=cfg.attn_scale,
+                            part=parts.get("attn"))
+    return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router, kv_src, ep_axes,
+                       parts.get("ffn"))
 
 
 def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
@@ -689,12 +712,14 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
     :func:`repro_torch.models.transformer.forward`'s), ``cache_layout``
     (specs without their data axes) a block's cache, which is written back
     to the rank's blocks after it (the reference's partitioner gathers the
-    sequence-split cache a layer at a time)."""
+    sequence-split cache a layer at a time); a dense decoder computes its
+    share over 'model' (:func:`decode_step_paged`)."""
     check_ported(cfg)
     mb = _MeshBlocks(layout, cache_layout)
     params = _top(params, layout)
+    head = _head_part(layout)
     pos = cache["pos"]
-    x = _embed(cfg, params, token, tiered)
+    x = _embed(cfg, params, token, tiered, head)
     for j, (lp, lc) in enumerate(zip(params.get("prologue", []),
                                      cache.get("prologue", []))):
         lc, write_back = mb.cache(lc, None if cache_layout is None
@@ -716,11 +741,13 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
                 x = _decode_attn_block(
                     p, cfg, kind, x, c, pos,
                     tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router,
-                    kv_src=_cross_source(cfg, kind, aux_embeds), ep_axes=ep_axes)
+                    kv_src=_cross_source(cfg, kind, aux_embeds), ep_axes=ep_axes,
+                    parts=mb.parts(i))
             write_back()
         routers.append(router)
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    logits = logits_apply(params["embed"], x, cfg.final_softcap)
+    logits = gather_logits(logits_apply(params["embed"], x, cfg.final_softcap, head),
+                           head)
     cache["pos"] = pos + 1
     if not return_streams:
         return logits, cache
@@ -738,23 +765,26 @@ def prefill(cfg: ArchConfig, params, tokens, *, aux_embeds=None, remat=True,
     :func:`repro_torch.models.transformer.forward`'s."""
     x, aux = forward(cfg, params, tokens, aux_embeds=aux_embeds, remat=remat,
                      ep_axes=ep_axes, layout=layout)
-    embed = _top(params, layout)["embed"]
-    return logits_apply(embed, x[:, -1:], cfg.final_softcap), aux
+    embed, head = _top(params, layout)["embed"], _head_part(layout)
+    return gather_logits(logits_apply(embed, x[:, -1:], cfg.final_softcap, head),
+                         head), aux
 
 
 def prefill_dense(cfg: ArchConfig, params, cache, tokens, *, aux_embeds=None,
-                  tiered=None, ep_axes=None):
+                  tiered=None, ep_axes=None, layout=None, cache_layout=None):
     """Single-pass dense prefill: :func:`decode_step` over each prompt
     column in turn (``aux_embeds`` passed to each), filling the cache and
     keeping the last logits (the prompt runs once).  Returns ``(last logits (B, V) f32, cache,
     streams)``; ``streams["router"]`` stacks the per-step router streams on
-    a leading prompt axis, (S, G, n_moe, B, 1, k), or is None."""
+    a leading prompt axis, (S, G, n_moe, B, 1, k), or is None.  ``layout``
+    and ``cache_layout`` as :func:`decode_step`'s."""
     tokens = torch.as_tensor(tokens)
     routers, logits = [], None
     for col in range(tokens.shape[1]):
         logits, cache, streams = decode_step(
             cfg, params, cache, tokens[:, col:col + 1], aux_embeds=aux_embeds,
-            return_streams=True, tiered=tiered, ep_axes=ep_axes)
+            return_streams=True, tiered=tiered, ep_axes=ep_axes, layout=layout,
+            cache_layout=cache_layout)
         routers.append(streams["router"])
     router = torch.stack(routers) if routers[0] is not None else None
     return logits[:, -1], cache, {"router": router}

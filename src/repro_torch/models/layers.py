@@ -4,11 +4,24 @@ and the training loss's cross entropy.
 Port of ``repro/models/layers.py``: params are bf16 by default with fp32
 norm scales, softmax/rotary math is fp32, and weights keep the reference
 layout ``x @ W`` with W ``(d_in, d_out)``.
+
+The MLP, the embedding, the head and the loss take a ``part`` (a
+:class:`repro_torch.dist.collectives.Part` of 'model') where their weights
+are the rank's blocks, as the reference's partitioner computes them:
+``w_gate``/``w_in`` column-parallel and ``w_out`` row-parallel (the parts
+summed, a row bias added once after), the embedding over the rank's vocab
+rows (other ids look up zeros, then the parts summed), the head over its
+vocab columns (each block softcapped) and the loss vocab-parallel (the max
+over ranks without a gradient, the exps summed over ranks, the gold logit
+from the block that holds it).  With one rank in the part each is today's
+arithmetic, op for op.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist import collectives as col
 
 DTYPE = torch.bfloat16
 
@@ -71,37 +84,104 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # -- MLP / embedding / logits -------------------------------------------------
 
-def mlp_apply(p, x, kind: str = "swiglu"):
+def mlp_apply(p, x, kind: str = "swiglu", part=None):
     """swiglu and geglu (tanh-approximate GELU, as ``jax.nn.gelu(...,
     approximate=True)``) gate ``w_in``'s product with ``w_gate``'s; "gelu"
-    is the biased two-matrix MLP."""
+    is the biased two-matrix MLP.  With ``part`` the weights are the
+    rank's column and row blocks (the module docstring)."""
+    if part is not None:
+        x = col.enter(x, part.group)
     if kind == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_in"])
-        return h @ p["w_out"]
-    if kind == "geglu":
+    elif kind == "geglu":
         h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_in"])
-        return h @ p["w_out"]
-    h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
-    return h @ p["w_out"] + p["b_out"]
+    else:
+        h = F.gelu(x @ p["w_in"] + _col_bias(p["b_in"], part), approximate="tanh")
+    y = h @ p["w_out"]
+    if part is not None:
+        y = col.sum_parts(y, part.group)
+    return y + p["b_out"] if kind == "gelu" else y
 
 
-def embed_apply(p, tokens):
-    return p["table"][tokens]
+def _col_bias(b, part):
+    """A replicated bias of a column-parallel product: the rank's block,
+    entering the region (its gradient summed over the ranks' blocks)."""
+    return b if part is None else part.block(col.enter(b, part.group), -1)
 
 
-def logits_apply(p, x, softcap: float = 0.0):
+def embed_apply(p, tokens, part=None):
+    """The table's rows of ``tokens``; with ``part`` the table is the rank's
+    vocab rows, ids outside them look up zeros and the parts are summed."""
+    if part is None:
+        return p["table"][tokens]
+    table = p["table"]
+    rows = table.shape[0]
+    local = tokens - part.rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)]
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return col.sum_parts(x, part.group)
+
+
+def logits_apply(p, x, softcap: float = 0.0, part=None):
+    """The tied head's float32 logits, softcapped; with ``part`` the rank's
+    vocab columns of them (:func:`gather_logits` makes them whole)."""
+    if part is not None:
+        x = col.enter(x, part.group)
     logits = (x @ p["table"].T).float()
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
 
 
+def gather_logits(logits, part):
+    """A head's vocab-parallel logits made whole over the part's ranks (no
+    gradient: decode and sampling read them)."""
+    if part is None:
+        return logits
+    return col.all_gather(logits.detach(), logits.dim() - 1, part.group)
+
+
+class _VocabLSE(torch.autograd.Function):
+    """log-sum-exp over a vocab split over ``group``, as
+    ``torch.logsumexp`` computes it (the max shift, masked where infinite;
+    the exps summed; log, plus the shift), the row max and the sum taken
+    over the ranks; backward ``torch.logsumexp``'s rule, g * exp(x - lse),
+    on the rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        m = col.max_over(torch.amax(x, dim=-1, keepdim=True), group)
+        shift = m.squeeze(-1)
+        shift.masked_fill_(shift.abs() == torch.inf, 0)
+        s = col.all_reduce((x - m).exp_().sum(dim=-1), group)
+        lse = s.log_().add_(shift)
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g.unsqueeze(-1) * (x - lse.unsqueeze(-1)).exp(), None
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask=None) -> torch.Tensor:
+                  mask=None, part=None) -> torch.Tensor:
     """Mean token NLL, ``logsumexp - gold``; with a ``loss_mask`` the sum
-    over the masked tokens divided by max(their count, 1)."""
-    nll = torch.logsumexp(logits, dim=-1) - torch.take_along_dim(
-        logits, labels.long()[..., None], dim=-1)[..., 0]
+    over the masked tokens divided by max(their count, 1).  With ``part``
+    the logits are the rank's vocab columns (the module docstring)."""
+    if part is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    else:
+        lse = _VocabLSE.apply(logits, part.group)
+        cols = logits.shape[-1]
+        local = labels.long() - part.rank * cols
+        inside = (local >= 0) & (local < cols)
+        gold = torch.take_along_dim(logits, local.clamp(0, cols - 1)[..., None],
+                                    dim=-1)[..., 0]
+        gold = col.sum_parts(torch.where(inside, gold, 0.0), part.group)
+    nll = lse - gold
     if mask is not None:
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     return nll.mean()

@@ -40,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import per_group
+from repro_torch.dist.sharding import entry_axes, per_group
 from repro_torch.models.attention import (_normal, cross_apply, gqa_apply,
                                           gqa_init, mla_apply, mla_init)
 from repro_torch.models.layers import (DTYPE, apply_norm, cross_entropy,
@@ -198,15 +198,17 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
 
 # -- the training forward (full sequence) ----------------------------------------
 
-def _attn_block(p, cfg: ArchConfig, kind: str, x, aux, ep_axes=None):
+def _attn_block(p, cfg: ArchConfig, kind: str, x, aux, ep_axes=None, parts=None):
     """One attention block over the whole sequence (the reference's
     ``_apply_attn_block``): self-attention (MLA where the arch has it but
     in a ``cross`` block; bidirectional for the encoder's ``enc_self``),
     then a ``cross`` block's gated cross attention over
     ``aux["aux_embeds"]`` or a ``dec`` block's over ``aux["enc_out"]``,
     then the MLP or, in a ``moe`` block, the routed experts (expert-parallel
-    under ``ep_axes``).  Returns (x, the block's router ids (B, S, k) or
-    None)."""
+    under ``ep_axes``).  ``parts`` ({"attn", "ffn"}) partitions the
+    self-attention and the MLP over 'model'.  Returns (x, the block's
+    router ids (B, S, k) or None)."""
+    parts = parts or {}
     h = apply_norm(cfg.norm, p["ln1"], x)
     if cfg.mla is not None and kind != "cross":
         o = mla_apply(p["attn"], h, h=cfg.n_heads, rope_theta=cfg.rope_theta,
@@ -216,7 +218,8 @@ def _attn_block(p, cfg: ArchConfig, kind: str, x, aux, ep_axes=None):
                       dh=cfg.head_dim, rope_theta=cfg.rope_theta,
                       causal=kind != "enc_self",
                       window=cfg.window if kind == "attn_local" else 0,
-                      softcap=cfg.attn_softcap, scale=cfg.attn_scale)
+                      softcap=cfg.attn_softcap, scale=cfg.attn_scale,
+                      part=parts.get("attn"))
     if cfg.post_norm:
         o = apply_norm(cfg.norm, p["pn1"], o)
     x = x + o
@@ -233,13 +236,14 @@ def _attn_block(p, cfg: ArchConfig, kind: str, x, aux, ep_axes=None):
         y, stream, _ = moe_apply_ep(p["ffn"], h2, cfg.moe.top_k,
                                     bias=p.get("router_bias"), ep_axes=ep_axes)
     else:
-        y = mlp_apply(p["ffn"], h2, cfg.mlp)
+        y = mlp_apply(p["ffn"], h2, cfg.mlp, part=parts.get("ffn"))
     if cfg.post_norm:
         y = apply_norm(cfg.norm, p["pn2"], y)
     return x + y, stream
 
 
-def _apply_block(p, shared, cfg: ArchConfig, kind: str, x, aux, ep_axes=None):
+def _apply_block(p, shared, cfg: ArchConfig, kind: str, x, aux, ep_axes=None,
+                 parts=None):
     """One block of the body: a recurrent mixer behind its norm and
     residual, the shared attention block, or an attention block."""
     if kind in RECURRENT_KINDS:
@@ -255,7 +259,7 @@ def _apply_block(p, shared, cfg: ArchConfig, kind: str, x, aux, ep_axes=None):
         return x + y, None
     if kind == "shared_attn":
         return _attn_block(shared, cfg, "attn", x, aux, ep_axes)
-    return _attn_block(p, cfg, kind, x, aux, ep_axes)
+    return _attn_block(p, cfg, kind, x, aux, ep_axes, parts)
 
 
 def _unbind_groups(block, groups: int) -> list:
@@ -276,6 +280,40 @@ def _top(params, layout):
     return dict(layout.gather(top, specs), blocks=params["blocks"])
 
 
+def _head_part(layout):
+    """The rank's Part of the vocab-parallel embedding and head, or None."""
+    return None if layout is None else layout.part_of("embed")
+
+
+def tensor_parallel(cfg: ArchConfig) -> bool:
+    """The dense decoders, whose attention, MLPs, embedding and head
+    compute their share over 'model' (:func:`model_split`)."""
+    return (cfg.family == "dense" and cfg.moe is None and cfg.mla is None
+            and not cfg.encoder_layers and set(cfg.pattern) <= DENSE_KINDS)
+
+
+def model_split(cfg: ArchConfig, specs) -> set:
+    """The subtrees of ``specs`` (a params spec tree) that compute split
+    over 'model': for a dense decoder, "embed" where the table's vocab is
+    split, ``blocks/i/attn`` where wq, wk, wv and wo all are, and
+    ``blocks/i/ffn`` where the MLP's matrices all are; nothing for any
+    other arch (its leaves are gathered whole)."""
+    if not tensor_parallel(cfg):
+        return set()
+
+    def split(spec, d):
+        return "model" in entry_axes(spec[d])
+    out = {"embed"} if split(specs["embed"]["table"], 0) else set()
+    for i, bs in enumerate(specs["blocks"]):
+        a, f = bs["attn"], bs["ffn"]
+        if all(split(a[w], -1) for w in ("wq", "wk", "wv")) and split(a["wo"], 1):
+            out.add(f"blocks/{i}/attn")
+        if all(split(f[w], -1) for w in ("w_gate", "w_in") if w in f) \
+                and split(f["w_out"], 1):
+            out.add(f"blocks/{i}/ffn")
+    return out
+
+
 def forward(cfg: ArchConfig, params, tokens, *, aux_embeds=None,
             remat: bool = True, ep_axes=None, layout=None):
     """tokens (B, S) -> (final hidden states (B, S, D), aux).  ``aux``
@@ -290,14 +328,16 @@ def forward(cfg: ArchConfig, params, tokens, *, aux_embeds=None,
     Over a mesh ``params`` are the rank's stored blocks and ``layout``
     (:class:`repro_torch.dist.sharding.Layout`) gathers them: the leaves
     outside the body once, each pattern group's inside its checkpoint, so
-    that remat gathers again; ``ep_axes`` runs the MoE layers
-    expert-parallel."""
+    that remat gathers again and runs the partitioned layers' collectives
+    again; the subtrees the layout splits over 'model' compute the rank's
+    share (the embedding, each block's attention and MLP); ``ep_axes``
+    runs the MoE layers expert-parallel."""
     return _forward(cfg, _top(params, layout), tokens, aux_embeds, remat,
                     ep_axes, layout)
 
 
 def _forward(cfg: ArchConfig, params, tokens, aux_embeds, remat, ep_axes, layout):
-    x = embed_apply(params["embed"], tokens)
+    x = embed_apply(params["embed"], tokens, part=_head_part(layout))
     if cfg.embed_scale:
         x = (x.float() * cfg.d_model ** 0.5).to(x.dtype)
     aux = {"token_stream": tokens}
@@ -315,7 +355,8 @@ def _forward(cfg: ArchConfig, params, tokens, aux_embeds, remat, ep_axes, layout
             gp = layout.gather(gp, gspecs)
         streams = []
         for i, kind in enumerate(cfg.pattern):
-            x, stream = _apply_block(gp[i], shared, cfg, kind, x, aux, ep_axes)
+            x, stream = _apply_block(gp[i], shared, cfg, kind, x, aux, ep_axes,
+                                     None if layout is None else layout.parts(i))
             if stream is not None:
                 streams.append(stream)
         return x, (torch.stack(streams) if streams else None)
@@ -349,8 +390,9 @@ def train_loss(cfg: ArchConfig, params, batch, *, remat: bool = True,
     params = _top(params, layout)
     x, aux = _forward(cfg, params, tokens, batch.get("aux_embeds"), remat,
                       ep_axes, layout)
-    loss = cross_entropy(logits_apply(params["embed"], x, cfg.final_softcap),
-                         labels, mask)
+    part = _head_part(layout)
+    loss = cross_entropy(logits_apply(params["embed"], x, cfg.final_softcap, part),
+                         labels, mask, part)
     metrics = {"loss": loss}
     if cfg.mtp:
         mp = params["mtp"]

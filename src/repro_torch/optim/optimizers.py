@@ -10,13 +10,15 @@ int32 that counts from 1 and the bias corrections ``b ** step`` in float32.
 Adafactor keeps a factored second moment (row and column means) for every
 leaf whose last two dims exceed 1, and clips its update to RMS 1.
 
-Over a mesh (:mod:`repro_torch.train.step`) the gradients are full and the
-params the rank's blocks: ``block(i, x)`` takes leaf i's block of a full
-tensor, which AdamW applies to the clipped gradient (its m and v are
-blocks too) and Adafactor to the update.  Adafactor's moments rest as
-blocks too (``vr`` under the param's spec without its last dim, ``vc``
-without its second last): ``moments = (whole, blocks)`` gathers every
-leaf's moments before the update and takes the blocks of the new ones.
+Over a mesh (:mod:`repro_torch.train.step`) the params are the rank's
+blocks: ``block(i, x)`` takes leaf i's block of a gradient, which AdamW
+applies to the clipped gradient (its m and v are blocks too) and Adafactor
+to the update.  AdamW's gradients may be the rank's blocks themselves
+(their squares summed over the ranks for the norm, ``norm``), Adafactor's
+are whole.  Adafactor's moments rest as blocks too (``vr`` under the
+param's spec without its last dim, ``vc`` without its second last):
+``moments = (whole, blocks)`` gathers every leaf's moments before the
+update and takes the blocks of the new ones.
 
 The update writes the params and the moments in place and returns them, so
 that a step at full width holds one copy of each: a caller that needs the
@@ -72,20 +74,23 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
-def global_norm(leaves) -> torch.Tensor:
+def global_norm(leaves, reduce=None) -> torch.Tensor:
     """sqrt of the sum, leaf by leaf in order, of each leaf's float32 sum of
-    squares."""
+    squares; ``reduce(squares)``, where given, first sums each leaf's over
+    the ranks that hold its other blocks, in place."""
+    sqs = [leaf.float().square().sum() for leaf in leaves]
+    if reduce is not None:
+        reduce(sqs)
     total = None
-    for leaf in leaves:
-        sq = leaf.float().square().sum()
+    for sq in sqs:
         total = sq if total is None else total + sq
     return sqrt(total)
 
 
-def clip_by_global_norm(leaves, max_norm: float):
+def clip_by_global_norm(leaves, max_norm: float, reduce=None):
     """-> (the leaves in float32 scaled by min(1, max_norm / max(norm,
     1e-9)), the norm).  Float32 leaves are scaled in place."""
-    g = global_norm(leaves)
+    g = global_norm(leaves, reduce)
     # a Python number over a tensor is a reciprocal product in torch; the
     # reference divides
     scale = torch.clamp_max(_f32(max_norm, g.device) / torch.clamp_min(g, 1e-9),
@@ -125,12 +130,14 @@ def _whole(_, x):
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, params, grads, state, block=_whole):
+def adamw_update(cfg: OptConfig, params, grads, state, block=_whole, norm=None):
     """-> (params, state, {"gnorm", "lr"}); ``grads`` a tree like
-    ``params`` (float32 gradients are clipped in place)."""
+    ``params`` (float32 gradients are clipped in place).  Over a mesh the
+    gradients may be blocks: ``norm`` then sums their squares over the
+    ranks (:func:`global_norm`'s ``reduce``)."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gl, gnorm = clip_by_global_norm(tree_leaves(grads), cfg.grad_clip)
+    gl, gnorm = clip_by_global_norm(tree_leaves(grads), cfg.grad_clip, norm)
     bc1, bc2 = bias_corrections(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     for i, (p, g, m, v) in enumerate(zip(tree_leaves(params), gl,
@@ -213,5 +220,5 @@ def make_optimizer(cfg: OptConfig):
     if cfg.kind == "adafactor":
         return adafactor_init, lambda p, g, s, block=_whole, moments=None: \
             adafactor_update(cfg, p, g, s, block, moments)
-    return adamw_init, lambda p, g, s, block=_whole, moments=None: \
-        adamw_update(cfg, p, g, s, block)
+    return adamw_init, lambda p, g, s, block=_whole, moments=None, norm=None: \
+        adamw_update(cfg, p, g, s, block, norm)

@@ -20,10 +20,10 @@ itself, op by op:
   * **collectives**: count and bytes per op, recorded at the entry points
     of :mod:`repro_torch.dist.collectives` and
     :mod:`repro_torch.dist.pipeline` (``"all-gather"``, ``"all-reduce"``,
-    ``"reduce-scatter"``, ``"collective-permute"`` for the ring's
-    send/recv), each the bytes of its result, the reference's convention,
-    and the bytes by the group's rank count (which link they cross); a
-    group of one rank moves nothing and counts nothing;
+    ``"reduce-scatter"``, ``"all-to-all"``, ``"collective-permute"`` for
+    the ring's send/recv), each the bytes of its result, the reference's
+    convention, and the bytes by the group's rank count (which link they
+    cross); a group of one rank moves nothing and counts nothing;
   * **peak bytes**: the storages the run's ops create (and the arguments'),
     each counted from its first appearance until it is freed (a weak
     reference's finalizer), the largest sum at any op.

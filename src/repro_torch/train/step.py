@@ -22,21 +22,32 @@ batch) -> (state, metrics)``, which
 Over a mesh (:class:`repro_torch.launch.mesh.Mesh`) every rank runs the
 step on its own tensors.  The params are stored as
 :func:`repro_torch.dist.sharding.param_pspecs` places them (``fsdp`` adds a
-data-axis split); each pattern group gathers its weights before it runs
-(:class:`repro_torch.dist.sharding.Layout`), the batch rows are split over
-the data axes, and compute is replicated over 'model' but in the MoE
-layers, which run expert-parallel (``_ep_context``).  The gradients are
-summed over the data axes after every microbatch, or once after the loop
-under ``local_grads`` (where the params enter the loop gathered over the
-data axes, and ``grad_compression`` makes that sum
+data-axis split) and the batch rows are split over the data axes.  Each
+pattern group gathers its weights before it runs
+(:class:`repro_torch.dist.sharding.Layout`, from :func:`compute_layout`):
+over the data axes only for the leaves that compute their share over
+'model' — a dense decoder's embedding and head (vocab-parallel), its
+attention (q/k/v column-parallel, ``wo`` row-parallel, the core split by
+heads or by query rows) and its MLPs (Megatron's column and row
+parallelism), as XLA's partitioner computes the reference's program — and
+whole for every other leaf, which computes replicated over 'model', but the
+MoE layers, which run expert-parallel (``_ep_context``).  The gradients
+are summed over the data axes after every microbatch, or once after the
+loop under ``local_grads`` (where the params enter the loop gathered over
+the data axes, and ``grad_compression`` makes that sum
 :func:`repro_torch.dist.compression.compress_psum`), then divided by M
 times the data ranks, so that they equal the single-device gradients of
-the whole batch.  The update reads the full gradients and writes each
-rank's blocks: AdamW's m and v are blocks, Adafactor's moments blocks
-gathered for the update, ZeRO-1's vectors the rank's flat slices;
-``offload_master`` keeps those in pinned host memory between steps and
-fetches them on a side stream during the backward.  XLA's automatic tensor parallelism has no
-counterpart: the dense layers compute on gathered weights.
+the whole batch.  AdamW updates each rank's blocks from the gradients'
+blocks as the loop left them (the norm's squares summed over the ranks
+that hold a leaf's other blocks, :meth:`_Placement.reduce_squares`).
+The gradients are gathered whole first (``full_grads``) for the archs
+that compute replicated over 'model' and where an option needs them whole:
+ZeRO-1, whose flat slices cut across the leaves (the rank's vectors are
+its flat slices, updated a segment at a time in place), the int8+EF link
+of ``grad_compression``, whose ``ef`` is whole, and Adafactor, whose
+factored moments rest as blocks and are gathered whole for the update.
+``offload_master`` keeps ZeRO-1's vectors in pinned host memory between
+steps and fetches them on a side stream during the backward.
 
 The state is ``{"params", "opt", "prof"[, "ef"]}``, the reference's tree
 (:func:`init_state` builds and places it; :func:`make_state_shapes` builds
@@ -62,8 +73,8 @@ from repro_torch.core.sketch import SketchParams
 from repro_torch.dist import collectives as col
 from repro_torch.dist import compression
 from repro_torch.dist.sharding import (Layout, _entry, batch_pspec, drop_axes,
-                                       gather_many, param_pspecs, shard, spec_leaves,
-                                       tree_map_with_path)
+                                       entry_axes, gather_many, param_pspecs, shard,
+                                       spec_leaves, tree_map_with_path)
 from repro_torch.launch.mesh import DP_AXES, dp_axes
 from repro_torch.models import transformer as tr
 from repro_torch.models.moe import EPContext
@@ -111,12 +122,47 @@ def _expert_stack(path: str, spec) -> bool:
 
 def compute_layout(cfg: ArchConfig, mesh, specs) -> Layout:
     """What a group gathers before it runs, from the specs its leaves are
-    held under: everything, but the expert stacks' 'model' split under
-    expert parallelism (a MoE arch)."""
+    held under: everything, but the 'model' split of the expert stacks
+    under expert parallelism (a MoE arch) and of the leaves that compute
+    their share (a dense decoder's embedding, attention and MLPs,
+    :func:`repro_torch.models.transformer.model_split`)."""
     ep = cfg.moe is not None
-    return Layout(mesh, tree_map_with_path(
-        lambda p, s: drop_axes(s, ("model",)) if ep and _expert_stack(p, s) else s,
-        specs))
+    split = tr.model_split(cfg, specs) if "model" in mesh.axis_names else set()
+    heads = tuple(f"{k}/" for k in split)
+
+    def spec(p, s):
+        if (ep and _expert_stack(p, s)) or p.startswith(heads):
+            return drop_axes(s, ("model",))
+        return s
+    return Layout(mesh, tree_map_with_path(spec, specs), split)
+
+
+def split_counts(layout: Layout, stored) -> tuple[int, int]:
+    """(leaves computing their share over 'model', leaves gathered whole
+    over 'model') of the params stored under ``stored`` (a spec tree):
+    the leaves split over 'model' at rest, but the expert stacks, which
+    stay split for the expert-parallel body."""
+    heads = tuple(f"{k}/" for k in layout.split)
+    kept = dict(_spec_items(layout.specs))
+    n_split = n_gathered = 0
+    for p, s in _spec_items(stored):
+        if not _has_model(s):
+            continue
+        if p.startswith(heads):
+            n_split += 1
+        elif _has_model(kept[p]):
+            n_gathered += 1
+    return n_split, n_gathered
+
+
+def _has_model(spec) -> bool:
+    return any("model" in entry_axes(e) for e in spec)
+
+
+def _spec_items(specs) -> list:
+    out = []
+    tree_map_with_path(lambda p, s: out.append((p, s)), specs)
+    return out
 
 
 class _Placement:
@@ -141,6 +187,16 @@ class _Placement:
         self.zspec = zero1.flat_spec(shapes, mesh.size) if tcfg.zero1 else None
         self.moment_specs = [moment_specs(x.shape, sp) for x, sp in
                              zip(tree_leaves(shapes), self.stored_leaves)]
+        # the update reads whole gradients where ZeRO-1's flat slices, the
+        # int8+EF link or Adafactor's factored moments need them, and for
+        # every arch that computes replicated over 'model'
+        self.whole = (tcfg.zero1 or tcfg.grad_compression or tcfg.opt.kind == "adafactor"
+                      or not tr.tensor_parallel(cfg))
+        self.local = tcfg.local_grads
+        # the wire bytes of the whole float32 gradients (``dp_psum_bytes``)
+        self.psum_bytes = compression.psum_bytes(
+            [torch.empty(x.shape, dtype=torch.float32, device="meta")
+             for x in tree_leaves(shapes)], compressed=False)
 
     def dp_group(self):
         return self.mesh.group(self.dp) if self.dp else None
@@ -163,6 +219,27 @@ class _Placement:
 
     def block(self, i: int, x):
         return shard(x, self.stored_leaves[i], self.mesh)
+
+    def from_live(self, i: int, g):
+        """Leaf i's stored block of its live block ``g`` (the same block but
+        under ``local_grads``, whose live blocks are whole over the data
+        axes)."""
+        return shard(g, _data_splits(self.stored_leaves[i], self.mesh),
+                     self.mesh) if self.local else g
+
+    def reduce_squares(self, sqs) -> None:
+        """Each live block's sum of squares summed, in place, over the ranks
+        that hold the leaf's other blocks (the axes its live spec splits),
+        so that the global norm is the whole gradients' (one bucketed
+        all-reduce a set of axes)."""
+        by_axes = {}
+        for sq, spec in zip(sqs, self.live):
+            split = {a for e in spec for a in entry_axes(e)}
+            axes = tuple(a for a in self.mesh.axis_names if a in split)
+            if axes:
+                by_axes.setdefault(axes, []).append(sq)
+        for axes, group in by_axes.items():
+            col.all_reduce_many(group, self.mesh.group(axes))
 
     def moments(self):
         """Adafactor's ``moments`` hooks: every leaf's moments gathered
@@ -338,6 +415,17 @@ def build_train_step(cfg: ArchConfig, mesh=None, tcfg: TrainConfig = TrainConfig
                 streams.append(st)
         return gacc, lsum, streams
 
+    def block_grads(gacc):
+        """The gradients as the live blocks they are (AdamW reads no more)
+        -> (leaves, metrics); under ``local_grads`` the one data-parallel
+        sum of the blocks runs here."""
+        if not local:
+            return gacc, {}
+        metrics = {"dp_psum_bytes": place.psum_bytes}
+        if place.dp:
+            col.all_reduce_many(gacc, place.dp_group())
+        return gacc, metrics
+
     def full_grads(gacc, state, new_state):
         """The gradients summed over the data axes, whole on every rank ->
         (leaves, metrics); under ``local_grads`` the one data-parallel sum
@@ -377,7 +465,8 @@ def build_train_step(cfg: ArchConfig, mesh=None, tcfg: TrainConfig = TrainConfig
         if place is None:
             div = torch.tensor(float(m), device=lsum.device)
         else:
-            gl, metrics = full_grads(gl, state, new_state)
+            gl, metrics = (full_grads(gl, state, new_state) if place.whole
+                           else block_grads(gl))
             if place.dp:
                 col.all_reduce(lsum, place.dp_group())
             div = torch.tensor(float(m * place.n_dp), device=lsum.device)
@@ -408,9 +497,12 @@ def build_train_step(cfg: ArchConfig, mesh=None, tcfg: TrainConfig = TrainConfig
                 opt_state = zero1.offload_opt(opt_state, mesh, into=pending.source)
         elif place is None:
             params, opt_state, om = opt_update(params, grads, opt_state)
-        else:
+        elif place.whole:
             params, opt_state, om = opt_update(params, grads, opt_state, place.block,
                                                moments=place.moments())
+        else:
+            params, opt_state, om = opt_update(params, grads, opt_state, place.from_live,
+                                               norm=place.reduce_squares)
         new_state.update(params=params, opt=opt_state, prof=prof)
         return new_state, {"loss": loss, **om, **metrics}
 

@@ -2,8 +2,8 @@
 
 The multi-rank checks run in one gloo world of 8 ranks
 (``tests/torch_dist_world.py``), started by a module fixture at this
-file's first test and carrying the (2, 4) ``("data", "model")`` mesh and
-the (1, 8) one; the 4-rank checks run on the (2, 4) mesh's 'model' ranks.
+file's first test and carrying the (2, 4) ``("data", "model")`` mesh, the
+(4, 2) one and the (1, 8) one; the 4-rank checks run on the (2, 4) mesh's 'model' ranks.
 Each is held to the reference's single-device function, run here on the
 same numpy inputs (weights through ``convert.py``), and the port's
 meshless path where it has one:
@@ -23,10 +23,17 @@ meshless path where it has one:
 * ``combine_stats`` over 4 ranks' slots within 1e-5 + 1e-5 |ref| of the
   unsharded Pallas attention (interpret mode), the page mass within 1e-6;
 * ``decode_step_paged(smesh=)``, 16 float32 steps of llama3.2-3b-smoke
-  with the slots over 4 ranks: ring integers bitwise the reference's
-  unsharded decode, pages and logits within 1e-5, kv mass within 1e-6
-  (and the port's meshless decode the same; the first group's pages,
-  which no attention output reaches, bitwise between the two);
+  with the slots over the (2, 4) mesh's 4 'model' ranks, and of
+  gemma2-27b-smoke (softcaps, post-norms) over the (4, 2) mesh's 2: ring
+  integers bitwise the reference's unsharded decode, pages and logits
+  within 1e-5, greedy ids bitwise, kv mass within 1e-6 (and the port's
+  meshless decode the same; the first group's pages, which no attention
+  output reaches, bitwise between the two); the ``layout`` arm computes
+  its share over 'model' (llama's 4/2 heads do not divide 4, gemma2's
+  divide 2);
+* the dry run's prefill and dense-cache decode cells on values, the same
+  two archs and meshes, partitioned over 'model': logits and cache within
+  1e-5 of the meshless run and the reference's, greedy ids bitwise;
 * ``moe_apply_ep`` on (2, 4) with capacity factor 8: ids bitwise the
   reference's ``moe_apply_ep(ep_axes=None)``, y and every gradient (x,
   router, the expert stacks, the shared expert) within 1e-5 of the
@@ -53,7 +60,9 @@ from repro.configs.registry import get_config as j_config  # noqa: E402
 from repro.configs.registry import get_smoke_config as j_smoke  # noqa: E402
 from repro.dist import sharding as j_sh  # noqa: E402
 from repro.kernels.paged_attn import ops as j_pa  # noqa: E402
+from repro.models import attention as j_attn  # noqa: E402
 from repro.models import decode as j_dec  # noqa: E402
+from repro.models import layers as j_layers  # noqa: E402
 from repro.models import moe as j_moe  # noqa: E402
 from repro.models import transformer as j_tr  # noqa: E402
 from repro.optim import zero1 as j_z1  # noqa: E402
@@ -125,17 +134,73 @@ def _attention_inputs(softcap):
                 page_lengths=pl, softcap=softcap)
 
 
-def _decode_tokens():
-    return _rng(14).integers(0, j_smoke(LLAMA).vocab, (2, STEPS)).astype(np.int32)
+# (arch, mesh) of the decode and serving-cell checks: llama's 4/2 heads do
+# not divide the (2, 4) mesh's 4 'model' ranks, gemma2's divide the (4, 2)'s 2
+DECODE_CASES = [(LLAMA, "2x4"), ("gemma2-27b", "4x2")]
+DECODE_IDS = [f"{a}@{m}" for a, m in DECODE_CASES]
 
 
-def _cell_inputs():
-    """The serving cells' decode columns (B 2 over a 16-token dense cache)
-    and prefill prompt (B 2, 8 tokens)."""
+def _decode_tokens(arch=LLAMA):
+    return _rng(14).integers(0, j_smoke(arch).vocab, (2, STEPS)).astype(np.int32)
+
+
+def _cell_inputs(arch=LLAMA, mesh="2x4"):
+    """The serving cells' decode columns (B rows, one a data rank of
+    ``mesh``, over a 16-token dense cache) and prefill prompt (B, 8
+    tokens)."""
     r = _rng(17)
-    v = j_smoke(LLAMA).vocab
-    return dict(tokens=r.integers(0, v, (2, 16)).astype(np.int32),
-                prompt=r.integers(0, v, (2, 8)).astype(np.int32))
+    v, b = j_smoke(arch).vocab, int(mesh.split("x")[0])
+    return dict(tokens=r.integers(0, v, (b, 16)).astype(np.int32),
+                prompt=r.integers(0, v, (b, 8)).astype(np.int32))
+
+
+# the partitioned layers over 4 'model' ranks: attention by heads (4/4
+# heads), by query rows (4/2, 8 rows), whole on gathered q/k/v (6 rows do
+# not divide 4); qwen's biases, gemma2's window and softcap; the three MLPs;
+# the vocab-parallel embedding, head (softcapped) and loss (masked)
+TP_CASES = {
+    "attn-heads": ("attn", dict(h=4, hkv=4, dh=8, s=8, bias=True)),
+    "attn-rows": ("attn", dict(h=4, hkv=2, dh=8, s=8, bias=False)),
+    "attn-rows-window": ("attn", dict(h=4, hkv=2, dh=8, s=8, bias=True, window=3,
+                                      softcap=5.0, scale=0.3)),
+    "attn-whole": ("attn", dict(h=4, hkv=2, dh=8, s=6, bias=True)),
+    "mlp-swiglu": ("mlp", dict(mlp="swiglu")),
+    "mlp-geglu": ("mlp", dict(mlp="geglu")),
+    "mlp-gelu": ("mlp", dict(mlp="gelu")),
+    "head": ("head", dict(softcap=0.0)),
+    "head-softcap": ("head", dict(softcap=3.0)),
+}
+
+
+def _tp_inputs(case):
+    """(p, x, ct, kw for the port, kw for the reference) of a TP case."""
+    kind, c = TP_CASES[case]
+    r = _rng(18)
+    d, b = 16, 2
+    n = lambda *shape: r.normal(0, 0.5, shape).astype(np.float32)
+    if kind == "head":
+        v, s = 32, 5
+        p = {"table": n(v, d)}
+        labels = r.integers(0, v, (b, s)).astype(np.int32)
+        ct = {"labels": labels, "tokens": r.integers(0, v, (b, s)).astype(np.int32),
+              "mask": (r.random((b, s)) < 0.7).astype(np.float32)}
+        return p, n(b, s, d), ct, dict(softcap=c["softcap"])
+    if kind == "mlp":
+        f = 8
+        p = {"w_in": n(d, f), "w_out": n(f, d)}
+        if c["mlp"] == "gelu":
+            p.update(b_in=n(f), b_out=n(d))
+        else:
+            p["w_gate"] = n(d, f)
+        return p, n(b, 5, d), n(b, 5, d), dict(mlp=c["mlp"])
+    h, hkv, dh, s = c["h"], c["hkv"], c["dh"], c["s"]
+    p = {"wq": n(d, h * dh), "wk": n(d, hkv * dh), "wv": n(d, hkv * dh),
+         "wo": n(h * dh, d)}
+    if c["bias"]:
+        p.update(bq=n(h * dh), bk=n(hkv * dh), bv=n(hkv * dh))
+    kw = dict(h=h, hkv=hkv, dh=dh, window=c.get("window", 0),
+              softcap=c.get("softcap", 0.0), scale=c.get("scale"))
+    return p, n(b, s, d), n(b, s, d), kw
 
 
 def _moe_inputs(bias):
@@ -183,11 +248,17 @@ def _checks():
            ("pipeline", "check_pipeline", dict(w=w, b=b, x=x, ct=ct))]
     for softcap in (0.0, 5.0):
         out.append((f"combine_{softcap}", "check_combine_stats", _attention_inputs(softcap)))
-    out.append(("decode", "check_sharded_decode",
-                dict(params=_f32_params(LLAMA), tokens=_decode_tokens(),
-                     n_slots=SLOTS, page_t=PAGE_T)))
-    out.append(("cells", "check_cell_serving",
-                dict(params=_f32_params(LLAMA), **_cell_inputs())))
+    for arch, mesh in DECODE_CASES:
+        out.append((f"decode_{arch}@{mesh}", "check_sharded_decode",
+                    dict(params=_f32_params(arch), tokens=_decode_tokens(arch),
+                         n_slots=SLOTS, page_t=PAGE_T, arch=arch, mesh=mesh)))
+        out.append((f"cells_{arch}@{mesh}", "check_cell_serving",
+                    dict(params=_f32_params(arch), arch=arch, mesh=mesh,
+                         **_cell_inputs(arch, mesh))))
+    for case in TP_CASES:
+        p, x, ct, kw = _tp_inputs(case)
+        out.append((f"tp_{case}", "check_partitioned_layers",
+                    dict(kind=TP_CASES[case][0], p=p, x=x, ct=ct, kw=kw)))
     for bias in (False, True):
         p, x, ct, bb = _moe_inputs(bias)
         out.append((f"moe_{bias}", "check_moe_ep", dict(p=p, x=x, ct=ct, k=MOE["k"], bias=bb)))
@@ -343,10 +414,11 @@ def test_combine_stats_match_unsharded_attention(world, softcap):
     assert np.abs(res["mass"] - mass).max() <= 1e-6
 
 
-def test_sharded_paged_decode_matches_reference(world):
-    cfg = j_smoke(LLAMA)
-    params = jax.tree.map(jnp.asarray, _f32_params(LLAMA))
-    tokens = _decode_tokens()
+@pytest.mark.parametrize("arch,mesh", DECODE_CASES, ids=DECODE_IDS)
+def test_sharded_paged_decode_matches_reference(world, arch, mesh):
+    cfg = j_smoke(arch)
+    params = jax.tree.map(jnp.asarray, _f32_params(arch))
+    tokens = _decode_tokens(arch)
     cache = j_dec.init_paged_cache(cfg, 2, SLOTS, PAGE_T, dtype=jnp.float32)
     step = jax.jit(lambda p, c, t: j_dec.decode_step_paged(
         cfg, p, c, t, page_t=PAGE_T, return_streams=True))
@@ -357,9 +429,11 @@ def test_sharded_paged_decode_matches_reference(world):
         masses.append(np.asarray(st["kv_mass"]))
     blk = cache["blocks"][0]
     assert int(np.asarray(blk["cur_slot"]).max()) >= 2     # the ring advanced
-    res = _result(world, "decode")
+    res = _result(world, f"decode_{arch}@{mesh}")
     for arm in ("sharded", "layout", "meshless"):
         got = res[arm]
+        np.testing.assert_array_equal(got["logits"].argmax(-1),
+                                      np.stack(logits).argmax(-1))
         np.testing.assert_array_equal(got["page_len"], np.asarray(blk["page_len"]))
         np.testing.assert_array_equal(got["cur_slot"], np.asarray(blk["cur_slot"]))
         np.testing.assert_array_equal(got["pos"], np.asarray(cache["pos"]))
@@ -370,18 +444,19 @@ def test_sharded_paged_decode_matches_reference(world):
         np.testing.assert_array_equal(res["sharded"][key][0], res["meshless"][key][0])
 
 
-def test_dry_run_serving_cells_match_meshless_and_reference(world):
+@pytest.mark.parametrize("arch,mesh", DECODE_CASES, ids=DECODE_IDS)
+def test_dry_run_serving_cells_match_meshless_and_reference(world, arch, mesh):
     """launch/specs.py's prefill_32k and decode_32k callables on values over
-    the (2, 4) mesh (params gathered a group at a time, the dense cache's
-    'model'-split sequence gathered a block at a time and written back):
-    every rank's logits and final cache equal to the meshless run's and to
-    the reference's."""
-    cfg = j_smoke(LLAMA)
-    params = jax.tree.map(jnp.asarray, _f32_params(LLAMA))
-    inp = _cell_inputs()
+    the mesh (params gathered a group at a time and partitioned over
+    'model', the dense cache's 'model'-split sequence gathered a block at
+    a time and written back): every rank's logits and final cache equal to
+    the meshless run's and to the reference's, greedy ids bitwise."""
+    cfg = j_smoke(arch)
+    params = jax.tree.map(jnp.asarray, _f32_params(arch))
+    inp = _cell_inputs(arch, mesh)
     tokens = inp["tokens"]
     want_pre, _ = j_dec.prefill(cfg, params, jnp.asarray(inp["prompt"]))
-    cache = j_dec.init_cache(cfg, 2, tokens.shape[1], dtype=jnp.float32)
+    cache = j_dec.init_cache(cfg, tokens.shape[0], tokens.shape[1], dtype=jnp.float32)
     step = jax.jit(lambda p, c, t: j_dec.decode_step(cfg, p, c, t))
     logits = []
     for t in range(tokens.shape[1]):
@@ -391,7 +466,10 @@ def test_dry_run_serving_cells_match_meshless_and_reference(world):
             "k": np.asarray(cache["blocks"][0]["k"]),
             "v": np.asarray(cache["blocks"][0]["v"])}
     for rank in range(tw.WORLD):
-        res = _result(world, "cells", rank)
+        res = _result(world, f"cells_{arch}@{mesh}", rank)
+        for key in ("prefill", "logits"):
+            np.testing.assert_array_equal(res["mesh"][key].argmax(-1),
+                                          want[key].argmax(-1))
         # the mesh arm's matmuls take a rank's row, the meshless arm's both:
         # float32 sums in another order, so the arms agree within 1e-5, not
         # bitwise
@@ -402,6 +480,40 @@ def test_dry_run_serving_cells_match_meshless_and_reference(world):
                 (rank, key)
         assert int(res["mesh"]["pos"]) == int(res["meshless"]["pos"]) \
             == int(np.asarray(cache["pos"])) == tokens.shape[1]
+
+
+@pytest.mark.parametrize("case", list(TP_CASES))
+def test_partitioned_layers_match_reference(world, case):
+    """Each partitioned form over 4 'model' ranks against the reference's
+    layer on the whole weights: the output and every gradient (the
+    weights' blocks gathered, the replicated biases' and the input's as
+    each rank holds them) within 1e-5 of ``jax.grad``, on every rank."""
+    kind, _ = TP_CASES[case]
+    p, x, ct, kw = _tp_inputs(case)
+    jp, jx = jax.tree.map(jnp.asarray, p), jnp.asarray(x)
+    if kind == "head":
+        def f(p, x):
+            logits = j_layers.logits_apply(p, x, kw["softcap"])
+            loss = j_layers.cross_entropy(logits, jnp.asarray(ct["labels"]),
+                                          jnp.asarray(ct["mask"]))
+            emb = j_layers.embed_apply(p, jnp.asarray(ct["tokens"]))
+            return loss + jnp.sum(emb * x), (loss, logits)
+    else:
+        def f(p, x):
+            y = (j_attn.gqa_apply(p, x, **kw) if kind == "attn"
+                 else j_layers.mlp_apply(p, x, kw["mlp"]))
+            return jnp.sum(y * ct), (y, None)
+    (_, (y, logits)), (gp, gx) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(jp, jx)
+    want = dict(_np_tree(gp), x=np.asarray(gx))
+    for rank in range(tw.WORLD):
+        res = _result(world, f"tp_{case}", rank)
+        assert np.abs(res["y"] - np.asarray(y)).max() <= 1e-5 * max(1.0, np.abs(y).max())
+        if logits is not None:
+            assert np.abs(res["logits"] - np.asarray(logits)).max() <= 1e-5
+        assert set(res["grads"]) == set(want)
+        for k, g in want.items():
+            assert np.abs(res["grads"][k] - g).max() <= 1e-5 * max(1.0, np.abs(g).max()), \
+                (rank, k)
 
 
 @pytest.mark.parametrize("bias", [False, True])

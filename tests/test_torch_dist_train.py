@@ -7,8 +7,13 @@ microbatches) run in one gloo world of 8 ranks
 moments rest as blocks) and with ZeRO-1 (``compress_collective``,
 ``offload_master``, ``fsdp``), and on (2, 4) and (4, 1) meshes (two, each a
 half of the world) with ``local_grads`` with and without
-``grad_compression``; kimi-k2 expert-parallel (``EPContext``) on (2, 4),
-with remat.  Each is held to the
+``grad_compression``; gemma2-27b (softcaps, post-norms, GeGLU, the local
+window) on the (4, 2) mesh with the same options but the compressed link;
+kimi-k2 expert-parallel (``EPContext``) on (2, 4), with remat.  Over
+'model' the dense decoders compute their share: llama's 4/2 heads do not
+divide the (2, 4) mesh's 4 'model' ranks (the attention core split by
+query rows), gemma2's divide the (4, 2) mesh's 2 (split by heads).  Each
+is held to the
 reference's single-device step (jitted; its ZeRO-1 quantizing the delta
 per mesh rank's slice, as the mesh's does), run here on the same numpy
 weights and batches, and to the port's own meshless step:
@@ -55,9 +60,9 @@ from repro_torch.train import step as t_step  # noqa: E402
 
 import torch_dist_world as tw  # noqa: E402
 
-LLAMA, KIMI = "llama3.2-3b", "kimi-k2-1t-a32b"
-MESH_DP = {"2x4": 2, "4x1": 4}
-MESH_SIZE = {"2x4": 8, "4x1": 4}
+LLAMA, KIMI, GEMMA = "llama3.2-3b", "kimi-k2-1t-a32b", "gemma2-27b"
+MESH_DP = {"2x4": 2, "4x1": 4, "4x2": 4}
+MESH_SIZE = {"2x4": 8, "4x1": 4, "4x2": 8}
 # steps that move the params: lr 1e-2 from step 1, and an eps that keeps
 # AdamW's first update g / (|g| + eps) from turning the summation-order
 # noise of gradient elements near 0 into whole steps
@@ -74,12 +79,19 @@ CASES = {
     # spec less a dim), gathered for the update
     "adafactor": (LLAMA, dict(fsdp=True), dict(FAST, kind="adafactor")),
 }
+CASES.update({f"gemma2-{case}": (GEMMA,) + CASES[case][1:]
+              for case in ("fsdp", "local", "zero1", "adafactor")})
+# leaves that compute their share over 'model' (embedding table, q/k/v/o
+# and the MLP's three matrices of each pattern position)
+SPLIT_LEAVES = {LLAMA: 1 + 7, GEMMA: 1 + 2 * 7, KIMI: 0}
 
 
 # the data-parallel reduce's cases on both meshes; the rest on (2, 4) (the
 # ranks' gloo collectives are what a loaded suite waits on)
 MESHES = {"fsdp": ("2x4",), "local": ("2x4", "4x1"), "local-int8": ("2x4", "4x1"),
-          "zero1": ("2x4",), "adafactor": ("2x4",), "kimi-ep": ("2x4",)}
+          "zero1": ("2x4",), "adafactor": ("2x4",), "kimi-ep": ("2x4",),
+          "gemma2-fsdp": ("4x2",), "gemma2-local": ("4x2",), "gemma2-zero1": ("4x2",),
+          "gemma2-adafactor": ("4x2",)}
 
 
 def _runs():
@@ -305,6 +317,9 @@ def test_train_step_over_a_mesh_matches_single_device(world, name, case, mesh):
         if "collective_bytes" in want:
             assert got["collective_bytes"] == want["collective_bytes"]
     assert ("dp_psum_bytes" in res["metrics"][0]) == _kw(case).get("local_grads", False)
+    n_split, n_gathered = res["split"]      # kimi-k2 gathers its attention whole
+    assert n_split == SPLIT_LEAVES[arch] and (n_gathered > 0) == (arch == KIMI), \
+        res["split"]
     for a, b in zip(res["params"], params):
         _close(a, b, "params")
     # the port's meshless step holds to the same bounds (its compressed
@@ -328,11 +343,17 @@ def test_train_step_over_a_mesh_matches_single_device(world, name, case, mesh):
 
 def test_every_rank_holds_the_same_step(world):
     """The replicated results (metrics, gathered params) agree on every
-    rank of a mesh, and the two (4, 1) halves agree with each other."""
+    rank of a mesh, and the two (4, 1) halves agree with each other; so do
+    every rank's own copies of the replicated params (norms, biases), which
+    the partitioned layers' ranks each update from gradients summed over
+    'model'."""
     for name, _, mesh in _runs():
         base = _result(world, name)
-        for rank in (3, 4, 7):
+        for rank in range(1, tw.WORLD):
             other = _result(world, name, rank)
             assert other["metrics"] == base["metrics"], (name, rank)
-            for a, b in zip(other["params"], base["params"]):
+            for a, b in zip(other["replicated"], base["replicated"]):
                 np.testing.assert_array_equal(a, b)
+            if rank in (3, 4, 7):
+                for a, b in zip(other["params"], base["params"]):
+                    np.testing.assert_array_equal(a, b)

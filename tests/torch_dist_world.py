@@ -113,6 +113,8 @@ class _Meshes:
                 m = make_mesh((2, 4), ("data", "model"))
             elif name == "1x8":
                 m = make_mesh((1, 8), ("data", "model"))
+            elif name == "4x2":
+                m = make_mesh((4, 2), ("data", "model"))
             elif name == "4x1":        # two (4, 1) meshes, one a half of the world
                 dm = init_device_mesh("cpu", (2, 4, 1),
                                       mesh_dim_names=("rep", "data", "model"))
@@ -235,20 +237,22 @@ def check_combine_stats(meshes, q, k_pages, v_pages, page_lengths, softcap):
             "mass": _np(all_gather(mass, 1, group))}
 
 
-def check_sharded_decode(meshes, params, tokens, n_slots, page_t):
-    """decode_step_paged with the ring's slots over the (2, 4) mesh's
-    'model' ranks (4), float32, one teacher-forced token column a step; as
-    the dry run's long_500k cell runs it (the slots over both axes, the
-    params stored under param_pspecs, a group gathered before it runs:
-    ``layout``); and the same steps without a mesh."""
+def check_sharded_decode(meshes, params, tokens, n_slots, page_t,
+                         arch="llama3.2-3b", mesh="2x4"):
+    """decode_step_paged with the ring's slots over ``mesh``'s 'model'
+    ranks, float32, one teacher-forced token column a step; as the dry
+    run's long_500k cell runs it (the slots over both axes, the params
+    stored under param_pspecs, a group gathered before it runs and, a dense
+    decoder, partitioned over 'model': ``layout``); and the same steps
+    without a mesh."""
     import torch
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.dist.collectives import all_gather
     from repro_torch.dist.sharding import cache_pspecs, param_pspecs
     from repro_torch.models import decode as dec
     from repro_torch.train.step import compute_layout
-    cfg = get_smoke_config("llama3.2-3b")
-    mesh = meshes("2x4")
+    cfg = get_smoke_config(arch)
+    mesh = meshes(mesh)
     p = _tree_t(params)
     b = tokens.shape[0]
     out = {}
@@ -283,33 +287,34 @@ def check_sharded_decode(meshes, params, tokens, n_slots, page_t):
     return out
 
 
-def check_cell_serving(meshes, params, tokens, prompt):
+def check_cell_serving(meshes, params, tokens, prompt, arch="llama3.2-3b",
+                       mesh="2x4"):
     """The dry run's prefill_32k and decode_32k callables
-    (:func:`repro_torch.launch.specs.cell_specs` at the llama3.2-3b smoke
-    config, B 2) on values, float32, over the (2, 4) mesh and without one.
+    (:func:`repro_torch.launch.specs.cell_specs` at ``arch``'s smoke
+    config, B 2) on values, float32, over ``mesh`` and without one.
     Over the mesh the params rest under the cell's specs and each group
-    gathers them (``layout``); decode runs over the dense cache, its
-    sequence split over 'model', gathered a block at a time and written
-    back (``cache_layout``), one teacher-forced token column a step until
-    the cache is full.  Returns the prefill's and every step's logits
-    (rows gathered over 'data') and the final cache, gathered."""
+    gathers them and computes its share over 'model' (``layout``); decode
+    runs over the dense cache, its sequence split over 'model', gathered a
+    block at a time and written back (``cache_layout``), one teacher-forced
+    token column a step until the cache is full.  Returns the prefill's
+    and every step's logits (rows gathered over 'data') and the final
+    cache, gathered."""
     import torch
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.dist.collectives import all_gather
     from repro_torch.dist.sharding import gather, shard
     from repro_torch.launch.specs import cell_specs
     from repro_torch.models import decode as dec
-    cfg = get_smoke_config("llama3.2-3b")
-    mesh = meshes("2x4")
+    cfg = get_smoke_config(arch)
+    mesh = meshes(mesh)
     dgroup = mesh.group("data")
     full = _tree_t(params)
     b, s = tokens.shape
     out = {}
     for arm, m in (("mesh", mesh), ("meshless", None)):
         rows = (lambda x: all_gather(x, 0, dgroup)) if m else (lambda x: x)
-        pre = cell_specs("llama3.2-3b", "prefill_32k", m, cfg=cfg, batch=b,
-                         seq=prompt.shape[1])
-        cell = cell_specs("llama3.2-3b", "decode_32k", m, cfg=cfg, batch=b, seq=s)
+        pre = cell_specs(arch, "prefill_32k", m, cfg=cfg, batch=b, seq=prompt.shape[1])
+        cell = cell_specs(arch, "decode_32k", m, cfg=cfg, batch=b, seq=s)
         cache = dec.init_cache(cfg, b, s, dtype=torch.float32, device="cpu")
         pp, batch = full, {"tokens": _t(prompt)}
         column = lambda t: _t(tokens[:, t:t + 1])
@@ -326,6 +331,44 @@ def check_cell_serving(meshes, params, tokens, prompt):
             res[k] = _np(gather(blk[k], cspec["blocks"][0][k], m) if m else blk[k])
         res["pos"] = _np(cache["pos"])
         out[arm] = res
+    return out
+
+
+def check_partitioned_layers(meshes, kind, p, x, ct, kw):
+    """One partitioned layer over the (2, 4) mesh's 'model' ranks (4): the
+    rank's blocks of ``p`` (column weights' last dim, row weights' and the
+    table's first), a ``Part`` of 'model', and the output with the
+    gradients of sum(y * ct) (``kind`` "head": the vocab-parallel loss of
+    ``ct``'s labels under its mask plus sum(embedding * x), the logits
+    gathered whole); the blocks' gradients gathered over 'model'."""
+    import torch
+    from repro_torch.dist.collectives import Part, all_gather
+    from repro_torch.models import attention, layers
+    mesh = meshes("2x4")
+    part = Part(mesh.group("model"), mesh.coord("model"), mesh.axis_size("model"))
+    dims = {k: (0 if k in ("wo", "w_out", "table") else -1) for k, v in p.items()
+            if v.ndim >= 2}
+    local = {k: (part.block(_t(v), dims[k]) if k in dims else _t(v)).clone()
+             .requires_grad_() for k, v in p.items()}
+    xt = _t(x).requires_grad_()
+    out = {}
+    if kind == "head":
+        logits = layers.logits_apply(local, xt, kw["softcap"], part)
+        loss = layers.cross_entropy(logits, _t(ct["labels"]).long(), _t(ct["mask"]), part)
+        emb = layers.embed_apply(local, _t(ct["tokens"]).long(), part)
+        (loss + (emb * xt).sum()).backward()
+        out["y"] = _np(loss)
+        out["logits"] = _np(layers.gather_logits(logits, part))
+    else:
+        if kind == "attn":
+            y = attention.gqa_apply(local, xt, part=part, **kw)
+        else:
+            y = layers.mlp_apply(local, xt, kw["mlp"], part=part)
+        (y * _t(ct)).sum().backward()
+        out["y"] = _np(y)
+    out["grads"] = {k: _np(all_gather(v.grad, dims[k] % v.dim(), part.group)
+                           if k in dims else v.grad) for k, v in local.items()}
+    out["grads"]["x"] = _np(xt.grad)
     return out
 
 
@@ -416,6 +459,8 @@ def check_zero1(meshes, params, grads, opt, compress, offload):
 def check_train(meshes, mesh, arch, params, batches, kw, opt):
     """Two train steps over ``mesh`` from the full float32 ``params``: the
     losses, gradient norms and ``dp_psum_bytes``, the params gathered, the
+    rank's own copies of the replicated params (norms, biases), the leaves
+    that computed split over 'model' and those gathered whole, the
     sketch's arrays and ``ef``."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.dist.sharding import param_pspecs
@@ -432,8 +477,16 @@ def check_train(meshes, mesh, arch, params, batches, kw, opt):
         state, m = fn(state, ts.to_batch(b, "cpu", mesh=msh))
         metrics.append({k: (float(v) if hasattr(v, "dim") else v) for k, v in m.items()})
     prof = state["prof"]
+    from repro_torch.ckpt.manager import tree_leaves
+    from repro_torch.dist.sharding import spec_leaves
+    specs = param_pspecs(full, msh, fsdp=tcfg.fsdp)
+    layout = ts.compute_layout(cfg, msh, specs)
     return {"metrics": metrics,
-            "params": _whole(state["params"], param_pspecs(full, msh, fsdp=tcfg.fsdp), msh),
+            "replicated": [_np(x) for x, sp in zip(tree_leaves(state["params"]),
+                                                   spec_leaves(specs))
+                           if all(e is None for e in sp)],
+            "split": ts.split_counts(layout, specs),
+            "params": _whole(state["params"], specs, msh),
             "sketch": [_np(getattr(prof.sketch, f)) for f in ("counts", "epochs", "hot",
                                                               "n_seen")]
             + [_np(prof.hot_buf), _np(prof.hot_count)],
