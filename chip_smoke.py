@@ -68,11 +68,27 @@ Phases, one summary line each:
                 logits within 1e-3, page mass within 1e-5, pages, page_len
                 and cur_slot bitwise (the attention launches counted); (c)
                 kimi-k2 and deepseek-v3 at their smoke configs: one float32
-                train step expert-parallel over the mesh against the CPU
-                (loss within ATOL + RTOL*|ref|, router stream equal, sketch
-                bitwise a CPU replay; the update and mark launches counted
-                and required) and one ServeEngine(ep_axes=) request against
-                the CPU engine fed its tokens;
+                train step over the mesh, partitioned over 'model'
+                (attention, dense prologue, shared expert, embedding and
+                head, deepseek-v3's MTP head; the leaves split and gathered
+                printed, none gathered) with the experts expert-parallel,
+                deepseek-v3 under Adafactor's block update, against the
+                CPU (loss within ATOL + RTOL*|ref|, router stream equal,
+                sketch bitwise a CPU replay; the update and mark launches
+                counted and required) and one ServeEngine(ep_axes=)
+                request against the CPU engine fed its tokens; (d) right
+                after (a), before any other model is drawn: deepseek-v3
+                and kimi-k2 at full width and PHASE mla's and moe's depth
+                (4 and 2, every expert on the card), each partitioned over
+                the one 'model' rank with its experts expert-parallel and
+                its ring's slots split over both axes, B 4, an 8-token
+                prefill_paged and 16 greedy decode_step_paged steps
+                against the meshless calls from the same weights: tokens
+                equal, logits within 1e-3, page mass within 1e-5, every
+                ring's pages, page_len and cur_slot bitwise; prints the
+                leaves split and gathered and each arm's attention
+                launches (head-tiled for deepseek-v3, grouped for
+                kimi-k2);
   3. main     — ServeEngine on llama3.2-3b at full width (random weights
                 from a seed) serving a batch of 4 random 1024-token prompts
                 for 64 greedy tokens through the NeoMem loop; every kernel
@@ -254,7 +270,11 @@ Phases, one summary line each:
                 phase's); (c) one full-width block of each training-only
                 form (Mamba2, mLSTM, sLSTM, MLA) forward and backward over
                 256 positions at chunk 128 on the card against the CPU,
-                every gradient within ATOL*max(1, max|ref|) + RTOL*|ref|;
+                every gradient within ATOL*max(1, max|ref|) + RTOL*|ref|,
+                and deepseek-v3's MLA block through the partitioned
+                mla_apply over a one-rank Part (a world of one rank over
+                NCCL), its output and every gradient bitwise the
+                unpartitioned block's;
   13. sim     — the paper's evaluation path: fig11_main_speedup.py's grid
                 (8 workloads x 6 methods, benchmarks/common.py's scale, its
                 240 blocks cut to 64)
@@ -3858,11 +3878,56 @@ def train_forms(torch, device="cuda", seq=TRAIN_FORM_SEQ) -> dict:
     return errs
 
 
+def mla_part_form(torch, device="cuda", seq=TRAIN_FORM_SEQ) -> int:
+    """(c) deepseek-v3's full-width MLA block (``_form``'s weights and
+    input) through the partitioned ``mla_apply`` over the one-rank Part of
+    a 1 x 1 mesh (a world of one rank over NCCL, made here and destroyed)
+    against the unpartitioned block on the card, deterministic algorithms
+    on: the output and every gradient (params and input, one seeded
+    cotangent) bitwise.  Returns the tensors compared."""
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.collectives import Part
+    from repro_torch.models import attention as attn
+    arch = "deepseek-v3-671b"
+    cfg = get_config(arch)
+    dims = dataclasses.asdict(cfg.mla)
+    gen = torch.Generator().manual_seed(6)
+    p, _, d = _form(torch, arch, "mla", gen)
+    x = torch.randn((1, seq, d), generator=gen) * 0.5
+    ct = torch.randn((1, seq, d), generator=gen).to(device)
+    mesh = dist_world(torch)
+    outs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        part = Part(mesh.group("model"), mesh.coord("model"), mesh.axis_size("model"))
+        for arm, pt in (("whole", None), ("part", part)):
+            pd = _tree_map(lambda v: v.to(device).requires_grad_(), p)
+            xd = x.to(device).requires_grad_()
+            y = attn.mla_apply(pd, xd, h=cfg.n_heads, rope_theta=cfg.rope_theta,
+                               part=pt, **dims)
+            outs[arm] = [y.detach()] + list(torch.autograd.grad(
+                y, list(_leaves(pd)) + [xd], ct))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    for i, (a, b) in enumerate(zip(outs["whole"], outs["part"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"train mla: output/gradient {i} of the partitioned "
+                                 f"block differs from the whole block by "
+                                 f"{float((a - b).abs().max())}")
+    print(f"train: {cfg.name} one MLA block at full width through the partitioned "
+          f"mla_apply over a one-rank Part (NCCL), forward and backward over {seq} "
+          f"positions: the output and all {len(outs['part']) - 1} gradients bitwise "
+          f"the unpartitioned block's")
+    return len(outs["part"])
+
+
 def train_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
     """PHASE train: (a) ``train_full``; (b) ``train_family`` over
     TRAIN_FAMILIES, whose MoE steps launch the sketch update and mark
-    kernels (counted, and required); (c) ``train_forms``.  Returns the
-    launches and (a)'s figures."""
+    kernels (counted, and required); (c) ``train_forms`` and
+    ``mla_part_form``.  Returns the launches and (a)'s figures."""
     torch.backends.cuda.matmul.allow_tf32 = False
     full = train_full(torch, smi, device=device)
     release(torch)
@@ -3871,6 +3936,7 @@ def train_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
         train_family(torch, arch, kw, kind, device)
     launches = read_counts(torch, counters, "train", required=counters[1:3])
     train_forms(torch, device)
+    mla_part_form(torch, device)
     return launches, full
 
 
@@ -3882,6 +3948,9 @@ DIST_TRAIN = dict(zero1=True, compress_collective=True, offload_master=True,
 DIST_DECODE = (4, 16, 8, 4)        # (b): batch, steps, ring slots, page tokens
 DIST_MOE = ("kimi-k2-1t-a32b", "deepseek-v3-671b")
 DIST_PROMPT = (2, 12, 8)           # (c): batch, prompt tokens, new tokens
+DIST_ADAFACTOR = ("deepseek-v3-671b",)   # (c): the dry run's optimizer for the MoE archs
+DIST_SLICE = ("mla", "moe")        # (d): PHASE mla's and moe's arch and depth, in turn
+DIST_SLICE_PROMPT = 8              # (d): prompt tokens before the greedy steps
 
 
 def dist_world(torch):
@@ -4094,21 +4163,31 @@ def dist_decode(torch, mesh, params, cfg, smi, device="cuda", dims=DIST_DECODE) 
 
 
 def dist_moe(torch, mesh, arch, smi, device="cuda") -> dict:
-    """(c) ``arch`` at its smoke config: one float32 train step expert-
-    parallel over the mesh (``EPContext``) on the card against the meshless
-    step on the CPU from the same params and batch (the loss within ATOL +
-    RTOL*|ref|, the router stream fed to the sketch equal, the card's
-    NeoProf state bitwise a CPU replay of the card's stream); then one
-    request through ``ServeEngine(ep_axes=)`` on the card against the
-    meshless engine on the CPU fed the card's tokens (``hold_logits``)."""
+    """(c) ``arch`` at its smoke config: one float32 train step over the
+    mesh, partitioned over 'model' (attention, dense prologue, shared
+    expert, embedding and head; deepseek-v3's MTP head) with the experts
+    expert-parallel (``EPContext``), AdamW or, for DIST_ADAFACTOR,
+    Adafactor's block update, on the card against the meshless step on the
+    CPU from the same params and batch (the loss within ATOL + RTOL*|ref|,
+    the router stream fed to the sketch equal, the card's NeoProf state
+    bitwise a CPU replay of the card's stream); prints the leaves computed
+    split over 'model' and those gathered whole (none); then one request
+    through ``ServeEngine(ep_axes=)`` on the card against the meshless
+    engine on the CPU fed the card's tokens (``hold_logits``)."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.core import neoprof as npf
     from repro_torch.core import sketch as sk
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.optimizers import OptConfig
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.train import step as ts
     cfg = get_smoke_config(arch)
-    tcfg = ts.TrainConfig(microbatches=2)
+    opt = "adafactor" if arch in DIST_ADAFACTOR else "adamw"
+    tcfg = ts.TrainConfig(opt=OptConfig(kind=opt), microbatches=2)
+    n_split, n_gathered = split_leaves(cfg, mesh)
+    if n_split == 0 or n_gathered:
+        raise AssertionError(f"dist (c) {arch}: {n_split} leaves computed split over "
+                             f"'model', {n_gathered} gathered: not the partitioned path")
     host = _family_params(torch, cfg)
     batch = SyntheticLM(DataConfig(seq_len=32, global_batch=4, vocab=cfg.vocab,
                                    seed=1234)).batch(0, 0, 1)
@@ -4155,20 +4234,117 @@ def dist_moe(torch, mesh, arch, smi, device="cuda") -> dict:
                     prompts, new, feed=card["tokens"].cpu())
     hold_logits(torch, cfg, card["logits"].float().cpu(), cpu["logits"].float(), "dist",
                 "ServeEngine(ep_axes=) and the CPU engine")
-    print(f"dist (c): {arch} smoke, one float32 train step expert-parallel over the "
-          f"mesh: loss {float(cm['loss']):.6f} within {err:.3g} of the CPU's (bound "
+    print(f"dist (c): {arch} smoke, one float32 {opt} train step over the mesh, "
+          f"{n_split} leaves computed split over 'model', {n_gathered} gathered whole, "
+          f"the experts expert-parallel: loss {float(cm['loss']):.6f} within {err:.3g} "
+          f"of the CPU's (bound "
           f"{ATOL} + {RTOL}*|ref|), router stream ({streams['card'].numel()} ids) equal, "
           f"sketch bitwise a CPU replay; ServeEngine(ep_axes=) served {new} tokens "
           f"x {b} rows, on {smi}")
     return {"loss_err": err}
 
 
+def dist_slice(torch, mesh, phase, smi, device="cuda", dims=DIST_DECODE) -> dict:
+    """(d) PHASE ``phase``'s arch at full width and the phase's depth
+    (``draw_moe_params``: every expert on the card), its params stored
+    under ``param_pspecs`` and computing over the mesh as the dry run's
+    long_500k cell does (``layout``: attention, dense prologue, shared
+    expert, embedding and head partitioned over the one 'model' rank, the
+    experts expert-parallel, the ring's slots split over both axes):
+    ``prefill_paged`` of a seeded DIST_SLICE_PROMPT-token prompt, then
+    greedy ``decode_step_paged`` steps, against the meshless calls from the
+    same weights: tokens equal, logits within 1e-3, page mass within 1e-5,
+    every ring's pages, page_len and cur_slot bitwise.  Prints the leaves
+    split and gathered and each arm's attention launches (the head-tiled
+    kernel's for MLA)."""
+    from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
+    from repro_torch.dist.sharding import cache_pspecs, param_pspecs, shard, spec_leaves
+    from repro_torch.kernels.paged_attn import ops as pa_ops
+    from repro_torch.models import decode as dec
+    from repro_torch.train import step as ts
+    cfg, params = draw_moe_params(torch, phase)
+    b, steps, n_slots, page_t = dims
+    pspecs = param_pspecs(params, mesh)
+    stored = tree_unflatten(params, [shard(x, sp, mesh) for x, sp in
+                                     zip(tree_leaves(params), spec_leaves(pspecs))])
+    layout = ts.compute_layout(cfg, mesh, pspecs)
+    n_split, n_gathered = ts.split_counts(layout, pspecs)
+    if n_split == 0 or n_gathered:
+        raise AssertionError(f"dist (d) {cfg.name}: {n_split} leaves computed split over "
+                             f"'model', {n_gathered} gathered: not the partitioned path")
+    prompt = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab, (b, DIST_SLICE_PROMPT)).astype(np.int32)).to(device)
+    arms = {}
+    for arm, smesh in (("mesh", {"mesh": mesh, "axes": ("data", "model")}),
+                       ("meshless", None)):
+        kw = {} if smesh is None else dict(smesh=smesh, layout=layout,
+                                           ep_axes=ts._ep_context(cfg, mesh))
+        cache = dec.init_paged_cache(cfg, b, n_slots, page_t, device=device)
+        if smesh is not None:
+            specs = spec_leaves(cache_pspecs(cache, mesh, slot_axes=smesh["axes"]))
+            cache = tree_unflatten(cache, [shard(x, sp, mesh) for x, sp in
+                                           zip(tree_leaves(cache), specs)])
+        p = params if smesh is None else stored
+        torch.cuda.synchronize()
+        raw, tiled = pa_ops.paged_attention_raw.launches, pa_ops.head_tiled.launches
+        last, cache, _ = dec.prefill_paged(cfg, p, cache, prompt, page_t=page_t, **kw)
+        tok = last.argmax(-1, keepdim=True).to(torch.int32)
+        toks, logits, mass = [tok], [last.float()], []
+        for _ in range(steps):
+            lg, cache, st = dec.decode_step_paged(cfg, p, cache, tok, page_t=page_t,
+                                                  return_streams=True, **kw)
+            logits.append(lg[:, -1].float())
+            mass.append(st["kv_mass"])
+            tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        arms[arm] = dict(tokens=torch.cat(toks, 1), logits=torch.stack(logits),
+                         mass=torch.stack(mass), cache=cache,
+                         launches=(pa_ops.paged_attention_raw.launches - raw,
+                                   pa_ops.head_tiled.launches - tiled))
+    sh, un = arms["mesh"], arms["meshless"]
+    if not torch.equal(sh["tokens"], un["tokens"]):
+        raise AssertionError(f"dist (d) {cfg.name}: greedy tokens differ")
+    gap = float((sh["logits"] - un["logits"]).abs().max())
+    mgap = float((sh["mass"] - un["mass"]).abs().max())
+    if gap > 1e-3 or mgap > 1e-5:
+        raise AssertionError(f"dist (d) {cfg.name}: logits {gap} / mass {mgap} apart")
+    rings = list(zip(sh["cache"]["blocks"], un["cache"]["blocks"]))
+    rings += list(zip(sh["cache"].get("prologue", []), un["cache"].get("prologue", [])))
+    for i, (x, y) in enumerate(rings):
+        for k in ("k_pages", "v_pages", "page_len", "cur_slot"):
+            if not torch.equal(x[k], y[k]):
+                raise AssertionError(f"dist (d) {cfg.name}: {k} of ring {i} differs")
+    tiled = sh["launches"][0] if cfg.mla is not None else 0
+    if device == "cuda" and (sh["launches"] != un["launches"] or not sh["launches"][0]
+                             or sh["launches"][1] != tiled):
+        raise AssertionError(f"dist (d) {cfg.name}: attention launches (all, head-tiled) "
+                             f"mesh {sh['launches']}, meshless {un['launches']}")
+    form = "head-tiled" if cfg.mla is not None else "grouped"
+    print(f"dist (d): {cfg.name} at full width, depth {cfg.n_layers} "
+          f"({cfg.moe.n_dense_prologue} dense + {cfg.n_groups} MoE, {cfg.moe.n_experts} "
+          f"experts on the card), B {b}, a {DIST_SLICE_PROMPT}-token prefill_paged and "
+          f"{steps} greedy decode_step_paged steps over {n_slots} slots of {page_t} "
+          f"tokens, partitioned over 'model' ({n_split} leaves computed split, "
+          f"{n_gathered} gathered whole), the experts expert-parallel, the slots split "
+          f"over ('data', 'model'), against the meshless calls: tokens equal, logits "
+          f"{gap:.3g} apart (bound 1e-3), page mass {mgap:.3g} (bound 1e-5), every "
+          f"ring's pages, page_len and cur_slot bitwise; attention launches "
+          f"{sh['launches'][0]} an arm, all {form} (head-tiled {sh['launches'][1]}), "
+          f"on {smi}")
+    return dict(logit_gap=gap, mass_gap=mgap, split=(n_split, n_gathered),
+                launches=sh["launches"])
+
+
 def dist_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
     """PHASE dist: a world of one rank over NCCL and its 1 x 1 mesh; (a)
-    ``dist_train``, then, counts at 0, (b) ``dist_decode`` on (a)'s weights
-    (the attention launches) and (c) ``dist_moe`` on each DIST_MOE arch
-    (the sketch update and mark launches, required).  The process group is
-    destroyed at the end, whatever happens."""
+    ``dist_train``, then, counts at 0, (d) ``dist_slice`` on each
+    DIST_SLICE phase's arch at full width (right after (a) let go of its
+    pinned host vectors, before any other model is drawn), (b)
+    ``dist_decode`` on (a)'s weights (the attention launches) and (c)
+    ``dist_moe`` on each DIST_MOE arch (the sketch update and mark
+    launches, required).  The process group is destroyed at the end,
+    whatever happens."""
     import torch.distributed as dist
     from repro_torch.configs.registry import get_config
     from repro_torch.models.transformer import init_params
@@ -4176,9 +4352,13 @@ def dist_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
     try:
         full = dist_train(torch, mesh, smi)
         release(torch)
+        zero_counts(counters)
+        slices = {}
+        for phase in DIST_SLICE:
+            slices[phase] = dist_slice(torch, mesh, phase, smi, device)
+            release(torch)
         cfg = get_config(TRAIN_ARCH)
         params = init_params(cfg, seed=0, device=device)
-        zero_counts(counters)
         dec = dist_decode(torch, mesh, params, cfg, smi, device)
         del params
         release(torch)
@@ -4187,7 +4367,7 @@ def dist_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
         launches = read_counts(torch, counters, "dist", required=counters[:3])
     finally:
         dist.destroy_process_group()
-    return launches, dict(full, **dec)
+    return launches, dict(full, **dec, slices=slices)
 
 
 def _tree_map(fn, tree):
@@ -4254,7 +4434,9 @@ def main() -> int:
                 np_ops.sketch_mark_hot_kernel, hist_ops.hist_kernel)
     t0 = time.perf_counter()
     phases = {}
-    phases["dist"], dres = dist_path(torch, counters, smi)
+    mla_counters = counters + (pa_ops.head_tiled,)
+    # PHASE dist (d) runs deepseek-v3's MLA through the head-tiled kernel
+    phases["dist"], dres = dist_path(torch, mla_counters, smi)
     print(f"PHASE dist: ok in {time.perf_counter() - t0:.1f} s, world size 1 over NCCL: "
           f"(a) {TRAIN_ARCH}'s ZeRO-1 / offload / local_grads / fsdp step over the mesh, "
           f"partitioned over 'model', bitwise the meshless step, m, v and ef pinned on "
@@ -4263,8 +4445,11 @@ def main() -> int:
           f"{dres['peak'][0]:.2f} / {dres['peak'][1]:.2f} GiB, fetch "
           f"{statistics.median(t[0] for t in dres['fetch']):.1f} ms a step); (b) the "
           f"slot-split, partitioned paged decode equal to the unsharded ring; (c) "
-          f"{' and '.join(DIST_MOE)} expert-parallel train step and ServeEngine(ep_axes=) "
-          f"equal to the CPU; launches {json.dumps(phases['dist'])} on {smi}")
+          f"{' and '.join(DIST_MOE)} partitioned, expert-parallel train step and "
+          f"ServeEngine(ep_axes=) equal to the CPU; (d) "
+          f"{' and '.join(MOE_PHASES[p]['arch'] for p in DIST_SLICE)} at full width, "
+          f"partitioned prefill_paged and paged decode equal to the meshless calls; "
+          f"launches {json.dumps(phases['dist'])} on {smi}")
     release(torch)
     cfg, params = draw_params(torch)
     launches, e2e = main_path(torch, counters, cfg, params)
@@ -4320,7 +4505,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mla_counters = counters + (pa_ops.head_tiled,)
     phases["mla"], rep, _ = moe_path(torch, mla_counters, smi, phase="mla")
     if phases["mla"]["paged_attention_raw"] != phases["mla"]["paged_attention_head_tiled"]:
         raise AssertionError("PHASE mla: an attention call missed the head-tiled "

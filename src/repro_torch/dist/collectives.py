@@ -5,8 +5,8 @@ for the partitioner's collectives.
 Compute over a mesh is data-parallel over the data axes.  Over ``'model'``
 every rank of a group sees the same tokens and computes the same loss; in
 between, a region's ranks each compute a share of it (the tensor-parallel
-layers of the dense decoders, the expert-parallel MoE body: a
-:class:`Part`).  A gradient therefore flows across a collective by what
+layers of the dense decoders and the MoE family, the expert-parallel MoE
+body: a :class:`Part`).  A gradient therefore flows across a collective by what
 the ranks on its other side computed:
 
   * :func:`gather` (an all-gather forward) returns, backward, the rank's

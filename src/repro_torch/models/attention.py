@@ -15,8 +15,9 @@ float32 as the reference's.  ``mla_apply`` is MLA's training form: the
 latent KV decompressed on the fly, then the causal ``sdpa_chunked``.
 
 Partitioned over 'model' (``part``, a
-:class:`repro_torch.dist.collectives.Part`; the dense decoders over a
-mesh), ``wq``/``wk``/``wv`` are the rank's column blocks and ``wo`` its
+:class:`repro_torch.dist.collectives.Part`; the dense decoders and the
+MoE family over a mesh), ``wq``/``wk``/``wv`` are the rank's column
+blocks and ``wo`` its
 row block: the input enters the region, the rank projects its columns
 (plus its block of a replicated bias) and ``wo``'s partial products are
 summed over the ranks.  The core of :func:`gqa_apply` (train, forward and
@@ -37,8 +38,13 @@ The decode cores (:func:`gqa_decode` over the dense cache,
 ``decode._paged_attn_block`` over the ring) attend at one query position
 on q, k and v gathered over the ranks, replicated, and hand the rank's
 block of the output columns to the row-parallel ``wo``; the cache is
-written whole, as without a part.  With one rank in the part every form is
-today's arithmetic."""
+written whole, as without a part.  MLA (:func:`mla_apply`,
+:func:`mla_decode`) splits by heads: the rank's column blocks of ``wq_a``
+and ``wkv_a`` gathered whole (the norms and the rope key read whole rows),
+its heads through its blocks of ``wq_b`` and ``wkv_b``, ``wo``'s row
+parts summed; its decode core attends replicated on the absorbed queries
+gathered over the heads.  With one rank in the part every form is today's
+arithmetic."""
 from __future__ import annotations
 
 import math
@@ -358,56 +364,110 @@ def mla_init_cache(batch, smax, kv_lora=512, d_rope=64, dtype=DTYPE,
             "k_rope": torch.zeros((batch, smax, d_rope), dtype=dtype, device=device)}
 
 
+def _mla_latent(p, x, part=None):
+    """MLA's two low-rank projections of x: the normed query latent
+    ``rms(x @ wq_a)`` (B, S, q_lora) and ``x @ wkv_a`` (B, S, kv_lora +
+    d_rope); with ``part`` each is the rank's column block gathered whole
+    over the ranks (backward the gradient's block summed over them), and
+    the replicated ``q_norm`` enters the region (its gradient summed)."""
+    q_norm = p["q_norm"]
+    if part is not None:
+        x, q_norm = col.enter(x, part.group), col.enter(q_norm, part.group)
+    qa, kv_a = x @ p["wq_a"], x @ p["wkv_a"]
+    if part is not None:
+        qa, kv_a = (col.gather(t, -1, part.group, reduce=True) for t in (qa, kv_a))
+    return _rms(qa, q_norm), kv_a
+
+
+def _kv_norm(p, part=None):
+    """``kv_norm``, entering the region under ``part``."""
+    return p["kv_norm"] if part is None else col.enter(p["kv_norm"], part.group)
+
+
+def _mla_heads(h: int, part) -> int:
+    """The query heads a rank's column blocks of ``wq_b`` / ``wkv_b`` hold:
+    all, or with ``part`` its ``h / n`` (0 where the heads do not divide)."""
+    if part is None:
+        return h
+    return h // part.size if h % part.size == 0 else 0
+
+
 def mla_decode(p, x_t, cache, pos, *, h, q_lora=1536, kv_lora=512,
-               d_nope=128, d_rope=64, d_v=128, rope_theta=10000.0):
+               d_nope=128, d_rope=64, d_v=128, rope_theta=10000.0, part=None):
     """MLA's absorbed decode over the full latent cache, in float32: the
     nope query goes through the key half of ``wkv_b`` into the latent
     space, the attention output back through its value half.  Writes the
-    latent and rope key at ``pos`` in place; returns (B, 1, D)."""
+    latent and rope key at ``pos`` in place; returns (B, 1, D).
+
+    With ``part`` (the heads divide its ranks) the rank projects its heads'
+    queries into the latent space, the absorbed queries are gathered over
+    the heads and the core attends replicated, as the dense decoders'
+    decode form; the rank then takes its heads of the latent output
+    through its block of ``wkv_b``'s value half and ``wo``'s rows, the
+    parts summed."""
     b = x_t.shape[0]
+    hl = _mla_heads(h, part)
+    if not hl:
+        raise ValueError(f"mla_decode: {h} heads do not divide {part.size} ranks")
     pos_b = _pos_col(pos, b)
-    q = _rms(x_t @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
-    q = q.reshape(b, 1, h, d_nope + d_rope)
+    qa, kv_a = _mla_latent(p, x_t, part)
+    q = (qa @ p["wq_b"]).reshape(b, 1, hl, d_nope + d_rope)
     q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
     q_rope = apply_rope(q_rope, pos_b, rope_theta)
-    kv_a = x_t @ p["wkv_a"]
-    c_t = _rms(kv_a[..., :kv_lora], p["kv_norm"])
+    c_t = _rms(kv_a[..., :kv_lora], _kv_norm(p, part))
     kr_t = apply_rope(kv_a[..., None, kv_lora:], pos_b, rope_theta)[:, :, 0]
     _write_at(cache["c_kv"], pos, c_t)
     _write_at(cache["k_rope"], pos, kr_t)
     c_kv, k_rope = cache["c_kv"].float(), cache["k_rope"].float()
-    wkv_b = p["wkv_b"].reshape(kv_lora, h, d_nope + d_v)
+    wkv_b = p["wkv_b"].reshape(kv_lora, hl, d_nope + d_v)
     w_k, w_v = wkv_b[..., :d_nope].float(), wkv_b[..., d_nope:].float()
     q_lat = torch.einsum("bqhd,khd->bqhk", q_nope.float(), w_k)
+    q_rope = q_rope.float()
+    if part is not None:               # the core attends over every head
+        q_lat, q_rope = (col.gather(t, 2, part.group, reduce=True)
+                         for t in (q_lat, q_rope))
     s_lat = torch.einsum("bqhk,bsk->bhqs", q_lat, c_kv)
-    s_rope = torch.einsum("bqhd,bsd->bhqs", q_rope.float(), k_rope)
+    s_rope = torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope)
     s = (s_lat + s_rope) * (d_nope + d_rope) ** -0.5
     s = torch.where(_key_mask(c_kv.shape[1], pos), s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bhqs,bsk->bqhk", w, c_kv)
+    if part is not None:
+        o_lat = part.block(o_lat, 2)
     o = torch.einsum("bqhk,khd->bqhd", o_lat, w_v)
-    return o.reshape(b, 1, h * d_v).to(x_t.dtype) @ p["wo"]
+    o = o.reshape(b, 1, hl * d_v).to(x_t.dtype) @ p["wo"]
+    return o if part is None else col.sum_parts(o, part.group)
 
 
 def mla_apply(p, x, *, h, q_lora=1536, kv_lora=512, d_nope=128, d_rope=64,
-              d_v=128, rope_theta=10000.0, positions=None):
+              d_v=128, rope_theta=10000.0, positions=None, part=None):
     """Training-time MLA over x (B, S, D): the low-rank query, the latent
     KV up-projected through ``wkv_b`` into per-head nope keys and values,
     the one rope key broadcast over the heads, then causal
-    :func:`sdpa_chunked` at scale (d_nope + d_rope)^-1/2."""
+    :func:`sdpa_chunked` at scale (d_nope + d_rope)^-1/2.
+
+    With ``part`` (the heads divide its ranks) the rank's column blocks of
+    ``wq_a`` and ``wkv_a`` are gathered whole over the ranks (the norms and
+    the rope key read whole rows; at 16 ranks ``wkv_a``'s blocks straddle
+    the latent | rope border), the rank projects its heads' queries, keys
+    and values through its blocks of ``wq_b`` and ``wkv_b``, attends over
+    its heads and sums ``wo``'s row parts."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None, :] if positions is None \
         else positions
-    q = _rms(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
-    q = q.reshape(b, s, h, d_nope + d_rope)
+    hl = _mla_heads(h, part)
+    if not hl:
+        raise ValueError(f"mla_apply: {h} heads do not divide {part.size} ranks")
+    qa, kv_a = _mla_latent(p, x, part)
+    q = (qa @ p["wq_b"]).reshape(b, s, hl, d_nope + d_rope)
     q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
     q_rope = apply_rope(q_rope, pos, rope_theta)
-    kv_a = x @ p["wkv_a"]                                  # (B, S, kv_lora + d_rope)
-    c_kv = _rms(kv_a[..., :kv_lora], p["kv_norm"])
+    c_kv = _rms(kv_a[..., :kv_lora], _kv_norm(p, part))
     k_rope = apply_rope(kv_a[..., None, kv_lora:], pos, rope_theta)  # (B, S, 1, dr)
-    kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, d_nope + d_v)
+    kv = (c_kv @ p["wkv_b"]).reshape(b, s, hl, d_nope + d_v)
     k_nope, v = kv[..., :d_nope], kv[..., d_nope:]
-    k = torch.cat([k_nope, k_rope.expand(b, s, h, d_rope)], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, hl, d_rope)], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     o = sdpa_chunked(q_full, k, v, causal=True, scale=(d_nope + d_rope) ** -0.5)
-    return o.reshape(b, s, h * d_v) @ p["wo"]
+    o = o.reshape(b, s, hl * d_v) @ p["wo"]
+    return o if part is None else col.sum_parts(o, part.group)

@@ -82,12 +82,14 @@ the current slot and merging the ranks' attention statistics
 whole over 'model' first); every decode and prefill takes
 ``ep_axes``, an :class:`repro_torch.models.moe.EPContext` that runs the MoE
 layers expert-parallel, and ``layout``, which gathers the rank's stored
-param blocks a group at a time and, for the dense decoders, partitions the
-embedding, each block's q/k/v, ``wo`` and MLP and the head over 'model'
-(:mod:`repro_torch.models.attention`'s decode form: the core at one query
-position runs replicated on gathered q, k and v).  The logits are gathered
-whole over 'model' before they are returned, so that greedy ids and
-:func:`sample_tokens` read the whole vocab.
+param blocks a group at a time and, for the dense decoders and the MoE
+family, partitions the embedding, each block's q/k/v (MLA's projections),
+``wo`` and MLP (a MoE block's shared expert; the dense prologue's blocks
+too) and the head over 'model' (:mod:`repro_torch.models.attention`'s
+decode form: the core at one query position runs replicated on gathered
+q, k and v, MLA's on the absorbed query gathered over the heads).  The
+logits are gathered whole over 'model' before they are returned, so that
+greedy ids and :func:`sample_tokens` read the whole vocab.
 
 Also here, as in the reference: ``install_pages``, which fast-forwards one
 lane over complete KV pages from the reuse pool (in place, that lane
@@ -100,7 +102,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.collectives import all_reduce
+from repro_torch.dist import collectives as col
 from repro_torch.dist.sharding import per_group, shard
 from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.models import attention as attn
@@ -140,9 +142,10 @@ class _MeshBlocks:
     def params(self, p, i: int):
         return p if self.layout is None else self.layout.gather(p, self.gp[i])
 
-    def parts(self, i: int) -> dict:
-        """Pattern position ``i``'s {"attn", "ffn"} parts of 'model'."""
-        return {} if self.layout is None else self.layout.parts(i)
+    def parts(self, block: str) -> dict:
+        """The {"attn", "ffn"} parts of 'model' of the block at ``block``
+        ("blocks/0", "prologue/1")."""
+        return {} if self.layout is None else self.layout.parts(block)
 
     def cache(self, c, specs):
         """-> (the cache the block runs on, write-back)."""
@@ -338,7 +341,7 @@ def _append_attend_sharded(kp, vp, plen, cur_slot, k_new, v_new, q_eff, *,
     vp[bidx, safe, at] = torch.where(keep, v_new.to(vp.dtype), vp[bidx, safe, at])
     plen[bidx, safe] = off + own.to(plen.dtype)
     full_here = own & (off + 1 >= page_t)
-    full = all_reduce(full_here.to(torch.int32), group) > 0
+    full = col.all_reduce(full_here.to(torch.int32), group) > 0
     n_total = n_local * mesh.axis_size(axes)
     new_slot = torch.where(full, (cur_slot + 1) % n_total, cur_slot)
     nls = new_slot.long() - lo
@@ -355,18 +358,21 @@ def _append_attend_sharded(kp, vp, plen, cur_slot, k_new, v_new, q_eff, *,
     return pa_ops.combine_stats(*stats, group), None
 
 
-def _moe_block(p, cfg: ArchConfig, h2, tiered_moe, router: list, ep_axes=None):
+def _moe_block(p, cfg: ArchConfig, h2, tiered_moe, router: list, ep_axes=None,
+               part=None):
     """The MoE FFN of a block: through the experts resource's placement
     table when the engine bound its view for this position, else over the
-    dense expert weights (expert-parallel under ``ep_axes``).  The router's
-    (B, 1, k) ids go to ``router``."""
+    dense expert weights (expert-parallel under ``ep_axes``); ``part``
+    partitions the shared expert.  The router's (B, 1, k) ids go to
+    ``router``."""
     if tiered_moe is not None:
         y, idx, _ = moe_lib.moe_apply_tiered(
             p["ffn"], h2, cfg.moe.top_k, bias=p.get("router_bias"),
-            tier=tiered_moe["view"], group_id=tiered_moe["group_id"])
+            tier=tiered_moe["view"], group_id=tiered_moe["group_id"], part=part)
     else:
         y, idx, _ = moe_lib.moe_apply_ep(p["ffn"], h2, cfg.moe.top_k,
-                                         bias=p.get("router_bias"), ep_axes=ep_axes)
+                                         bias=p.get("router_bias"), ep_axes=ep_axes,
+                                         part=part)
     router.append(idx)
     return y
 
@@ -382,34 +388,47 @@ def _tiered_moe_for(cfg: ArchConfig, tiered, i: int, g: int):
     return {"view": tiered["experts"], "group_id": g}
 
 
-def _mla_qkv(pa, cfg: ArchConfig, h, pos_b):
+def _mla_qkv(pa, cfg: ArchConfig, h, pos_b, part=None):
     """MLA's absorbed decode inputs (the reference's MLA branch): the latent
     query ``[q_nope @ w_k, rope(q_rope)]`` (B, H, kv_lora + d_rope) f32, the
     new page rows ``[c_t | rope(k_r)]`` and ``c_t`` (B, 1, dk|dv), and the
-    softmax scale ``(d_nope + d_rope) ** -0.5``."""
+    softmax scale ``(d_nope + d_rope) ** -0.5``.  With ``part`` the rank
+    projects its heads' latent queries (its blocks of ``wq_b`` and
+    ``wkv_b``) and the absorbed query is gathered over the heads, so that
+    the core attends replicated."""
     m, b = cfg.mla, h.shape[0]
-    q = attn._rms(h @ pa["wq_a"], pa["q_norm"]) @ pa["wq_b"]
-    q = q.reshape(b, cfg.n_heads, m.d_nope + m.d_rope)
+    hl = attn._mla_heads(cfg.n_heads, part)
+    if not hl:
+        raise ValueError(f"{cfg.n_heads} MLA heads do not divide {part.size} ranks")
+    qa, kv_a = attn._mla_latent(pa, h, part)
+    q = (qa @ pa["wq_b"]).reshape(b, hl, m.d_nope + m.d_rope)
     q_nope, q_rope = q[..., :m.d_nope], q[..., m.d_nope:]
     q_rope = apply_rope(q_rope[:, None], pos_b, cfg.rope_theta)[:, 0]
-    w_k = pa["wkv_b"].reshape(m.kv_lora, cfg.n_heads, m.d_nope + m.d_v)[..., :m.d_nope]
+    w_k = pa["wkv_b"].reshape(m.kv_lora, hl, m.d_nope + m.d_v)[..., :m.d_nope]
     q_lat = torch.einsum("bhd,khd->bhk", q_nope.float(), w_k.float())
     q_eff = torch.cat([q_lat, q_rope.float()], dim=-1)
-    kv_a = h[:, 0] @ pa["wkv_a"]
-    c_t = attn._rms(kv_a[..., :m.kv_lora], pa["kv_norm"])
+    if part is not None:
+        q_eff = col.gather(q_eff, 1, part.group, reduce=True)
+    kv_a = kv_a[:, 0]
+    c_t = attn._rms(kv_a[..., :m.kv_lora], attn._kv_norm(pa, part))
     kr_t = apply_rope(kv_a[:, None, None, m.kv_lora:], pos_b,
                       cfg.rope_theta)[:, 0, 0]
     k_new = torch.cat([c_t, kr_t], dim=-1)[:, None, :]
     return q_eff, k_new, c_t[:, None, :], (m.d_nope + m.d_rope) ** -0.5
 
 
-def _mla_out(pa, cfg: ArchConfig, o, dtype):
+def _mla_out(pa, cfg: ArchConfig, o, dtype, part=None):
     """The latent attention output (B, H, kv_lora) f32 through the value
-    half of ``wkv_b`` in float32, then ``wo``: (B, 1, d)."""
+    half of ``wkv_b`` in float32, then ``wo``: (B, 1, d); with ``part`` the
+    rank's heads of it through its blocks, the parts summed."""
     m, b = cfg.mla, o.shape[0]
-    w_v = pa["wkv_b"].reshape(m.kv_lora, cfg.n_heads, m.d_nope + m.d_v)[..., m.d_nope:]
+    hl = attn._mla_heads(cfg.n_heads, part)
+    if part is not None:
+        o = part.block(o, 1)
+    w_v = pa["wkv_b"].reshape(m.kv_lora, hl, m.d_nope + m.d_v)[..., m.d_nope:]
     o = torch.einsum("bhk,khd->bhd", o, w_v.float())
-    return o.reshape(b, 1, cfg.n_heads * m.d_v).to(dtype) @ pa["wo"]
+    o = o.reshape(b, 1, hl * m.d_v).to(dtype) @ pa["wo"]
+    return o if part is None else col.sum_parts(o, part.group)
 
 
 def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
@@ -426,7 +445,8 @@ def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
     b = x_t.shape[0]
     pos_b = attn._pos_col(pos, b)
     if cfg.mla is not None:
-        q_eff, k_new, v_new, scale = _mla_qkv(p["attn"], cfg, h, pos_b)
+        q_eff, k_new, v_new, scale = _mla_qkv(p["attn"], cfg, h, pos_b,
+                                              parts.get("attn"))
     else:
         q, k, v = attn._proj_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                                  cfg.head_dim, parts.get("attn"))
@@ -443,7 +463,7 @@ def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
         cache["k_pages"], cache["v_pages"], cache["page_len"], cache["cur_slot"],
         k_new, v_new, q_eff, **kw)
     if cfg.mla is not None:
-        o = _mla_out(p["attn"], cfg, o, x_t.dtype)
+        o = _mla_out(p["attn"], cfg, o, x_t.dtype, parts.get("attn"))
     else:
         o = attn.out_proj(p["attn"], o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
                           .to(x_t.dtype), parts.get("attn"))
@@ -455,9 +475,9 @@ def _block_tail(p, cfg: ArchConfig, kind: str, x_t, o, tiered_moe, router,
                 kv_src=None, ep_axes=None, ffn_part=None):
     """Everything of a decoder block after its attention output ``o``: the
     residual, the cross step over ``kv_src`` where the dense path gives one,
-    the FFN (the expert layer for ``kind`` "moe"; the MLP over the rank's
-    blocks with ``ffn_part``) and, where the arch has them (gemma2), the
-    post-norms of both branches."""
+    the FFN (the expert layer for ``kind`` "moe"; with ``ffn_part`` the MLP,
+    or the expert layer's shared expert, over the rank's blocks) and, where
+    the arch has them (gemma2), the post-norms of both branches."""
     if cfg.post_norm:
         o = apply_norm(cfg.norm, p["pn1"], o)
     x_t = x_t + o
@@ -465,7 +485,7 @@ def _block_tail(p, cfg: ArchConfig, kind: str, x_t, o, tiered_moe, router,
         x_t = _cross_step(p, cfg, kind, x_t, kv_src)
     h2 = apply_norm(cfg.norm, p["ln2"], x_t)
     if kind == "moe":
-        y = _moe_block(p, cfg, h2, tiered_moe, router, ep_axes)
+        y = _moe_block(p, cfg, h2, tiered_moe, router, ep_axes, ffn_part)
     else:
         y = mlp_apply(p["ffn"], h2, cfg.mlp, part=ffn_part)
     if cfg.post_norm:
@@ -523,7 +543,8 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     back for the local slots; ``ep_axes`` runs the MoE layers
     expert-parallel (``params``' expert stacks the rank's blocks);
     ``layout`` gathers the rank's stored param blocks a group at a time, as
-    :func:`decode_step`'s, and partitions a dense decoder over 'model'.
+    :func:`decode_step`'s, and partitions a dense decoder or a MoE arch
+    over 'model'.
     """
     check_ported(cfg)
     mb = _MeshBlocks(layout, None)
@@ -535,9 +556,11 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
         raise ValueError("a lane mask needs per-lane positions "
                          "(init_paged_cache(per_lane_pos=True))")
     x = _embed(cfg, params, token, tiered, head)
-    for lp, lc in zip(params.get("prologue", []), cache.get("prologue", [])):
+    for j, (lp, lc) in enumerate(zip(params.get("prologue", []),
+                                     cache.get("prologue", []))):
         x, _ = _paged_attn_block(lp, cfg, "attn", x, lc, pos, page_t,
-                                 active=active, smesh=smesh)
+                                 active=active, smesh=smesh,
+                                 parts=mb.parts(f"prologue/{j}"))
     masses, routers = [], []
     for g in range(cfg.n_groups):
         group, router = [], []
@@ -552,7 +575,7 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
             x, mass = _paged_attn_block(
                 p, cfg, kind, x, c, pos, page_t, collect_mass, active,
                 tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router,
-                smesh=smesh, ep_axes=ep_axes, parts=mb.parts(i))
+                smesh=smesh, ep_axes=ep_axes, parts=mb.parts(f"blocks/{i}"))
             if mass is not None:
                 group.append(mass)
         masses.append(group)
@@ -609,16 +632,16 @@ def prefill_paged(cfg: ArchConfig, params, cache, tokens, *, page_t: int,
     last = torch.zeros((b, cfg.vocab), dtype=torch.float32,
                        device=tokens.device)
     kv_mass, router = [], []
-    for col in range(c):
+    for j in range(c):
         act = None
         if step_act is not None:
-            if not step_act[:, col].any():
+            if not step_act[:, j].any():
                 kv_mass.append(None)
                 router.append(None)
                 continue
-            act = torch.as_tensor(step_act[:, col], device=tokens.device)
+            act = torch.as_tensor(step_act[:, j], device=tokens.device)
         logits, cache, streams = decode_step_paged(
-            cfg, params, cache, tokens[:, col:col + 1], page_t=page_t,
+            cfg, params, cache, tokens[:, j:j + 1], page_t=page_t,
             return_streams=True, collect_mass=collect_mass, tiered=tiered,
             active=act, ep_axes=ep_axes, smesh=smesh, layout=layout)
         step = logits[:, -1].float()
@@ -681,7 +704,7 @@ def _decode_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
                             rope_theta=cfg.rope_theta,
                             q_lora=cfg.mla.q_lora, kv_lora=cfg.mla.kv_lora,
                             d_nope=cfg.mla.d_nope, d_rope=cfg.mla.d_rope,
-                            d_v=cfg.mla.d_v)
+                            d_v=cfg.mla.d_v, part=parts.get("attn"))
     else:
         o = attn.gqa_decode(p["attn"], h, cache, pos, h=cfg.n_heads,
                             hkv=cfg.n_kv_heads, dh=cfg.head_dim,
@@ -712,7 +735,8 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
     :func:`repro_torch.models.transformer.forward`'s), ``cache_layout``
     (specs without their data axes) a block's cache, which is written back
     to the rank's blocks after it (the reference's partitioner gathers the
-    sequence-split cache a layer at a time); a dense decoder computes its
+    sequence-split cache a layer at a time); a dense decoder or a MoE arch
+    computes its
     share over 'model' (:func:`decode_step_paged`)."""
     check_ported(cfg)
     mb = _MeshBlocks(layout, cache_layout)
@@ -724,7 +748,8 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
                                      cache.get("prologue", []))):
         lc, write_back = mb.cache(lc, None if cache_layout is None
                                   else cache_layout.specs["prologue"][j])
-        x = _decode_attn_block(lp, cfg, "attn", x, lc, pos, ep_axes=ep_axes)
+        x = _decode_attn_block(lp, cfg, "attn", x, lc, pos, ep_axes=ep_axes,
+                               parts=mb.parts(f"prologue/{j}"))
         write_back()
     routers = []
     for g in range(cfg.n_groups):
@@ -742,7 +767,7 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
                     p, cfg, kind, x, c, pos,
                     tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router,
                     kv_src=_cross_source(cfg, kind, aux_embeds), ep_axes=ep_axes,
-                    parts=mb.parts(i))
+                    parts=mb.parts(f"blocks/{i}"))
             write_back()
         routers.append(router)
     x = apply_norm(cfg.norm, params["final_norm"], x)
@@ -780,9 +805,9 @@ def prefill_dense(cfg: ArchConfig, params, cache, tokens, *, aux_embeds=None,
     and ``cache_layout`` as :func:`decode_step`'s."""
     tokens = torch.as_tensor(tokens)
     routers, logits = [], None
-    for col in range(tokens.shape[1]):
+    for j in range(tokens.shape[1]):
         logits, cache, streams = decode_step(
-            cfg, params, cache, tokens[:, col:col + 1], aux_embeds=aux_embeds,
+            cfg, params, cache, tokens[:, j:j + 1], aux_embeds=aux_embeds,
             return_streams=True, tiered=tiered, ep_axes=ep_axes, layout=layout,
             cache_layout=cache_layout)
         routers.append(streams["router"])

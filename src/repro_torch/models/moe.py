@@ -33,7 +33,9 @@ the rank's own (the train step's data-parallel rows, or every token where
 the caller runs replicated); ``dp_axes`` names the axes they arrive split
 over.  The NeoMem-tiered serving arm (``"residency"`` params: only the hot
 experts resident, plus a per-interval fetch buffer of cold ones) runs with
-and without a mesh.
+and without a mesh.  Over 'model' the shared expert is tensor-parallel
+(``part``: ``sh_gate``/``sh_in`` column blocks, ``sh_out`` row blocks,
+the parts summed) while the router stays replicated.
 
 The expert products are plain matrix products here, as the reference
 computes them outside any Pallas kernel.
@@ -48,7 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.dist import collectives as col
 from repro_torch.models.attention import _normal
-from repro_torch.models.layers import DTYPE
+from repro_torch.models.layers import DTYPE, mlp_apply
 from repro_torch.tiering.migrate import lookup_rows
 
 
@@ -274,11 +276,14 @@ class EPContext:
     capacity_factor: float = 2.0
 
 
-def moe_apply_ep(p, x, k: int, *, bias=None, ep_axes: EPContext | None = None):
+def moe_apply_ep(p, x, k: int, *, bias=None, ep_axes: EPContext | None = None,
+                 part=None):
     """One MoE layer over the dense expert weights, capacity-dispatched; on
     one device, or expert-parallel over ``ep_axes`` (``p``'s expert stacks
     then the rank's blocks).  ``"residency"`` params take the NeoMem-tiered
-    serving arm.  Returns (y, expert ids (B,S,k), None)."""
+    serving arm.  ``part`` partitions the shared expert over 'model'
+    (:func:`_shared_expert`; the router stays replicated).  Returns (y,
+    expert ids (B,S,k), None)."""
     e = p["router"].shape[-1]
     b, s, d = x.shape
     combine, midx, router = None, 0, p["router"]
@@ -299,7 +304,7 @@ def moe_apply_ep(p, x, k: int, *, bias=None, ep_axes: EPContext | None = None):
             x_in, router, bias, p["residency"], p["w_gate"], p["w_in"], p["w_out"],
             p["fetch_gate"], p["fetch_in"], p["fetch_out"], p["fetch_ids"],
             k=k, cap=cap, midx=midx, combine=combine)
-        return y + _shared_expert(p, x), idx, None
+        return y + _shared_expert(p, x, part), idx, None
     ws = (p["w_gate"], p["w_in"], p["w_out"])
     cf = 2.0
     if ep_axes is not None:
@@ -310,17 +315,18 @@ def moe_apply_ep(p, x, k: int, *, bias=None, ep_axes: EPContext | None = None):
     y, idx = _ep_local_body(x_in, router, bias, *ws, k=k,
                             cap=_capacity(b * s, k, e, cf), midx=midx,
                             combine=combine)
-    return y + _shared_expert(p, x), idx, None
+    return y + _shared_expert(p, x, part), idx, None
 
 
-def moe_apply_tiered(p, x, k: int, *, bias=None, tier, group_id: int):
+def moe_apply_tiered(p, x, k: int, *, bias=None, tier, group_id: int, part=None):
     """NeoMem-tiered MoE layer (DESIGN.md §10): each selected expert's
     ``[w_gate | w_in | w_out]`` row is read through the experts resource's
     placement table — its fast (device) copy when promoted, the slow store
     otherwise (a miss is slower, never wrong: the tiers are inclusive).
     ``tier`` is the resource's ``{"fast", "slow", "page_slot", "scale"}``
     view, ``group_id`` the layer group (page = group * n_experts + expert).
-    Returns (y, expert ids (B,S,k), router probs)."""
+    ``part`` partitions the shared expert.  Returns (y, expert ids (B,S,k),
+    router probs)."""
     e = p["router"].shape[1]
     gate, idx, probs = router_topk(p, x, k, bias=bias)
     _, d, f = p["w_gate"].shape
@@ -334,11 +340,14 @@ def moe_apply_tiered(p, x, k: int, *, bias=None, tier, group_id: int):
     h = _silu_glu(x, wg, wi, "bsd,bskdf->bskf")
     y = torch.einsum("bskf,bskfd->bskd", h, wo)
     out = torch.einsum("bskd,bsk->bsd", y.float(), gate).to(x.dtype)
-    return out + _shared_expert(p, x), idx, probs
+    return out + _shared_expert(p, x, part), idx, probs
 
 
-def _shared_expert(p, x):
+def _shared_expert(p, x, part=None):
+    """The shared expert, a SwiGLU MLP over every token (zeros where the
+    layer has none); with ``part`` ``sh_gate``/``sh_in`` are the rank's
+    column blocks and ``sh_out`` its row block, the parts summed."""
     if "sh_in" not in p:
         return torch.zeros_like(x)
-    h = F.silu(x @ p["sh_gate"]) * (x @ p["sh_in"])
-    return h @ p["sh_out"]
+    return mlp_apply({"w_gate": p["sh_gate"], "w_in": p["sh_in"],
+                      "w_out": p["sh_out"]}, x, "swiglu", part)

@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import collectives as col
 from repro_torch.dist.sharding import entry_axes, per_group
 from repro_torch.models.attention import (_normal, cross_apply, gqa_apply,
                                           gqa_init, mla_apply, mla_init)
@@ -206,13 +207,13 @@ def _attn_block(p, cfg: ArchConfig, kind: str, x, aux, ep_axes=None, parts=None)
     ``aux["aux_embeds"]`` or a ``dec`` block's over ``aux["enc_out"]``,
     then the MLP or, in a ``moe`` block, the routed experts (expert-parallel
     under ``ep_axes``).  ``parts`` ({"attn", "ffn"}) partitions the
-    self-attention and the MLP over 'model'.  Returns (x, the block's
-    router ids (B, S, k) or None)."""
+    self-attention and the MLP or the shared expert over 'model'.  Returns
+    (x, the block's router ids (B, S, k) or None)."""
     parts = parts or {}
     h = apply_norm(cfg.norm, p["ln1"], x)
     if cfg.mla is not None and kind != "cross":
         o = mla_apply(p["attn"], h, h=cfg.n_heads, rope_theta=cfg.rope_theta,
-                      **dataclasses.asdict(cfg.mla))
+                      part=parts.get("attn"), **dataclasses.asdict(cfg.mla))
     else:
         o = gqa_apply(p["attn"], h, h=cfg.n_heads, hkv=cfg.n_kv_heads,
                       dh=cfg.head_dim, rope_theta=cfg.rope_theta,
@@ -234,7 +235,8 @@ def _attn_block(p, cfg: ArchConfig, kind: str, x, aux, ep_axes=None, parts=None)
     stream = None
     if kind == "moe":
         y, stream, _ = moe_apply_ep(p["ffn"], h2, cfg.moe.top_k,
-                                    bias=p.get("router_bias"), ep_axes=ep_axes)
+                                    bias=p.get("router_bias"), ep_axes=ep_axes,
+                                    part=parts.get("ffn"))
     else:
         y = mlp_apply(p["ffn"], h2, cfg.mlp, part=parts.get("ffn"))
     if cfg.post_norm:
@@ -285,32 +287,64 @@ def _head_part(layout):
     return None if layout is None else layout.part_of("embed")
 
 
+def _parts(layout, block: str) -> dict:
+    """The {"attn", "ffn"} parts of the block at ``block`` (a path such as
+    "prologue/0"), none without a layout."""
+    return {} if layout is None else layout.parts(block)
+
+
 def tensor_parallel(cfg: ArchConfig) -> bool:
-    """The dense decoders, whose attention, MLPs, embedding and head
-    compute their share over 'model' (:func:`model_split`)."""
-    return (cfg.family == "dense" and cfg.moe is None and cfg.mla is None
-            and not cfg.encoder_layers and set(cfg.pattern) <= DENSE_KINDS)
+    """The archs whose attention, MLPs (a MoE arch's dense prologue and
+    shared expert), embedding and head compute their share over 'model'
+    (:func:`model_split`): the dense decoders, and the MoE family (kimi-k2's
+    GQA, deepseek-v3's MLA and MTP head), whose expert stacks run
+    expert-parallel."""
+    dense = (cfg.family == "dense" and cfg.moe is None and cfg.mla is None
+             and set(cfg.pattern) <= DENSE_KINDS)
+    moe = cfg.family == "moe" and set(cfg.pattern) == {"moe"}
+    return (dense or moe) and not cfg.encoder_layers
 
 
-def model_split(cfg: ArchConfig, specs) -> set:
-    """The subtrees of ``specs`` (a params spec tree) that compute split
-    over 'model': for a dense decoder, "embed" where the table's vocab is
-    split, ``blocks/i/attn`` where wq, wk, wv and wo all are, and
-    ``blocks/i/ffn`` where the MLP's matrices all are; nothing for any
-    other arch (its leaves are gathered whole)."""
+def model_split(cfg: ArchConfig, specs, n_model: int = 1) -> set:
+    """The subtrees of ``specs`` (a params spec tree over a mesh whose
+    'model' axis has ``n_model`` ranks) that compute split over 'model',
+    for an arch :func:`tensor_parallel` admits: "embed" where the table's
+    vocab is split; each block's "attn" (under ``blocks/i``,
+    ``prologue/i`` and ``mtp/block``) where its column weights' outputs
+    and ``wo``'s rows all are (MLA: ``wq_a``, ``wq_b``, ``wkv_a`` and
+    ``wkv_b``, and its heads divide the ranks); its "ffn" where the MLP's
+    (or a MoE block's shared expert's) column and row matrices all are;
+    and "mtp/proj" where its columns are.  Nothing for any other arch (its
+    leaves are gathered whole)."""
     if not tensor_parallel(cfg):
         return set()
 
     def split(spec, d):
         return "model" in entry_axes(spec[d])
+
+    def attn(a, lead):
+        cols = ("wq_a", "wq_b", "wkv_a", "wkv_b") if cfg.mla else ("wq", "wk", "wv")
+        heads = cfg.mla is None or cfg.n_heads % n_model == 0
+        return heads and all(split(a[w], -1) for w in cols) and split(a["wo"], lead)
+
+    def ffn(f, lead):
+        cols, row = (("sh_gate", "sh_in"), "sh_out") if "router" in f else \
+            (("w_gate", "w_in"), "w_out")
+        return row in f and all(split(f[w], -1) for w in cols if w in f) \
+            and split(f[row], lead)
+
     out = {"embed"} if split(specs["embed"]["table"], 0) else set()
-    for i, bs in enumerate(specs["blocks"]):
-        a, f = bs["attn"], bs["ffn"]
-        if all(split(a[w], -1) for w in ("wq", "wk", "wv")) and split(a["wo"], 1):
-            out.add(f"blocks/{i}/attn")
-        if all(split(f[w], -1) for w in ("w_gate", "w_in") if w in f) \
-                and split(f["w_out"], 1):
-            out.add(f"blocks/{i}/ffn")
+    blocks = [(f"blocks/{i}", b, 1) for i, b in enumerate(specs["blocks"])]
+    blocks += [(f"prologue/{i}", b, 0) for i, b in enumerate(specs.get("prologue", []))]
+    if "mtp" in specs:
+        blocks.append(("mtp/block", specs["mtp"]["block"], 0))
+        if split(specs["mtp"]["proj"], -1):
+            out.add("mtp/proj")
+    for path, b, lead in blocks:
+        if attn(b["attn"], lead):
+            out.add(f"{path}/attn")
+        if ffn(b["ffn"], lead):
+            out.add(f"{path}/ffn")
     return out
 
 
@@ -330,8 +364,9 @@ def forward(cfg: ArchConfig, params, tokens, *, aux_embeds=None,
     outside the body once, each pattern group's inside its checkpoint, so
     that remat gathers again and runs the partitioned layers' collectives
     again; the subtrees the layout splits over 'model' compute the rank's
-    share (the embedding, each block's attention and MLP); ``ep_axes``
-    runs the MoE layers expert-parallel."""
+    share (the embedding, each block's attention and MLP or shared expert,
+    a MoE arch's dense prologue and MTP head); ``ep_axes`` runs the MoE
+    layers expert-parallel."""
     return _forward(cfg, _top(params, layout), tokens, aux_embeds, remat,
                     ep_axes, layout)
 
@@ -345,8 +380,9 @@ def _forward(cfg: ArchConfig, params, tokens, aux_embeds, remat, ep_axes, layout
         aux["enc_out"] = encode(cfg, params, aux_embeds, ep_axes=ep_axes)
     elif aux_embeds is not None:
         aux["aux_embeds"] = aux_embeds
-    for lp in params.get("prologue", []):
-        x, _ = _attn_block(lp, cfg, "attn_dense", x, aux, ep_axes)
+    for j, lp in enumerate(params.get("prologue", [])):
+        x, _ = _attn_block(lp, cfg, "attn_dense", x, aux, ep_axes,
+                           _parts(layout, f"prologue/{j}"))
     shared = params.get("shared_attn")
     gspecs = None if layout is None else per_group(layout.specs["blocks"])
 
@@ -356,7 +392,7 @@ def _forward(cfg: ArchConfig, params, tokens, aux_embeds, remat, ep_axes, layout
         streams = []
         for i, kind in enumerate(cfg.pattern):
             x, stream = _apply_block(gp[i], shared, cfg, kind, x, aux, ep_axes,
-                                     None if layout is None else layout.parts(i))
+                                     _parts(layout, f"blocks/{i}"))
             if stream is not None:
                 streams.append(stream)
         return x, (torch.stack(streams) if streams else None)
@@ -396,18 +432,28 @@ def train_loss(cfg: ArchConfig, params, batch, *, remat: bool = True,
     metrics = {"loss": loss}
     if cfg.mtp:
         mp = params["mtp"]
-        emb_next = embed_apply(params["embed"], torch.roll(tokens, -1, dims=1))
-        h2 = torch.cat([x, emb_next.to(x.dtype)], dim=-1) @ mp["proj"]
+        emb_next = embed_apply(params["embed"], torch.roll(tokens, -1, dims=1), part)
+        h2 = _mtp_proj(mp["proj"], torch.cat([x, emb_next.to(x.dtype)], dim=-1),
+                       None if layout is None else layout.part_of("mtp/proj"))
         h2, _ = _attn_block(mp["block"], cfg, "attn_dense" if cfg.moe else "attn",
-                            h2, {}, ep_axes)
+                            h2, {}, ep_axes, _parts(layout, "mtp/block"))
         h2 = apply_norm(cfg.norm, mp["norm"], h2)
         mtp_loss = cross_entropy(
-            logits_apply(params["embed"], h2, cfg.final_softcap),
-            torch.roll(labels, -1, dims=1), mask)
+            logits_apply(params["embed"], h2, cfg.final_softcap, part),
+            torch.roll(labels, -1, dims=1), mask, part)
         loss = loss + 0.3 * mtp_loss
         metrics["mtp_loss"] = mtp_loss
         metrics["loss"] = loss
     return loss, (metrics, aux)
+
+
+def _mtp_proj(w, x, part=None):
+    """The MTP head's (2d, d) projection: whole, or with ``part`` the rank's
+    output columns gathered whole over its ranks (their gradients the
+    same on every rank: the residual stream after it is replicated)."""
+    if part is None:
+        return x @ w
+    return col.gather(col.enter(x, part.group) @ w, -1, part.group, reduce=False)
 
 
 def encode(cfg: ArchConfig, params, aux_embeds, *, ep_axes=None):

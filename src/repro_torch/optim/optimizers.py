@@ -13,12 +13,15 @@ leaf whose last two dims exceed 1, and clips its update to RMS 1.
 Over a mesh (:mod:`repro_torch.train.step`) the params are the rank's
 blocks: ``block(i, x)`` takes leaf i's block of a gradient, which AdamW
 applies to the clipped gradient (its m and v are blocks too) and Adafactor
-to the update.  AdamW's gradients may be the rank's blocks themselves
-(their squares summed over the ranks for the norm, ``norm``), Adafactor's
-are whole.  Adafactor's moments rest as blocks too (``vr`` under the
-param's spec without its last dim, ``vc`` without its second last):
-``moments = (whole, blocks)`` gathers every leaf's moments before the
-update and takes the blocks of the new ones.
+to the clipped gradient or, from whole gradients, to the update.  The
+gradients may be the rank's blocks themselves (their squares summed over
+the ranks for the norm, ``norm``); Adafactor then sums its row and column
+means, ``vr``'s mean and the update's RMS over the ranks that split the
+dims they reduce (``groups``).  Adafactor's moments rest as blocks too
+(``vr`` under the param's spec without its last dim, ``vc`` without its
+second last); from whole gradients ``moments = (whole, blocks)`` gathers
+every leaf's moments before the update and takes the blocks of the new
+ones.
 
 The update writes the params and the moments in place and returns them, so
 that a step at full width holds one copy of each: a caller that needs the
@@ -33,6 +36,7 @@ import math
 import torch
 
 from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
+from repro_torch.dist import collectives as col
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,12 +176,36 @@ def adafactor_init(params):
             "step": torch.zeros((), dtype=torch.int32, device=leaves[0].device)}
 
 
+def _mean(x: torch.Tensor, dim, groups, keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dim)`` (every dim where ``dim`` is None) of a block whose
+    dims ``groups`` split (one process group or None per dim of ``x``):
+    where a reduced dim is split, the block's sum summed over its ranks
+    and divided by the whole count."""
+    dims = tuple(range(x.dim())) if dim is None else (dim,)
+    split = [groups[d] for d in dims if groups[d] is not None]
+    if not split:
+        return x.mean() if dim is None else x.mean(dim=dim, keepdim=keepdim)
+    total = x.sum(dim=dims, keepdim=keepdim)
+    n = math.prod(x.shape[d] for d in dims)
+    for group in split:
+        col.all_reduce(total, group)
+        n *= col.group_size(group)
+    return total.div_(n)
+
+
 @torch.no_grad()
 def adafactor_update(cfg: OptConfig, params, grads, state, block=_whole,
-                     moments=None):
+                     moments=None, norm=None, groups=None):
+    """-> (params, state, {"gnorm", "lr"}).  Over a mesh, either the
+    gradients are whole (``moments`` gathers the moments whole and
+    ``block`` takes the update's block), or they are the live blocks
+    (``norm`` as AdamW's) and ``groups(i)`` names, per dim of leaf i's
+    block, the process group that splits it: ``block`` takes the leaf's
+    block of its gradient and the row and column means, ``vr``'s mean and
+    the update's RMS are summed over the ranks of the dims they reduce."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gl, gnorm = clip_by_global_norm(tree_leaves(grads), cfg.grad_clip)
+    gl, gnorm = clip_by_global_norm(tree_leaves(grads), cfg.grad_clip, norm)
     decay = 1.0 - step.float() ** -0.8
     flat_p = tree_leaves(params)
     flat_s = _leaf_states(params, state["s"])
@@ -185,11 +213,14 @@ def adafactor_update(cfg: OptConfig, params, grads, state, block=_whole,
         flat_s = moments[0](flat_s)
     new_s = []
     for i, (p, g, s) in enumerate(zip(flat_p, gl, flat_s)):
+        gs = (None,) * p.dim()
+        if groups is not None:
+            g, gs = block(i, g), groups(i)
         g2 = g * g + 1e-30
         if "vr" in s:
-            vr = decay * s["vr"] + (1 - decay) * g2.mean(dim=-1)
-            vc = decay * s["vc"] + (1 - decay) * g2.mean(dim=-2)
-            r = vr / torch.clamp_min(vr.mean(dim=-1, keepdim=True), 1e-30)
+            vr = decay * s["vr"] + (1 - decay) * _mean(g2, -1, gs)
+            vc = decay * s["vc"] + (1 - decay) * _mean(g2, -2, gs)
+            r = vr / torch.clamp_min(_mean(vr, -1, gs[:-1], keepdim=True), 1e-30)
             u = g / (sqrt(r)[..., None] * sqrt(vc)[..., None, :] + cfg.eps)
             new_s.append({"vr": vr, "vc": vc})
         else:
@@ -197,8 +228,10 @@ def adafactor_update(cfg: OptConfig, params, grads, state, block=_whole,
             u = g / (sqrt(v) + cfg.eps)
             new_s.append({"v": v})
         del g2
-        rms = sqrt((u * u).mean() + 1e-30)           # update clipping
-        u = block(i, u / torch.clamp_min(rms, 1.0))
+        rms = sqrt(_mean(u * u, None, gs) + 1e-30)     # update clipping
+        u = u / torch.clamp_min(rms, 1.0)
+        if groups is None:
+            u = block(i, u)
         u = u + cfg.weight_decay * p.float()
         _apply(p, lr, u)
     if moments is not None:
@@ -218,7 +251,7 @@ def _leaf_states(params, s_tree) -> list:
 
 def make_optimizer(cfg: OptConfig):
     if cfg.kind == "adafactor":
-        return adafactor_init, lambda p, g, s, block=_whole, moments=None: \
-            adafactor_update(cfg, p, g, s, block, moments)
-    return adamw_init, lambda p, g, s, block=_whole, moments=None, norm=None: \
-        adamw_update(cfg, p, g, s, block, norm)
+        return adafactor_init, lambda p, g, s, block=_whole, moments=None, norm=None, \
+            groups=None: adafactor_update(cfg, p, g, s, block, moments, norm, groups)
+    return adamw_init, lambda p, g, s, block=_whole, moments=None, norm=None, \
+        groups=None: adamw_update(cfg, p, g, s, block, norm)

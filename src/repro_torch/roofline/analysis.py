@@ -12,7 +12,8 @@ Per (arch x shape x mesh) cell, from one rank's census
 MODEL_FLOPS is the analytic useful-work count (the reference's formula,
 copied as it is); its ratio to the census total exposes remat, the full
 score matrices of the causal attention and, on the archs that compute
-replicated over 'model' (all but the dense decoders), that replication.  Every number here is analytic: a
+replicated over 'model' (all but the dense decoders and the MoE family),
+that replication.  Every number here is analytic: a
 census of meta tensors over a fake world, for meshes of H100s that no run
 has had.  The hardware model is one NVIDIA H100 SXM a rank, with the
 rates below (each with its source).

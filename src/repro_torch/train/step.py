@@ -26,10 +26,12 @@ data-axis split) and the batch rows are split over the data axes.  Each
 pattern group gathers its weights before it runs
 (:class:`repro_torch.dist.sharding.Layout`, from :func:`compute_layout`):
 over the data axes only for the leaves that compute their share over
-'model' — a dense decoder's embedding and head (vocab-parallel), its
-attention (q/k/v column-parallel, ``wo`` row-parallel, the core split by
-heads or by query rows) and its MLPs (Megatron's column and row
-parallelism), as XLA's partitioner computes the reference's program — and
+'model' — a dense decoder's or a MoE arch's embedding and head
+(vocab-parallel), its attention (GQA's q/k/v or MLA's projections
+column-parallel, ``wo`` row-parallel, the core split by heads or by query
+rows), its MLPs, a MoE arch's dense prologue, shared experts and MTP head
+(Megatron's column and row parallelism), as XLA's partitioner computes
+the reference's program — and
 whole for every other leaf, which computes replicated over 'model', but the
 MoE layers, which run expert-parallel (``_ep_context``).  The gradients
 are summed over the data axes after every microbatch, or once after the
@@ -37,15 +39,18 @@ loop under ``local_grads`` (where the params enter the loop gathered over
 the data axes, and ``grad_compression`` makes that sum
 :func:`repro_torch.dist.compression.compress_psum`), then divided by M
 times the data ranks, so that they equal the single-device gradients of
-the whole batch.  AdamW updates each rank's blocks from the gradients'
-blocks as the loop left them (the norm's squares summed over the ranks
-that hold a leaf's other blocks, :meth:`_Placement.reduce_squares`).
-The gradients are gathered whole first (``full_grads``) for the archs
-that compute replicated over 'model' and where an option needs them whole:
-ZeRO-1, whose flat slices cut across the leaves (the rank's vectors are
-its flat slices, updated a segment at a time in place), the int8+EF link
-of ``grad_compression``, whose ``ef`` is whole, and Adafactor, whose
-factored moments rest as blocks and are gathered whole for the update.
+the whole batch.  AdamW and Adafactor update each rank's blocks from the
+gradients' blocks as the loop left them (the norm's squares summed over
+the ranks that hold a leaf's other blocks,
+:meth:`_Placement.reduce_squares`; Adafactor's row and column means, its
+``vr`` mean and its update's RMS over the ranks of the dims they reduce,
+:meth:`_Placement.dim_groups`; its factored moments rest as blocks).  The
+gradients are gathered whole first (``full_grads``) for the archs that
+compute replicated over 'model' (Adafactor's moments then gathered whole
+for the update) and where an option needs them whole: ZeRO-1, whose flat
+slices cut across the leaves (the rank's vectors are its flat slices,
+updated a segment at a time in place), and the int8+EF link of
+``grad_compression``, whose ``ef`` is whole.
 ``offload_master`` keeps ZeRO-1's vectors in pinned host memory between
 steps and fetches them on a side stream during the backward.
 
@@ -124,17 +129,22 @@ def compute_layout(cfg: ArchConfig, mesh, specs) -> Layout:
     """What a group gathers before it runs, from the specs its leaves are
     held under: everything, but the 'model' split of the expert stacks
     under expert parallelism (a MoE arch) and of the leaves that compute
-    their share (a dense decoder's embedding, attention and MLPs,
-    :func:`repro_torch.models.transformer.model_split`)."""
+    their share (a dense decoder's or a MoE arch's embedding, attention,
+    MLPs and shared experts, :func:`repro_torch.models.transformer.model_split`)."""
     ep = cfg.moe is not None
-    split = tr.model_split(cfg, specs) if "model" in mesh.axis_names else set()
-    heads = tuple(f"{k}/" for k in split)
+    split = (tr.model_split(cfg, specs, mesh.axis_size("model"))
+             if "model" in mesh.axis_names else set())
 
     def spec(p, s):
-        if (ep and _expert_stack(p, s)) or p.startswith(heads):
+        if (ep and _expert_stack(p, s)) or _under(p, split):
             return drop_axes(s, ("model",))
         return s
     return Layout(mesh, tree_map_with_path(spec, specs), split)
+
+
+def _under(path: str, subtrees) -> bool:
+    """Whether leaf ``path`` is one of ``subtrees`` or inside one."""
+    return any(path == k or path.startswith(f"{k}/") for k in subtrees)
 
 
 def split_counts(layout: Layout, stored) -> tuple[int, int]:
@@ -142,13 +152,12 @@ def split_counts(layout: Layout, stored) -> tuple[int, int]:
     over 'model') of the params stored under ``stored`` (a spec tree):
     the leaves split over 'model' at rest, but the expert stacks, which
     stay split for the expert-parallel body."""
-    heads = tuple(f"{k}/" for k in layout.split)
     kept = dict(_spec_items(layout.specs))
     n_split = n_gathered = 0
     for p, s in _spec_items(stored):
-        if not _has_model(s):
+        if not _has_model(s) or _expert_stack(p, s):
             continue
-        if p.startswith(heads):
+        if _under(p, layout.split):
             n_split += 1
         elif _has_model(kept[p]):
             n_gathered += 1
@@ -187,10 +196,10 @@ class _Placement:
         self.zspec = zero1.flat_spec(shapes, mesh.size) if tcfg.zero1 else None
         self.moment_specs = [moment_specs(x.shape, sp) for x, sp in
                              zip(tree_leaves(shapes), self.stored_leaves)]
-        # the update reads whole gradients where ZeRO-1's flat slices, the
-        # int8+EF link or Adafactor's factored moments need them, and for
-        # every arch that computes replicated over 'model'
-        self.whole = (tcfg.zero1 or tcfg.grad_compression or tcfg.opt.kind == "adafactor"
+        # the update reads whole gradients where ZeRO-1's flat slices or
+        # the int8+EF link need them, and for every arch that computes
+        # replicated over 'model'
+        self.whole = (tcfg.zero1 or tcfg.grad_compression
                       or not tr.tensor_parallel(cfg))
         self.local = tcfg.local_grads
         # the wire bytes of the whole float32 gradients (``dp_psum_bytes``)
@@ -240,6 +249,17 @@ class _Placement:
                 by_axes.setdefault(axes, []).append(sq)
         for axes, group in by_axes.items():
             col.all_reduce_many(group, self.mesh.group(axes))
+
+    def dim_groups(self, i: int) -> tuple:
+        """Per dim of leaf i's stored block, the process group of the ranks
+        that hold its other blocks along that dim, or None where the dim is
+        whole (Adafactor's means over a split dim)."""
+        out = []
+        for e in self.stored_leaves[i]:
+            axes = entry_axes(e)
+            out.append(self.mesh.group(axes) if axes and self.mesh.axis_size(axes) > 1
+                       else None)
+        return tuple(out)
 
     def moments(self):
         """Adafactor's ``moments`` hooks: every leaf's moments gathered
@@ -502,7 +522,8 @@ def build_train_step(cfg: ArchConfig, mesh=None, tcfg: TrainConfig = TrainConfig
                                                moments=place.moments())
         else:
             params, opt_state, om = opt_update(params, grads, opt_state, place.from_live,
-                                               norm=place.reduce_squares)
+                                               norm=place.reduce_squares,
+                                               groups=place.dim_groups)
         new_state.update(params=params, opt=opt_state, prof=prof)
         return new_state, {"loss": loss, **om, **metrics}
 

@@ -135,8 +135,12 @@ def _attention_inputs(softcap):
 
 
 # (arch, mesh) of the decode and serving-cell checks: llama's 4/2 heads do
-# not divide the (2, 4) mesh's 4 'model' ranks, gemma2's divide the (4, 2)'s 2
-DECODE_CASES = [(LLAMA, "2x4"), ("gemma2-27b", "4x2")]
+# not divide the (2, 4) mesh's 4 'model' ranks, gemma2's divide the (4, 2)'s
+# 2; deepseek-v3's MLA (4 heads, one a rank) and kimi-k2's GQA (4/2 heads:
+# query rows) with their dense prologue and shared expert, experts
+# expert-parallel
+DECODE_CASES = [(LLAMA, "2x4"), ("gemma2-27b", "4x2"), ("deepseek-v3-671b", "2x4"),
+                ("kimi-k2-1t-a32b", "2x4")]
 DECODE_IDS = [f"{a}@{m}" for a, m in DECODE_CASES]
 
 
@@ -169,7 +173,14 @@ TP_CASES = {
     "mlp-gelu": ("mlp", dict(mlp="gelu")),
     "head": ("head", dict(softcap=0.0)),
     "head-softcap": ("head", dict(softcap=3.0)),
+    # MLA (4 heads, one a rank; wkv_a's 12 columns in blocks of 3, rank 2's
+    # straddling the 8 | 4 latent | rope border), its dense-cache decode,
+    # and a MoE layer's shared expert
+    "mla": ("mla", dict(s=8)),
+    "mla-decode": ("mla-decode", dict(s=1)),
+    "shared-expert": ("shared", dict()),
 }
+MLA_DIMS = dict(h=4, q_lora=8, kv_lora=8, d_nope=4, d_rope=4, d_v=4)
 
 
 def _tp_inputs(case):
@@ -185,6 +196,25 @@ def _tp_inputs(case):
         ct = {"labels": labels, "tokens": r.integers(0, v, (b, s)).astype(np.int32),
               "mask": (r.random((b, s)) < 0.7).astype(np.float32)}
         return p, n(b, s, d), ct, dict(softcap=c["softcap"])
+    if kind in ("mla", "mla-decode"):
+        m = MLA_DIMS
+        p = {"wq_a": n(d, m["q_lora"]),
+             "q_norm": r.normal(1, 0.1, m["q_lora"]).astype(np.float32),
+             "wq_b": n(m["q_lora"], m["h"] * (m["d_nope"] + m["d_rope"])),
+             "wkv_a": n(d, m["kv_lora"] + m["d_rope"]),
+             "kv_norm": r.normal(1, 0.1, m["kv_lora"]).astype(np.float32),
+             "wkv_b": n(m["kv_lora"], m["h"] * (m["d_nope"] + m["d_v"])),
+             "wo": n(m["h"] * m["d_v"], d)}
+        if kind == "mla":
+            return p, n(b, c["s"], d), n(b, c["s"], d), dict(m)
+        smax = 8
+        cache = {"c_kv": n(b, smax, m["kv_lora"]), "k_rope": n(b, smax, m["d_rope"]),
+                 "pos": 5}
+        return p, n(b, 1, d), cache, dict(m)
+    if kind == "shared":
+        f = 8
+        return ({"sh_gate": n(d, f), "sh_in": n(d, f), "sh_out": n(f, d)},
+                n(b, 5, d), n(b, 5, d), {})
     if kind == "mlp":
         f = 8
         p = {"w_in": n(d, f), "w_out": n(f, d)}
@@ -440,8 +470,8 @@ def test_sharded_paged_decode_matches_reference(world, arch, mesh):
         assert np.abs(got["k_pages"] - np.asarray(blk["k_pages"])).max() <= 1e-5
         assert np.abs(got["logits"] - np.stack(logits)).max() <= 1e-5
         assert np.abs(got["kv_mass"] - np.stack(masses)).max() <= 1e-6
-    for key in ("k_pages", "v_pages"):    # the first group's rows see no attention
-        np.testing.assert_array_equal(res["sharded"][key][0], res["meshless"][key][0])
+    for key in ("first_k", "first_v"):    # the first ring's rows see no attention
+        np.testing.assert_array_equal(res["sharded"][key], res["meshless"][key])
 
 
 @pytest.mark.parametrize("arch,mesh", DECODE_CASES, ids=DECODE_IDS)
@@ -463,8 +493,7 @@ def test_dry_run_serving_cells_match_meshless_and_reference(world, arch, mesh):
         lg, cache = step(params, cache, jnp.asarray(tokens[:, t:t + 1]))
         logits.append(np.asarray(lg))
     want = {"prefill": np.asarray(want_pre), "logits": np.stack(logits),
-            "k": np.asarray(cache["blocks"][0]["k"]),
-            "v": np.asarray(cache["blocks"][0]["v"])}
+            **{k: np.asarray(v) for k, v in cache["blocks"][0].items()}}
     for rank in range(tw.WORLD):
         res = _result(world, f"cells_{arch}@{mesh}", rank)
         for key in ("prefill", "logits"):
@@ -486,11 +515,22 @@ def test_dry_run_serving_cells_match_meshless_and_reference(world, arch, mesh):
 def test_partitioned_layers_match_reference(world, case):
     """Each partitioned form over 4 'model' ranks against the reference's
     layer on the whole weights: the output and every gradient (the
-    weights' blocks gathered, the replicated biases' and the input's as
-    each rank holds them) within 1e-5 of ``jax.grad``, on every rank."""
+    weights' blocks gathered, the replicated biases' and norms' and the
+    input's as each rank holds them) within 1e-5 of ``jax.grad``, on every
+    rank; MLA's decode (no gradient) its output and the latent and rope
+    key it wrote into the cache within 1e-5."""
     kind, _ = TP_CASES[case]
     p, x, ct, kw = _tp_inputs(case)
     jp, jx = jax.tree.map(jnp.asarray, p), jnp.asarray(x)
+    if kind == "mla-decode":
+        cache = {k: jnp.asarray(ct[k]) for k in ("c_kv", "k_rope")}
+        y, cache = j_attn.mla_decode(jp, jx, cache, ct["pos"], **kw)
+        for rank in range(tw.WORLD):
+            res = _result(world, f"tp_{case}", rank)
+            for key, want in (("y", y), ("c_kv", cache["c_kv"]),
+                              ("k_rope", cache["k_rope"])):
+                assert np.abs(res[key] - np.asarray(want)).max() <= 1e-5, (rank, key)
+        return
     if kind == "head":
         def f(p, x):
             logits = j_layers.logits_apply(p, x, kw["softcap"])
@@ -499,9 +539,13 @@ def test_partitioned_layers_match_reference(world, case):
             emb = j_layers.embed_apply(p, jnp.asarray(ct["tokens"]))
             return loss + jnp.sum(emb * x), (loss, logits)
     else:
+        layer = {"attn": lambda p, x: j_attn.gqa_apply(p, x, **kw),
+                 "mla": lambda p, x: j_attn.mla_apply(p, x, **kw),
+                 "shared": j_moe._shared_expert,
+                 "mlp": lambda p, x: j_layers.mlp_apply(p, x, kw["mlp"])}[kind]
+
         def f(p, x):
-            y = (j_attn.gqa_apply(p, x, **kw) if kind == "attn"
-                 else j_layers.mlp_apply(p, x, kw["mlp"]))
+            y = layer(p, x)
             return jnp.sum(y * ct), (y, None)
     (_, (y, logits)), (gp, gx) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(jp, jx)
     want = dict(_np_tree(gp), x=np.asarray(gx))

@@ -61,6 +61,7 @@ from repro_torch.train import step as t_step  # noqa: E402
 import torch_dist_world as tw  # noqa: E402
 
 LLAMA, KIMI, GEMMA = "llama3.2-3b", "kimi-k2-1t-a32b", "gemma2-27b"
+DEEPSEEK = "deepseek-v3-671b"
 MESH_DP = {"2x4": 2, "4x1": 4, "4x2": 4}
 MESH_SIZE = {"2x4": 8, "4x1": 4, "4x2": 8}
 # steps that move the params: lr 1e-2 from step 1, and an eps that keeps
@@ -81,9 +82,18 @@ CASES = {
 }
 CASES.update({f"gemma2-{case}": (GEMMA,) + CASES[case][1:]
               for case in ("fsdp", "local", "zero1", "adafactor")})
-# leaves that compute their share over 'model' (embedding table, q/k/v/o
-# and the MLP's three matrices of each pattern position)
-SPLIT_LEAVES = {LLAMA: 1 + 7, GEMMA: 1 + 2 * 7, KIMI: 0}
+# deepseek-v3 under Adafactor, the dry run's optimizer for the MoE archs:
+# MLA, the dense prologue, the shared expert and the MTP head partitioned,
+# the experts expert-parallel, the factored moments updated from blocks
+CASES["deepseek-adafactor"] = (DEEPSEEK, dict(fsdp=True), dict(FAST, kind="adafactor"))
+# leaves that compute their share over 'model': the embedding table, q/k/v/o
+# and the MLP's three matrices of each pattern position; a MoE arch's
+# attention (GQA's q/k/v/o, MLA's wq_a/wq_b/wkv_a/wkv_b/wo) and MLP of each
+# prologue layer, each MoE block's attention and shared expert
+# (sh_gate/sh_in/sh_out), and deepseek-v3's MTP projection and block
+SPLIT_LEAVES = {LLAMA: 1 + 7, GEMMA: 1 + 2 * 7, KIMI: 1 + (4 + 3) + (4 + 3),
+                DEEPSEEK: 1 + (5 + 3) + (5 + 3) + 1 + (5 + 3)}
+MOE_ARCHS = (KIMI, DEEPSEEK)
 
 
 # the data-parallel reduce's cases on both meshes; the rest on (2, 4) (the
@@ -91,7 +101,7 @@ SPLIT_LEAVES = {LLAMA: 1 + 7, GEMMA: 1 + 2 * 7, KIMI: 0}
 MESHES = {"fsdp": ("2x4",), "local": ("2x4", "4x1"), "local-int8": ("2x4", "4x1"),
           "zero1": ("2x4",), "adafactor": ("2x4",), "kimi-ep": ("2x4",),
           "gemma2-fsdp": ("4x2",), "gemma2-local": ("4x2",), "gemma2-zero1": ("4x2",),
-          "gemma2-adafactor": ("4x2",)}
+          "gemma2-adafactor": ("4x2",), "deepseek-adafactor": ("2x4",)}
 
 
 def _runs():
@@ -135,6 +145,12 @@ def _checks():
                     dict(mesh=mesh, arch=arch, params=_params(arch),
                          batches=list(_batches(get_smoke_config(arch).vocab)),
                          kw=_kw(case), opt=opt)))
+    for arch in MOE_ARCHS:
+        vocab = get_smoke_config(arch).vocab
+        out.append((f"one_rank_{arch}", "check_one_rank",
+                    dict(arch=arch, params=_params(arch), batches=list(_batches(vocab)),
+                         prompt=np.random.default_rng(22).integers(0, vocab, (2, 8))
+                         .astype(np.int32))))
     return out
 
 
@@ -302,7 +318,7 @@ def test_train_step_over_a_mesh_matches_single_device(world, name, case, mesh):
             assert diff.max() <= quantum and (diff > 1e-6).mean() < 0.01
     else:
         metrics, params, sketch = _reference(case, mesh)
-        if case == "kimi-ep":
+        if arch in MOE_ARCHS:
             for a, b in zip(res["sketch"], sketch):
                 np.testing.assert_array_equal(a, b)
             assert int(res["sketch"][3]) == 2 * 8 * 32 * 2 * get_smoke_config(arch).n_groups
@@ -317,9 +333,8 @@ def test_train_step_over_a_mesh_matches_single_device(world, name, case, mesh):
         if "collective_bytes" in want:
             assert got["collective_bytes"] == want["collective_bytes"]
     assert ("dp_psum_bytes" in res["metrics"][0]) == _kw(case).get("local_grads", False)
-    n_split, n_gathered = res["split"]      # kimi-k2 gathers its attention whole
-    assert n_split == SPLIT_LEAVES[arch] and (n_gathered > 0) == (arch == KIMI), \
-        res["split"]
+    n_split, n_gathered = res["split"]      # every arch here is partitioned
+    assert n_split == SPLIT_LEAVES[arch] and n_gathered == 0, res["split"]
     for a, b in zip(res["params"], params):
         _close(a, b, "params")
     # the port's meshless step holds to the same bounds (its compressed
@@ -332,7 +347,7 @@ def test_train_step_over_a_mesh_matches_single_device(world, name, case, mesh):
         from repro_torch.ckpt.manager import tree_leaves
         for a, b in zip(tree_leaves(mstate["params"]), res["params"]):
             _close(a.numpy(), b, "meshless params")
-    if case == "kimi-ep":
+    if arch in MOE_ARCHS:
         prof = mstate["prof"]
         mine = [getattr(prof.sketch, f).numpy() for f in ("counts", "epochs", "hot",
                                                           "n_seen")]
@@ -357,3 +372,17 @@ def test_every_rank_holds_the_same_step(world):
             if rank in (3, 4, 7):
                 for a, b in zip(other["params"], base["params"]):
                     np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_one_model_rank_is_the_meshless_arithmetic(world, arch):
+    """At one 'model' rank every partitioned form is the meshless
+    arithmetic op for op: two train steps over a (1, 1) mesh, AdamW and
+    Adafactor (from blocks), every param bitwise the meshless step's (the
+    expert-parallel body off: its ``enter`` regroups x's gradient sum, so
+    with it the params agree to ~1e-7, as the cases above hold); the
+    partitioned paged prefill and decode, dense prefill and prefill, the
+    experts expert-parallel, every logit and cache leaf bitwise."""
+    res = _result(world, f"one_rank_{arch}")
+    assert res["adamw"] == 0 and res["adafactor"] == 0, res
+    assert res["serve"] == 0 and res["n_serve"] > 10, res

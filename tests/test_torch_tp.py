@@ -1,28 +1,33 @@
 """Tensor parallelism over 'model' against the reference's partitioned
 program: per-rank FLOPs of the same step on the same meshes.
 
-The step is llama3.2-3b at full width, cut to 2 layers and a 4,096-token
-vocab, with the default ``TrainConfig()`` (AdamW, one microbatch, remat)
-and a batch of (world size) x 512 tokens.  Three subprocesses run at once:
+The steps are at full width, cut in depth and vocab, with the default
+``TrainConfig()`` (AdamW, one microbatch, remat): llama3.2-3b (2 layers, a
+4,096-token vocab, a batch of (world size) x 512 tokens), kimi-k2 (GQA,
+64/8 heads) and deepseek-v3 (MLA, 128 heads, MTP) with 2 layers (1 dense
+prologue, 1 MoE) of 16 experts, the same vocab and a batch of (world size)
+rows of 256 tokens (128 on 16 devices).  Three subprocesses run at once:
 
 * the reference, lowered and compiled by XLA over 8 and 16 forced host
   devices (``make_host_mesh(model=m)``, ``state_shardings``,
   ``batch_shardings``, the jitted ``build_train_step``; the dense-cache
-  ``decode_step`` over a 512-token cache with ``param_pspecs`` and
-  ``cache_pspecs``), each compiled program read by
-  ``repro.roofline.census`` (FLOPs per device from the HLO);
+  ``decode_step`` over a 512-token cache with ``param_pspecs``,
+  ``cache_pspecs`` and, a MoE arch, the dry run's ``EPContext``), each
+  compiled program read by ``repro.roofline.census`` (FLOPs per device
+  from the HLO);
 * the port, as rank 0 of a fake world of 8 or 16 ranks on meta tensors,
   each step once under ``repro_torch.roofline.census``, with every
   ``torch.distributed`` collective it issues counted beside the census.
 
 Held: the port's FLOPs a rank within 5% of the reference's a device on the
 8 x 1, 2 x 4 and 1 x 16 meshes (equal on 8 x 1, where nothing is split;
-before the partitioned forms they were 4.00x on 2 x 4 and 16.0x on
-1 x 16); every collective the port issues over more than one rank is in
-its census, by op, with its bytes.  The decode step's core attends
-replicated on gathered q, k and v (``models/attention.py``): its
-per-rank FLOPs exceed the reference's by exactly the core's
-(n - 1) / n share.
+before the partitioned forms llama's were 4.00x on 2 x 4 and 16.0x on
+1 x 16, kimi-k2's 2.38x and 7.85x, deepseek-v3's 2.92x and 10.55x); every
+collective the port issues over more than one rank is in its census, by
+op, with its bytes.  The decode step's core attends replicated on
+gathered q, k and v, MLA's on the gathered absorbed query
+(``models/attention.py``): its per-rank FLOPs exceed the reference's by
+exactly the core's (n - 1) / n share.
 """
 import json
 import os
@@ -36,15 +41,28 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SEQ, CACHE = 512, 512             # a batch row's tokens; the decode cache
+CACHE = 512                       # the decode cache
+LLAMA, KIMI, DEEPSEEK = "llama3.2-3b", "kimi-k2-1t-a32b", "deepseek-v3-671b"
 TRAIN_MESHES = ("8x1", "2x4", "1x16")
-DECODE_MESHES = ("8x1", "2x4")
+TRAIN_CELLS = [(arch, mesh) for arch in (LLAMA, KIMI, DEEPSEEK) for mesh in TRAIN_MESHES]
+DECODE_CELLS = [(LLAMA, "8x1"), (LLAMA, "2x4"), (DEEPSEEK, "2x4")]
 
 PRELUDE = """
 import dataclasses, json, os, sys
-CFG = dict(n_layers=2, vocab=4096)
-SEQ, CACHE = %d, %d
-""" % (SEQ, CACHE)
+CACHE = %d
+CUT = dict(n_layers=2, vocab=4096)
+MOE_CUT = dict(n_dense_prologue=1, n_experts=16)
+
+def config(get_config, arch):
+    base = get_config(arch)
+    if base.moe is None:
+        return dataclasses.replace(base, **CUT)
+    return dataclasses.replace(base, moe=dataclasses.replace(base.moe, **MOE_CUT), **CUT)
+
+def seq(cfg, world):
+    # a batch row's tokens: llama's 512; the MoE archs' 256, 128 on 16 devices
+    return 512 if cfg.moe is None else 256 if world <= 8 else 128
+""" % CACHE
 
 REFERENCE = PRELUDE + textwrap.dedent("""
     n, jobs = int(sys.argv[1]), json.loads(sys.argv[2])
@@ -60,15 +78,15 @@ REFERENCE = PRELUDE + textwrap.dedent("""
     from repro.roofline.census import census
     from repro.train import step as ts
 
-    cfg = dataclasses.replace(get_config("llama3.2-3b"), **CFG)
     out = {}
-    for model, what in jobs:
+    for arch, model, what in jobs:
+        cfg = config(get_config, arch)
         mesh = make_host_mesh(model=model)
         if what == "train":
             tcfg = ts.TrainConfig()
             state = ts.make_state_shapes(cfg, tcfg)
             ssh = ts.state_shardings(state, mesh)
-            batch = {k: jax.ShapeDtypeStruct((n, SEQ), jnp.int32)
+            batch = {k: jax.ShapeDtypeStruct((n, seq(cfg, n)), jnp.int32)
                      for k in ("tokens", "labels")}
             fn = jax.jit(ts.build_train_step(cfg, mesh, tcfg),
                          in_shardings=(ssh, ts.batch_shardings(cfg, mesh, False)),
@@ -85,12 +103,13 @@ REFERENCE = PRELUDE + textwrap.dedent("""
                                                           dtype=jnp.bfloat16))
             token = jax.ShapeDtypeStruct((n, 1), jnp.int32,
                                          sharding=NamedSharding(mesh, batch_pspec(mesh)))
-            fn = jax.jit(lambda p, c, t: dec.decode_step(cfg, p, c, t)[0])
+            ep = ts._ep_context(cfg, mesh)      # the dry run's decode cell's
+            fn = jax.jit(lambda p, c, t: dec.decode_step(cfg, p, c, t, ep_axes=ep)[0])
             args = (placed(params, param_pspecs(params, mesh)),
                     placed(cache, cache_pspecs(cache, mesh)), token)
         with mesh:
             text = fn.lower(*args).compile().as_text()
-        out[f"{n // model}x{model}|{what}"] = census(text)
+        out[f"{arch}|{n // model}x{model}|{what}"] = census(text)
     json.dump(out, open(sys.argv[3], "w"))
 """)
 
@@ -125,9 +144,9 @@ PORT = PRELUDE + textwrap.dedent("""
     from repro_torch.roofline.census import census
     from repro_torch.train import step as ts
 
-    cfg = dataclasses.replace(get_config("llama3.2-3b"), **CFG)
     out = {}
-    for name, what in json.loads(sys.argv[1]):
+    for arch, name, what in json.loads(sys.argv[1]):
+        cfg = config(get_config, arch)
         data, model = (int(x) for x in name.split("x"))
         n = data * model
         fake_world(n)
@@ -135,20 +154,31 @@ PORT = PRELUDE + textwrap.dedent("""
         if what == "train":
             tcfg = ts.TrainConfig()
             state = ts.make_state_shapes(cfg, tcfg)
-            batch = {k: torch.empty((n, SEQ), dtype=torch.int32, device="meta")
+            batch = {k: torch.empty((n, seq(cfg, n)), dtype=torch.int32, device="meta")
                      for k in ("tokens", "labels")}
             args = (local_args(state, ts.state_specs(state, mesh), mesh),
                     local_args(batch, {k: batch_pspec(mesh) for k in batch}, mesh))
             fn = ts.build_train_step(cfg, mesh, tcfg)
         else:
-            cell = cell_specs("llama3.2-3b", "decode_32k", mesh, cfg=cfg, batch=n,
-                              seq=CACHE)
+            cell = cell_specs(arch, "decode_32k", mesh, cfg=cfg, batch=n, seq=CACHE)
             fn, args = cell["fn"], cell["args"]
         issued.clear()
         _, counts = census(fn, *args)
-        out[f"{name}|{what}"] = dict(counts, issued=dict(issued))
+        out[f"{arch}|{name}|{what}"] = dict(counts, issued=dict(issued))
     json.dump(out, open(sys.argv[2], "w"))
 """)
+
+
+def _jobs(world):
+    """The reference's (arch, model ranks, what) jobs over ``world`` devices."""
+    cells = [(a, m, "train") for a, m in TRAIN_CELLS] + [(a, m, "decode")
+                                                        for a, m in DECODE_CELLS]
+    out = []
+    for arch, mesh, what in cells:
+        data, model = (int(x) for x in mesh.split("x"))
+        if data * model == world:
+            out.append([arch, model, what])
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -159,12 +189,11 @@ def runs():
                JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     jobs = {
-        "ref8": [sys.executable, "-c", REFERENCE, "8",
-                 json.dumps([[1, "train"], [4, "train"], [1, "decode"], [4, "decode"]])],
-        "ref16": [sys.executable, "-c", REFERENCE, "16", json.dumps([[16, "train"]])],
+        "ref8": [sys.executable, "-c", REFERENCE, "8", json.dumps(_jobs(8))],
+        "ref16": [sys.executable, "-c", REFERENCE, "16", json.dumps(_jobs(16))],
         "port": [sys.executable, "-c", PORT,
-                 json.dumps([[m, "train"] for m in TRAIN_MESHES]
-                            + [[m, "decode"] for m in DECODE_MESHES])],
+                 json.dumps([[a, m, "train"] for a, m in TRAIN_CELLS]
+                            + [[a, m, "decode"] for a, m in DECODE_CELLS])],
     }
     procs, paths = {}, {}
     for name, cmd in jobs.items():
@@ -181,8 +210,8 @@ def runs():
                 done[name] = json.load(f)
         return done[name]
 
-    def get(mesh, what):
-        key = f"{mesh}|{what}"
+    def get(arch, mesh, what):
+        key = f"{arch}|{mesh}|{what}"
         ref = result("ref16" if mesh == "1x16" else "ref8")[key]
         return ref, result("port")[key]
     yield get
@@ -192,22 +221,27 @@ def runs():
             p.communicate()
 
 
-@pytest.mark.parametrize("mesh", TRAIN_MESHES)
-def test_train_flops_per_rank_match_the_partitioned_reference(runs, mesh):
-    ref, port = runs(mesh, "train")
+def _ids(cells):
+    return [f"{arch}@{mesh}" for arch, mesh in cells]
+
+
+@pytest.mark.parametrize("arch,mesh", TRAIN_CELLS, ids=_ids(TRAIN_CELLS))
+def test_train_flops_per_rank_match_the_partitioned_reference(runs, arch, mesh):
+    ref, port = runs(arch, mesh, "train")
     want, got = ref["flops_per_device"], port["flops_per_device"]
     assert abs(got - want) <= 0.05 * want, (mesh, got / want)
     if mesh == "8x1":                  # nothing split: the same work exactly
         assert abs(got - want) <= 1e-6 * want, got / want
 
 
-@pytest.mark.parametrize("mesh", TRAIN_MESHES)
-def test_every_collective_the_port_issues_is_in_its_census(runs, mesh):
+@pytest.mark.parametrize("arch,mesh", TRAIN_CELLS, ids=_ids(TRAIN_CELLS))
+def test_every_collective_the_port_issues_is_in_its_census(runs, arch, mesh):
     """Every collective over more than one rank, by op: the census's count
     equals the calls the port made, with bytes; over 'model' the step
-    sums the row-parallel parts (all-reduce) and, where llama's 24/8 heads
-    do not divide 16, exchanges the attention's query rows (all-to-all)."""
-    _, port = runs(mesh, "train")
+    sums the row-parallel parts (all-reduce) and, where the kv heads do
+    not divide 16 (llama's 24/8, kimi-k2's 64/8), exchanges the
+    attention's query rows (all-to-all)."""
+    _, port = runs(arch, mesh, "train")
     coll, issued = port["collectives"], port["issued"]
     assert {op: rec["count"] for op, rec in coll.items()} == issued, (coll, issued)
     assert all(rec["bytes"] > 0 for rec in coll.values()), coll
@@ -215,8 +249,9 @@ def test_every_collective_the_port_issues_is_in_its_census(runs, mesh):
     if mesh != "8x1":
         assert coll["all-reduce"]["count"] > 0
     if mesh == "1x16":
-        assert coll["all-to-all"]["count"] > 0
         assert set(port["collective_bytes_by_ranks"]) == {"16"}
+        if arch != DEEPSEEK:           # MLA splits by heads, 128 / 16
+            assert coll["all-to-all"]["count"] > 0
 
 
 def test_decode_core_is_replicated_over_model(runs):
@@ -224,10 +259,10 @@ def test_decode_core_is_replicated_over_model(runs):
     2 x 4 the port's exceed them by the attention core's (n - 1) / n share
     (the core runs whole on every 'model' rank, the projections, MLP and
     head split as the reference's)."""
-    ref, port = runs("8x1", "decode")
+    ref, port = runs(LLAMA, "8x1", "decode")
     assert abs(port["flops_per_device"] - ref["flops_per_device"]) \
         <= 1e-6 * ref["flops_per_device"]
-    ref, port = runs("2x4", "decode")
+    ref, port = runs(LLAMA, "2x4", "decode")
     rows, n, layers, width = 4, 4, 2, 24 * 128       # a data rank's rows
     core = layers * 2 * (2 * rows * CACHE * width)   # QK^T and PV over the cache
     extra = port["flops_per_device"] - ref["flops_per_device"]
@@ -236,6 +271,24 @@ def test_decode_core_is_replicated_over_model(runs):
           f"reference {ref['flops_per_device']:.6g}, ratio "
           f"{port['flops_per_device'] / ref['flops_per_device']:.4f}; the core "
           f"{core:.6g} a rank against {core / n:.6g} ({n:.1f}x)")
+
+
+def test_mla_decode_core_is_replicated_over_model(runs):
+    """deepseek-v3's dense-cache decode on 2 x 4 (MLA, the experts
+    expert-parallel as the dry run's cell): the port's FLOPs a rank exceed
+    the reference's by exactly the absorbed core's (n - 1) / n share, its
+    latent scores, rope scores and latent output over the cache, the rest
+    (the projections, the heads' absorption, the shared expert, the
+    experts, the head) split as the reference's."""
+    ref, port = runs(DEEPSEEK, "2x4", "decode")
+    rows, n, layers, heads = 4, 4, 2, 128
+    kv_lora, d_rope = 512, 64
+    core = layers * 2 * rows * heads * CACHE * (2 * kv_lora + d_rope)
+    extra = port["flops_per_device"] - ref["flops_per_device"]
+    assert abs(extra - core * (n - 1) / n) <= 1e-3 * core, (extra, core)
+    print(f"deepseek-v3 decode step FLOPs a rank on 2 x 4: port "
+          f"{port['flops_per_device']:.6g}, reference {ref['flops_per_device']:.6g}; "
+          f"the core {core:.6g} a rank against {core / n:.6g}")
 
 
 @pytest.mark.parametrize("window", [0, 5])

@@ -119,6 +119,10 @@ class _Meshes:
                 dm = init_device_mesh("cpu", (2, 4, 1),
                                       mesh_dim_names=("rep", "data", "model"))
                 m = Mesh(dm["data", "model"])
+            elif name == "1x1":        # every rank a (1, 1) mesh of its own
+                dm = init_device_mesh("cpu", (WORLD, 1, 1),
+                                      mesh_dim_names=("rep", "data", "model"))
+                m = Mesh(dm["data", "model"])
             else:
                 raise KeyError(name)
             self._built[name] = m
@@ -242,15 +246,18 @@ def check_sharded_decode(meshes, params, tokens, n_slots, page_t,
     """decode_step_paged with the ring's slots over ``mesh``'s 'model'
     ranks, float32, one teacher-forced token column a step; as the dry
     run's long_500k cell runs it (the slots over both axes, the params
-    stored under param_pspecs, a group gathered before it runs and, a dense
-    decoder, partitioned over 'model': ``layout``); and the same steps
-    without a mesh."""
+    stored under param_pspecs, a group gathered before it runs and
+    partitioned over 'model', ``layout``, a MoE arch's experts
+    expert-parallel); and the same steps without a mesh.  ``first_k`` /
+    ``first_v`` are the first ring's pages (a MoE arch's first prologue
+    layer, else the body's first group), which no attention output
+    reaches."""
     import torch
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.dist.collectives import all_gather
     from repro_torch.dist.sharding import cache_pspecs, param_pspecs
     from repro_torch.models import decode as dec
-    from repro_torch.train.step import compute_layout
+    from repro_torch.train.step import _ep_context, compute_layout
     cfg = get_smoke_config(arch)
     mesh = meshes(mesh)
     p = _tree_t(params)
@@ -264,26 +271,31 @@ def check_sharded_decode(meshes, params, tokens, n_slots, page_t,
                                      device="cpu")
         if smesh:
             cache = _place(cache, cache_pspecs(cache, mesh, slot_axes=axes), mesh)
-        pp, layout = p, None
+        pp, layout, ep = p, None, None
         if stored:
             pspecs = param_pspecs(p, mesh)
             pp, layout = _place(p, pspecs, mesh), compute_layout(cfg, mesh, pspecs)
+            ep = _ep_context(cfg, mesh)
         logits, masses = [], []
         for t in range(tokens.shape[1]):
             lg, cache, st = dec.decode_step_paged(cfg, pp, cache, _t(tokens[:, t:t + 1]),
                                                   page_t=page_t, return_streams=True,
-                                                  smesh=smesh, layout=layout)
+                                                  smesh=smesh, layout=layout, ep_axes=ep)
             logits.append(_np(lg))
             mass = st["kv_mass"]
             masses.append(_np(all_gather(mass, 3, mesh.group(axes)) if smesh else mass))
         blk = cache["blocks"][0]
-        whole = ((lambda x: all_gather(x, 2, mesh.group(axes))) if smesh
-                 else (lambda x: x))
+        whole = ((lambda x, d=2: all_gather(x, d, mesh.group(axes))) if smesh
+                 else (lambda x, d=2: x))
+        first = (cache["prologue"][0] if "prologue" in cache
+                 else {k: v[0] for k, v in blk.items()})
         out[arm] = {"logits": np.stack(logits), "kv_mass": np.stack(masses),
                     "page_len": _np(whole(blk["page_len"])),
                     "cur_slot": _np(blk["cur_slot"]), "pos": _np(cache["pos"]),
                     "k_pages": _np(whole(blk["k_pages"])),
-                    "v_pages": _np(whole(blk["v_pages"]))}
+                    "v_pages": _np(whole(blk["v_pages"])),
+                    "first_k": _np(whole(first["k_pages"], 1)),
+                    "first_v": _np(whole(first["v_pages"], 1))}
     return out
 
 
@@ -298,7 +310,7 @@ def check_cell_serving(meshes, params, tokens, prompt, arch="llama3.2-3b",
     block at a time and written back (``cache_layout``), one teacher-forced
     token column a step until the cache is full.  Returns the prefill's
     and every step's logits (rows gathered over 'data') and the final
-    cache, gathered."""
+    cache's first body block, gathered."""
     import torch
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.dist.collectives import all_gather
@@ -327,7 +339,7 @@ def check_cell_serving(meshes, params, tokens, prompt, arch="llama3.2-3b",
         res["logits"] = np.stack([_np(rows(cell["fn"](pp, cache, column(t))))
                                   for t in range(s)])
         blk = cache["blocks"][0]
-        for k in ("k", "v"):
+        for k in blk:
             res[k] = _np(gather(blk[k], cspec["blocks"][0][k], m) if m else blk[k])
         res["pos"] = _np(cache["pos"])
         out[arm] = res
@@ -340,18 +352,26 @@ def check_partitioned_layers(meshes, kind, p, x, ct, kw):
     table's first), a ``Part`` of 'model', and the output with the
     gradients of sum(y * ct) (``kind`` "head": the vocab-parallel loss of
     ``ct``'s labels under its mask plus sum(embedding * x), the logits
-    gathered whole); the blocks' gradients gathered over 'model'."""
+    gathered whole; "mla-decode": MLA's absorbed decode over ``ct``'s
+    dense cache at ``ct["pos"]``, the output and the cache it wrote, no
+    gradients); the blocks' gradients gathered over 'model'."""
     import torch
     from repro_torch.dist.collectives import Part, all_gather
-    from repro_torch.models import attention, layers
+    from repro_torch.models import attention, layers, moe
     mesh = meshes("2x4")
     part = Part(mesh.group("model"), mesh.coord("model"), mesh.axis_size("model"))
-    dims = {k: (0 if k in ("wo", "w_out", "table") else -1) for k, v in p.items()
-            if v.ndim >= 2}
+    dims = {k: (0 if k in ("wo", "w_out", "sh_out", "table") else -1)
+            for k, v in p.items() if v.ndim >= 2}
     local = {k: (part.block(_t(v), dims[k]) if k in dims else _t(v)).clone()
              .requires_grad_() for k, v in p.items()}
     xt = _t(x).requires_grad_()
     out = {}
+    if kind == "mla-decode":
+        cache = {k: _t(ct[k]).clone() for k in ("c_kv", "k_rope")}
+        with torch.no_grad():
+            y = attention.mla_decode(local, xt, cache, torch.tensor(ct["pos"]),
+                                     part=part, **kw)
+        return {"y": _np(y), "c_kv": _np(cache["c_kv"]), "k_rope": _np(cache["k_rope"])}
     if kind == "head":
         logits = layers.logits_apply(local, xt, kw["softcap"], part)
         loss = layers.cross_entropy(logits, _t(ct["labels"]).long(), _t(ct["mask"]), part)
@@ -362,6 +382,10 @@ def check_partitioned_layers(meshes, kind, p, x, ct, kw):
     else:
         if kind == "attn":
             y = attention.gqa_apply(local, xt, part=part, **kw)
+        elif kind == "mla":
+            y = attention.mla_apply(local, xt, part=part, **kw)
+        elif kind == "shared":
+            y = moe._shared_expert(local, xt, part)
         else:
             y = layers.mlp_apply(local, xt, kw["mlp"], part=part)
         (y * _t(ct)).sum().backward()
@@ -491,3 +515,68 @@ def check_train(meshes, mesh, arch, params, batches, kw, opt):
                                                               "n_seen")]
             + [_np(prof.hot_buf), _np(prof.hot_count)],
             "ef": _tree_np(state["ef"]) if "ef" in state else None}
+
+
+def check_one_rank(meshes, arch, params, batches, prompt):
+    """At one 'model' rank (rank 0's own (1, 1) mesh; the other ranks only
+    join its making): two float32 train steps of ``arch``'s smoke config
+    over the mesh, AdamW and Adafactor (2 microbatches, remat), with the
+    expert-parallel body off (its ``enter`` regroups x's gradient sum),
+    against the meshless step; then, the experts expert-parallel,
+    ``prefill_paged`` of ``prompt`` and 4 greedy paged decode steps,
+    ``prefill_dense`` and ``prefill`` with ``layout`` against the meshless
+    calls.  Returns, per arm, the count of leaves (params; logits and cache
+    leaves) that differ at all."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt.manager import tree_leaves
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.dist.sharding import param_pspecs
+    from repro_torch.models import decode as dec
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train import step as ts
+    mesh = meshes("1x1")
+    if dist.get_rank() != 0:
+        return {}
+    cfg = get_smoke_config(arch)
+    out = {}
+    ep_context = ts._ep_context
+    ts._ep_context = lambda cfg, mesh: None
+    try:
+        for kind in ("adamw", "adafactor"):
+            tcfg = ts.TrainConfig(opt=OptConfig(kind=kind, lr=1e-2, warmup_steps=1),
+                                  microbatches=2)
+            arms = []
+            for msh in (None, mesh):
+                state = ts.init_state(cfg, tcfg, _tree_t(params), device="cpu", mesh=msh)
+                fn = ts.build_train_step(cfg, msh, tcfg)
+                for b in batches:
+                    state, _ = fn(state, ts.to_batch(b, "cpu", mesh=msh))
+                arms.append(tree_leaves(state["params"]))
+            out[kind] = sum(not torch.equal(a, b) for a, b in zip(*arms))
+    finally:
+        ts._ep_context = ep_context
+    full = _tree_t(params)
+    pspecs = param_pspecs(full, mesh)
+    stored, layout = _place(full, pspecs, mesh), ts.compute_layout(cfg, mesh, pspecs)
+    tok = _t(prompt).long()
+    arms = []
+    for p, kw in ((full, {}), (stored, dict(layout=layout, ep_axes=ts._ep_context(cfg, mesh)))):
+        got = []
+        cache = dec.init_paged_cache(cfg, 2, 4, 4, dtype=torch.float32, device="cpu")
+        last, cache, _ = dec.prefill_paged(cfg, p, cache, tok, page_t=4, **kw)
+        got.append(last)
+        t = last.argmax(-1, keepdim=True)
+        for _ in range(4):
+            lg, cache = dec.decode_step_paged(cfg, p, cache, t, page_t=4, **kw)
+            got.append(lg)
+            t = lg[:, -1].argmax(-1, keepdim=True)
+        got += tree_leaves(cache)
+        dense = dec.init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+        last, dense, _ = dec.prefill_dense(cfg, p, dense, tok, **kw)
+        got += [last] + tree_leaves(dense)
+        got.append(dec.prefill(cfg, p, tok, **kw)[0])
+        arms.append(got)
+    out["serve"] = sum(not torch.equal(a, b) for a, b in zip(*arms))
+    out["n_serve"] = len(arms[0])
+    return out
