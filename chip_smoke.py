@@ -88,7 +88,15 @@ Phases, one summary line each:
                 ring's pages, page_len and cur_slot bitwise; prints the
                 leaves split and gathered and each arm's attention
                 launches (head-tiled for deepseek-v3, grouped for
-                kimi-k2);
+                kimi-k2); (e) then zamba2-2.7b and xlstm-1.3b at full width
+                and PHASE ssm's depth (SSM_DEPTH), each partitioned over the
+                one 'model' rank (the Mamba2, mLSTM and sLSTM mixers,
+                zamba2's shared attention block, the embedding and head),
+                the same prefill and greedy steps with deterministic
+                algorithms on: tokens equal, logits and page mass 0 apart,
+                every ring's pages and every recurrent state bitwise the
+                meshless calls'; prints the leaves split and gathered and
+                zamba2's grouped attention launches;
   3. main     — ServeEngine on llama3.2-3b at full width (random weights
                 from a seed) serving a batch of 4 random 1024-token prompts
                 for 64 greedy tokens through the NeoMem loop; every kernel
@@ -271,10 +279,10 @@ Phases, one summary line each:
                 form (Mamba2, mLSTM, sLSTM, MLA) forward and backward over
                 256 positions at chunk 128 on the card against the CPU,
                 every gradient within ATOL*max(1, max|ref|) + RTOL*|ref|,
-                and deepseek-v3's MLA block through the partitioned
-                mla_apply over a one-rank Part (a world of one rank over
-                NCCL), its output and every gradient bitwise the
-                unpartitioned block's;
+                and each of the four blocks (Mamba2, mLSTM, sLSTM,
+                deepseek-v3's MLA) through its partitioned form over a
+                one-rank Part (a world of one rank over NCCL), its output
+                and every gradient bitwise the unpartitioned block's;
   13. sim     — the paper's evaluation path: fig11_main_speedup.py's grid
                 (8 workloads x 6 methods, benchmarks/common.py's scale, its
                 240 blocks cut to 64)
@@ -3807,7 +3815,8 @@ def train_family(torch, arch, kw, kind, device="cuda") -> dict:
 
 def _form(torch, arch, kind, gen):
     """A full-width block of one training-only form: float32 weights drawn
-    on the CPU, its forward and its width."""
+    on the CPU, its forward ``fn(p, x, part=None)`` (``part`` partitions it
+    over 'model') and its width."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import attention as attn, mamba2 as m2, xlstm as xl
     cfg = get_config(arch)
@@ -3817,19 +3826,19 @@ def _form(torch, arch, kind, gen):
         p = m2.mamba2_init(gen, d, d_state=sc.d_state, expand=sc.expand,
                            headdim=sc.headdim, d_conv=sc.d_conv, n_groups=sc.n_groups,
                            device="cpu", dtype=f32)
-        return p, lambda p, x: m2.mamba2_apply(p, x, headdim=sc.headdim,
-                                               n_groups=sc.n_groups,
-                                               d_state=sc.d_state, chunk=TRAIN_CHUNK), d
+        return p, lambda p, x, part=None: m2.mamba2_apply(
+            p, x, headdim=sc.headdim, n_groups=sc.n_groups, d_state=sc.d_state,
+            chunk=TRAIN_CHUNK, part=part), d
     if kind == "mlstm":
         p = xl.mlstm_init(gen, d, n_heads=cfg.mlstm_heads, device="cpu", dtype=f32)
-        return p, lambda p, x: xl.mlstm_apply(p, x, n_heads=cfg.mlstm_heads,
-                                              chunk=TRAIN_CHUNK), d
+        return p, lambda p, x, part=None: xl.mlstm_apply(
+            p, x, n_heads=cfg.mlstm_heads, chunk=TRAIN_CHUNK, part=part), d
     if kind == "slstm":
         return xl.slstm_init(gen, d, device="cpu", dtype=f32), xl.slstm_apply, d
     dims = dataclasses.asdict(cfg.mla)
     p = attn.mla_init(gen, d, cfg.n_heads, device="cpu", dtype=f32, **dims)
-    return p, lambda p, x: attn.mla_apply(p, x, h=cfg.n_heads,
-                                          rope_theta=cfg.rope_theta, **dims), d
+    return p, lambda p, x, part=None: attn.mla_apply(
+        p, x, h=cfg.n_heads, rope_theta=cfg.rope_theta, part=part, **dims), d
 
 
 def train_forms(torch, device="cuda", seq=TRAIN_FORM_SEQ) -> dict:
@@ -3878,56 +3887,53 @@ def train_forms(torch, device="cuda", seq=TRAIN_FORM_SEQ) -> dict:
     return errs
 
 
-def mla_part_form(torch, device="cuda", seq=TRAIN_FORM_SEQ) -> int:
-    """(c) deepseek-v3's full-width MLA block (``_form``'s weights and
-    input) through the partitioned ``mla_apply`` over the one-rank Part of
-    a 1 x 1 mesh (a world of one rank over NCCL, made here and destroyed)
-    against the unpartitioned block on the card, deterministic algorithms
-    on: the output and every gradient (params and input, one seeded
-    cotangent) bitwise.  Returns the tensors compared."""
+def part_forms(torch, device="cuda", seq=TRAIN_FORM_SEQ) -> int:
+    """(c) each TRAIN_FORMS block (``_form``'s full-width weights and input:
+    Mamba2, mLSTM, sLSTM, deepseek-v3's MLA) through its partitioned form
+    over the one-rank Part of a 1 x 1 mesh (a world of one rank over NCCL,
+    made here and destroyed) against the unpartitioned block on the card,
+    deterministic algorithms on: the output and every gradient (params and
+    input, one seeded cotangent) bitwise.  Returns the tensors compared."""
     import torch.distributed as dist
-    from repro_torch.configs.registry import get_config
     from repro_torch.dist.collectives import Part
-    from repro_torch.models import attention as attn
-    arch = "deepseek-v3-671b"
-    cfg = get_config(arch)
-    dims = dataclasses.asdict(cfg.mla)
-    gen = torch.Generator().manual_seed(6)
-    p, _, d = _form(torch, arch, "mla", gen)
-    x = torch.randn((1, seq, d), generator=gen) * 0.5
-    ct = torch.randn((1, seq, d), generator=gen).to(device)
     mesh = dist_world(torch)
-    outs = {}
+    compared = 0
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         part = Part(mesh.group("model"), mesh.coord("model"), mesh.axis_size("model"))
-        for arm, pt in (("whole", None), ("part", part)):
-            pd = _tree_map(lambda v: v.to(device).requires_grad_(), p)
-            xd = x.to(device).requires_grad_()
-            y = attn.mla_apply(pd, xd, h=cfg.n_heads, rope_theta=cfg.rope_theta,
-                               part=pt, **dims)
-            outs[arm] = [y.detach()] + list(torch.autograd.grad(
-                y, list(_leaves(pd)) + [xd], ct))
+        for arch, kind in TRAIN_FORMS:
+            gen = torch.Generator().manual_seed(6)
+            p, fn, d = _form(torch, arch, kind, gen)
+            x = torch.randn((1, seq, d), generator=gen) * 0.5
+            ct = torch.randn((1, seq, d), generator=gen).to(device)
+            outs = {}
+            for arm, pt in (("whole", None), ("part", part)):
+                pd = _tree_map(lambda v: v.to(device).requires_grad_(), p)
+                xd = x.to(device).requires_grad_()
+                y = fn(pd, xd, part=pt)
+                outs[arm] = [y.detach()] + list(torch.autograd.grad(
+                    y, list(_leaves(pd)) + [xd], ct))
+            for i, (a, b) in enumerate(zip(outs["whole"], outs["part"])):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"train {kind}: output/gradient {i} of the "
+                                         f"partitioned block differs from the whole "
+                                         f"block by {float((a - b).abs().max())}")
+            compared += len(outs["part"])
+            print(f"train: {arch} one {kind} block at full width through its "
+                  f"partitioned form over a one-rank Part (NCCL), forward and backward "
+                  f"over {seq} positions: the output and all {len(outs['part']) - 1} "
+                  f"gradients bitwise the unpartitioned block's")
     finally:
         torch.use_deterministic_algorithms(False)
         dist.destroy_process_group()
-    for i, (a, b) in enumerate(zip(outs["whole"], outs["part"])):
-        if not torch.equal(a, b):
-            raise AssertionError(f"train mla: output/gradient {i} of the partitioned "
-                                 f"block differs from the whole block by "
-                                 f"{float((a - b).abs().max())}")
-    print(f"train: {cfg.name} one MLA block at full width through the partitioned "
-          f"mla_apply over a one-rank Part (NCCL), forward and backward over {seq} "
-          f"positions: the output and all {len(outs['part']) - 1} gradients bitwise "
-          f"the unpartitioned block's")
-    return len(outs["part"])
+    return compared
 
 
 def train_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
     """PHASE train: (a) ``train_full``; (b) ``train_family`` over
     TRAIN_FAMILIES, whose MoE steps launch the sketch update and mark
     kernels (counted, and required); (c) ``train_forms`` and
-    ``mla_part_form``.  Returns the launches and (a)'s figures."""
+    ``part_forms``.  Returns the launches and (a)'s figures."""
     torch.backends.cuda.matmul.allow_tf32 = False
     full = train_full(torch, smi, device=device)
     release(torch)
@@ -3936,7 +3942,7 @@ def train_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
         train_family(torch, arch, kw, kind, device)
     launches = read_counts(torch, counters, "train", required=counters[1:3])
     train_forms(torch, device)
-    mla_part_form(torch, device)
+    part_forms(torch, device)
     return launches, full
 
 
@@ -3950,7 +3956,8 @@ DIST_MOE = ("kimi-k2-1t-a32b", "deepseek-v3-671b")
 DIST_PROMPT = (2, 12, 8)           # (c): batch, prompt tokens, new tokens
 DIST_ADAFACTOR = ("deepseek-v3-671b",)   # (c): the dry run's optimizer for the MoE archs
 DIST_SLICE = ("mla", "moe")        # (d): PHASE mla's and moe's arch and depth, in turn
-DIST_SLICE_PROMPT = 8              # (d): prompt tokens before the greedy steps
+DIST_SLICE_PROMPT = 8              # (d), (e): prompt tokens before the greedy steps
+DIST_RECURRENT = SSM_ARCHS         # (e): PHASE ssm's archs at its depth, in turn
 
 
 def dist_world(torch):
@@ -4244,41 +4251,33 @@ def dist_moe(torch, mesh, arch, smi, device="cuda") -> dict:
     return {"loss_err": err}
 
 
-def dist_slice(torch, mesh, phase, smi, device="cuda", dims=DIST_DECODE) -> dict:
-    """(d) PHASE ``phase``'s arch at full width and the phase's depth
-    (``draw_moe_params``: every expert on the card), its params stored
-    under ``param_pspecs`` and computing over the mesh as the dry run's
-    long_500k cell does (``layout``: attention, dense prologue, shared
-    expert, embedding and head partitioned over the one 'model' rank, the
-    experts expert-parallel, the ring's slots split over both axes):
-    ``prefill_paged`` of a seeded DIST_SLICE_PROMPT-token prompt, then
-    greedy ``decode_step_paged`` steps, against the meshless calls from the
-    same weights: tokens equal, logits within 1e-3, page mass within 1e-5,
-    every ring's pages, page_len and cur_slot bitwise.  Prints the leaves
-    split and gathered and each arm's attention launches (the head-tiled
-    kernel's for MLA)."""
+def paged_arms(torch, mesh, cfg, params, device="cuda", ep=None,
+               dims=DIST_DECODE) -> tuple:
+    """``cfg``'s paged serving over ``mesh`` and without one, from the same
+    weights: over the mesh its params stored under ``param_pspecs`` and
+    computing as the dry run's long_500k cell does (``layout``, partitioned
+    over 'model'; ``ep`` runs the experts expert-parallel; the ring's slots
+    split over both axes), ``prefill_paged`` of a seeded
+    DIST_SLICE_PROMPT-token prompt, then greedy ``decode_step_paged`` steps.
+    Returns ({arm: tokens, logits, page mass (None without a ring), the
+    final cache, attention launches (all, head-tiled)}, (leaves computed
+    split over 'model', leaves gathered whole))."""
     from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
     from repro_torch.dist.sharding import cache_pspecs, param_pspecs, shard, spec_leaves
     from repro_torch.kernels.paged_attn import ops as pa_ops
     from repro_torch.models import decode as dec
     from repro_torch.train import step as ts
-    cfg, params = draw_moe_params(torch, phase)
     b, steps, n_slots, page_t = dims
     pspecs = param_pspecs(params, mesh)
     stored = tree_unflatten(params, [shard(x, sp, mesh) for x, sp in
                                      zip(tree_leaves(params), spec_leaves(pspecs))])
     layout = ts.compute_layout(cfg, mesh, pspecs)
-    n_split, n_gathered = ts.split_counts(layout, pspecs)
-    if n_split == 0 or n_gathered:
-        raise AssertionError(f"dist (d) {cfg.name}: {n_split} leaves computed split over "
-                             f"'model', {n_gathered} gathered: not the partitioned path")
     prompt = torch.from_numpy(np.random.default_rng(11).integers(
         0, cfg.vocab, (b, DIST_SLICE_PROMPT)).astype(np.int32)).to(device)
     arms = {}
     for arm, smesh in (("mesh", {"mesh": mesh, "axes": ("data", "model")}),
                        ("meshless", None)):
-        kw = {} if smesh is None else dict(smesh=smesh, layout=layout,
-                                           ep_axes=ts._ep_context(cfg, mesh))
+        kw = {} if smesh is None else dict(smesh=smesh, layout=layout, ep_axes=ep)
         cache = dec.init_paged_cache(cfg, b, n_slots, page_t, device=device)
         if smesh is not None:
             specs = spec_leaves(cache_pspecs(cache, mesh, slot_axes=smesh["axes"]))
@@ -4299,9 +4298,30 @@ def dist_slice(torch, mesh, phase, smi, device="cuda", dims=DIST_DECODE) -> dict
             toks.append(tok)
         torch.cuda.synchronize()
         arms[arm] = dict(tokens=torch.cat(toks, 1), logits=torch.stack(logits),
-                         mass=torch.stack(mass), cache=cache,
+                         mass=None if mass[0] is None else torch.stack(mass),
+                         cache=cache,
                          launches=(pa_ops.paged_attention_raw.launches - raw,
                                    pa_ops.head_tiled.launches - tiled))
+    return arms, ts.split_counts(layout, pspecs)
+
+
+def dist_slice(torch, mesh, phase, smi, device="cuda", dims=DIST_DECODE) -> dict:
+    """(d) PHASE ``phase``'s arch at full width and the phase's depth
+    (``draw_moe_params``: every expert on the card) through ``paged_arms``
+    (attention, dense prologue, shared expert, embedding and head
+    partitioned over the one 'model' rank, the experts expert-parallel):
+    tokens equal, logits within 1e-3, page mass within 1e-5, every ring's
+    pages, page_len and cur_slot bitwise.  Prints the leaves split and
+    gathered and each arm's attention launches (the head-tiled kernel's for
+    MLA)."""
+    from repro_torch.train import step as ts
+    cfg, params = draw_moe_params(torch, phase)
+    b, steps, n_slots, page_t = dims
+    arms, (n_split, n_gathered) = paged_arms(torch, mesh, cfg, params, device,
+                                             ts._ep_context(cfg, mesh), dims)
+    if n_split == 0 or n_gathered:
+        raise AssertionError(f"dist (d) {cfg.name}: {n_split} leaves computed split over "
+                             f"'model', {n_gathered} gathered: not the partitioned path")
     sh, un = arms["mesh"], arms["meshless"]
     if not torch.equal(sh["tokens"], un["tokens"]):
         raise AssertionError(f"dist (d) {cfg.name}: greedy tokens differ")
@@ -4336,11 +4356,62 @@ def dist_slice(torch, mesh, phase, smi, device="cuda", dims=DIST_DECODE) -> dict
                 launches=sh["launches"])
 
 
+def dist_recurrent(torch, mesh, arch, smi, device="cuda", dims=DIST_DECODE) -> dict:
+    """(e) ``arch`` (DIST_RECURRENT) at full width and PHASE ssm's depth
+    through ``paged_arms``, deterministic algorithms on: the recurrent
+    mixers (zamba2's Mamba2 by heads, in_proj gathered whole, B | C split
+    and gathered; xlstm's mLSTM by heads and sLSTM by channels), zamba2's
+    shared attention block, the embedding and the head partitioned over the
+    one 'model' rank, against the meshless calls: tokens equal, logits 0
+    apart, page mass 0 apart, every ring's pages and every recurrent state
+    bitwise.  Prints the leaves split and gathered and the grouped
+    attention launches of each arm."""
+    cfg, params = draw_dense_params(torch, arch, phase="dist", depth=SSM_DEPTH[arch])
+    b, steps, n_slots, page_t = dims
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        arms, (n_split, n_gathered) = paged_arms(torch, mesh, cfg, params, device,
+                                                 dims=dims)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if n_split == 0 or n_gathered:
+        raise AssertionError(f"dist (e) {cfg.name}: {n_split} leaves computed split over "
+                             f"'model', {n_gathered} gathered: not the partitioned path")
+    sh, un = arms["mesh"], arms["meshless"]
+    for key in ("tokens", "logits", "mass"):
+        if (sh[key] is None) != (un[key] is None) or (
+                sh[key] is not None and not torch.equal(sh[key], un[key])):
+            raise AssertionError(f"dist (e) {cfg.name}: the arms' {key} differ")
+    n_leaves = 0
+    for i, (x, y) in enumerate(zip(sh["cache"]["blocks"], un["cache"]["blocks"])):
+        for k in y:
+            n_leaves += 1
+            if not torch.equal(x[k], y[k]):
+                raise AssertionError(f"dist (e) {cfg.name}: {k} of pattern position {i} "
+                                     f"({cfg.pattern[i]}) differs")
+    rings = sum("shared_attn" == k for k in cfg.pattern) * cfg.n_groups
+    want = rings * (DIST_SLICE_PROMPT + steps)
+    if device == "cuda" and (sh["launches"] != un["launches"]
+                             or sh["launches"] != (want, 0)):
+        raise AssertionError(f"dist (e) {cfg.name}: attention launches (all, head-tiled) "
+                             f"mesh {sh['launches']}, meshless {un['launches']}, "
+                             f"{want} grouped expected")
+    print(f"dist (e): {cfg.name} at full width, depth {cfg.n_layers} (pattern "
+          f"{cfg.pattern}), B {b}, a {DIST_SLICE_PROMPT}-token prefill_paged and {steps} "
+          f"greedy decode_step_paged steps, partitioned over 'model' ({n_split} leaves "
+          f"computed split, {n_gathered} gathered whole), the slots split over ('data', "
+          f"'model'), against the meshless calls: tokens equal, logits and page mass 0 "
+          f"apart, all {n_leaves} ring and recurrent-state leaves bitwise; grouped "
+          f"attention launches {sh['launches'][0]} an arm, on {smi}")
+    return dict(split=(n_split, n_gathered), launches=sh["launches"])
+
+
 def dist_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
     """PHASE dist: a world of one rank over NCCL and its 1 x 1 mesh; (a)
     ``dist_train``, then, counts at 0, (d) ``dist_slice`` on each
     DIST_SLICE phase's arch at full width (right after (a) let go of its
-    pinned host vectors, before any other model is drawn), (b)
+    pinned host vectors, before any other model is drawn), (e)
+    ``dist_recurrent`` on each DIST_RECURRENT arch, (b)
     ``dist_decode`` on (a)'s weights (the attention launches) and (c)
     ``dist_moe`` on each DIST_MOE arch (the sketch update and mark
     launches, required).  The process group is destroyed at the end,
@@ -4356,6 +4427,9 @@ def dist_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
         slices = {}
         for phase in DIST_SLICE:
             slices[phase] = dist_slice(torch, mesh, phase, smi, device)
+            release(torch)
+        for arch in DIST_RECURRENT:
+            slices[arch] = dist_recurrent(torch, mesh, arch, smi, device)
             release(torch)
         cfg = get_config(TRAIN_ARCH)
         params = init_params(cfg, seed=0, device=device)
@@ -4448,7 +4522,9 @@ def main() -> int:
           f"{' and '.join(DIST_MOE)} partitioned, expert-parallel train step and "
           f"ServeEngine(ep_axes=) equal to the CPU; (d) "
           f"{' and '.join(MOE_PHASES[p]['arch'] for p in DIST_SLICE)} at full width, "
-          f"partitioned prefill_paged and paged decode equal to the meshless calls; "
+          f"partitioned prefill_paged and paged decode equal to the meshless calls; (e) "
+          f"{' and '.join(DIST_RECURRENT)} at full width, partitioned prefill_paged and "
+          f"paged decode bitwise the meshless calls; "
           f"launches {json.dumps(phases['dist'])} on {smi}")
     release(torch)
     cfg, params = draw_params(torch)

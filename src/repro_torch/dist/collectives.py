@@ -20,6 +20,9 @@ the ranks on its other side computed:
     input gradients (an all-reduce) backward;
   * :func:`sum_parts` leaves that region: the parts summed (an all-reduce)
     forward, the replicated gradient passed through (identity) backward;
+  * :func:`psum` sums parts that each rank goes on computing its own share
+    from (a norm's sum of squares over a split width, a contraction over a
+    split head dim): an all-reduce forward and backward;
   * :func:`exchange` (an all-to-all) trades a split over one dim for a
     split over another, backward the inverse all-to-all;
   * :func:`max_over` is a MAX all-reduce without a gradient (the
@@ -54,6 +57,25 @@ class Part:
     def block(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The rank's block of ``x`` along ``dim`` (a view)."""
         return x.chunk(self.size, dim)[self.rank]
+
+    def sub(self, k: int) -> "Part":
+        """The Part of the ``k`` consecutive ranks this rank's block of
+        ``k`` holds (ranks ``k * (rank // k)`` on), over a process group
+        made once, by its member ranks alone."""
+        if k == self.size:
+            return self
+        lo = self.rank // k * k
+        made = _SUBGROUPS.get((id(self.group), lo))
+        if made is None or made[0] is not self.group:
+            ranks = dist.get_process_group_ranks(self.group)[lo:lo + k]
+            made = (self.group, dist.new_group(ranks, use_local_synchronization=True))
+            _SUBGROUPS[(id(self.group), lo)] = made
+        return Part(made[1], self.rank - lo, k)
+
+
+# (id of a group, first rank) -> (the group, the subgroup made from it); the
+# group is held, so that its id is not reused while the entry stands
+_SUBGROUPS = {}
 
 
 # () -> the census counting this thread's ops, or None; set by
@@ -257,6 +279,23 @@ class _SumParts(torch.autograd.Function):
 def sum_parts(x: torch.Tensor, group) -> torch.Tensor:
     """The group's parts summed forward; the gradient passed through."""
     return _SumParts.apply(x, group)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's parts summed forward, and the gradient's parts summed
+    backward (each rank's gradient of the sum is its own share's)."""
+    return _Psum.apply(x, group)
 
 
 class _Exchange(torch.autograd.Function):

@@ -25,15 +25,19 @@ stored blocks before the group runs (one autograd function a call, with
 :mod:`repro_torch.dist.collectives`' backward rules), where XLA's
 partitioner would have placed the collectives.  Compute is data-parallel
 over the data axes.  Over 'model' the leaves of the subtrees a layout
-names in ``split`` compute split (the dense decoders and the MoE family):
-the attention weights (GQA's ``wq``/``wk``/``wv``, MLA's ``wq_a``/``wq_b``/
-``wkv_a``/``wkv_b`` column-parallel, ``wo`` row-parallel), the MLPs and a
-MoE block's shared expert (``w_gate``/``w_in``, ``sh_gate``/``sh_in``
-column-parallel, ``w_out``/``sh_out`` row-parallel), the MTP head's
-projection (column-parallel) and the embedding table (vocab-parallel
-embedding and head), each gathered over the data axes alone so that the
-rank computes with its 'model' block (``models/layers.py``,
-``models/attention.py``, ``models/moe.py``).  Every other leaf is
+names in ``split`` compute split (the dense decoders, the MoE family and
+the recurrent archs): the attention weights (GQA's ``wq``/``wk``/``wv``,
+MLA's ``wq_a``/``wq_b``/``wkv_a``/``wkv_b`` column-parallel, ``wo``
+row-parallel), the MLPs and a MoE block's shared expert (``w_gate``/
+``w_in``, ``sh_gate``/``sh_in`` column-parallel, ``w_out``/``sh_out``
+row-parallel), the MTP head's projection (column-parallel), the recurrent
+mixers (Mamba2's ``in_proj``/``conv_w``, gathered whole in the mixer, and
+``out_proj``; mLSTM's ``wq``/``wk``/``wv``/``ogate`` and ``wo``; sLSTM's
+``wz``/``wi``/``wf``/``wo_gate`` and ``wo``) and the embedding table
+(vocab-parallel embedding and head), each gathered over the data axes
+alone so that the rank computes with its 'model' block
+(``models/layers.py``, ``models/attention.py``, ``models/moe.py``,
+``models/mamba2.py``, ``models/xlstm.py``).  Every other leaf is
 gathered whole and computes replicated over 'model', but the MoE expert
 stacks, which stay split for the expert-parallel body.
 """
@@ -278,9 +282,9 @@ class Layout:
         return self.part if path in self.split else None
 
     def parts(self, block: str) -> dict:
-        """The attention and MLP parts of the block at path ``block``
-        ("blocks/0", "prologue/1", "mtp/block")."""
-        return {k: self.part_of(f"{block}/{k}") for k in ("attn", "ffn")}
+        """The attention, MLP and recurrent mixer parts of the block at path
+        ``block`` ("blocks/0", "prologue/1", "mtp/block", "shared_attn")."""
+        return {k: self.part_of(f"{block}/{k}") for k in ("attn", "ffn", "mix")}
 
     def _plan(self, spec) -> tuple:
         plan = []

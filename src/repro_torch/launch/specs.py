@@ -13,8 +13,9 @@ trees they are blocks of and the spec of every leaf
 
 Over a mesh the callable is the port's per-rank code: each pattern group
 gathers its stored weights (:class:`repro_torch.dist.sharding.Layout`), a
-dense decoder's or a MoE arch's embedding, attention, MLPs, shared experts
-and head computing the rank's share over 'model'
+dense decoder's, a MoE arch's or a recurrent arch's embedding, attention,
+MLPs, shared experts, recurrent mixers and head computing the rank's share
+over 'model'
 (``train.step.compute_layout``), the MoE layers' experts run
 expert-parallel, decode_32k gathers a block's sequence-split cache,
 long_500k splits the ring's page slots over every mesh axis (B = 1).

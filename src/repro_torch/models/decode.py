@@ -82,12 +82,15 @@ the current slot and merging the ranks' attention statistics
 whole over 'model' first); every decode and prefill takes
 ``ep_axes``, an :class:`repro_torch.models.moe.EPContext` that runs the MoE
 layers expert-parallel, and ``layout``, which gathers the rank's stored
-param blocks a group at a time and, for the dense decoders and the MoE
-family, partitions the embedding, each block's q/k/v (MLA's projections),
-``wo`` and MLP (a MoE block's shared expert; the dense prologue's blocks
-too) and the head over 'model' (:mod:`repro_torch.models.attention`'s
-decode form: the core at one query position runs replicated on gathered
-q, k and v, MLA's on the absorbed query gathered over the heads).  The
+param blocks a group at a time and, for the dense decoders, the MoE
+family and the recurrent archs, partitions the embedding, each block's
+q/k/v (MLA's projections), ``wo`` and MLP (a MoE block's shared expert;
+the dense prologue's blocks and zamba2's shared block too), each recurrent
+mixer by heads or channels (its state read at the rank's share and the new
+state gathered whole, as the cache rests) and the head over 'model'
+(:mod:`repro_torch.models.attention`'s decode form: the core at one query
+position runs replicated on gathered q, k and v, MLA's on the absorbed
+query gathered over the heads).  The
 logits are gathered whole over 'model' before they are returned, so that
 greedy ids and :func:`sample_tokens` read the whole vocab.
 
@@ -111,8 +114,9 @@ from repro_torch.models import prng
 from repro_torch.models.layers import (apply_norm, apply_rope, embed_apply,
                                        gather_logits, logits_apply, mlp_apply)
 from repro_torch.models.mamba2 import mamba2_decode, mamba2_init_cache
-from repro_torch.models.transformer import (RECURRENT_KINDS, _head_part, _top,
-                                            check_ported, forward)
+from repro_torch.models.transformer import (RECURRENT_KINDS, _body_parts,
+                                            _head_part, _top, check_ported,
+                                            forward)
 from repro_torch.models.xlstm import (mlstm_decode, mlstm_init_cache,
                                       slstm_decode, slstm_init_cache)
 from repro_torch.tiering.migrate import lookup_rows as _tier_lookup_rows
@@ -143,8 +147,8 @@ class _MeshBlocks:
         return p if self.layout is None else self.layout.gather(p, self.gp[i])
 
     def parts(self, block: str) -> dict:
-        """The {"attn", "ffn"} parts of 'model' of the block at ``block``
-        ("blocks/0", "prologue/1")."""
+        """The {"attn", "ffn", "mix"} parts of 'model' of the block at
+        ``block`` ("blocks/0", "prologue/1")."""
         return {} if self.layout is None else self.layout.parts(block)
 
     def cache(self, c, specs):
@@ -248,20 +252,23 @@ def recurrent_cache(cfg: ArchConfig, kind: str, batch: int, lead=(),
     return slstm_init_cache(batch, cfg.d_model, lead=lead, device=device)
 
 
-def _recurrent_block(p, cfg: ArchConfig, kind: str, x_t, cache, active=None):
+def _recurrent_block(p, cfg: ArchConfig, kind: str, x_t, cache, active=None,
+                     part=None):
     """One recurrent block (the reference's mamba, mlstm and slstm branches
     of ``_decode_block``): norm, mixer, residual.  The new state is written
     into ``cache`` in place, for the ``active`` (B,) lanes only when given
-    (an inactive lane's state stays bitwise unchanged)."""
+    (an inactive lane's state stays bitwise unchanged).  ``part`` partitions
+    the mixer over 'model' (its new state comes back whole, as the cache
+    rests)."""
     h = apply_norm(cfg.norm, p["ln"], x_t)
     if kind == "mamba":
         s = cfg.ssm
         o, new = mamba2_decode(p["mix"], h, cache, headdim=s.headdim,
-                               n_groups=s.n_groups, d_state=s.d_state)
+                               n_groups=s.n_groups, d_state=s.d_state, part=part)
     elif kind == "mlstm":
-        o, new = mlstm_decode(p["mix"], h, cache, n_heads=cfg.mlstm_heads)
+        o, new = mlstm_decode(p["mix"], h, cache, n_heads=cfg.mlstm_heads, part=part)
     else:
-        o, new = slstm_decode(p["mix"], h, cache)
+        o, new = slstm_decode(p["mix"], h, cache, part=part)
     for k, v in new.items():
         dst = cache[k]
         if active is not None:
@@ -567,15 +574,16 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
         for i, kind in enumerate(cfg.pattern):
             p = mb.params(_take(params["blocks"][i], g), i)
             c = _take(cache["blocks"][i], g)
+            parts = _body_parts(cfg, layout, i)
             if kind in RECURRENT_KINDS:
-                x = _recurrent_block(p, cfg, kind, x, c, active)
+                x = _recurrent_block(p, cfg, kind, x, c, active, parts.get("mix"))
                 continue
             if kind == "shared_attn":
                 p, kind = params["shared_attn"], "attn"
             x, mass = _paged_attn_block(
                 p, cfg, kind, x, c, pos, page_t, collect_mass, active,
                 tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router,
-                smesh=smesh, ep_axes=ep_axes, parts=mb.parts(f"blocks/{i}"))
+                smesh=smesh, ep_axes=ep_axes, parts=parts)
             if mass is not None:
                 group.append(mass)
         masses.append(group)
@@ -758,8 +766,9 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
             p = mb.params(_take(params["blocks"][i], g), i)
             c, write_back = mb.cache(_take(cache["blocks"][i], g),
                                      None if mb.gc is None else mb.gc[i])
+            parts = _body_parts(cfg, layout, i)
             if kind in RECURRENT_KINDS:
-                x = _recurrent_block(p, cfg, kind, x, c)
+                x = _recurrent_block(p, cfg, kind, x, c, part=parts.get("mix"))
             else:
                 if kind == "shared_attn":
                     p, kind = params["shared_attn"], "attn"
@@ -767,7 +776,7 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
                     p, cfg, kind, x, c, pos,
                     tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router,
                     kv_src=_cross_source(cfg, kind, aux_embeds), ep_axes=ep_axes,
-                    parts=mb.parts(f"blocks/{i}"))
+                    parts=parts)
             write_back()
         routers.append(router)
     x = apply_norm(cfg.norm, params["final_norm"], x)

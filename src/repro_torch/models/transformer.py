@@ -247,20 +247,24 @@ def _attn_block(p, cfg: ArchConfig, kind: str, x, aux, ep_axes=None, parts=None)
 def _apply_block(p, shared, cfg: ArchConfig, kind: str, x, aux, ep_axes=None,
                  parts=None):
     """One block of the body: a recurrent mixer behind its norm and
-    residual, the shared attention block, or an attention block."""
+    residual, the shared attention block, or an attention block.  ``parts``
+    partitions the mixer ({"mix"}), or the shared block's or the attention
+    block's attention and MLP ({"attn", "ffn"}), over 'model'."""
+    parts = parts or {}
     if kind in RECURRENT_KINDS:
         h = apply_norm(cfg.norm, p["ln"], x)
+        part = parts.get("mix")
         if kind == "mamba":
             s = cfg.ssm
             y = mamba2_apply(p["mix"], h, headdim=s.headdim, n_groups=s.n_groups,
-                             d_state=s.d_state, chunk=s.chunk)
+                             d_state=s.d_state, chunk=s.chunk, part=part)
         elif kind == "mlstm":
-            y = mlstm_apply(p["mix"], h, n_heads=cfg.mlstm_heads)
+            y = mlstm_apply(p["mix"], h, n_heads=cfg.mlstm_heads, part=part)
         else:
-            y = slstm_apply(p["mix"], h)
+            y = slstm_apply(p["mix"], h, part=part)
         return x + y, None
     if kind == "shared_attn":
-        return _attn_block(shared, cfg, "attn", x, aux, ep_axes)
+        return _attn_block(shared, cfg, "attn", x, aux, ep_axes, parts)
     return _attn_block(p, cfg, kind, x, aux, ep_axes, parts)
 
 
@@ -288,21 +292,32 @@ def _head_part(layout):
 
 
 def _parts(layout, block: str) -> dict:
-    """The {"attn", "ffn"} parts of the block at ``block`` (a path such as
-    "prologue/0"), none without a layout."""
+    """The {"attn", "ffn", "mix"} parts of the block at ``block`` (a path
+    such as "prologue/0", "shared_attn"), none without a layout."""
     return {} if layout is None else layout.parts(block)
 
 
+def _body_parts(cfg: ArchConfig, layout, i: int) -> dict:
+    """The parts of pattern position i: a ``shared_attn`` position computes
+    with the shared block's."""
+    return _parts(layout, "shared_attn" if cfg.pattern[i] == "shared_attn"
+                  else f"blocks/{i}")
+
+
 def tensor_parallel(cfg: ArchConfig) -> bool:
-    """The archs whose attention, MLPs (a MoE arch's dense prologue and
-    shared expert), embedding and head compute their share over 'model'
-    (:func:`model_split`): the dense decoders, and the MoE family (kimi-k2's
-    GQA, deepseek-v3's MLA and MTP head), whose expert stacks run
-    expert-parallel."""
+    """The archs whose blocks, embedding and head compute their share over
+    'model' (:func:`model_split`): the dense decoders, the MoE family
+    (kimi-k2's GQA, deepseek-v3's MLA and MTP head; the expert stacks run
+    expert-parallel), the hybrid family (zamba2's Mamba2 mixers and its
+    shared attention block) and the recurrent ``ssm`` family (xlstm's mLSTM
+    and sLSTM mixers)."""
+    kinds = set(cfg.pattern)
     dense = (cfg.family == "dense" and cfg.moe is None and cfg.mla is None
-             and set(cfg.pattern) <= DENSE_KINDS)
-    moe = cfg.family == "moe" and set(cfg.pattern) == {"moe"}
-    return (dense or moe) and not cfg.encoder_layers
+             and kinds <= DENSE_KINDS)
+    moe = cfg.family == "moe" and kinds == {"moe"}
+    hybrid = cfg.family == "hybrid" and cfg.ssm is not None and kinds <= HYBRID_KINDS
+    ssm = cfg.family == "ssm" and kinds <= SSM_KINDS
+    return (dense or moe or hybrid or ssm) and not cfg.encoder_layers
 
 
 def model_split(cfg: ArchConfig, specs, n_model: int = 1) -> set:
@@ -314,13 +329,38 @@ def model_split(cfg: ArchConfig, specs, n_model: int = 1) -> set:
     and ``wo``'s rows all are (MLA: ``wq_a``, ``wq_b``, ``wkv_a`` and
     ``wkv_b``, and its heads divide the ranks); its "ffn" where the MLP's
     (or a MoE block's shared expert's) column and row matrices all are;
-    and "mtp/proj" where its columns are.  Nothing for any other arch (its
-    leaves are gathered whole)."""
+    and "mtp/proj" where its columns are; each recurrent position's "mix"
+    (``blocks/i/mix``) where its column and row matrices are split and its
+    heads divide the ranks (Mamba2: ``in_proj``, ``conv_w`` and
+    ``out_proj``, its heads and its B | C columns, a rank's heads whole
+    groups or in one; mLSTM: ``wq``, ``wk``,
+    ``wv``, ``ogate`` and ``wo``, its heads dividing the ranks or the ranks
+    a head dividing its width; sLSTM: ``wz``, ``wi``, ``wf``, ``wo_gate``
+    and ``wo``), and the shared attention block's ``shared_attn/attn`` and
+    ``shared_attn/ffn``.  Nothing for any other arch (its leaves are
+    gathered whole)."""
     if not tensor_parallel(cfg):
         return set()
 
     def split(spec, d):
         return "model" in entry_axes(spec[d])
+
+    def mix(m, kind):
+        n = n_model
+        if kind == "mamba":
+            s = cfg.ssm
+            heads = cfg.d_model * s.expand // s.headdim
+            hl, hpg = heads // n, heads // s.n_groups
+            ok = heads % n == 0 and (2 * s.n_groups * s.d_state) % n == 0 \
+                and (hl % hpg == 0 or hpg % hl == 0)
+            cols, row = ("in_proj", "conv_w"), "out_proj"
+        elif kind == "mlstm":
+            h, dh = cfg.mlstm_heads, cfg.d_model // cfg.mlstm_heads
+            ok = h % n == 0 or (n % h == 0 and dh % (n // h) == 0)
+            cols, row = ("wq", "wk", "wv", "ogate"), "wo"
+        else:
+            ok, cols, row = True, ("wz", "wi", "wf", "wo_gate"), "wo"
+        return ok and all(split(m[w], -1) for w in cols) and split(m[row], 1)
 
     def attn(a, lead):
         cols = ("wq_a", "wq_b", "wkv_a", "wkv_b") if cfg.mla else ("wq", "wk", "wv")
@@ -334,7 +374,15 @@ def model_split(cfg: ArchConfig, specs, n_model: int = 1) -> set:
             and split(f[row], lead)
 
     out = {"embed"} if split(specs["embed"]["table"], 0) else set()
-    blocks = [(f"blocks/{i}", b, 1) for i, b in enumerate(specs["blocks"])]
+    blocks = []
+    for i, (kind, b) in enumerate(zip(cfg.pattern, specs["blocks"])):
+        if kind in RECURRENT_KINDS:
+            if mix(b["mix"], kind):
+                out.add(f"blocks/{i}/mix")
+        elif kind != "shared_attn":
+            blocks.append((f"blocks/{i}", b, 1))
+    if "shared_attn" in specs:
+        blocks.append(("shared_attn", specs["shared_attn"], 0))
     blocks += [(f"prologue/{i}", b, 0) for i, b in enumerate(specs.get("prologue", []))]
     if "mtp" in specs:
         blocks.append(("mtp/block", specs["mtp"]["block"], 0))
@@ -365,8 +413,9 @@ def forward(cfg: ArchConfig, params, tokens, *, aux_embeds=None,
     that remat gathers again and runs the partitioned layers' collectives
     again; the subtrees the layout splits over 'model' compute the rank's
     share (the embedding, each block's attention and MLP or shared expert,
-    a MoE arch's dense prologue and MTP head); ``ep_axes`` runs the MoE
-    layers expert-parallel."""
+    a MoE arch's dense prologue and MTP head, each recurrent mixer, zamba2's
+    shared attention block); ``ep_axes`` runs the MoE layers
+    expert-parallel."""
     return _forward(cfg, _top(params, layout), tokens, aux_embeds, remat,
                     ep_axes, layout)
 
@@ -392,7 +441,7 @@ def _forward(cfg: ArchConfig, params, tokens, aux_embeds, remat, ep_axes, layout
         streams = []
         for i, kind in enumerate(cfg.pattern):
             x, stream = _apply_block(gp[i], shared, cfg, kind, x, aux, ep_axes,
-                                     _parts(layout, f"blocks/{i}"))
+                                     _body_parts(cfg, layout, i))
             if stream is not None:
                 streams.append(stream)
         return x, (torch.stack(streams) if streams else None)

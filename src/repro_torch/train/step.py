@@ -26,12 +26,13 @@ data-axis split) and the batch rows are split over the data axes.  Each
 pattern group gathers its weights before it runs
 (:class:`repro_torch.dist.sharding.Layout`, from :func:`compute_layout`):
 over the data axes only for the leaves that compute their share over
-'model' — a dense decoder's or a MoE arch's embedding and head
-(vocab-parallel), its attention (GQA's q/k/v or MLA's projections
+'model' — a dense decoder's, a MoE arch's or a recurrent arch's embedding
+and head (vocab-parallel), its attention (GQA's q/k/v or MLA's projections
 column-parallel, ``wo`` row-parallel, the core split by heads or by query
 rows), its MLPs, a MoE arch's dense prologue, shared experts and MTP head
-(Megatron's column and row parallelism), as XLA's partitioner computes
-the reference's program — and
+(Megatron's column and row parallelism), the recurrent mixers (Mamba2,
+mLSTM by heads; sLSTM by channels) and zamba2's shared attention block,
+as XLA's partitioner computes the reference's program — and
 whole for every other leaf, which computes replicated over 'model', but the
 MoE layers, which run expert-parallel (``_ep_context``).  The gradients
 are summed over the data axes after every microbatch, or once after the
@@ -129,8 +130,9 @@ def compute_layout(cfg: ArchConfig, mesh, specs) -> Layout:
     """What a group gathers before it runs, from the specs its leaves are
     held under: everything, but the 'model' split of the expert stacks
     under expert parallelism (a MoE arch) and of the leaves that compute
-    their share (a dense decoder's or a MoE arch's embedding, attention,
-    MLPs and shared experts, :func:`repro_torch.models.transformer.model_split`)."""
+    their share (a dense decoder's, a MoE arch's or a recurrent arch's
+    embedding, attention, MLPs, shared experts and recurrent mixers,
+    :func:`repro_torch.models.transformer.model_split`)."""
     ep = cfg.moe is not None
     split = (tr.model_split(cfg, specs, mesh.axis_size("model"))
              if "model" in mesh.axis_names else set())

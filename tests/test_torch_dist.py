@@ -30,10 +30,17 @@ meshless path where it has one:
   meshless decode the same; the first group's pages, which no attention
   output reaches, bitwise between the two); the ``layout`` arm computes
   its share over 'model' (llama's 4/2 heads do not divide 4, gemma2's
-  divide 2);
+  divide 2); zamba2-2.7b-smoke on (2, 4) (Mamba2 mixers by heads, the
+  shared attention block) and xlstm-1.3b-smoke on (1, 8) (mLSTM's 4 heads
+  two ranks each, sLSTM by channels), every recurrent decode state within
+  1e-5 max(1, max |ref|) of the reference's;
 * the dry run's prefill and dense-cache decode cells on values, the same
-  two archs and meshes, partitioned over 'model': logits and cache within
+  archs and meshes, partitioned over 'model': logits and cache within
   1e-5 of the meshless run and the reference's, greedy ids bitwise;
+* each partitioned layer over 4 'model' ranks (attention, MLPs, the head
+  and loss, MLA, the shared expert, and the recurrent mixers: Mamba2 by
+  heads, mLSTM by heads and within a head, sLSTM by channels) within 1e-5
+  of the reference's layer and its gradients;
 * ``moe_apply_ep`` on (2, 4) with capacity factor 8: ids bitwise the
   reference's ``moe_apply_ep(ep_axes=None)``, y and every gradient (x,
   router, the expert stacks, the shared expert) within 1e-5 of the
@@ -63,8 +70,10 @@ from repro.kernels.paged_attn import ops as j_pa  # noqa: E402
 from repro.models import attention as j_attn  # noqa: E402
 from repro.models import decode as j_dec  # noqa: E402
 from repro.models import layers as j_layers  # noqa: E402
+from repro.models import mamba2 as j_mamba2  # noqa: E402
 from repro.models import moe as j_moe  # noqa: E402
 from repro.models import transformer as j_tr  # noqa: E402
+from repro.models import xlstm as j_xlstm  # noqa: E402
 from repro.optim import zero1 as j_z1  # noqa: E402
 from repro.optim.optimizers import OptConfig as JOpt  # noqa: E402
 from repro.tiering import codec as j_codec  # noqa: E402
@@ -139,8 +148,11 @@ def _attention_inputs(softcap):
 # 2; deepseek-v3's MLA (4 heads, one a rank) and kimi-k2's GQA (4/2 heads:
 # query rows) with their dense prologue and shared expert, experts
 # expert-parallel
+# the recurrent archs: zamba2's Mamba2 mixers (8 heads, in_proj's 296 columns
+# in blocks of 74 across its segments) and shared attention block on 4
+# ranks, xlstm's mLSTM (4 heads, two ranks a head) and sLSTM on (1, 8)'s 8
 DECODE_CASES = [(LLAMA, "2x4"), ("gemma2-27b", "4x2"), ("deepseek-v3-671b", "2x4"),
-                ("kimi-k2-1t-a32b", "2x4")]
+                ("kimi-k2-1t-a32b", "2x4"), ("zamba2-2.7b", "2x4"), ("xlstm-1.3b", "1x8")]
 DECODE_IDS = [f"{a}@{m}" for a, m in DECODE_CASES]
 
 
@@ -179,8 +191,18 @@ TP_CASES = {
     "mla": ("mla", dict(s=8)),
     "mla-decode": ("mla-decode", dict(s=1)),
     "shared-expert": ("shared", dict()),
+    # the recurrent mixers over two chunks of 4: Mamba2 by heads (4 heads in
+    # 2 groups; in_proj's 84 columns in blocks of 21 across its z | x | B | C
+    # | dt segments), mLSTM by heads (4 heads) and within a head (2 heads,
+    # two ranks each: q . k and the normaliser summed over the head's
+    # ranks), sLSTM by channels
+    "mamba2": ("mamba2", dict(s=8)),
+    "mlstm-heads": ("mlstm", dict(h=4, s=8)),
+    "mlstm-within-head": ("mlstm", dict(h=2, s=8)),
+    "slstm": ("slstm", dict(s=8)),
 }
 MLA_DIMS = dict(h=4, q_lora=8, kv_lora=8, d_nope=4, d_rope=4, d_v=4)
+MAMBA_DIMS = dict(headdim=8, n_groups=2, d_state=4, chunk=4)
 
 
 def _tp_inputs(case):
@@ -211,6 +233,25 @@ def _tp_inputs(case):
         cache = {"c_kv": n(b, smax, m["kv_lora"]), "k_rope": n(b, smax, m["d_rope"]),
                  "pos": 5}
         return p, n(b, 1, d), cache, dict(m)
+    if kind == "mamba2":
+        m = MAMBA_DIMS
+        d_inner, bc = 2 * d, 2 * m["n_groups"] * m["d_state"]
+        heads = d_inner // m["headdim"]
+        p = {"in_proj": n(d, 2 * d_inner + bc + heads),
+             "conv_w": n(4, d_inner + bc), "conv_b": 0.2 * n(d_inner + bc),
+             "A_log": np.log(np.linspace(1.0, 16.0, heads)).astype(np.float32),
+             "D": 1 + 0.2 * n(heads), "dt_bias": 0.2 * n(heads),
+             "norm": 1 + 0.2 * n(d_inner), "out_proj": n(d_inner, d)}
+        return p, n(b, c["s"], d), n(b, c["s"], d), dict(m)
+    if kind == "mlstm":
+        h = c["h"]
+        p = {k: n(d, d) for k in ("wq", "wk", "wv", "ogate", "wo")}
+        p.update(wi=n(d, h), wf=n(d, h), f_bias=3 + n(h), norm=1 + 0.2 * n(d))
+        return p, n(b, c["s"], d), n(b, c["s"], d), dict(n_heads=h, chunk=4)
+    if kind == "slstm":
+        p = {k: n(d, d) for k in ("wz", "wi", "wf", "wo_gate", "wo")}
+        p.update(f_bias=3 + n(d), norm=1 + 0.2 * n(d))
+        return p, n(b, c["s"], d), n(b, c["s"], d), {}
     if kind == "shared":
         f = 8
         return ({"sh_gate": n(d, f), "sh_in": n(d, f), "sh_out": n(f, d)},
@@ -457,21 +498,31 @@ def test_sharded_paged_decode_matches_reference(world, arch, mesh):
         lg, cache, st = step(params, cache, jnp.asarray(tokens[:, t:t + 1]))
         logits.append(np.asarray(lg))
         masses.append(np.asarray(st["kv_mass"]))
-    blk = cache["blocks"][0]
-    assert int(np.asarray(blk["cur_slot"]).max()) >= 2     # the ring advanced
+    ring = tw._first_ring(cache["blocks"])
     res = _result(world, f"decode_{arch}@{mesh}")
     for arm in ("sharded", "layout", "meshless"):
         got = res[arm]
         np.testing.assert_array_equal(got["logits"].argmax(-1),
                                       np.stack(logits).argmax(-1))
+        np.testing.assert_array_equal(got["pos"], np.asarray(cache["pos"]))
+        assert np.abs(got["logits"] - np.stack(logits)).max() <= 1e-5
+        states = {f"{i}/{k}": np.asarray(v) for i, b in enumerate(cache["blocks"])
+                  if "k_pages" not in b for k, v in b.items()}
+        assert set(got["states"]) == set(states)
+        for key, want in states.items():       # the recurrent decode states
+            assert np.abs(got["states"][key] - want).max() \
+                <= 1e-5 * max(1.0, np.abs(want).max()), (arm, key)
+        if ring is None:
+            continue
+        blk = cache["blocks"][ring]
+        assert int(np.asarray(blk["cur_slot"]).max()) >= 2     # the ring advanced
         np.testing.assert_array_equal(got["page_len"], np.asarray(blk["page_len"]))
         np.testing.assert_array_equal(got["cur_slot"], np.asarray(blk["cur_slot"]))
-        np.testing.assert_array_equal(got["pos"], np.asarray(cache["pos"]))
         assert np.abs(got["k_pages"] - np.asarray(blk["k_pages"])).max() <= 1e-5
-        assert np.abs(got["logits"] - np.stack(logits)).max() <= 1e-5
         assert np.abs(got["kv_mass"] - np.stack(masses)).max() <= 1e-6
-    for key in ("first_k", "first_v"):    # the first ring's rows see no attention
-        np.testing.assert_array_equal(res["sharded"][key], res["meshless"][key])
+    if ring is not None:
+        for key in ("first_k", "first_v"):    # the first ring's rows see no attention
+            np.testing.assert_array_equal(res["sharded"][key], res["meshless"][key])
 
 
 @pytest.mark.parametrize("arch,mesh", DECODE_CASES, ids=DECODE_IDS)
@@ -542,12 +593,17 @@ def test_partitioned_layers_match_reference(world, case):
         layer = {"attn": lambda p, x: j_attn.gqa_apply(p, x, **kw),
                  "mla": lambda p, x: j_attn.mla_apply(p, x, **kw),
                  "shared": j_moe._shared_expert,
+                 "mamba2": lambda p, x: j_mamba2.mamba2_apply(p, x, **kw),
+                 "mlstm": lambda p, x: j_xlstm.mlstm_apply(p, x, **kw),
+                 "slstm": j_xlstm.slstm_apply,
                  "mlp": lambda p, x: j_layers.mlp_apply(p, x, kw["mlp"])}[kind]
 
         def f(p, x):
             y = layer(p, x)
             return jnp.sum(y * ct), (y, None)
-    (_, (y, logits)), (gp, gx) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(jp, jx)
+    # compiled once: op by op the reference's scans and MLA take seconds each
+    (_, (y, logits)), (gp, gx) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True))(jp, jx)
     want = dict(_np_tree(gp), x=np.asarray(gx))
     for rank in range(tw.WORLD):
         res = _result(world, f"tp_{case}", rank)

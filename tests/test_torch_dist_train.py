@@ -9,7 +9,9 @@ moments rest as blocks) and with ZeRO-1 (``compress_collective``,
 half of the world) with ``local_grads`` with and without
 ``grad_compression``; gemma2-27b (softcaps, post-norms, GeGLU, the local
 window) on the (4, 2) mesh with the same options but the compressed link;
-kimi-k2 expert-parallel (``EPContext``) on (2, 4), with remat.  Over
+kimi-k2 expert-parallel (``EPContext``) on (2, 4), with remat; zamba2-2.7b
+with ``fsdp`` on (2, 4) and xlstm-1.3b under Adafactor on (1, 8) (mLSTM's
+4 heads over 8 ranks: two ranks a head).  Over
 'model' the dense decoders compute their share: llama's 4/2 heads do not
 divide the (2, 4) mesh's 4 'model' ranks (the attention core split by
 query rows), gemma2's divide the (4, 2) mesh's 2 (split by heads).  Each
@@ -61,9 +63,9 @@ from repro_torch.train import step as t_step  # noqa: E402
 import torch_dist_world as tw  # noqa: E402
 
 LLAMA, KIMI, GEMMA = "llama3.2-3b", "kimi-k2-1t-a32b", "gemma2-27b"
-DEEPSEEK = "deepseek-v3-671b"
-MESH_DP = {"2x4": 2, "4x1": 4, "4x2": 4}
-MESH_SIZE = {"2x4": 8, "4x1": 4, "4x2": 8}
+DEEPSEEK, ZAMBA, XLSTM = "deepseek-v3-671b", "zamba2-2.7b", "xlstm-1.3b"
+MESH_DP = {"2x4": 2, "4x1": 4, "4x2": 4, "1x8": 1}
+MESH_SIZE = {"2x4": 8, "4x1": 4, "4x2": 8, "1x8": 8}
 # steps that move the params: lr 1e-2 from step 1, and an eps that keeps
 # AdamW's first update g / (|g| + eps) from turning the summation-order
 # noise of gradient elements near 0 into whole steps
@@ -86,14 +88,24 @@ CASES.update({f"gemma2-{case}": (GEMMA,) + CASES[case][1:]
 # MLA, the dense prologue, the shared expert and the MTP head partitioned,
 # the experts expert-parallel, the factored moments updated from blocks
 CASES["deepseek-adafactor"] = (DEEPSEEK, dict(fsdp=True), dict(FAST, kind="adafactor"))
+# the recurrent archs: zamba2's Mamba2 mixers (in_proj gathered whole, B | C
+# split and gathered) and shared attention block on (2, 4); xlstm's mLSTM
+# (4 heads over 8 ranks: two a head) and sLSTM on (1, 8) under Adafactor
+CASES["zamba2-fsdp"] = (ZAMBA, dict(fsdp=True), FAST)
+CASES["xlstm-adafactor"] = (XLSTM, dict(fsdp=True), dict(FAST, kind="adafactor"))
 # leaves that compute their share over 'model': the embedding table, q/k/v/o
 # and the MLP's three matrices of each pattern position; a MoE arch's
 # attention (GQA's q/k/v/o, MLA's wq_a/wq_b/wkv_a/wkv_b/wo) and MLP of each
 # prologue layer, each MoE block's attention and shared expert
 # (sh_gate/sh_in/sh_out), and deepseek-v3's MTP projection and block
+# zamba2's in_proj, conv_w and out_proj of each Mamba2 position and its
+# shared block's q/k/v/o and MLP; xlstm's mLSTM wq/wk/wv/ogate/wo (wi and wf,
+# (d, 4), do not split 8 ways) and sLSTM wz/wi/wf/wo_gate/wo
 SPLIT_LEAVES = {LLAMA: 1 + 7, GEMMA: 1 + 2 * 7, KIMI: 1 + (4 + 3) + (4 + 3),
-                DEEPSEEK: 1 + (5 + 3) + (5 + 3) + 1 + (5 + 3)}
+                DEEPSEEK: 1 + (5 + 3) + (5 + 3) + 1 + (5 + 3),
+                ZAMBA: 1 + 2 * 3 + (4 + 3), XLSTM: 1 + 5 + 5}
 MOE_ARCHS = (KIMI, DEEPSEEK)
+ONE_RANK_ARCHS = MOE_ARCHS + (ZAMBA, XLSTM)
 
 
 # the data-parallel reduce's cases on both meshes; the rest on (2, 4) (the
@@ -101,7 +113,8 @@ MOE_ARCHS = (KIMI, DEEPSEEK)
 MESHES = {"fsdp": ("2x4",), "local": ("2x4", "4x1"), "local-int8": ("2x4", "4x1"),
           "zero1": ("2x4",), "adafactor": ("2x4",), "kimi-ep": ("2x4",),
           "gemma2-fsdp": ("4x2",), "gemma2-local": ("4x2",), "gemma2-zero1": ("4x2",),
-          "gemma2-adafactor": ("4x2",), "deepseek-adafactor": ("2x4",)}
+          "gemma2-adafactor": ("4x2",), "deepseek-adafactor": ("2x4",),
+          "zamba2-fsdp": ("2x4",), "xlstm-adafactor": ("1x8",)}
 
 
 def _runs():
@@ -145,7 +158,7 @@ def _checks():
                     dict(mesh=mesh, arch=arch, params=_params(arch),
                          batches=list(_batches(get_smoke_config(arch).vocab)),
                          kw=_kw(case), opt=opt)))
-    for arch in MOE_ARCHS:
+    for arch in ONE_RANK_ARCHS:
         vocab = get_smoke_config(arch).vocab
         out.append((f"one_rank_{arch}", "check_one_rank",
                     dict(arch=arch, params=_params(arch), batches=list(_batches(vocab)),
@@ -374,10 +387,11 @@ def test_every_rank_holds_the_same_step(world):
                     np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("arch", ONE_RANK_ARCHS)
 def test_one_model_rank_is_the_meshless_arithmetic(world, arch):
-    """At one 'model' rank every partitioned form is the meshless
-    arithmetic op for op: two train steps over a (1, 1) mesh, AdamW and
+    """At one 'model' rank every partitioned form (the MoE archs', the
+    recurrent archs') is the meshless arithmetic op for op: two train
+    steps over a (1, 1) mesh, AdamW and
     Adafactor (from blocks), every param bitwise the meshless step's (the
     expert-parallel body off: its ``enter`` regroups x's gradient sum, so
     with it the params agree to ~1e-7, as the cases above hold); the

@@ -6,11 +6,12 @@ The steps are at full width, cut in depth and vocab, with the default
 4,096-token vocab, a batch of (world size) x 512 tokens), kimi-k2 (GQA,
 64/8 heads) and deepseek-v3 (MLA, 128 heads, MTP) with 2 layers (1 dense
 prologue, 1 MoE) of 16 experts, the same vocab and a batch of (world size)
-rows of 256 tokens (128 on 16 devices).  Three subprocesses run at once:
+rows of 256 tokens (128 on 16 devices).  The subprocesses run at once:
 
 * the reference, lowered and compiled by XLA over 8 and 16 forced host
-  devices (``make_host_mesh(model=m)``, ``state_shardings``,
-  ``batch_shardings``, the jitted ``build_train_step``; the dense-cache
+  devices, a process an arch and device count (``make_host_mesh(model=m)``,
+  ``state_shardings``, ``batch_shardings``, the jitted
+  ``build_train_step``; the dense-cache
   ``decode_step`` over a 512-token cache with ``param_pspecs``,
   ``cache_pspecs`` and, a MoE arch, the dry run's ``EPContext``), each
   compiled program read by ``repro.roofline.census`` (FLOPs per device
@@ -64,9 +65,13 @@ def seq(cfg, world):
     return 512 if cfg.moe is None else 256 if world <= 8 else 128
 """ % CACHE
 
-REFERENCE = PRELUDE + textwrap.dedent("""
+REFERENCE_BODY = textwrap.dedent("""
     n, jobs = int(sys.argv[1]), json.loads(sys.argv[2])
-    os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={n}"
+    # the census reads the HLO after XLA's passes; the backend's LLVM
+    # optimisation only shapes machine code that never runs here (and takes
+    # nearly half the compile's CPU)
+    os.environ["XLA_FLAGS"] = (f"--xla_force_host_platform_device_count={n} "
+                               "--xla_backend_optimization_level=0")
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -113,7 +118,7 @@ REFERENCE = PRELUDE + textwrap.dedent("""
     json.dump(out, open(sys.argv[3], "w"))
 """)
 
-PORT = PRELUDE + textwrap.dedent("""
+PORT_BODY = textwrap.dedent("""
     import torch
     import torch.distributed as dist
 
@@ -169,10 +174,14 @@ PORT = PRELUDE + textwrap.dedent("""
 """)
 
 
-def _jobs(world):
+REFERENCE = PRELUDE + REFERENCE_BODY
+PORT = PRELUDE + PORT_BODY
+
+
+def _jobs(world, train_cells, decode_cells):
     """The reference's (arch, model ranks, what) jobs over ``world`` devices."""
-    cells = [(a, m, "train") for a, m in TRAIN_CELLS] + [(a, m, "decode")
-                                                        for a, m in DECODE_CELLS]
+    cells = [(a, m, "train") for a, m in train_cells] + [(a, m, "decode")
+                                                        for a, m in decode_cells]
     out = []
     for arch, mesh, what in cells:
         data, model = (int(x) for x in mesh.split("x"))
@@ -183,21 +192,29 @@ def _jobs(world):
 
 @pytest.fixture(scope="module")
 def runs():
-    """The reference over 8 and 16 devices and the port, started at once."""
+    yield from start_runs(REFERENCE, PORT, TRAIN_CELLS, DECODE_CELLS)
+
+
+def start_runs(reference, port, train_cells, decode_cells):
+    """The reference over 8 and 16 devices and the port, started at once;
+    yields ``get(arch, mesh, what) -> (reference census, port census)``."""
     tmp = tempfile.mkdtemp(prefix="tp-test-")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1",
                JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    jobs = {
-        "ref8": [sys.executable, "-c", REFERENCE, "8", json.dumps(_jobs(8))],
-        "ref16": [sys.executable, "-c", REFERENCE, "16", json.dumps(_jobs(16))],
-        "port": [sys.executable, "-c", PORT,
-                 json.dumps([[a, m, "train"] for a, m in TRAIN_CELLS]
-                            + [[a, m, "decode"] for a, m in DECODE_CELLS])],
-    }
+    jobs = {"port": [sys.executable, "-c", port,
+                     json.dumps([[a, m, "train"] for a, m in train_cells]
+                                + [[a, m, "decode"] for a, m in decode_cells])]}
+    for world in (8, 16):              # the reference: a process an arch and world
+        by_arch = {}
+        for job in _jobs(world, train_cells, decode_cells):
+            by_arch.setdefault(job[0], []).append(job)
+        for arch, arch_jobs in by_arch.items():
+            jobs[f"ref{world}|{arch}"] = [sys.executable, "-c", reference, str(world),
+                                          json.dumps(arch_jobs)]
     procs, paths = {}, {}
     for name, cmd in jobs.items():
-        paths[name] = os.path.join(tmp, f"{name}.json")
+        paths[name] = os.path.join(tmp, f"{len(paths)}.json")
         procs[name] = subprocess.Popen(cmd + [paths[name]], env=env, text=True,
                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     done = {}
@@ -212,7 +229,7 @@ def runs():
 
     def get(arch, mesh, what):
         key = f"{arch}|{mesh}|{what}"
-        ref = result("ref16" if mesh == "1x16" else "ref8")[key]
+        ref = result(f"ref{16 if mesh == '1x16' else 8}|{arch}")[key]
         return ref, result("port")[key]
     yield get
     for p in procs.values():

@@ -251,7 +251,7 @@ def check_sharded_decode(meshes, params, tokens, n_slots, page_t,
     expert-parallel); and the same steps without a mesh.  ``first_k`` /
     ``first_v`` are the first ring's pages (a MoE arch's first prologue
     layer, else the body's first group), which no attention output
-    reaches."""
+    reaches; ``states`` every recurrent position's decode state."""
     import torch
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.dist.collectives import all_gather
@@ -283,20 +283,33 @@ def check_sharded_decode(meshes, params, tokens, n_slots, page_t,
                                                   smesh=smesh, layout=layout, ep_axes=ep)
             logits.append(_np(lg))
             mass = st["kv_mass"]
-            masses.append(_np(all_gather(mass, 3, mesh.group(axes)) if smesh else mass))
-        blk = cache["blocks"][0]
+            if mass is not None:
+                masses.append(_np(all_gather(mass, 3, mesh.group(axes)) if smesh
+                                  else mass))
+        out[arm] = {"logits": np.stack(logits), "pos": _np(cache["pos"]),
+                    "states": {f"{i}/{k}": _np(v) for i, b in enumerate(cache["blocks"])
+                               if "k_pages" not in b for k, v in b.items()}}
+        ring = _first_ring(cache["blocks"])
+        if ring is None:               # an attention-free arch (xlstm)
+            continue
+        blk = cache["blocks"][ring]
         whole = ((lambda x, d=2: all_gather(x, d, mesh.group(axes))) if smesh
                  else (lambda x, d=2: x))
         first = (cache["prologue"][0] if "prologue" in cache
                  else {k: v[0] for k, v in blk.items()})
-        out[arm] = {"logits": np.stack(logits), "kv_mass": np.stack(masses),
-                    "page_len": _np(whole(blk["page_len"])),
-                    "cur_slot": _np(blk["cur_slot"]), "pos": _np(cache["pos"]),
-                    "k_pages": _np(whole(blk["k_pages"])),
-                    "v_pages": _np(whole(blk["v_pages"])),
-                    "first_k": _np(whole(first["k_pages"], 1)),
-                    "first_v": _np(whole(first["v_pages"], 1))}
+        out[arm].update({"kv_mass": np.stack(masses),
+                         "page_len": _np(whole(blk["page_len"])),
+                         "cur_slot": _np(blk["cur_slot"]),
+                         "k_pages": _np(whole(blk["k_pages"])),
+                         "v_pages": _np(whole(blk["v_pages"])),
+                         "first_k": _np(whole(first["k_pages"], 1)),
+                         "first_v": _np(whole(first["v_pages"], 1))})
     return out
+
+
+def _first_ring(blocks):
+    """The first pattern position with a paged ring, or None."""
+    return next((i for i, b in enumerate(blocks) if "k_pages" in b), None)
 
 
 def check_cell_serving(meshes, params, tokens, prompt, arch="llama3.2-3b",
@@ -354,14 +367,19 @@ def check_partitioned_layers(meshes, kind, p, x, ct, kw):
     ``ct``'s labels under its mask plus sum(embedding * x), the logits
     gathered whole; "mla-decode": MLA's absorbed decode over ``ct``'s
     dense cache at ``ct["pos"]``, the output and the cache it wrote, no
-    gradients); the blocks' gradients gathered over 'model'."""
+    gradients; "mamba2", "mlstm", "slstm": a recurrent mixer, its
+    replicated leaves and the weights whose dim does not divide the ranks
+    whole); the blocks' gradients gathered over 'model'."""
     import torch
     from repro_torch.dist.collectives import Part, all_gather
-    from repro_torch.models import attention, layers, moe
+    from repro_torch.models import attention, layers, mamba2, moe, xlstm
     mesh = meshes("2x4")
     part = Part(mesh.group("model"), mesh.coord("model"), mesh.axis_size("model"))
-    dims = {k: (0 if k in ("wo", "w_out", "sh_out", "table") else -1)
+    # param_pspecs' rule: a dim that does not divide the ranks stays whole
+    dims = {k: (0 if k in ("wo", "w_out", "sh_out", "table", "out_proj") else -1)
             for k, v in p.items() if v.ndim >= 2}
+    dims = {k: d for k, d in dims.items()
+            if p[k].shape[d] >= part.size and p[k].shape[d] % part.size == 0}
     local = {k: (part.block(_t(v), dims[k]) if k in dims else _t(v)).clone()
              .requires_grad_() for k, v in p.items()}
     xt = _t(x).requires_grad_()
@@ -386,6 +404,12 @@ def check_partitioned_layers(meshes, kind, p, x, ct, kw):
             y = attention.mla_apply(local, xt, part=part, **kw)
         elif kind == "shared":
             y = moe._shared_expert(local, xt, part)
+        elif kind == "mamba2":
+            y = mamba2.mamba2_apply(local, xt, part=part, **kw)
+        elif kind == "mlstm":
+            y = xlstm.mlstm_apply(local, xt, part=part, **kw)
+        elif kind == "slstm":
+            y = xlstm.slstm_apply(local, xt, part=part)
         else:
             y = layers.mlp_apply(local, xt, kw["mlp"], part=part)
         (y * _t(ct)).sum().backward()
