@@ -96,7 +96,18 @@ Phases, one summary line each:
                 algorithms on: tokens equal, logits and page mass 0 apart,
                 every ring's pages and every recurrent state bitwise the
                 meshless calls'; prints the leaves split and gathered and
-                zamba2's grouped attention launches;
+                zamba2's grouped attention launches; (f) then
+                llama-3.2-vision-11b (depth cut to 10: two cross blocks)
+                and whisper-base (whole) at full width, each cross gate at
+                0.5, partitioned over the one 'model' rank (self and cross
+                attention, the cross step's projection of every patch or
+                frame, MLPs, whisper's encoder, embedding and head) with
+                deterministic algorithms on, over seeded aux embeddings:
+                the dense-cache prefill_dense and greedy decode_step steps
+                (whisper encoded first, its encoder output bitwise) and the
+                paged arm of (e), tokens equal, logits 0 apart, every cache
+                leaf and ring bitwise the meshless calls', grouped
+                attention launches equal between the arms;
   3. main     — ServeEngine on llama3.2-3b at full width (random weights
                 from a seed) serving a batch of 4 random 1024-token prompts
                 for 64 greedy tokens through the NeoMem loop; every kernel
@@ -279,10 +290,12 @@ Phases, one summary line each:
                 form (Mamba2, mLSTM, sLSTM, MLA) forward and backward over
                 256 positions at chunk 128 on the card against the CPU,
                 every gradient within ATOL*max(1, max|ref|) + RTOL*|ref|,
-                and each of the four blocks (Mamba2, mLSTM, sLSTM,
-                deepseek-v3's MLA) through its partitioned form over a
-                one-rank Part (a world of one rank over NCCL), its output
-                and every gradient bitwise the unpartitioned block's;
+                and each of six blocks (Mamba2, mLSTM, sLSTM,
+                deepseek-v3's MLA, llama-vision's gated cross block over
+                its 1,601 patches, whisper's encoder block) through its
+                partitioned form over a one-rank Part (a world of one rank
+                over NCCL), its output and every gradient bitwise the
+                unpartitioned block's;
   13. sim     — the paper's evaluation path: fig11_main_speedup.py's grid
                 (8 workloads x 6 methods, benchmarks/common.py's scale, its
                 240 blocks cut to 64)
@@ -492,6 +505,9 @@ TRAIN_FAMILIES = (("llama3.2-3b", {}, "adamw"),
                   ("whisper-base", {}, "adamw"))
 TRAIN_FORMS = (("zamba2-2.7b", "mamba"), ("xlstm-1.3b", "mlstm"),
                ("xlstm-1.3b", "slstm"), ("deepseek-v3-671b", "mla"))
+# (c)'s partitioned forms: those blocks, llama-vision's gated cross block (over
+# its 1,601 patch embeddings) and whisper's bidirectional encoder block
+PART_FORMS = TRAIN_FORMS + (("llama-3.2-vision-11b", "cross"), ("whisper-base", "enc"))
 TRAIN_FORM_SEQ, TRAIN_CHUNK = 256, 128
 # (a)'s census gates: the card's census FLOPs against the census of the same
 # step on meta tensors, and the census over analysis.model_flops (remat runs
@@ -3835,6 +3851,23 @@ def _form(torch, arch, kind, gen):
             p, x, n_heads=cfg.mlstm_heads, chunk=TRAIN_CHUNK, part=part), d
     if kind == "slstm":
         return xl.slstm_init(gen, d, device="cpu", dtype=f32), xl.slstm_apply, d
+    if kind in ("cross", "enc"):
+        # a whole attention block: llama-vision's gated cross block over a
+        # seeded (1, n_aux_tokens, d) patch stream (its gate at CROSS_GATE),
+        # whisper's bidirectional encoder block
+        from repro_torch.models import transformer as tr
+        p = _tree_map(lambda v: v.float(), tr._block(gen, cfg, kind, 0, "cpu"))
+        aux = {}
+        if kind == "cross":
+            p["xgate"].fill_(CROSS_GATE)
+            aux["aux_embeds"] = torch.randn((1, cfg.n_aux_tokens, d), generator=gen)
+        name = "cross" if kind == "cross" else "enc_self"
+
+        def block(p, x, part=None):
+            parts = None if part is None else dict(attn=part, ffn=part, xattn=part)
+            a = {k: v.to(x.device) for k, v in aux.items()}
+            return tr._attn_block(p, cfg, name, x, a, parts=parts)[0]
+        return p, block, d
     dims = dataclasses.asdict(cfg.mla)
     p = attn.mla_init(gen, d, cfg.n_heads, device="cpu", dtype=f32, **dims)
     return p, lambda p, x, part=None: attn.mla_apply(
@@ -3888,8 +3921,9 @@ def train_forms(torch, device="cuda", seq=TRAIN_FORM_SEQ) -> dict:
 
 
 def part_forms(torch, device="cuda", seq=TRAIN_FORM_SEQ) -> int:
-    """(c) each TRAIN_FORMS block (``_form``'s full-width weights and input:
-    Mamba2, mLSTM, sLSTM, deepseek-v3's MLA) through its partitioned form
+    """(c) each PART_FORMS block (``_form``'s full-width weights and input:
+    Mamba2, mLSTM, sLSTM, deepseek-v3's MLA, llama-vision's gated cross
+    block, whisper's encoder block) through its partitioned form
     over the one-rank Part of a 1 x 1 mesh (a world of one rank over NCCL,
     made here and destroyed) against the unpartitioned block on the card,
     deterministic algorithms on: the output and every gradient (params and
@@ -3901,7 +3935,7 @@ def part_forms(torch, device="cuda", seq=TRAIN_FORM_SEQ) -> int:
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         part = Part(mesh.group("model"), mesh.coord("model"), mesh.axis_size("model"))
-        for arch, kind in TRAIN_FORMS:
+        for arch, kind in PART_FORMS:
             gen = torch.Generator().manual_seed(6)
             p, fn, d = _form(torch, arch, kind, gen)
             x = torch.randn((1, seq, d), generator=gen) * 0.5
@@ -3958,6 +3992,9 @@ DIST_ADAFACTOR = ("deepseek-v3-671b",)   # (c): the dry run's optimizer for the 
 DIST_SLICE = ("mla", "moe")        # (d): PHASE mla's and moe's arch and depth, in turn
 DIST_SLICE_PROMPT = 8              # (d), (e): prompt tokens before the greedy steps
 DIST_RECURRENT = SSM_ARCHS         # (e): PHASE ssm's archs at its depth, in turn
+# (f): PHASE cross's archs at full width, llama-vision's depth cut to two
+# patterns (two cross blocks), whisper's whole
+DIST_CROSS = {"llama-3.2-vision-11b": 10, "whisper-base": None}
 
 
 def dist_world(torch):
@@ -4406,12 +4443,136 @@ def dist_recurrent(torch, mesh, arch, smi, device="cuda", dims=DIST_DECODE) -> d
     return dict(split=(n_split, n_gathered), launches=sh["launches"])
 
 
+def dense_arms(torch, mesh, cfg, params, aux, device="cuda", dims=DIST_DECODE) -> tuple:
+    """``cfg``'s dense-cache serving over ``mesh`` and without one, from the
+    same weights and ``aux`` (an image's patches, or an encoder arch's
+    frames, ``encode``d first in each arm): over the mesh its params stored
+    under ``param_pspecs`` and its cache under ``cache_pspecs``, computing
+    as the dry run's decode_32k cell does (``layout``, partitioned over
+    'model', ``cache_layout``), ``prefill_dense`` of a seeded
+    DIST_SLICE_PROMPT-token prompt, then greedy ``decode_step`` steps.
+    Returns ({arm: the encoder's output (None without an encoder), tokens,
+    logits, the final cache}, (leaves computed split over 'model', leaves
+    gathered whole))."""
+    from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
+    from repro_torch.dist.sharding import (DP_AXES, Layout, cache_pspecs, drop_axes,
+                                           param_pspecs, shard, spec_leaves,
+                                           tree_map_with_path)
+    from repro_torch.models import decode as dec
+    from repro_torch.models.transformer import encode
+    from repro_torch.train import step as ts
+    b, steps, _, _ = dims
+    pspecs = param_pspecs(params, mesh)
+    stored = tree_unflatten(params, [shard(x, sp, mesh) for x, sp in
+                                     zip(tree_leaves(params), spec_leaves(pspecs))])
+    layout = ts.compute_layout(cfg, mesh, pspecs)
+    prompt = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab, (b, DIST_SLICE_PROMPT)).astype(np.int32)).to(device)
+    arms = {}
+    for arm in ("mesh", "meshless"):
+        cache = dec.init_cache(cfg, b, DIST_SLICE_PROMPT + steps, device=device)
+        p, kw = params, {}
+        if arm == "mesh":
+            cspecs = cache_pspecs(cache, mesh)
+            cache = tree_unflatten(cache, [shard(x, sp, mesh) for x, sp in
+                                           zip(tree_leaves(cache), spec_leaves(cspecs))])
+            p, kw = stored, dict(layout=layout, cache_layout=Layout(mesh, tree_map_with_path(
+                lambda _, sp: drop_axes(sp, DP_AXES), cspecs)))
+        src = aux
+        if cfg.encoder_layers:
+            src = encode(cfg, p, aux, **({} if arm == "meshless" else dict(layout=layout)))
+        last, cache, _ = dec.prefill_dense(cfg, p, cache, prompt, aux_embeds=src, **kw)
+        tok = last.argmax(-1, keepdim=True).to(torch.int32)
+        toks, logits = [tok], [last.float()]
+        for _ in range(steps - 1):
+            lg, cache = dec.decode_step(cfg, p, cache, tok, aux_embeds=src, **kw)
+            logits.append(lg[:, -1].float())
+            tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        arms[arm] = dict(enc=src if cfg.encoder_layers else None,
+                         tokens=torch.cat(toks, 1), logits=torch.stack(logits), cache=cache)
+    return arms, ts.split_counts(layout, pspecs)
+
+
+def dist_cross(torch, mesh, arch, smi, device="cuda", dims=DIST_DECODE) -> dict:
+    """(f) ``arch`` (DIST_CROSS) at full width and its depth there, each
+    cross block's gate at CROSS_GATE (so that the image counts), with
+    deterministic algorithms on: the self and cross attention (the cross
+    step's projection of every patch or frame split over 'model'), MLPs,
+    whisper's encoder, the embedding and the head partitioned over the one
+    'model' rank, against the meshless calls, seeded (B, n_aux_tokens, d)
+    ``aux_embeds``: ``dense_arms`` (whisper's encoder output bitwise, tokens
+    equal, logits 0 apart, every cache leaf bitwise) and ``paged_arms``
+    (which has no cross step: ROADMAP C6; tokens equal, logits 0 apart,
+    every ring bitwise, grouped attention launches equal between the arms
+    and one a ring and token).  Prints the leaves split and gathered and
+    the launches."""
+    cfg, params = draw_dense_params(torch, arch, phase="dist", depth=DIST_CROSS[arch])
+    for blk in params["blocks"]:
+        if "xgate" in blk:
+            blk["xgate"].fill_(CROSS_GATE)
+    b, steps, n_slots, page_t = dims
+    aux = cross_aux(torch, cfg, b, device)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        dense, (n_split, n_gathered) = dense_arms(torch, mesh, cfg, params, aux, device,
+                                                  dims)
+        paged, split = paged_arms(torch, mesh, cfg, params, device, dims=dims)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if n_split == 0 or n_gathered or split != (n_split, n_gathered):
+        raise AssertionError(f"dist (f) {cfg.name}: {n_split} leaves computed split over "
+                             f"'model', {n_gathered} gathered: not the partitioned path")
+    sh, un = dense["mesh"], dense["meshless"]
+    if cfg.encoder_layers and not torch.equal(sh["enc"], un["enc"]):
+        raise AssertionError(f"dist (f) {cfg.name}: the encoder's output differs")
+    for key in ("tokens", "logits"):
+        if not torch.equal(sh[key], un[key]):
+            raise AssertionError(f"dist (f) {cfg.name}: the dense arms' {key} differ")
+    n_leaves = 0
+    for i, (x, y) in enumerate(zip(sh["cache"]["blocks"], un["cache"]["blocks"])):
+        for k in y:
+            n_leaves += 1
+            if not torch.equal(x[k], y[k]):
+                raise AssertionError(f"dist (f) {cfg.name}: dense cache {k} of pattern "
+                                     f"position {i} differs")
+    psh, pun = paged["mesh"], paged["meshless"]
+    for key in ("tokens", "logits", "mass"):
+        if not torch.equal(psh[key], pun[key]):
+            raise AssertionError(f"dist (f) {cfg.name}: the paged arms' {key} differ")
+    for i, (x, y) in enumerate(zip(psh["cache"]["blocks"], pun["cache"]["blocks"])):
+        for k in ("k_pages", "v_pages", "page_len", "cur_slot"):
+            if not torch.equal(x[k], y[k]):
+                raise AssertionError(f"dist (f) {cfg.name}: {k} of ring {i} differs")
+    want = len(cfg.pattern) * cfg.n_groups * (DIST_SLICE_PROMPT + steps)
+    if device == "cuda" and (psh["launches"] != pun["launches"]
+                             or psh["launches"] != (want, 0)):
+        raise AssertionError(f"dist (f) {cfg.name}: attention launches (all, head-tiled) "
+                             f"mesh {psh['launches']}, meshless {pun['launches']}, "
+                             f"{want} grouped expected")
+    enc = (f", the encoder's output {tuple(sh['enc'].shape)} bitwise"
+           if cfg.encoder_layers else "")
+    print(f"dist (f): {cfg.name} at full width, depth {cfg.n_layers} (pattern "
+          f"{cfg.pattern}), B {b} over {cfg.n_aux_tokens} aux embeddings (gate "
+          f"{CROSS_GATE}), partitioned over 'model' ({n_split} leaves computed split, "
+          f"{n_gathered} gathered whole), against the meshless calls: dense arm "
+          f"(prefill_dense of {DIST_SLICE_PROMPT} tokens and {steps - 1} greedy "
+          f"decode_step steps) tokens equal, logits 0 apart, all {n_leaves} cache "
+          f"leaves bitwise{enc}; paged arm ({DIST_SLICE_PROMPT}-token prefill_paged, "
+          f"{steps} greedy steps, no cross step) tokens equal, logits and page mass 0 "
+          f"apart, every ring bitwise, grouped attention launches {psh['launches'][0]} "
+          f"an arm; on {smi}")
+    return dict(split=(n_split, n_gathered), launches=psh["launches"])
+
+
 def dist_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
     """PHASE dist: a world of one rank over NCCL and its 1 x 1 mesh; (a)
     ``dist_train``, then, counts at 0, (d) ``dist_slice`` on each
     DIST_SLICE phase's arch at full width (right after (a) let go of its
     pinned host vectors, before any other model is drawn), (e)
-    ``dist_recurrent`` on each DIST_RECURRENT arch, (b)
+    ``dist_recurrent`` on each DIST_RECURRENT arch, (f) ``dist_cross`` on
+    each DIST_CROSS arch, (b)
     ``dist_decode`` on (a)'s weights (the attention launches) and (c)
     ``dist_moe`` on each DIST_MOE arch (the sketch update and mark
     launches, required).  The process group is destroyed at the end,
@@ -4430,6 +4591,9 @@ def dist_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
             release(torch)
         for arch in DIST_RECURRENT:
             slices[arch] = dist_recurrent(torch, mesh, arch, smi, device)
+            release(torch)
+        for arch in DIST_CROSS:
+            slices[arch] = dist_cross(torch, mesh, arch, smi, device)
             release(torch)
         cfg = get_config(TRAIN_ARCH)
         params = init_params(cfg, seed=0, device=device)
@@ -4524,7 +4688,9 @@ def main() -> int:
           f"{' and '.join(MOE_PHASES[p]['arch'] for p in DIST_SLICE)} at full width, "
           f"partitioned prefill_paged and paged decode equal to the meshless calls; (e) "
           f"{' and '.join(DIST_RECURRENT)} at full width, partitioned prefill_paged and "
-          f"paged decode bitwise the meshless calls; "
+          f"paged decode bitwise the meshless calls; (f) {' and '.join(DIST_CROSS)} at "
+          f"full width, partitioned dense (cross steps, encoder) and paged serving "
+          f"bitwise the meshless calls; "
           f"launches {json.dumps(phases['dist'])} on {smi}")
     release(torch)
     cfg, params = draw_params(torch)

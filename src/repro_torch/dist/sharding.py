@@ -25,8 +25,8 @@ stored blocks before the group runs (one autograd function a call, with
 :mod:`repro_torch.dist.collectives`' backward rules), where XLA's
 partitioner would have placed the collectives.  Compute is data-parallel
 over the data axes.  Over 'model' the leaves of the subtrees a layout
-names in ``split`` compute split (the dense decoders, the MoE family and
-the recurrent archs): the attention weights (GQA's ``wq``/``wk``/``wv``,
+names in ``split`` compute split (every arch): the attention weights
+(self and cross attention's and the encoder's GQA ``wq``/``wk``/``wv``,
 MLA's ``wq_a``/``wq_b``/``wkv_a``/``wkv_b`` column-parallel, ``wo``
 row-parallel), the MLPs and a MoE block's shared expert (``w_gate``/
 ``w_in``, ``sh_gate``/``sh_in`` column-parallel, ``w_out``/``sh_out``
@@ -282,9 +282,11 @@ class Layout:
         return self.part if path in self.split else None
 
     def parts(self, block: str) -> dict:
-        """The attention, MLP and recurrent mixer parts of the block at path
-        ``block`` ("blocks/0", "prologue/1", "mtp/block", "shared_attn")."""
-        return {k: self.part_of(f"{block}/{k}") for k in ("attn", "ffn", "mix")}
+        """The attention, MLP, recurrent mixer and cross attention parts
+        ("attn", "ffn", "mix", "xattn") of the block at path ``block``
+        ("blocks/0", "prologue/1", "mtp/block", "shared_attn",
+        "encoder/0")."""
+        return {k: self.part_of(f"{block}/{k}") for k in ("attn", "ffn", "mix", "xattn")}
 
     def _plan(self, spec) -> tuple:
         plan = []

@@ -15,24 +15,36 @@ float32 as the reference's.  ``mla_apply`` is MLA's training form: the
 latent KV decompressed on the fly, then the causal ``sdpa_chunked``.
 
 Partitioned over 'model' (``part``, a
-:class:`repro_torch.dist.collectives.Part`; the dense decoders and the
-MoE family over a mesh), ``wq``/``wk``/``wv`` are the rank's column
-blocks and ``wo`` its
-row block: the input enters the region, the rank projects its columns
-(plus its block of a replicated bias) and ``wo``'s partial products are
-summed over the ranks.  The core of :func:`gqa_apply` (train, forward and
-prefill) is split n ways in one of two forms:
+:class:`repro_torch.dist.collectives.Part`; every arch over a mesh),
+``wq``/``wk``/``wv`` are the rank's column blocks and ``wo`` its row
+block: the input (and cross attention's ``kv_src``) enters the region,
+the rank projects its columns (plus its block of a replicated bias) and
+``wo``'s partial products are summed over the ranks.  The core of
+:func:`gqa_apply` (train, forward and prefill; the encoder's bidirectional
+blocks) and of :func:`cross_apply` (train, prefill and the decode step's
+cross step) is split n ways in one of four forms (:func:`core_form`):
 
   * heads: where the query heads and the kv heads both divide n, a column
     block is whole heads, and the core runs on the rank's heads;
   * rows: where they do not (llama3.2-3b's 24/8 and qwen1.5-4b's 20/20 on
-    16), the projected query columns are exchanged (an all-to-all) into a
-    split over the query rows, K and V are all-gathered (backward a
-    reduce-scatter: each rank's rows reach every key), the core runs on
-    the rank's rows over every key, and its output is exchanged back into
-    column blocks for ``wo`` — what XLA's partitioner does with the
-    reference's program.  A sequence that does not divide n takes the
-    whole core on gathered q, k and v instead, then the output's block.
+    16) and the query length divides n, the projected query columns are
+    exchanged (an all-to-all) into a split over the query rows, K and V
+    are all-gathered (backward a reduce-scatter: each rank's rows reach
+    every key), the core runs on the rank's rows over every key, and its
+    output is exchanged back into column blocks for ``wo`` — what XLA's
+    partitioner does with the reference's program;
+  * head columns ("cols"): where neither divides but n is a multiple of
+    the heads (as many kv heads) and n / h divides the head's width
+    (whisper's 8 heads on 16 ranks, its encoder's 1,500 frames), the n / h
+    ranks of a head each hold a block of its columns: the q . k products
+    are partial sums over the head's ranks, summed over its
+    :meth:`~repro_torch.dist.collectives.Part.sub` group
+    (:func:`repro_torch.dist.collectives.psum`), and each rank keeps its
+    columns of the output for ``wo``'s rows; RoPE, which pairs columns
+    across the blocks, turns q and k gathered over the head's ranks;
+  * whole: otherwise (a decode step's one query where the heads do not
+    divide) the core runs whole on gathered q, k and v, then the
+    output's block.
 
 The decode cores (:func:`gqa_decode` over the dense cache,
 ``decode._paged_attn_block`` over the ring) attend at one query position
@@ -43,8 +55,8 @@ written whole, as without a part.  MLA (:func:`mla_apply`,
 and ``wkv_a`` gathered whole (the norms and the rope key read whole rows),
 its heads through its blocks of ``wq_b`` and ``wkv_b``, ``wo``'s row
 parts summed; its decode core attends replicated on the absorbed queries
-gathered over the heads.  With one rank in the part every form is today's
-arithmetic."""
+gathered over the heads.  With one rank in the part every form is the
+meshless arithmetic, op for op."""
 from __future__ import annotations
 
 import math
@@ -100,14 +112,23 @@ def gqa_init(generator: torch.Generator, d, h, hkv, dh, *, groups: int = 0,
     return p
 
 
-def _proj_cols(p, x, part=None):
+def _proj_cols(p, x, part=None, kv_src=None):
     """q, k and v flat (B, S, columns): every column, or with ``part`` the
-    rank's blocks (``x`` entering the region)."""
+    rank's blocks (``x`` entering the region); k and v projected from
+    ``kv_src`` (cross attention, entering the region too) or from ``x``."""
     if part is not None:
         x = col.enter(x, part.group)
+        if kv_src is not None:
+            kv_src = col.enter(kv_src, part.group)
+    elif kv_src is not None:
+        # a node of its own, as the region's enter is: k's and v's gradients
+        # sum there before they join those of the other layers that read the
+        # stream (whisper's encoder output), in the same order in both forms
+        kv_src = kv_src.view_as(kv_src)
+    kv = x if kv_src is None else kv_src
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = kv @ p["wk"]
+    v = kv @ p["wv"]
     if "bq" in p:
         q, k, v = (q + _col_bias(p["bq"], part), k + _col_bias(p["bk"], part),
                    v + _col_bias(p["bv"], part))
@@ -199,17 +220,22 @@ def gqa_decode(p, x_t, cache, pos, *, h, hkv, dh, rope_theta=10000.0,
 # -- full-sequence attention (the encoder) and cross attention -------------------
 
 def sdpa(q, k, v, *, causal=True, window: int = 0, softcap: float = 0.0,
-         scale=None, q_offset: int = 0, k_offset: int = 0):
+         scale=None, q_offset: int = 0, k_offset: int = 0, reduce=None):
     """q (B, Sq, H, dh) over k/v (B, Sk, Hkv, dh|dv) in float32, rounded
     back to q's dtype: the reference's einsum / softcap / mask / softmax /
     einsum.  ``window > 0`` keeps only the last ``window`` keys of each
     query; ``q_offset`` / ``k_offset`` are the absolute positions of q[0]
-    and k[0]."""
+    and k[0]; ``reduce`` completes the q . k products before they are
+    scaled (a rank's partial sums over its block of each head's columns,
+    summed over the head's ranks)."""
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     scale = (dh ** -0.5) if scale is None else scale
     qf = q.float().reshape(b, sq, hkv, h // hkv, dh)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    if reduce is not None:
+        s = reduce(s)
+    s = s * scale
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
     qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
@@ -229,16 +255,17 @@ CHUNK_Q = 512          # query-chunked attention kicks in above this length
 
 
 def sdpa_chunked(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
-                 chunk=CHUNK_Q, q_offset: int = 0):
+                 chunk=CHUNK_Q, q_offset: int = 0, reduce=None):
     """:func:`sdpa` one chunk of ``chunk`` queries at a time, as the
     reference's scan; a length of at most ``chunk`` or not a multiple of it
     (whisper's 1,500 frames) takes the plain path.  A causal sliding-window
     chunk attends over only the ``window + chunk`` keys it can reach.
-    ``q_offset`` is q[0]'s position among the keys (a rank's query rows)."""
+    ``q_offset`` is q[0]'s position among the keys (a rank's query rows);
+    ``reduce`` as :func:`sdpa`'s."""
     sq = q.shape[1]
     if sq <= chunk or sq % chunk != 0:
         return sdpa(q, k, v, causal=causal, window=window, softcap=softcap,
-                    scale=scale, q_offset=q_offset)
+                    scale=scale, q_offset=q_offset, reduce=reduce)
     sk = k.shape[1]
     kv_span = min(sk, window + chunk) if (window > 0 and causal) else sk
     outs = []
@@ -248,16 +275,76 @@ def sdpa_chunked(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
         outs.append(sdpa(q[:, i * chunk:(i + 1) * chunk],
                          k[:, start:start + kv_span], v[:, start:start + kv_span],
                          causal=causal, window=window, softcap=softcap,
-                         scale=scale, q_offset=at, k_offset=start))
+                         scale=scale, q_offset=at, k_offset=start, reduce=reduce))
     return torch.cat(outs, dim=1)
 
 
-def core_form(h: int, hkv: int, s: int, n: int) -> str:
-    """How :func:`gqa_apply` splits its core over n ranks: "heads", "rows"
-    or "whole" (the module docstring)."""
+def core_form(h: int, hkv: int, s: int, n: int, dh: int) -> str:
+    """How :func:`gqa_apply` and :func:`cross_apply` split their core of
+    ``h`` / ``hkv`` heads of ``dh`` over n ranks: "heads", "rows", "cols"
+    (head columns) or "whole" (the module docstring); ``s`` is the query
+    length."""
     if h % n == 0 and hkv % n == 0:
         return "heads"
-    return "rows" if s % n == 0 else "whole"
+    if s % n == 0:
+        return "rows"
+    if hkv == h and n % h == 0 and dh % (n // h) == 0:
+        return "cols"
+    return "whole"
+
+
+def _attend(p, q, k, v, *, h, hkv, dh, form, part, core=None, pos=None,
+            rope_theta=0.0, **kw):
+    """The core over the rank's projected columns q (B, Sq, .), k and v
+    (B, Sk, .) in ``form``, then ``wo``: RoPE at ``pos`` (queries and keys
+    of one sequence) where ``rope_theta > 0``, ``core`` (:func:`sdpa_chunked`
+    by default) with ``kw``."""
+    core = core or sdpa_chunked
+    b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    rope = pos is not None and rope_theta > 0
+    if form == "rows":
+        n, r = part.size, part.rank
+        q = col.exchange(q, 1, 2, part.group)              # (B, Sq/n, H*dh)
+        k, v = (col.gather(t, 2, part.group, reduce=True) for t in (k, v))
+        rows = sq // n
+        q = q.reshape(b, rows, h, dh)
+        k, v = k.reshape(b, sk, hkv, dh), v.reshape(b, sk, hkv, dh)
+        if rope:
+            q = apply_rope(q, pos[..., r * rows:(r + 1) * rows], rope_theta)
+            k = apply_rope(k, pos, rope_theta)
+        o = core(q, k, v, q_offset=r * rows, **kw)
+        o = col.exchange(o.reshape(b, rows, h * dh), 2, 1, part.group)
+        return col.sum_parts(o @ p["wo"], part.group)
+    if form == "cols":
+        # n / h ranks a head, each with a block of its columns: q . k summed
+        # over the head's ranks, each rank keeping its columns of the output
+        hp = part.sub(part.size // h)
+        e = dh // hp.size
+        q, k, v = q.reshape(b, sq, 1, e), k.reshape(b, sk, 1, e), v.reshape(b, sk, 1, e)
+        if rope:                       # RoPE pairs columns across the blocks
+            q, k = (hp.block(apply_rope(col.gather(t, -1, hp.group, reduce=True), pos,
+                                        rope_theta), -1) for t in (q, k))
+        if kw.get("scale") is None:
+            kw["scale"] = dh ** -0.5
+        o = core(q, k, v, reduce=lambda s: col.psum(s, hp.group), **kw)
+        return col.sum_parts(o.reshape(b, sq, e) @ p["wo"], part.group)
+    if form == "heads":
+        n = part.size
+        q, k, v = (q.reshape(b, sq, h // n, dh), k.reshape(b, sk, hkv // n, dh),
+                   v.reshape(b, sk, hkv // n, dh))
+    else:
+        if part is not None:
+            q, k, v = (col.gather(t, 2, part.group, reduce=True) for t in (q, k, v))
+        q, k, v = (q.reshape(b, sq, h, dh), k.reshape(b, sk, hkv, dh),
+                   v.reshape(b, sk, hkv, dh))
+    if rope:
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    o = core(q, k, v, **kw)
+    o = o.reshape(b, sq, q.shape[2] * dh)
+    if form == "heads":
+        return col.sum_parts(o @ p["wo"], part.group)
+    return out_proj(p, o, part)
 
 
 def gqa_apply(p, x, *, h, hkv, dh, rope_theta=10000.0, causal=True,
@@ -265,54 +352,28 @@ def gqa_apply(p, x, *, h, hkv, dh, rope_theta=10000.0, causal=True,
     """Full-sequence GQA over x (B, S, D): RoPE at ``positions`` (default
     0..S-1), :func:`sdpa_chunked`, then ``wo``; with ``part`` partitioned
     (the module docstring)."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     pos = torch.arange(s, device=x.device)[None, :] if positions is None \
         else positions
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-    form = "whole" if part is None else core_form(h, hkv, s, part.size)
-    if form == "rows":
-        n, r = part.size, part.rank
-        q, k, v = _proj_cols(p, x, part)
-        q = col.exchange(q, 1, 2, part.group)              # (B, S/n, H*dh)
-        k, v = (col.gather(t, 2, part.group, reduce=True) for t in (k, v))
-        rows = s // n
-        q = q.reshape(b, rows, h, dh)
-        k, v = k.reshape(b, s, hkv, dh), v.reshape(b, s, hkv, dh)
-        if rope_theta > 0:
-            q = apply_rope(q, pos[..., r * rows:(r + 1) * rows], rope_theta)
-            k = apply_rope(k, pos, rope_theta)
-        o = sdpa_chunked(q, k, v, q_offset=r * rows, **kw)
-        o = col.exchange(o.reshape(b, rows, h * dh), 2, 1, part.group)
-        return col.sum_parts(o @ p["wo"], part.group)
-    if form == "heads":
-        n = part.size
-        q, k, v = _proj_cols(p, x, part)
-        q, k, v = (q.reshape(b, s, h // n, dh), k.reshape(b, s, hkv // n, dh),
-                   v.reshape(b, s, hkv // n, dh))
-    else:
-        q, k, v = _proj_qkv(p, x, h, hkv, dh, part)
-    if rope_theta > 0:
-        q = apply_rope(q, pos, rope_theta)
-        k = apply_rope(k, pos, rope_theta)
-    o = sdpa_chunked(q, k, v, **kw)
-    o = o.reshape(b, s, q.shape[2] * dh)
-    if form == "heads":
-        return col.sum_parts(o @ p["wo"], part.group)
-    return out_proj(p, o, part)
+    form = "whole" if part is None else core_form(h, hkv, s, part.size, dh)
+    q, k, v = _proj_cols(p, x, part)
+    return _attend(p, q, k, v, h=h, hkv=hkv, dh=dh, form=form, part=part, pos=pos,
+                   rope_theta=rope_theta, causal=causal, window=window,
+                   softcap=softcap, scale=scale)
 
 
-def cross_apply(p, x, kv_src, *, h, hkv, dh):
+def cross_apply(p, x, kv_src, *, h, hkv, dh, part=None):
     """Cross attention: queries from x (B, Sq, D), keys and values projected
-    from ``kv_src`` (B, Sk, D) with no RoPE, every key visible.  The
-    reference caches nothing of it: each call projects all of ``kv_src``."""
-    b, sq, _ = x.shape
-    sk = kv_src.shape[1]
-    q, k, v = x @ p["wq"], kv_src @ p["wk"], kv_src @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    o = sdpa(q.reshape(b, sq, h, dh), k.reshape(b, sk, hkv, dh),
-             v.reshape(b, sk, hkv, dh), causal=False)
-    return o.reshape(b, sq, h * dh) @ p["wo"]
+    from ``kv_src`` (B, Sk, D) with no RoPE, every key visible (:func:`sdpa`).
+    The reference caches nothing of it: each call projects all of
+    ``kv_src``.  With ``part`` both enter the region, the rank projects its
+    column blocks (k and v of every ``kv_src`` position) and the core runs
+    in :func:`core_form`'s form over the query length (the module
+    docstring)."""
+    form = "whole" if part is None else core_form(h, hkv, x.shape[1], part.size, dh)
+    q, k, v = _proj_cols(p, x, part, kv_src)
+    return _attend(p, q, k, v, h=h, hkv=hkv, dh=dh, form=form, part=part, core=sdpa,
+                   causal=False)
 
 
 # -- DeepSeek-V3 MLA -----------------------------------------------------------

@@ -61,7 +61,8 @@ adds the result scaled by ``tanh(xgate)``, a ``dec`` block adds it ungated
 (:func:`_cross_step`); without ``aux_embeds`` both run as self-attention
 blocks.  Their caches are GQA's.  No cross K/V is cached: every step
 projects the whole of ``aux_embeds`` again in every cross layer, as the
-reference's.  The paged path has no cross step at all: the reference's
+reference's; over a mesh that projection is split over 'model', each rank
+projecting its column blocks of k and v of every ``aux_embeds`` position.  The paged path has no cross step at all: the reference's
 ``_paged_attn_block`` takes no ``aux``, so on the ring both kinds are
 self-attention blocks (ROADMAP C6).
 
@@ -82,15 +83,17 @@ the current slot and merging the ranks' attention statistics
 whole over 'model' first); every decode and prefill takes
 ``ep_axes``, an :class:`repro_torch.models.moe.EPContext` that runs the MoE
 layers expert-parallel, and ``layout``, which gathers the rank's stored
-param blocks a group at a time and, for the dense decoders, the MoE
-family and the recurrent archs, partitions the embedding, each block's
-q/k/v (MLA's projections), ``wo`` and MLP (a MoE block's shared expert;
-the dense prologue's blocks and zamba2's shared block too), each recurrent
-mixer by heads or channels (its state read at the rank's share and the new
-state gathered whole, as the cache rests) and the head over 'model'
-(:mod:`repro_torch.models.attention`'s decode form: the core at one query
-position runs replicated on gathered q, k and v, MLA's on the absorbed
-query gathered over the heads).  The
+param blocks a group at a time and, for every arch, partitions the
+embedding, each block's q/k/v (MLA's projections), ``wo`` and MLP (a MoE
+block's shared expert; the dense prologue's blocks and zamba2's shared
+block too), each recurrent mixer by heads or channels (its state read at
+the rank's share and the new state gathered whole, as the cache rests),
+each cross step (``xattn``: by heads, by head columns, or whole on the
+gathered columns where neither divides, :func:`attention.core_form` at one
+query) and the head over 'model' (:mod:`repro_torch.models.attention`'s
+decode form: the self-attention core at one query position runs
+replicated on gathered q, k and v, MLA's on the absorbed query gathered
+over the heads).  The
 logits are gathered whole over 'model' before they are returned, so that
 greedy ids and :func:`sample_tokens` read the whole vocab.
 
@@ -147,8 +150,8 @@ class _MeshBlocks:
         return p if self.layout is None else self.layout.gather(p, self.gp[i])
 
     def parts(self, block: str) -> dict:
-        """The {"attn", "ffn", "mix"} parts of 'model' of the block at
-        ``block`` ("blocks/0", "prologue/1")."""
+        """The {"attn", "ffn", "mix", "xattn"} parts of 'model' of the block
+        at ``block`` ("blocks/0", "prologue/1")."""
         return {} if self.layout is None else self.layout.parts(block)
 
     def cache(self, c, specs):
@@ -479,17 +482,18 @@ def _paged_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
 
 
 def _block_tail(p, cfg: ArchConfig, kind: str, x_t, o, tiered_moe, router,
-                kv_src=None, ep_axes=None, ffn_part=None):
+                kv_src=None, ep_axes=None, ffn_part=None, xattn_part=None):
     """Everything of a decoder block after its attention output ``o``: the
-    residual, the cross step over ``kv_src`` where the dense path gives one,
-    the FFN (the expert layer for ``kind`` "moe"; with ``ffn_part`` the MLP,
-    or the expert layer's shared expert, over the rank's blocks) and, where
-    the arch has them (gemma2), the post-norms of both branches."""
+    residual, the cross step over ``kv_src`` where the dense path gives one
+    (with ``xattn_part`` over the rank's blocks), the FFN (the expert layer
+    for ``kind`` "moe"; with ``ffn_part`` the MLP, or the expert layer's
+    shared expert, over the rank's blocks) and, where the arch has them
+    (gemma2), the post-norms of both branches."""
     if cfg.post_norm:
         o = apply_norm(cfg.norm, p["pn1"], o)
     x_t = x_t + o
     if kv_src is not None:
-        x_t = _cross_step(p, cfg, kind, x_t, kv_src)
+        x_t = _cross_step(p, cfg, kind, x_t, kv_src, xattn_part)
     h2 = apply_norm(cfg.norm, p["ln2"], x_t)
     if kind == "moe":
         y = _moe_block(p, cfg, h2, tiered_moe, router, ep_axes, ffn_part)
@@ -500,13 +504,16 @@ def _block_tail(p, cfg: ArchConfig, kind: str, x_t, o, tiered_moe, router,
     return x_t + y
 
 
-def _cross_step(p, cfg: ArchConfig, kind: str, x_t, kv_src):
+def _cross_step(p, cfg: ArchConfig, kind: str, x_t, kv_src, part=None):
     """A ``cross`` or ``dec`` block's cross attention over ``kv_src`` and its
     residual: a ``cross`` block's output is scaled by ``tanh(xgate)`` in
-    float32 and rounded back, a ``dec`` block's added as it is."""
+    float32 and rounded back, a ``dec`` block's added as it is.  With
+    ``part`` the rank projects its columns of q and of every ``kv_src``
+    position's k and v, and the core runs by heads, by head columns or
+    whole on the gathered columns (:func:`attention.cross_apply`)."""
     hx = apply_norm(cfg.norm, p["lnx"], x_t)
     xo = attn.cross_apply(p["xattn"], hx, kv_src, h=cfg.n_heads,
-                          hkv=cfg.n_kv_heads, dh=cfg.head_dim)
+                          hkv=cfg.n_kv_heads, dh=cfg.head_dim, part=part)
     if kind == "cross":
         return x_t + (torch.tanh(p["xgate"]) * xo.float()).to(x_t.dtype)
     return x_t + xo
@@ -550,8 +557,7 @@ def decode_step_paged(cfg: ArchConfig, params, cache, token, *, page_t: int,
     back for the local slots; ``ep_axes`` runs the MoE layers
     expert-parallel (``params``' expert stacks the rank's blocks);
     ``layout`` gathers the rank's stored param blocks a group at a time, as
-    :func:`decode_step`'s, and partitions a dense decoder or a MoE arch
-    over 'model'.
+    :func:`decode_step`'s, and partitions the arch over 'model'.
     """
     check_ported(cfg)
     mb = _MeshBlocks(layout, None)
@@ -721,7 +727,7 @@ def _decode_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
                             softcap=cfg.attn_softcap, scale=cfg.attn_scale,
                             part=parts.get("attn"))
     return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router, kv_src, ep_axes,
-                       parts.get("ffn"))
+                       parts.get("ffn"), parts.get("xattn"))
 
 
 def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
@@ -743,9 +749,8 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
     :func:`repro_torch.models.transformer.forward`'s), ``cache_layout``
     (specs without their data axes) a block's cache, which is written back
     to the rank's blocks after it (the reference's partitioner gathers the
-    sequence-split cache a layer at a time); a dense decoder or a MoE arch
-    computes its
-    share over 'model' (:func:`decode_step_paged`)."""
+    sequence-split cache a layer at a time); every arch computes its share
+    over 'model', the cross step's too (:func:`decode_step_paged`)."""
     check_ported(cfg)
     mb = _MeshBlocks(layout, cache_layout)
     params = _top(params, layout)

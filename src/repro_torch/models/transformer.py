@@ -206,9 +206,10 @@ def _attn_block(p, cfg: ArchConfig, kind: str, x, aux, ep_axes=None, parts=None)
     then a ``cross`` block's gated cross attention over
     ``aux["aux_embeds"]`` or a ``dec`` block's over ``aux["enc_out"]``,
     then the MLP or, in a ``moe`` block, the routed experts (expert-parallel
-    under ``ep_axes``).  ``parts`` ({"attn", "ffn"}) partitions the
-    self-attention and the MLP or the shared expert over 'model'.  Returns
-    (x, the block's router ids (B, S, k) or None)."""
+    under ``ep_axes``).  ``parts`` ({"attn", "ffn", "xattn"}) partitions
+    the self-attention, the MLP or the shared expert and the cross
+    attention over 'model'.  Returns (x, the block's router ids (B, S, k)
+    or None)."""
     parts = parts or {}
     h = apply_norm(cfg.norm, p["ln1"], x)
     if cfg.mla is not None and kind != "cross":
@@ -228,7 +229,8 @@ def _attn_block(p, cfg: ArchConfig, kind: str, x, aux, ep_axes=None, parts=None)
         aux.get("enc_out") if kind == "dec" else None
     if kv_src is not None:
         xo = cross_apply(p["xattn"], apply_norm(cfg.norm, p["lnx"], x), kv_src,
-                         h=cfg.n_heads, hkv=cfg.n_kv_heads, dh=cfg.head_dim)
+                         h=cfg.n_heads, hkv=cfg.n_kv_heads, dh=cfg.head_dim,
+                         part=parts.get("xattn"))
         x = x + ((torch.tanh(p["xgate"]) * xo.float()).to(x.dtype)
                  if kind == "cross" else xo)
     h2 = apply_norm(cfg.norm, p["ln2"], x)
@@ -276,14 +278,17 @@ def _unbind_groups(block, groups: int) -> list:
     return [tree_unflatten(block, [p[g] for p in parts]) for g in range(groups)]
 
 
-def _top(params, layout):
-    """``params`` with every leaf outside ``params["blocks"]`` gathered
-    under ``layout`` (one autograd function); the blocks stay stored."""
+def _top(params, layout, keys=None):
+    """``params`` with every leaf outside ``params["blocks"]`` (or under
+    ``keys`` alone) gathered under ``layout`` (one autograd function); the
+    blocks stay stored, and a subtree the layout splits over 'model' keeps
+    the rank's block there."""
     if layout is None:
         return params
-    top = {k: v for k, v in params.items() if k != "blocks"}
+    top = {k: v for k, v in params.items()
+           if k != "blocks" and (keys is None or k in keys)}
     specs = {k: layout.specs[k] for k in top}
-    return dict(layout.gather(top, specs), blocks=params["blocks"])
+    return dict(params, **layout.gather(top, specs))
 
 
 def _head_part(layout):
@@ -292,8 +297,9 @@ def _head_part(layout):
 
 
 def _parts(layout, block: str) -> dict:
-    """The {"attn", "ffn", "mix"} parts of the block at ``block`` (a path
-    such as "prologue/0", "shared_attn"), none without a layout."""
+    """The {"attn", "ffn", "mix", "xattn"} parts of the block at ``block``
+    (a path such as "prologue/0", "shared_attn", "encoder/1"), none without
+    a layout."""
     return {} if layout is None else layout.parts(block)
 
 
@@ -304,26 +310,10 @@ def _body_parts(cfg: ArchConfig, layout, i: int) -> dict:
                   else f"blocks/{i}")
 
 
-def tensor_parallel(cfg: ArchConfig) -> bool:
-    """The archs whose blocks, embedding and head compute their share over
-    'model' (:func:`model_split`): the dense decoders, the MoE family
-    (kimi-k2's GQA, deepseek-v3's MLA and MTP head; the expert stacks run
-    expert-parallel), the hybrid family (zamba2's Mamba2 mixers and its
-    shared attention block) and the recurrent ``ssm`` family (xlstm's mLSTM
-    and sLSTM mixers)."""
-    kinds = set(cfg.pattern)
-    dense = (cfg.family == "dense" and cfg.moe is None and cfg.mla is None
-             and kinds <= DENSE_KINDS)
-    moe = cfg.family == "moe" and kinds == {"moe"}
-    hybrid = cfg.family == "hybrid" and cfg.ssm is not None and kinds <= HYBRID_KINDS
-    ssm = cfg.family == "ssm" and kinds <= SSM_KINDS
-    return (dense or moe or hybrid or ssm) and not cfg.encoder_layers
-
-
 def model_split(cfg: ArchConfig, specs, n_model: int = 1) -> set:
     """The subtrees of ``specs`` (a params spec tree over a mesh whose
     'model' axis has ``n_model`` ranks) that compute split over 'model',
-    for an arch :func:`tensor_parallel` admits: "embed" where the table's
+    for every arch :func:`check_ported` admits: "embed" where the table's
     vocab is split; each block's "attn" (under ``blocks/i``,
     ``prologue/i`` and ``mtp/block``) where its column weights' outputs
     and ``wo``'s rows all are (MLA: ``wq_a``, ``wq_b``, ``wkv_a`` and
@@ -336,11 +326,13 @@ def model_split(cfg: ArchConfig, specs, n_model: int = 1) -> set:
     groups or in one; mLSTM: ``wq``, ``wk``,
     ``wv``, ``ogate`` and ``wo``, its heads dividing the ranks or the ranks
     a head dividing its width; sLSTM: ``wz``, ``wi``, ``wf``, ``wo_gate``
-    and ``wo``), and the shared attention block's ``shared_attn/attn`` and
-    ``shared_attn/ffn``.  Nothing for any other arch (its leaves are
-    gathered whole)."""
-    if not tensor_parallel(cfg):
-        return set()
+    and ``wo``), the shared attention block's ``shared_attn/attn`` and
+    ``shared_attn/ffn``, a ``cross`` or ``dec`` block's cross attention
+    ``blocks/i/xattn`` where its column weights' outputs and ``wo``'s rows
+    all are (the core's form is chosen at the call,
+    :func:`repro_torch.models.attention.core_form`), and each encoder
+    block's ``encoder/j/attn`` and ``encoder/j/ffn`` by the tests of
+    "attn" and "ffn"."""
 
     def split(spec, d):
         return "model" in entry_axes(spec[d])
@@ -362,9 +354,10 @@ def model_split(cfg: ArchConfig, specs, n_model: int = 1) -> set:
             ok, cols, row = True, ("wz", "wi", "wf", "wo_gate"), "wo"
         return ok and all(split(m[w], -1) for w in cols) and split(m[row], 1)
 
-    def attn(a, lead):
-        cols = ("wq_a", "wq_b", "wkv_a", "wkv_b") if cfg.mla else ("wq", "wk", "wv")
-        heads = cfg.mla is None or cfg.n_heads % n_model == 0
+    def attn(a, lead, gqa=False):
+        mla = cfg.mla is not None and not gqa
+        cols = ("wq_a", "wq_b", "wkv_a", "wkv_b") if mla else ("wq", "wk", "wv")
+        heads = not mla or cfg.n_heads % n_model == 0
         return heads and all(split(a[w], -1) for w in cols) and split(a["wo"], lead)
 
     def ffn(f, lead):
@@ -381,9 +374,12 @@ def model_split(cfg: ArchConfig, specs, n_model: int = 1) -> set:
                 out.add(f"blocks/{i}/mix")
         elif kind != "shared_attn":
             blocks.append((f"blocks/{i}", b, 1))
+            if "xattn" in b and attn(b["xattn"], 1, gqa=True):
+                out.add(f"blocks/{i}/xattn")
     if "shared_attn" in specs:
         blocks.append(("shared_attn", specs["shared_attn"], 0))
     blocks += [(f"prologue/{i}", b, 0) for i, b in enumerate(specs.get("prologue", []))]
+    blocks += [(f"encoder/{j}", b, 0) for j, b in enumerate(specs.get("encoder", []))]
     if "mtp" in specs:
         blocks.append(("mtp/block", specs["mtp"]["block"], 0))
         if split(specs["mtp"]["proj"], -1):
@@ -414,8 +410,8 @@ def forward(cfg: ArchConfig, params, tokens, *, aux_embeds=None,
     again; the subtrees the layout splits over 'model' compute the rank's
     share (the embedding, each block's attention and MLP or shared expert,
     a MoE arch's dense prologue and MTP head, each recurrent mixer, zamba2's
-    shared attention block); ``ep_axes`` runs the MoE layers
-    expert-parallel."""
+    shared attention block, each cross attention and encoder block);
+    ``ep_axes`` runs the MoE layers expert-parallel."""
     return _forward(cfg, _top(params, layout), tokens, aux_embeds, remat,
                     ep_axes, layout)
 
@@ -426,7 +422,7 @@ def _forward(cfg: ArchConfig, params, tokens, aux_embeds, remat, ep_axes, layout
         x = (x.float() * cfg.d_model ** 0.5).to(x.dtype)
     aux = {"token_stream": tokens}
     if cfg.encoder_layers and aux_embeds is not None:
-        aux["enc_out"] = encode(cfg, params, aux_embeds, ep_axes=ep_axes)
+        aux["enc_out"] = _encode(cfg, params, aux_embeds, ep_axes, layout)
     elif aux_embeds is not None:
         aux["aux_embeds"] = aux_embeds
     for j, lp in enumerate(params.get("prologue", [])):
@@ -505,11 +501,20 @@ def _mtp_proj(w, x, part=None):
     return col.gather(col.enter(x, part.group) @ w, -1, part.group, reduce=False)
 
 
-def encode(cfg: ArchConfig, params, aux_embeds, *, ep_axes=None):
+def encode(cfg: ArchConfig, params, aux_embeds, *, ep_axes=None, layout=None):
     """The encoder stack (whisper): frame embeddings (B, S, D) -> the
     encoder's output, which serving computes once at prefill and every
-    decode step's ``dec`` blocks attend over."""
+    decode step's ``dec`` blocks attend over.  Over a mesh ``params`` are
+    the rank's stored blocks and ``layout`` gathers the encoder's leaves,
+    each encoder block computing its share over 'model' where the layout
+    splits it (:func:`forward`)."""
+    return _encode(cfg, _top(params, layout, ("encoder", "enc_norm")), aux_embeds,
+                   ep_axes, layout)
+
+
+def _encode(cfg: ArchConfig, params, aux_embeds, ep_axes, layout):
     enc = aux_embeds
-    for lp in params["encoder"]:
-        enc, _ = _attn_block(lp, cfg, "enc_self", enc, {}, ep_axes)
+    for j, lp in enumerate(params["encoder"]):
+        enc, _ = _attn_block(lp, cfg, "enc_self", enc, {}, ep_axes,
+                             _parts(layout, f"encoder/{j}"))
     return apply_norm(cfg.norm, params["enc_norm"], enc)

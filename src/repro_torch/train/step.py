@@ -130,8 +130,8 @@ def compute_layout(cfg: ArchConfig, mesh, specs) -> Layout:
     """What a group gathers before it runs, from the specs its leaves are
     held under: everything, but the 'model' split of the expert stacks
     under expert parallelism (a MoE arch) and of the leaves that compute
-    their share (a dense decoder's, a MoE arch's or a recurrent arch's
-    embedding, attention, MLPs, shared experts and recurrent mixers,
+    their share (the embedding, self and cross attention, MLPs, shared
+    experts, recurrent mixers and encoder blocks,
     :func:`repro_torch.models.transformer.model_split`)."""
     ep = cfg.moe is not None
     split = (tr.model_split(cfg, specs, mesh.axis_size("model"))
@@ -199,10 +199,8 @@ class _Placement:
         self.moment_specs = [moment_specs(x.shape, sp) for x, sp in
                              zip(tree_leaves(shapes), self.stored_leaves)]
         # the update reads whole gradients where ZeRO-1's flat slices or
-        # the int8+EF link need them, and for every arch that computes
-        # replicated over 'model'
-        self.whole = (tcfg.zero1 or tcfg.grad_compression
-                      or not tr.tensor_parallel(cfg))
+        # the int8+EF link need them
+        self.whole = tcfg.zero1 or tcfg.grad_compression
         self.local = tcfg.local_grads
         # the wire bytes of the whole float32 gradients (``dp_psum_bytes``)
         self.psum_bytes = compression.psum_bytes(

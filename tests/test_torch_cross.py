@@ -66,6 +66,17 @@ INT_STATS = ("fast_reads", "slow_reads", "promoted", "demoted", "ping_pong",
              "quota_bytes", "migration_epochs", "flush_bytes", "inflight_bytes")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and these small-tensor runs slow down many-fold when each worker
+    also spreads every op over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def device_tier_probe(monkeypatch):
     """Keep the reference's slow tier a device array on the CPU backend

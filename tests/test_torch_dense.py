@@ -238,6 +238,17 @@ json.dump(stats, open(out + ".json", "w"))
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and these small-tensor runs slow down many-fold when each worker
+    also spreads every op over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def dense_reference(tmp_path_factory):
     """The reference engine's dense-mode runs, in a subprocess with XLA's

@@ -58,6 +58,17 @@ SCENARIOS = {
 CHIP_DISAGG = ("chip-disagg", "chip-disagg-cut")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and these small-tensor runs slow down many-fold when each worker
+    also spreads every op over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _reference_runs(tmp_path_factory):
     runs = start_reference(tmp_path_factory.mktemp("disagg_ref"),
@@ -95,6 +106,18 @@ def _serve(sched):
 
 
 @pytest.fixture(scope="module")
+def served(port_params):
+    """The work set served greedy through the unified scheduler and through
+    the split pools, once for the tests that read those runs: {prefill
+    lanes: (scheduler, outputs)}; no test steps them again."""
+    out = {}
+    for pre in (0, 1):
+        sched = _sched(port_params, prefill_lanes=pre)
+        out[pre] = (sched, _serve(sched)[0])
+    return out
+
+
+@pytest.fixture(scope="module")
 def generate(port_params):
     """The port's single-request engine: what every greedy request of the
     split pools must reproduce."""
@@ -106,12 +129,16 @@ def generate(port_params):
 
 
 @pytest.mark.parametrize("temp", [0.0, 0.8])
-def test_disagg_bit_exact_vs_unified(port_params, temp):
+def test_disagg_bit_exact_vs_unified(port_params, served, temp):
     """The same requests through the unified scheduler and through the split
     pools: token for token equal, real hand-off bytes both ways."""
-    uni = _sched(port_params, prefill_lanes=0, temp=temp)
-    dis = _sched(port_params, prefill_lanes=1, temp=temp)
-    assert _serve(uni)[0] == _serve(dis)[0]
+    if temp == 0.0:
+        (uni, uni_out), (dis, dis_out) = served[0], served[1]
+    else:
+        uni = _sched(port_params, prefill_lanes=0, temp=temp)
+        dis = _sched(port_params, prefill_lanes=1, temp=temp)
+        uni_out, dis_out = _serve(uni)[0], _serve(dis)[0]
+    assert uni_out == dis_out
     assert uni.handoffs == 0 and uni.handoff_bytes_out == 0
     assert dis.handoffs == len(_WORK)
     assert dis.handoff_bytes_out > 0 and dis.handoff_bytes_in > 0
@@ -237,9 +264,8 @@ def _check_conservation(resources):
 
 
 @pytest.mark.parametrize("pre", [0, 1])
-def test_tier_stats_conservation(port_params, pre):
-    sched = _sched(port_params, prefill_lanes=pre)
-    _serve(sched)
+def test_tier_stats_conservation(served, pre):
+    sched = served[pre][0]
     rep = sched.report()
     _check_conservation(rep["resources"])
     for stats in sched.tenant_stats.values():
@@ -260,11 +286,8 @@ def test_disagg_reuse_bit_exact_and_refs_drain(port_params):
     assert dis.peng.reuse is dis.eng.reuse and dis.peng.daemon is dis.eng.daemon
 
 
-def test_report_mode_clock_and_handoff_schema(port_params):
-    uni = _sched(port_params, prefill_lanes=0)
-    dis = _sched(port_params, prefill_lanes=1)
-    _serve(uni)
-    _serve(dis)
+def test_report_mode_clock_and_handoff_schema(served):
+    uni, dis = served[0][0], served[1][0]
     ru, rd = uni.report(), dis.report()
     assert ru["mode"] == "unified" and ru["prefill_lanes"] == 0
     assert rd["mode"] == "disagg" and rd["prefill_lanes"] == 1

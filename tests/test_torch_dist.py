@@ -39,8 +39,11 @@ meshless path where it has one:
   1e-5 of the meshless run and the reference's, greedy ids bitwise;
 * each partitioned layer over 4 'model' ranks (attention, MLPs, the head
   and loss, MLA, the shared expert, and the recurrent mixers: Mamba2 by
-  heads, mLSTM by heads and within a head, sLSTM by channels) within 1e-5
-  of the reference's layer and its gradients;
+  heads, mLSTM by heads and within a head, sLSTM by channels; cross
+  attention by heads, query rows, head columns and whole, and the
+  encoder's bidirectional attention by head columns) within 1e-5 of the
+  reference's layer and its gradients (cross attention's ``kv_src``'s
+  too);
 * ``moe_apply_ep`` on (2, 4) with capacity factor 8: ids bitwise the
   reference's ``moe_apply_ep(ep_axes=None)``, y and every gradient (x,
   router, the expert stacks, the shared expert) within 1e-5 of the
@@ -200,7 +203,18 @@ TP_CASES = {
     "mlstm-heads": ("mlstm", dict(h=4, s=8)),
     "mlstm-within-head": ("mlstm", dict(h=2, s=8)),
     "slstm": ("slstm", dict(s=8)),
+    # cross attention over 6 keys (no RoPE, every key visible) in each of its
+    # forms: by heads (4/4), by query rows (4/2 heads, 8 rows), by head
+    # columns (2 heads of 8 columns, two ranks a head, 6 rows), whole on
+    # gathered q, k and v (4/2 heads at one query, a decode step's); and the
+    # encoder's bidirectional GQA by head columns (6 frames do not divide 4)
+    "cross-heads": ("cross", dict(h=4, hkv=4, dh=8, s=8, bias=True)),
+    "cross-rows": ("cross", dict(h=4, hkv=2, dh=8, s=8, bias=False)),
+    "cross-cols": ("cross", dict(h=2, hkv=2, dh=8, s=6, bias=True)),
+    "cross-whole": ("cross", dict(h=4, hkv=2, dh=8, s=1, bias=True)),
+    "attn-bidir-cols": ("attn", dict(h=2, hkv=2, dh=8, s=6, bias=True, causal=False)),
 }
+CROSS_KEYS = 6
 MLA_DIMS = dict(h=4, q_lora=8, kv_lora=8, d_nope=4, d_rope=4, d_v=4)
 MAMBA_DIMS = dict(headdim=8, n_groups=2, d_state=4, chunk=4)
 
@@ -269,8 +283,12 @@ def _tp_inputs(case):
          "wo": n(h * dh, d)}
     if c["bias"]:
         p.update(bq=n(h * dh), bk=n(hkv * dh), bv=n(hkv * dh))
+    if kind == "cross":                # kv_src rides in kw
+        return p, n(b, s, d), n(b, s, d), dict(h=h, hkv=hkv, dh=dh,
+                                               kv=n(b, CROSS_KEYS, d))
     kw = dict(h=h, hkv=hkv, dh=dh, window=c.get("window", 0),
-              softcap=c.get("softcap", 0.0), scale=c.get("scale"))
+              softcap=c.get("softcap", 0.0), scale=c.get("scale"),
+              causal=c.get("causal", True))
     return p, n(b, s, d), n(b, s, d), kw
 
 
@@ -589,6 +607,13 @@ def test_partitioned_layers_match_reference(world, case):
                                           jnp.asarray(ct["mask"]))
             emb = j_layers.embed_apply(p, jnp.asarray(ct["tokens"]))
             return loss + jnp.sum(emb * x), (loss, logits)
+    elif kind == "cross":              # the gradient of kv_src too
+        kw = dict(kw)
+        jx = (jx, jnp.asarray(kw.pop("kv")))
+
+        def f(p, xs):
+            y = j_attn.cross_apply(p, *xs, **kw)
+            return jnp.sum(y * ct), (y, None)
     else:
         layer = {"attn": lambda p, x: j_attn.gqa_apply(p, x, **kw),
                  "mla": lambda p, x: j_attn.mla_apply(p, x, **kw),
@@ -604,7 +629,10 @@ def test_partitioned_layers_match_reference(world, case):
     # compiled once: op by op the reference's scans and MLA take seconds each
     (_, (y, logits)), (gp, gx) = jax.jit(jax.value_and_grad(
         f, argnums=(0, 1), has_aux=True))(jp, jx)
-    want = dict(_np_tree(gp), x=np.asarray(gx))
+    if kind == "cross":
+        want = dict(_np_tree(gp), x=np.asarray(gx[0]), kv=np.asarray(gx[1]))
+    else:
+        want = dict(_np_tree(gp), x=np.asarray(gx))
     for rank in range(tw.WORLD):
         res = _result(world, f"tp_{case}", rank)
         assert np.abs(res["y"] - np.asarray(y)).max() <= 1e-5 * max(1.0, np.abs(y).max())

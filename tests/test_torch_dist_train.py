@@ -64,6 +64,8 @@ import torch_dist_world as tw  # noqa: E402
 
 LLAMA, KIMI, GEMMA = "llama3.2-3b", "kimi-k2-1t-a32b", "gemma2-27b"
 DEEPSEEK, ZAMBA, XLSTM = "deepseek-v3-671b", "zamba2-2.7b", "xlstm-1.3b"
+VISION, WHISPER = "llama-3.2-vision-11b", "whisper-base"
+CROSS_GATE = 0.5          # the cross block's xgate (drawn as 0), so that the image counts
 MESH_DP = {"2x4": 2, "4x1": 4, "4x2": 4, "1x8": 1}
 MESH_SIZE = {"2x4": 8, "4x1": 4, "4x2": 8, "1x8": 8}
 # steps that move the params: lr 1e-2 from step 1, and an eps that keeps
@@ -93,6 +95,13 @@ CASES["deepseek-adafactor"] = (DEEPSEEK, dict(fsdp=True), dict(FAST, kind="adafa
 # (4 heads over 8 ranks: two a head) and sLSTM on (1, 8) under Adafactor
 CASES["zamba2-fsdp"] = (ZAMBA, dict(fsdp=True), FAST)
 CASES["xlstm-adafactor"] = (XLSTM, dict(fsdp=True), dict(FAST, kind="adafactor"))
+# the cross-attention archs over their batches' aux_embeds: llama-vision's
+# self attention by query rows (4/2 heads on 4) and its gated cross block by
+# query rows on (2, 4); whisper's 4 heads over 8 ranks on (1, 8): its
+# decoder's self and cross attention by query rows, its encoder's 25 frames
+# by head columns (two ranks a head)
+CASES["vision-fsdp"] = (VISION, dict(fsdp=True), FAST)
+CASES["whisper-fsdp"] = (WHISPER, dict(fsdp=True), FAST)
 # leaves that compute their share over 'model': the embedding table, q/k/v/o
 # and the MLP's three matrices of each pattern position; a MoE arch's
 # attention (GQA's q/k/v/o, MLA's wq_a/wq_b/wkv_a/wkv_b/wo) and MLP of each
@@ -100,12 +109,16 @@ CASES["xlstm-adafactor"] = (XLSTM, dict(fsdp=True), dict(FAST, kind="adafactor")
 # (sh_gate/sh_in/sh_out), and deepseek-v3's MTP projection and block
 # zamba2's in_proj, conv_w and out_proj of each Mamba2 position and its
 # shared block's q/k/v/o and MLP; xlstm's mLSTM wq/wk/wv/ogate/wo (wi and wf,
-# (d, 4), do not split 8 ways) and sLSTM wz/wi/wf/wo_gate/wo
+# (d, 4), do not split 8 ways) and sLSTM wz/wi/wf/wo_gate/wo; llama-vision's
+# five blocks' q/k/v/o and MLPs and its cross block's xattn q/k/v/o;
+# whisper's dec block's q/k/v/o, gelu MLP (w_in, w_out) and xattn, and each
+# of its 2 encoder blocks' q/k/v/o and MLP
 SPLIT_LEAVES = {LLAMA: 1 + 7, GEMMA: 1 + 2 * 7, KIMI: 1 + (4 + 3) + (4 + 3),
                 DEEPSEEK: 1 + (5 + 3) + (5 + 3) + 1 + (5 + 3),
-                ZAMBA: 1 + 2 * 3 + (4 + 3), XLSTM: 1 + 5 + 5}
+                ZAMBA: 1 + 2 * 3 + (4 + 3), XLSTM: 1 + 5 + 5,
+                VISION: 1 + 5 * 7 + 4, WHISPER: 1 + (4 + 2 + 4) + 2 * (4 + 2)}
 MOE_ARCHS = (KIMI, DEEPSEEK)
-ONE_RANK_ARCHS = MOE_ARCHS + (ZAMBA, XLSTM)
+ONE_RANK_ARCHS = MOE_ARCHS + (ZAMBA, XLSTM, VISION, WHISPER)
 
 
 # the data-parallel reduce's cases on both meshes; the rest on (2, 4) (the
@@ -114,7 +127,8 @@ MESHES = {"fsdp": ("2x4",), "local": ("2x4", "4x1"), "local-int8": ("2x4", "4x1"
           "zero1": ("2x4",), "adafactor": ("2x4",), "kimi-ep": ("2x4",),
           "gemma2-fsdp": ("4x2",), "gemma2-local": ("4x2",), "gemma2-zero1": ("4x2",),
           "gemma2-adafactor": ("4x2",), "deepseek-adafactor": ("2x4",),
-          "zamba2-fsdp": ("2x4",), "xlstm-adafactor": ("1x8",)}
+          "zamba2-fsdp": ("2x4",), "xlstm-adafactor": ("1x8",),
+          "vision-fsdp": ("2x4",), "whisper-fsdp": ("1x8",)}
 
 
 def _runs():
@@ -129,18 +143,26 @@ def _spec(case):
 
 @functools.lru_cache(maxsize=None)
 def _params(arch):
-    """Float32 smoke params as numpy, both sides' weights (the port's draw)."""
+    """Float32 smoke params as numpy, both sides' weights (the port's draw;
+    a cross block's gate at CROSS_GATE)."""
     p = t_tr.init_params(get_smoke_config(arch), 0, device="cpu")
-    return tree_map_with_path(lambda _, x: x.float().numpy(), p)
+    return tree_map_with_path(lambda path, x: np.full(x.shape, CROSS_GATE, np.float32)
+                              if path.endswith("xgate") else x.float().numpy(), p)
 
 
 @functools.lru_cache(maxsize=None)
-def _batches(vocab):
-    rng = np.random.default_rng(21)
+def _batches(arch):
+    """Two batches of 8 x 32 tokens and, for a cross-attention arch, their
+    (8, n_aux_tokens, d) float32 ``aux_embeds``."""
+    cfg = get_smoke_config(arch)
+    rng, aux_rng = np.random.default_rng(21), np.random.default_rng(23)
     out = []
     for _ in range(2):
-        tok = rng.integers(0, vocab, (8, 32)).astype(np.int32)
+        tok = rng.integers(0, cfg.vocab, (8, 32)).astype(np.int32)
         out.append({"tokens": tok, "labels": np.roll(tok, -1, axis=1)})
+        if cfg.n_aux_tokens:
+            out[-1]["aux_embeds"] = aux_rng.normal(
+                0, 1, (8, cfg.n_aux_tokens, cfg.d_model)).astype(np.float32)
     return tuple(out)
 
 
@@ -156,14 +178,16 @@ def _checks():
         arch, _, opt = _spec(case)
         out.append((name, "check_train",
                     dict(mesh=mesh, arch=arch, params=_params(arch),
-                         batches=list(_batches(get_smoke_config(arch).vocab)),
+                         batches=list(_batches(arch)),
                          kw=_kw(case), opt=opt)))
     for arch in ONE_RANK_ARCHS:
-        vocab = get_smoke_config(arch).vocab
+        cfg = get_smoke_config(arch)
+        batches = _batches(arch)
         out.append((f"one_rank_{arch}", "check_one_rank",
-                    dict(arch=arch, params=_params(arch), batches=list(_batches(vocab)),
-                         prompt=np.random.default_rng(22).integers(0, vocab, (2, 8))
-                         .astype(np.int32))))
+                    dict(arch=arch, params=_params(arch), batches=list(batches),
+                         prompt=np.random.default_rng(22).integers(0, cfg.vocab, (2, 8))
+                         .astype(np.int32),
+                         aux=batches[0]["aux_embeds"][:2] if cfg.n_aux_tokens else None)))
     return out
 
 
@@ -234,7 +258,7 @@ def _reference_run(arch, opt, kw, n_shards):
         state = _ref_state(arch, tcfg)
         step = jax.jit(j_step.build_train_step(cfg, None, tcfg))
         metrics = []
-        for b in _batches(cfg.vocab):
+        for b in _batches(arch):
             state, m = step(state, jax.tree.map(jnp.asarray, b))
             metrics.append({k: float(v) for k, v in m.items()})
     finally:
@@ -283,7 +307,7 @@ def _reference_compressed(mesh):
 
     wire = j_comp.psum_bytes(params, compressed=True)
     metrics = []
-    for b in _batches(cfg.vocab):
+    for b in _batches(arch):
         rows = b["tokens"].shape[0] // n
         parts = [{k: jnp.asarray(v[d * rows:(d + 1) * rows]) for k, v in b.items()}
                  for d in range(n)]
@@ -311,7 +335,7 @@ def _meshless_run(arch, opt, kw):
     state = t_step.init_state(cfg, tcfg, params, device="cpu")
     fn = t_step.build_train_step(cfg, None, tcfg)
     metrics = []
-    for b in _batches(cfg.vocab):
+    for b in _batches(arch):
         state, mm = fn(state, t_step.to_batch(b, "cpu"))
         metrics.append({k: float(v) for k, v in mm.items()})
     return metrics, state

@@ -131,6 +131,17 @@ def drive_logged(spec, cfg, params, eng_mod, sched_mod, wl_mod, **eng_kw):
     return {"log": log}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and these small-tensor runs slow down many-fold when each worker
+    also spreads every op over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _reference_runs(tmp_path_factory):
     """Start every scenario through the reference as the module's first test

@@ -184,6 +184,17 @@ def _silu_op_by_op(x):
     return x * (1 / (1 + torch.exp(-x)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and these small-tensor runs slow down many-fold when each worker
+    also spreads every op over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def reference_rounding(monkeypatch):
     """Round swiglu's activation where the flag-off reference rounds."""

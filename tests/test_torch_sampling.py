@@ -27,6 +27,17 @@ from repro.models import decode as j_dec  # noqa: E402
 from repro_torch.models import decode as t_dec  # noqa: E402
 from repro_torch.models import prng  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and these small-tensor runs slow down many-fold when each worker
+    also spreads every op over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEEDS = [0, 1, 7, 12345, 2 ** 31 - 1, -1, -123456]
 VOCAB = 128256
 

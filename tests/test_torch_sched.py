@@ -208,6 +208,17 @@ json.dump(res, open(sys.argv[3], "w"))
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and these small-tensor runs slow down many-fold when each worker
+    also spreads every op over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _reference_runs(tmp_path_factory):
     """Start every scenario through the reference as soon as the module's

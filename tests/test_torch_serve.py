@@ -48,6 +48,17 @@ ARCH = "llama3.2-3b"
 PAGE_T, SLOTS, B = 4, 4, 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and these small-tensor runs slow down many-fold when each worker
+    also spreads every op over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_params():
     return j_tr.init_params(j_smoke(ARCH), jax.random.PRNGKey(0))

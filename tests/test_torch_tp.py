@@ -93,8 +93,12 @@ REFERENCE_BODY = textwrap.dedent("""
             ssh = ts.state_shardings(state, mesh)
             batch = {k: jax.ShapeDtypeStruct((n, seq(cfg, n)), jnp.int32)
                      for k in ("tokens", "labels")}
+            if cfg.n_aux_tokens:       # an image's patches, an utterance's frames
+                batch["aux_embeds"] = jax.ShapeDtypeStruct(
+                    (n, cfg.n_aux_tokens, cfg.d_model), jnp.bfloat16)
             fn = jax.jit(ts.build_train_step(cfg, mesh, tcfg),
-                         in_shardings=(ssh, ts.batch_shardings(cfg, mesh, False)),
+                         in_shardings=(ssh, ts.batch_shardings(cfg, mesh,
+                                                               bool(cfg.n_aux_tokens))),
                          out_shardings=(ssh, None))
             args = (state, batch)
         else:
@@ -109,9 +113,14 @@ REFERENCE_BODY = textwrap.dedent("""
             token = jax.ShapeDtypeStruct((n, 1), jnp.int32,
                                          sharding=NamedSharding(mesh, batch_pspec(mesh)))
             ep = ts._ep_context(cfg, mesh)      # the dry run's decode cell's
-            fn = jax.jit(lambda p, c, t: dec.decode_step(cfg, p, c, t, ep_axes=ep)[0])
+            fn = jax.jit(lambda p, c, t, *aux: dec.decode_step(
+                cfg, p, c, t, ep_axes=ep, aux_embeds=aux[0] if aux else None)[0])
             args = (placed(params, param_pspecs(params, mesh)),
                     placed(cache, cache_pspecs(cache, mesh)), token)
+            if cfg.n_aux_tokens:       # patches, or the encoder's output
+                args += (jax.ShapeDtypeStruct(
+                    (n, cfg.n_aux_tokens, cfg.d_model), jnp.bfloat16,
+                    sharding=NamedSharding(mesh, P(batch_pspec(mesh)[0], None, None))),)
         with mesh:
             text = fn.lower(*args).compile().as_text()
         out[f"{arch}|{n // model}x{model}|{what}"] = census(text)
@@ -161,8 +170,13 @@ PORT_BODY = textwrap.dedent("""
             state = ts.make_state_shapes(cfg, tcfg)
             batch = {k: torch.empty((n, seq(cfg, n)), dtype=torch.int32, device="meta")
                      for k in ("tokens", "labels")}
+            bspecs = {k: batch_pspec(mesh) for k in batch}
+            if cfg.n_aux_tokens:       # an image's patches, an utterance's frames
+                batch["aux_embeds"] = torch.empty((n, cfg.n_aux_tokens, cfg.d_model),
+                                                  dtype=torch.bfloat16, device="meta")
+                bspecs["aux_embeds"] = (batch_pspec(mesh)[0], None, None)
             args = (local_args(state, ts.state_specs(state, mesh), mesh),
-                    local_args(batch, {k: batch_pspec(mesh) for k in batch}, mesh))
+                    local_args(batch, bspecs, mesh))
             fn = ts.build_train_step(cfg, mesh, tcfg)
         else:
             cell = cell_specs(arch, "decode_32k", mesh, cfg=cfg, batch=n, seq=CACHE)

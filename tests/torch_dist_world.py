@@ -369,7 +369,8 @@ def check_partitioned_layers(meshes, kind, p, x, ct, kw):
     dense cache at ``ct["pos"]``, the output and the cache it wrote, no
     gradients; "mamba2", "mlstm", "slstm": a recurrent mixer, its
     replicated leaves and the weights whose dim does not divide the ranks
-    whole); the blocks' gradients gathered over 'model'."""
+    whole; "cross": cross attention over ``kw["kv"]``, whose gradient is
+    returned too); the blocks' gradients gathered over 'model'."""
     import torch
     from repro_torch.dist.collectives import Part, all_gather
     from repro_torch.models import attention, layers, mamba2, moe, xlstm
@@ -384,6 +385,9 @@ def check_partitioned_layers(meshes, kind, p, x, ct, kw):
              .requires_grad_() for k, v in p.items()}
     xt = _t(x).requires_grad_()
     out = {}
+    if kind == "cross":
+        kw = dict(kw)
+        kv = _t(kw.pop("kv")).requires_grad_()
     if kind == "mla-decode":
         cache = {k: _t(ct[k]).clone() for k in ("c_kv", "k_rope")}
         with torch.no_grad():
@@ -400,6 +404,8 @@ def check_partitioned_layers(meshes, kind, p, x, ct, kw):
     else:
         if kind == "attn":
             y = attention.gqa_apply(local, xt, part=part, **kw)
+        elif kind == "cross":
+            y = attention.cross_apply(local, xt, kv, part=part, **kw)
         elif kind == "mla":
             y = attention.mla_apply(local, xt, part=part, **kw)
         elif kind == "shared":
@@ -417,6 +423,8 @@ def check_partitioned_layers(meshes, kind, p, x, ct, kw):
     out["grads"] = {k: _np(all_gather(v.grad, dims[k] % v.dim(), part.group)
                            if k in dims else v.grad) for k, v in local.items()}
     out["grads"]["x"] = _np(xt.grad)
+    if kind == "cross":
+        out["grads"]["kv"] = _np(kv.grad)
     return out
 
 
@@ -541,16 +549,18 @@ def check_train(meshes, mesh, arch, params, batches, kw, opt):
             "ef": _tree_np(state["ef"]) if "ef" in state else None}
 
 
-def check_one_rank(meshes, arch, params, batches, prompt):
+def check_one_rank(meshes, arch, params, batches, prompt, aux=None):
     """At one 'model' rank (rank 0's own (1, 1) mesh; the other ranks only
     join its making): two float32 train steps of ``arch``'s smoke config
     over the mesh, AdamW and Adafactor (2 microbatches, remat), with the
     expert-parallel body off (its ``enter`` regroups x's gradient sum),
     against the meshless step; then, the experts expert-parallel,
     ``prefill_paged`` of ``prompt`` and 4 greedy paged decode steps,
-    ``prefill_dense`` and ``prefill`` with ``layout`` against the meshless
-    calls.  Returns, per arm, the count of leaves (params; logits and cache
-    leaves) that differ at all."""
+    ``prefill_dense`` and ``prefill`` with ``layout`` (over ``aux``, a
+    cross-attention arch's patches or frames; an encoder arch's ``encode``d
+    first, its output compared too) against the meshless calls.  Returns,
+    per arm, the count of leaves (params; logits and cache leaves) that
+    differ at all."""
     import torch
     import torch.distributed as dist
     from repro_torch.ckpt.manager import tree_leaves
@@ -587,6 +597,12 @@ def check_one_rank(meshes, arch, params, batches, prompt):
     arms = []
     for p, kw in ((full, {}), (stored, dict(layout=layout, ep_axes=ts._ep_context(cfg, mesh)))):
         got = []
+        src = None if aux is None else _t(aux)
+        if src is not None and cfg.encoder_layers:
+            from repro_torch.models.transformer import encode
+            src = encode(cfg, p, src, **kw)
+            got.append(src)
+        xkw = {} if aux is None else dict(aux_embeds=src)
         cache = dec.init_paged_cache(cfg, 2, 4, 4, dtype=torch.float32, device="cpu")
         last, cache, _ = dec.prefill_paged(cfg, p, cache, tok, page_t=4, **kw)
         got.append(last)
@@ -597,9 +613,10 @@ def check_one_rank(meshes, arch, params, batches, prompt):
             t = lg[:, -1].argmax(-1, keepdim=True)
         got += tree_leaves(cache)
         dense = dec.init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
-        last, dense, _ = dec.prefill_dense(cfg, p, dense, tok, **kw)
+        last, dense, _ = dec.prefill_dense(cfg, p, dense, tok, **kw, **xkw)
         got += [last] + tree_leaves(dense)
-        got.append(dec.prefill(cfg, p, tok, **kw)[0])
+        got.append(dec.prefill(cfg, p, tok, **kw,
+                               **({} if aux is None else dict(aux_embeds=_t(aux))))[0])
         arms.append(got)
     out["serve"] = sum(not torch.equal(a, b) for a, b in zip(*arms))
     out["n_serve"] = len(arms[0])
