@@ -85,8 +85,13 @@ Phases, one summary line each:
                 prefill_paged and 16 greedy decode_step_paged steps
                 against the meshless calls from the same weights: tokens
                 equal, logits within 1e-3, page mass within 1e-5, every
-                ring's pages, page_len and cur_slot bitwise; prints the
-                leaves split and gathered and each arm's attention
+                ring's pages, page_len and cur_slot bitwise; then a
+                dense-cache arm (prefill_dense and greedy decode_step steps,
+                the cache's sequence split over 'model', each block's core
+                over the rank's block of it: tokens equal, logits within
+                1e-3, every cache leaf bitwise); prints the leaves split
+                and gathered, the attention-cache leaves attended split
+                and gathered whole (none), and each arm's attention
                 launches (head-tiled for deepseek-v3, grouped for
                 kimi-k2); (e) then zamba2-2.7b and xlstm-1.3b at full width
                 and PHASE ssm's depth (SSM_DEPTH), each partitioned over the
@@ -95,19 +100,22 @@ Phases, one summary line each:
                 the same prefill and greedy steps with deterministic
                 algorithms on: tokens equal, logits and page mass 0 apart,
                 every ring's pages and every recurrent state bitwise the
-                meshless calls'; prints the leaves split and gathered and
-                zamba2's grouped attention launches; (f) then
+                meshless calls', then (d)'s dense-cache arm, bitwise;
+                prints the leaves split and gathered, the attention-cache
+                leaves attended split and gathered whole, and zamba2's
+                grouped attention launches; (f) then
                 llama-3.2-vision-11b (depth cut to 10: two cross blocks)
                 and whisper-base (whole) at full width, each cross gate at
                 0.5, partitioned over the one 'model' rank (self and cross
                 attention, the cross step's projection of every patch or
                 frame, MLPs, whisper's encoder, embedding and head) with
                 deterministic algorithms on, over seeded aux embeddings:
-                the dense-cache prefill_dense and greedy decode_step steps
-                (whisper encoded first, its encoder output bitwise) and the
-                paged arm of (e), tokens equal, logits 0 apart, every cache
-                leaf and ring bitwise the meshless calls', grouped
-                attention launches equal between the arms;
+                the dense-cache arm of (d) (whisper encoded first, its
+                encoder output bitwise) and the paged arm of (e), tokens
+                equal, logits 0 apart, every cache leaf and ring bitwise
+                the meshless calls', grouped attention launches equal
+                between the arms; (d)-(f) raise if a dense arm gathered an
+                attention-cache leaf whole or attended none split;
   3. main     — ServeEngine on llama3.2-3b at full width (random weights
                 from a seed) serving a batch of 4 random 1024-token prompts
                 for 64 greedy tokens through the NeoMem loop; every kernel
@@ -4348,14 +4356,19 @@ def dist_slice(torch, mesh, phase, smi, device="cuda", dims=DIST_DECODE) -> dict
     (attention, dense prologue, shared expert, embedding and head
     partitioned over the one 'model' rank, the experts expert-parallel):
     tokens equal, logits within 1e-3, page mass within 1e-5, every ring's
-    pages, page_len and cur_slot bitwise.  Prints the leaves split and
-    gathered and each arm's attention launches (the head-tiled kernel's for
-    MLA)."""
+    pages, page_len and cur_slot bitwise; then ``dense_arms`` (the dense
+    cache's sequence split over the rank, ``hold_dense``: logits within
+    1e-3, every cache leaf bitwise).  Prints the leaves split and gathered,
+    the attention-cache leaves attended split and gathered whole, and each
+    arm's attention launches (the head-tiled kernel's for MLA)."""
     from repro_torch.train import step as ts
     cfg, params = draw_moe_params(torch, phase)
     b, steps, n_slots, page_t = dims
-    arms, (n_split, n_gathered) = paged_arms(torch, mesh, cfg, params, device,
-                                             ts._ep_context(cfg, mesh), dims)
+    ep = ts._ep_context(cfg, mesh)
+    arms, (n_split, n_gathered) = paged_arms(torch, mesh, cfg, params, device, ep, dims)
+    dense, _, cache_leaves = dense_arms(torch, mesh, cfg, params, None, device, dims, ep)
+    dgap, n_dense = hold_dense(torch, f"dist (d) {cfg.name}", cfg, dense, cache_leaves,
+                               dims, logit_bound=1e-3)
     if n_split == 0 or n_gathered:
         raise AssertionError(f"dist (d) {cfg.name}: {n_split} leaves computed split over "
                              f"'model', {n_gathered} gathered: not the partitioned path")
@@ -4387,10 +4400,13 @@ def dist_slice(torch, mesh, phase, smi, device="cuda", dims=DIST_DECODE) -> dict
           f"over ('data', 'model'), against the meshless calls: tokens equal, logits "
           f"{gap:.3g} apart (bound 1e-3), page mass {mgap:.3g} (bound 1e-5), every "
           f"ring's pages, page_len and cur_slot bitwise; attention launches "
-          f"{sh['launches'][0]} an arm, all {form} (head-tiled {sh['launches'][1]}), "
-          f"on {smi}")
+          f"{sh['launches'][0]} an arm, all {form} (head-tiled {sh['launches'][1]}); "
+          f"dense arm (prefill_dense and {steps - 1} greedy decode_step steps, "
+          f"attention-cache leaves attended split {cache_leaves[0]}, gathered whole "
+          f"{cache_leaves[1]}) tokens equal, logits {dgap:.3g} apart (bound 1e-3), all "
+          f"{n_dense} cache leaves bitwise; on {smi}")
     return dict(logit_gap=gap, mass_gap=mgap, split=(n_split, n_gathered),
-                launches=sh["launches"])
+                cache_leaves=cache_leaves, launches=sh["launches"])
 
 
 def dist_recurrent(torch, mesh, arch, smi, device="cuda", dims=DIST_DECODE) -> dict:
@@ -4401,16 +4417,20 @@ def dist_recurrent(torch, mesh, arch, smi, device="cuda", dims=DIST_DECODE) -> d
     shared attention block, the embedding and the head partitioned over the
     one 'model' rank, against the meshless calls: tokens equal, logits 0
     apart, page mass 0 apart, every ring's pages and every recurrent state
-    bitwise.  Prints the leaves split and gathered and the grouped
-    attention launches of each arm."""
+    bitwise; then ``dense_arms`` (the dense cache's sequence split over the
+    rank, ``hold_dense``, bitwise).  Prints the leaves split and gathered,
+    the attention-cache leaves attended split and gathered whole, and the
+    grouped attention launches of each arm."""
     cfg, params = draw_dense_params(torch, arch, phase="dist", depth=SSM_DEPTH[arch])
     b, steps, n_slots, page_t = dims
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         arms, (n_split, n_gathered) = paged_arms(torch, mesh, cfg, params, device,
                                                  dims=dims)
+        dense, _, cache_leaves = dense_arms(torch, mesh, cfg, params, None, device, dims)
     finally:
         torch.use_deterministic_algorithms(False)
+    _, n_dense = hold_dense(torch, f"dist (e) {cfg.name}", cfg, dense, cache_leaves, dims)
     if n_split == 0 or n_gathered:
         raise AssertionError(f"dist (e) {cfg.name}: {n_split} leaves computed split over "
                              f"'model', {n_gathered} gathered: not the partitioned path")
@@ -4439,21 +4459,30 @@ def dist_recurrent(torch, mesh, arch, smi, device="cuda", dims=DIST_DECODE) -> d
           f"computed split, {n_gathered} gathered whole), the slots split over ('data', "
           f"'model'), against the meshless calls: tokens equal, logits and page mass 0 "
           f"apart, all {n_leaves} ring and recurrent-state leaves bitwise; grouped "
-          f"attention launches {sh['launches'][0]} an arm, on {smi}")
-    return dict(split=(n_split, n_gathered), launches=sh["launches"])
+          f"attention launches {sh['launches'][0]} an arm; dense arm (prefill_dense "
+          f"and {steps - 1} greedy decode_step steps, attention-cache leaves attended "
+          f"split {cache_leaves[0]}, gathered whole {cache_leaves[1]}) tokens equal, "
+          f"logits 0 apart, all {n_dense} cache leaves bitwise; on {smi}")
+    return dict(split=(n_split, n_gathered), cache_leaves=cache_leaves,
+                launches=sh["launches"])
 
 
-def dense_arms(torch, mesh, cfg, params, aux, device="cuda", dims=DIST_DECODE) -> tuple:
+def dense_arms(torch, mesh, cfg, params, aux, device="cuda", dims=DIST_DECODE,
+               ep=None) -> tuple:
     """``cfg``'s dense-cache serving over ``mesh`` and without one, from the
     same weights and ``aux`` (an image's patches, or an encoder arch's
-    frames, ``encode``d first in each arm): over the mesh its params stored
-    under ``param_pspecs`` and its cache under ``cache_pspecs``, computing
-    as the dry run's decode_32k cell does (``layout``, partitioned over
-    'model', ``cache_layout``), ``prefill_dense`` of a seeded
+    frames, ``encode``d first in each arm; None for neither): over the mesh
+    its params stored under ``param_pspecs`` and its cache under
+    ``cache_pspecs``, computing as the dry run's decode_32k cell does
+    (``layout``, partitioned over 'model'; ``ep`` runs the experts
+    expert-parallel; ``cache_layout``, each block's core over the rank's
+    block of the 'model'-split sequence), ``prefill_dense`` of a seeded
     DIST_SLICE_PROMPT-token prompt, then greedy ``decode_step`` steps.
     Returns ({arm: the encoder's output (None without an encoder), tokens,
     logits, the final cache}, (leaves computed split over 'model', leaves
-    gathered whole))."""
+    gathered whole), (attention-cache leaves the mesh arm's cores attended
+    split, and whole: every leaf rests split, so a whole one was gathered;
+    ``decode.CACHE_LEAVES``, a leaf a block and step))."""
     from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
     from repro_torch.dist.sharding import (DP_AXES, Layout, cache_pspecs, drop_axes,
                                            param_pspecs, shard, spec_leaves,
@@ -4468,7 +4497,7 @@ def dense_arms(torch, mesh, cfg, params, aux, device="cuda", dims=DIST_DECODE) -
     layout = ts.compute_layout(cfg, mesh, pspecs)
     prompt = torch.from_numpy(np.random.default_rng(11).integers(
         0, cfg.vocab, (b, DIST_SLICE_PROMPT)).astype(np.int32)).to(device)
-    arms = {}
+    arms, counted = {}, None
     for arm in ("mesh", "meshless"):
         cache = dec.init_cache(cfg, b, DIST_SLICE_PROMPT + steps, device=device)
         p, kw = params, {}
@@ -4476,23 +4505,63 @@ def dense_arms(torch, mesh, cfg, params, aux, device="cuda", dims=DIST_DECODE) -
             cspecs = cache_pspecs(cache, mesh)
             cache = tree_unflatten(cache, [shard(x, sp, mesh) for x, sp in
                                            zip(tree_leaves(cache), spec_leaves(cspecs))])
-            p, kw = stored, dict(layout=layout, cache_layout=Layout(mesh, tree_map_with_path(
-                lambda _, sp: drop_axes(sp, DP_AXES), cspecs)))
+            p, kw = stored, dict(layout=layout, ep_axes=ep, cache_layout=Layout(
+                mesh, tree_map_with_path(lambda _, sp: drop_axes(sp, DP_AXES), cspecs)))
+            counted = dict(dec.CACHE_LEAVES)
         src = aux
         if cfg.encoder_layers:
             src = encode(cfg, p, aux, **({} if arm == "meshless" else dict(layout=layout)))
-        last, cache, _ = dec.prefill_dense(cfg, p, cache, prompt, aux_embeds=src, **kw)
+        xkw = {} if aux is None else dict(aux_embeds=src)
+        last, cache, _ = dec.prefill_dense(cfg, p, cache, prompt, **xkw, **kw)
         tok = last.argmax(-1, keepdim=True).to(torch.int32)
         toks, logits = [tok], [last.float()]
         for _ in range(steps - 1):
-            lg, cache = dec.decode_step(cfg, p, cache, tok, aux_embeds=src, **kw)
+            lg, cache = dec.decode_step(cfg, p, cache, tok, **xkw, **kw)
             logits.append(lg[:, -1].float())
             tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
             toks.append(tok)
         torch.cuda.synchronize()
+        if arm == "mesh":
+            counted = tuple(dec.CACHE_LEAVES[k] - counted[k] for k in ("split", "whole"))
         arms[arm] = dict(enc=src if cfg.encoder_layers else None,
                          tokens=torch.cat(toks, 1), logits=torch.stack(logits), cache=cache)
-    return arms, ts.split_counts(layout, pspecs)
+    return arms, ts.split_counts(layout, pspecs), counted
+
+
+def hold_dense(torch, tag, cfg, arms, cache_leaves, dims=DIST_DECODE,
+               logit_bound=0.0) -> tuple:
+    """``dense_arms``' two arms held to each other: tokens equal, logits
+    within ``logit_bound`` (0: equal), every cache leaf (the dense
+    prologue's too) bitwise; the mesh arm's cores attended every
+    attention-cache leaf split, once a block and step (two leaves a block:
+    K and V, MLA's latent and rope key), and gathered none whole.  Returns
+    (the logit gap, the cache leaves compared)."""
+    from repro_torch.models.transformer import RECURRENT_KINDS
+    sh, un = arms["mesh"], arms["meshless"]
+    if not torch.equal(sh["tokens"], un["tokens"]):
+        raise AssertionError(f"{tag}: the dense arms' tokens differ")
+    gap = float((sh["logits"] - un["logits"]).abs().max())
+    if gap > logit_bound:
+        raise AssertionError(f"{tag}: the dense arms' logits {gap} apart (bound "
+                             f"{logit_bound})")
+    pairs = [(f"pattern position {i}", x, y) for i, (x, y) in
+             enumerate(zip(sh["cache"]["blocks"], un["cache"]["blocks"]))]
+    pairs += [(f"prologue {j}", x, y) for j, (x, y) in
+              enumerate(zip(sh["cache"].get("prologue", []), un["cache"].get("prologue", [])))]
+    n_leaves = 0
+    for where, x, y in pairs:
+        for k in y:
+            n_leaves += 1
+            if not torch.equal(x[k], y[k]):
+                raise AssertionError(f"{tag}: dense cache {k} of {where} differs")
+    blocks = sum(k not in RECURRENT_KINDS for k in cfg.pattern) * cfg.n_groups
+    blocks += cfg.moe.n_dense_prologue if cfg.moe else 0
+    want = 2 * blocks * (DIST_SLICE_PROMPT + dims[1] - 1)
+    split, gathered = cache_leaves
+    if split != want or gathered:
+        raise AssertionError(f"{tag}: attention-cache leaves attended split {split} "
+                             f"(want {want}), gathered whole {gathered}")
+    return gap, n_leaves
 
 
 def dist_cross(torch, mesh, arch, smi, device="cuda", dims=DIST_DECODE) -> dict:
@@ -4502,12 +4571,14 @@ def dist_cross(torch, mesh, arch, smi, device="cuda", dims=DIST_DECODE) -> dict:
     step's projection of every patch or frame split over 'model'), MLPs,
     whisper's encoder, the embedding and the head partitioned over the one
     'model' rank, against the meshless calls, seeded (B, n_aux_tokens, d)
-    ``aux_embeds``: ``dense_arms`` (whisper's encoder output bitwise, tokens
-    equal, logits 0 apart, every cache leaf bitwise) and ``paged_arms``
+    ``aux_embeds``: ``dense_arms`` (whisper's encoder output bitwise,
+    ``hold_dense``: tokens equal, logits 0 apart, every cache leaf bitwise,
+    the self cores over the 'model'-split sequence) and ``paged_arms``
     (which has no cross step: ROADMAP C6; tokens equal, logits 0 apart,
     every ring bitwise, grouped attention launches equal between the arms
-    and one a ring and token).  Prints the leaves split and gathered and
-    the launches."""
+    and one a ring and token).  Prints the leaves split and gathered, the
+    attention-cache leaves attended split and gathered whole, and the
+    launches."""
     cfg, params = draw_dense_params(torch, arch, phase="dist", depth=DIST_CROSS[arch])
     for blk in params["blocks"]:
         if "xgate" in blk:
@@ -4516,8 +4587,8 @@ def dist_cross(torch, mesh, arch, smi, device="cuda", dims=DIST_DECODE) -> dict:
     aux = cross_aux(torch, cfg, b, device)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        dense, (n_split, n_gathered) = dense_arms(torch, mesh, cfg, params, aux, device,
-                                                  dims)
+        dense, (n_split, n_gathered), cache_leaves = dense_arms(
+            torch, mesh, cfg, params, aux, device, dims)
         paged, split = paged_arms(torch, mesh, cfg, params, device, dims=dims)
     finally:
         torch.use_deterministic_algorithms(False)
@@ -4527,16 +4598,7 @@ def dist_cross(torch, mesh, arch, smi, device="cuda", dims=DIST_DECODE) -> dict:
     sh, un = dense["mesh"], dense["meshless"]
     if cfg.encoder_layers and not torch.equal(sh["enc"], un["enc"]):
         raise AssertionError(f"dist (f) {cfg.name}: the encoder's output differs")
-    for key in ("tokens", "logits"):
-        if not torch.equal(sh[key], un[key]):
-            raise AssertionError(f"dist (f) {cfg.name}: the dense arms' {key} differ")
-    n_leaves = 0
-    for i, (x, y) in enumerate(zip(sh["cache"]["blocks"], un["cache"]["blocks"])):
-        for k in y:
-            n_leaves += 1
-            if not torch.equal(x[k], y[k]):
-                raise AssertionError(f"dist (f) {cfg.name}: dense cache {k} of pattern "
-                                     f"position {i} differs")
+    _, n_leaves = hold_dense(torch, f"dist (f) {cfg.name}", cfg, dense, cache_leaves, dims)
     psh, pun = paged["mesh"], paged["meshless"]
     for key in ("tokens", "logits", "mass"):
         if not torch.equal(psh[key], pun[key]):
@@ -4558,12 +4620,14 @@ def dist_cross(torch, mesh, arch, smi, device="cuda", dims=DIST_DECODE) -> dict:
           f"{CROSS_GATE}), partitioned over 'model' ({n_split} leaves computed split, "
           f"{n_gathered} gathered whole), against the meshless calls: dense arm "
           f"(prefill_dense of {DIST_SLICE_PROMPT} tokens and {steps - 1} greedy "
-          f"decode_step steps) tokens equal, logits 0 apart, all {n_leaves} cache "
-          f"leaves bitwise{enc}; paged arm ({DIST_SLICE_PROMPT}-token prefill_paged, "
+          f"decode_step steps; attention-cache leaves attended split {cache_leaves[0]}, "
+          f"gathered whole {cache_leaves[1]}) tokens equal, logits 0 apart, all "
+          f"{n_leaves} cache leaves bitwise{enc}; paged arm ({DIST_SLICE_PROMPT}-token prefill_paged, "
           f"{steps} greedy steps, no cross step) tokens equal, logits and page mass 0 "
           f"apart, every ring bitwise, grouped attention launches {psh['launches'][0]} "
           f"an arm; on {smi}")
-    return dict(split=(n_split, n_gathered), launches=psh["launches"])
+    return dict(split=(n_split, n_gathered), cache_leaves=cache_leaves,
+                launches=psh["launches"])
 
 
 def dist_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
@@ -4686,11 +4750,14 @@ def main() -> int:
           f"{' and '.join(DIST_MOE)} partitioned, expert-parallel train step and "
           f"ServeEngine(ep_axes=) equal to the CPU; (d) "
           f"{' and '.join(MOE_PHASES[p]['arch'] for p in DIST_SLICE)} at full width, "
-          f"partitioned prefill_paged and paged decode equal to the meshless calls; (e) "
-          f"{' and '.join(DIST_RECURRENT)} at full width, partitioned prefill_paged and "
-          f"paged decode bitwise the meshless calls; (f) {' and '.join(DIST_CROSS)} at "
+          f"partitioned prefill_paged and paged decode and the dense decode over the "
+          f"'model'-split cache equal to the meshless calls; (e) "
+          f"{' and '.join(DIST_RECURRENT)} at full width, partitioned paged and dense "
+          f"serving bitwise the meshless calls; (f) {' and '.join(DIST_CROSS)} at "
           f"full width, partitioned dense (cross steps, encoder) and paged serving "
-          f"bitwise the meshless calls; "
+          f"bitwise the meshless calls; attention-cache leaves attended split / "
+          f"gathered whole "
+          f"{[dres['slices'][k]['cache_leaves'] for k in dres['slices']]}; "
           f"launches {json.dumps(phases['dist'])} on {smi}")
     release(torch)
     cfg, params = draw_params(torch)

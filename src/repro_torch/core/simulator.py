@@ -36,8 +36,6 @@ from repro_torch.core.neoprof import NeoProfParams
 from repro_torch.core.policy import PolicyParams
 from repro_torch.core.sketch import SketchParams, key_seeds
 from repro_torch.core.tiering import TierParams
-from repro_torch.tiering.memory import DaemonParams, TieredMemory
-from repro_torch.tiering.stats import TierStats, drain_tier_stats
 
 INIT_CHUNK = 1 << 14     # pages per first-touch chunk of the init sweep
 
@@ -246,6 +244,11 @@ def run_sim(
     collect / update-threshold / clear verbs.  The sketch takes the
     reference's default H3 seeds (key 0).
     """
+    # Imported here: repro_torch.core's package init imports this module,
+    # while repro_torch.tiering imports repro_torch.core submodules.
+    from repro_torch.tiering.memory import DaemonParams, TieredMemory
+    from repro_torch.tiering.stats import TierStats, drain_tier_stats
+
     dev = torch.device(device)
     mem = mem or MemModel()
     costs = costs or BaselineCosts()

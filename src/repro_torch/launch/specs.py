@@ -17,7 +17,8 @@ dense decoder's, a MoE arch's or a recurrent arch's embedding, attention,
 MLPs, shared experts, recurrent mixers and head computing the rank's share
 over 'model'
 (``train.step.compute_layout``), the MoE layers' experts run
-expert-parallel, decode_32k gathers a block's sequence-split cache,
+expert-parallel, decode_32k's cores attend over the rank's block of the
+sequence-split cache (the ranks merge their softmax statistics),
 long_500k splits the ring's page slots over every mesh axis (B = 1).
 """
 from __future__ import annotations
@@ -204,7 +205,7 @@ def cell_specs(arch: str, shape_name: str, mesh, *, tcfg=None,
     if shp["kind"] == "decode":
         cache = dec.init_cache(cfg, b, s, dtype=torch.bfloat16, device="meta")
         # batch over the data axes, the k/v sequence over 'model'; each
-        # block gathers its sequence before it attends
+        # block's core attends over the rank's block of the sequence
         cspecs = cache_pspecs(cache, mesh) if mesh is not None else _whole(cache)
         cache_layout = (Layout(run_mesh, tree_map_with_path(
             lambda _, sp: drop_axes(sp, DP_AXES), cspecs))

@@ -3,9 +3,10 @@ full-sequence attention and cross attention (port of
 ``repro/models/attention.py``).
 
 ``gqa_decode`` and ``mla_decode`` attend over the full (dense) cache of
-``gqa_init_cache`` / ``mla_init_cache`` in float32, as the reference
-computes them outside any Pallas kernel; the new K/V (or MLA's latent and
-rope key) is written at ``pos`` in place.  ``pos`` is the cache's ()
+``gqa_init_cache`` / ``mla_init_cache`` (or a rank's block of its
+sequence, below) in float32, as the reference computes them outside any
+Pallas kernel; the new K/V (or MLA's latent and rope key) is written at
+``pos`` in place.  ``pos`` is the cache's ()
 int32 position tensor, read on the device (no host sync).  The paged
 decode reads MLA through the absorbed latent query of ``models/decode.py``.
 ``sdpa``, ``sdpa_chunked`` and ``gqa_apply`` attend over a whole sequence
@@ -48,15 +49,28 @@ cross step) is split n ways in one of four forms (:func:`core_form`):
 
 The decode cores (:func:`gqa_decode` over the dense cache,
 ``decode._paged_attn_block`` over the ring) attend at one query position
-on q, k and v gathered over the ranks, replicated, and hand the rank's
-block of the output columns to the row-parallel ``wo``; the cache is
-written whole, as without a part.  MLA (:func:`mla_apply`,
+on q, k and v gathered whole over the ranks, and hand the rank's block of
+the output columns to the row-parallel ``wo``.  MLA (:func:`mla_apply`,
 :func:`mla_decode`) splits by heads: the rank's column blocks of ``wq_a``
 and ``wkv_a`` gathered whole (the norms and the rope key read whole rows),
 its heads through its blocks of ``wq_b`` and ``wkv_b``, ``wo``'s row
-parts summed; its decode core attends replicated on the absorbed queries
-gathered over the heads.  With one rank in the part every form is the
-meshless arithmetic, op for op."""
+parts summed; its decode core attends with the absorbed queries gathered
+over the heads.
+
+The split cache (``seq``, a Part of 'model'): over a mesh the dense cache
+rests with its sequence dim split over 'model' (``cache_pspecs``), and
+:func:`gqa_decode` / :func:`mla_decode` take the rank's block, (B, Smax/n,
+Hkv, dh) or (B, Smax/n, kv_lora | d_rope), whose first position is
+``rank * Smax/n``.  The rank that holds ``pos`` writes the new row there
+(every other rank writes its clamped row back, no host sync); the core
+masks the block's keys by their global positions (causal, gemma2's
+window, the softcap before the mask), attends over them, and the ranks'
+normalised outputs are merged by their softmax statistics (:func:`_merge`:
+the max over the ranks, each rank's sum rescaled to it, the outputs
+weighted by their share of the sum and summed), as XLA's partitioner runs
+the reference's program on that cache.  A rank whose block lies wholly
+past ``pos`` adds exactly 0.  With one rank in the part every form is the
+meshless arithmetic, op for op (the split cache's share is exactly 1)."""
 from __future__ import annotations
 
 import math
@@ -166,54 +180,93 @@ def _pos_col(pos: torch.Tensor, b: int) -> torch.Tensor:
     return pos.reshape(-1, 1).expand(b, 1)
 
 
-def _write_at(cache: torch.Tensor, pos: torch.Tensor, rows: torch.Tensor) -> None:
-    """``cache[:, pos] = rows`` in place, ``pos`` a () device tensor."""
-    cache.index_copy_(1, pos.reshape(1).long(), rows.to(cache.dtype))
+def _first(cache: torch.Tensor, seq) -> int:
+    """The global position of the first row of ``cache``'s sequence dim: 0,
+    or with ``seq`` (a Part) the first of the rank's block."""
+    return 0 if seq is None else seq.rank * cache.shape[1]
 
 
-def _key_mask(smax: int, pos: torch.Tensor, window: int = 0) -> torch.Tensor:
-    """(smax,) bool: the causal keys of position ``pos``, and with
-    ``window > 0`` only the last ``window`` of them."""
-    kpos = torch.arange(smax, device=pos.device)
+def _write_at(cache: torch.Tensor, pos: torch.Tensor, rows: torch.Tensor,
+              seq=None) -> None:
+    """``cache[:, pos] = rows`` in place, ``pos`` a () device tensor.  With
+    ``seq`` the cache is the rank's block of the sequence: the rank that
+    holds ``pos`` writes there, every other rank writes the row at its
+    clamped index back (no host sync)."""
+    at = pos.reshape(1).long()
+    rows = rows.to(cache.dtype)
+    if seq is not None:
+        n = cache.shape[1]
+        at = at - _first(cache, seq)
+        own = (at >= 0) & (at < n)
+        at = at.clamp(0, n - 1)
+        rows = torch.where(own, rows, cache.index_select(1, at))
+    cache.index_copy_(1, at, rows)
+
+
+def _key_mask(smax: int, pos: torch.Tensor, window: int = 0,
+              first: int = 0) -> torch.Tensor:
+    """(smax,) bool: which of the keys at positions ``first`` on are causal
+    keys of position ``pos``, and with ``window > 0`` among its last
+    ``window``."""
+    kpos = torch.arange(first, first + smax, device=pos.device)
     mask = kpos <= pos
     if window > 0:
         mask &= kpos > pos - window
     return mask
 
 
-def dense_attend(q, ck, cv, pos, *, window=0, softcap=0.0, scale):
+def _merge(o: torch.Tensor, s: torch.Tensor, group, dims) -> torch.Tensor:
+    """The ranks' attention outputs over their blocks of the keys merged
+    into the output over every key: ``o`` the rank's output normalised over
+    its keys, ``s`` its masked scores (keys last); ``dims`` permutes the
+    statistics (``s``'s dims but the last) into ``o``'s order but its last
+    dim.  Each rank's share is its softmax sum rescaled to the global max,
+    ``l_r exp(m_r - M)``, over their sum; a rank whose keys are all masked
+    (m = NEG_INF) adds exactly 0.  With one rank the share is exactly 1."""
+    m = s.amax(dim=-1)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    a = l * torch.exp(m - col.max_over(m, group))
+    share = a / col.all_reduce(a.clone(), group)
+    return col.all_reduce(o * share.permute(dims)[..., None], group)
+
+
+def dense_attend(q, ck, cv, pos, *, window=0, softcap=0.0, scale, seq=None):
     """One query position over the full cache, in float32: q (B, 1, H, dh),
     ck/cv (B, Smax, Hkv, dh) -> (B, 1, Hkv, g, dh) float32, the reference's
     einsum / mask / softmax / einsum with the scores softcapped before the
-    mask and masked to ``NEG_INF``."""
+    mask and masked to ``NEG_INF``.  With ``seq`` (a Part) ck/cv are the
+    rank's block of the sequence, masked by their global positions, and the
+    ranks' outputs are merged over ``seq``'s group (:func:`_merge`)."""
     b, _, h, dh = q.shape
     hkv = ck.shape[2]
     qf = q.float().reshape(b, 1, hkv, h // hkv, dh)
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, ck.float()) * scale
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
-    mask = _key_mask(ck.shape[1], pos, window)
+    mask = _key_mask(ck.shape[1], pos, window, _first(ck, seq))
     s = torch.where(mask, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgqs,bskd->bqkgd", w, cv.float())
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, cv.float())
+    return o if seq is None else _merge(o, s, seq.group, (0, 3, 1, 2))
 
 
 def gqa_decode(p, x_t, cache, pos, *, h, hkv, dh, rope_theta=10000.0,
-               window=0, softcap=0.0, scale=None, part=None):
+               window=0, softcap=0.0, scale=None, part=None, seq=None):
     """x_t (B, 1, D) at position ``pos``: the full-cache decode.  Writes the
     new K/V into ``cache`` in place; returns (B, 1, D).  ``part``: the
-    module docstring's decode form."""
+    module docstring's decode form; ``seq``: the cache is the rank's block
+    of the sequence (the module docstring's split cache)."""
     b = x_t.shape[0]
     q, k, v = _proj_qkv(p, x_t, h, hkv, dh, part)
     if rope_theta > 0:
         pos_b = _pos_col(pos, b)
         q = apply_rope(q, pos_b, rope_theta)
         k = apply_rope(k, pos_b, rope_theta)
-    _write_at(cache["k"], pos, k)
-    _write_at(cache["v"], pos, v)
+    _write_at(cache["k"], pos, k, seq)
+    _write_at(cache["v"], pos, v, seq)
     scale = (dh ** -0.5) if scale is None else scale
     o = dense_attend(q, cache["k"], cache["v"], pos, window=window,
-                     softcap=softcap, scale=scale)
+                     softcap=softcap, scale=scale, seq=seq)
     return out_proj(p, o.reshape(b, 1, h * dh).to(x_t.dtype), part)
 
 
@@ -454,18 +507,21 @@ def _mla_heads(h: int, part) -> int:
 
 
 def mla_decode(p, x_t, cache, pos, *, h, q_lora=1536, kv_lora=512,
-               d_nope=128, d_rope=64, d_v=128, rope_theta=10000.0, part=None):
+               d_nope=128, d_rope=64, d_v=128, rope_theta=10000.0, part=None,
+               seq=None):
     """MLA's absorbed decode over the full latent cache, in float32: the
     nope query goes through the key half of ``wkv_b`` into the latent
     space, the attention output back through its value half.  Writes the
     latent and rope key at ``pos`` in place; returns (B, 1, D).
 
     With ``part`` (the heads divide its ranks) the rank projects its heads'
-    queries into the latent space, the absorbed queries are gathered over
-    the heads and the core attends replicated, as the dense decoders'
-    decode form; the rank then takes its heads of the latent output
-    through its block of ``wkv_b``'s value half and ``wo``'s rows, the
-    parts summed."""
+    queries into the latent space and the absorbed queries are gathered
+    over the heads, so that the core attends with every head, as the dense
+    decoders' decode form; the rank then takes its heads of the latent
+    output through its block of ``wkv_b``'s value half and ``wo``'s rows,
+    the parts summed.  With ``seq`` the cache is the rank's block of the
+    sequence: the core attends over it and the ranks' latent outputs are
+    merged (:func:`_merge`) before the rank takes its heads."""
     b = x_t.shape[0]
     hl = _mla_heads(h, part)
     if not hl:
@@ -477,8 +533,8 @@ def mla_decode(p, x_t, cache, pos, *, h, q_lora=1536, kv_lora=512,
     q_rope = apply_rope(q_rope, pos_b, rope_theta)
     c_t = _rms(kv_a[..., :kv_lora], _kv_norm(p, part))
     kr_t = apply_rope(kv_a[..., None, kv_lora:], pos_b, rope_theta)[:, :, 0]
-    _write_at(cache["c_kv"], pos, c_t)
-    _write_at(cache["k_rope"], pos, kr_t)
+    _write_at(cache["c_kv"], pos, c_t, seq)
+    _write_at(cache["k_rope"], pos, kr_t, seq)
     c_kv, k_rope = cache["c_kv"].float(), cache["k_rope"].float()
     wkv_b = p["wkv_b"].reshape(kv_lora, hl, d_nope + d_v)
     w_k, w_v = wkv_b[..., :d_nope].float(), wkv_b[..., d_nope:].float()
@@ -490,9 +546,12 @@ def mla_decode(p, x_t, cache, pos, *, h, q_lora=1536, kv_lora=512,
     s_lat = torch.einsum("bqhk,bsk->bhqs", q_lat, c_kv)
     s_rope = torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope)
     s = (s_lat + s_rope) * (d_nope + d_rope) ** -0.5
-    s = torch.where(_key_mask(c_kv.shape[1], pos), s, NEG_INF)
+    s = torch.where(_key_mask(c_kv.shape[1], pos, first=_first(c_kv, seq)), s,
+                    NEG_INF)
     w = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bhqs,bsk->bqhk", w, c_kv)
+    if seq is not None:
+        o_lat = _merge(o_lat, s, seq.group, (0, 2, 1))
     if part is not None:
         o_lat = part.block(o_lat, 2)
     o = torch.einsum("bqhk,khd->bqhd", o_lat, w_v)

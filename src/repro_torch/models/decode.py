@@ -91,9 +91,16 @@ the rank's share and the new state gathered whole, as the cache rests),
 each cross step (``xattn``: by heads, by head columns, or whole on the
 gathered columns where neither divides, :func:`attention.core_form` at one
 query) and the head over 'model' (:mod:`repro_torch.models.attention`'s
-decode form: the self-attention core at one query position runs
-replicated on gathered q, k and v, MLA's on the absorbed query gathered
-over the heads).  The
+decode form: the self-attention core at one query position takes q, k and
+v gathered whole, MLA's the absorbed query gathered over the heads).  The
+dense decode and prefill also take ``cache_layout``: where a block's cache
+has its sequence split over 'model' (``cache_pspecs``; the body blocks,
+the dense prologue, zamba2's shared block, the self cores of the
+``cross`` and ``dec`` blocks), its core attends over the rank's block of
+the sequence and the ranks merge their softmax statistics
+(:mod:`repro_torch.models.attention`'s split cache); nothing of the cache
+is gathered.  The ring's core runs replicated, as the reference's does
+unless ``smesh`` splits its slots.  The
 logits are gathered whole over 'model' before they are returned, so that
 greedy ids and :func:`sample_tokens` read the whole vocab.
 
@@ -109,7 +116,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives as col
-from repro_torch.dist.sharding import per_group, shard
+from repro_torch.dist.sharding import per_group
 from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -132,13 +139,19 @@ def _take(tree, g: int):
     return tree[g]
 
 
+# attention-cache leaves the dense decode's cores attended over a mesh
+# (``decode_step``'s ``cache_layout``), by form: "split", the rank's block
+# of the sequence; "whole", a cache whose sequence is not split
+CACHE_LEAVES = {"split": 0, "whole": 0}
+
+
 class _MeshBlocks:
-    """Over a mesh, a group's params and cache as a block computes with
-    them: the params gathered under ``layout``
-    (:class:`repro_torch.dist.sharding.Layout`), the cache whole under
-    ``cache_layout`` (its sequence dim over 'model' gathered; the batch
-    stays split, compute is data-parallel) and written back to the rank's
-    blocks after the block ran."""
+    """Over a mesh, a group's params as a block computes with them,
+    gathered under ``layout`` (:class:`repro_torch.dist.sharding.Layout`),
+    and how its cache rests under ``cache_layout`` (specs without their
+    data axes: the batch stays split, compute is data-parallel): a block
+    whose cache has its sequence dim split over 'model' attends over the
+    rank's block of it (:meth:`seq`)."""
 
     def __init__(self, layout, cache_layout):
         self.layout, self.cache_layout = layout, cache_layout
@@ -154,18 +167,24 @@ class _MeshBlocks:
         at ``block`` ("blocks/0", "prologue/1")."""
         return {} if self.layout is None else self.layout.parts(block)
 
-    def cache(self, c, specs):
-        """-> (the cache the block runs on, write-back)."""
-        if self.cache_layout is None or not any(
-                e is not None for sp in specs.values() for e in sp):
-            return c, lambda: None
-        full = self.cache_layout.gather(c, specs)
-
-        def write_back():
-            mesh = self.cache_layout.mesh
-            for k in c:
-                c[k].copy_(shard(full[k], specs[k], mesh))
-        return full, write_back
+    def seq(self, specs):
+        """The Part of 'model' whose rank's block of the sequence an
+        attention block's cache leaves hold under ``specs`` ({leaf: spec},
+        (B, S, ...) each), or None where none is split (counted in
+        CACHE_LEAVES)."""
+        if specs is None:
+            return None
+        split = [tuple(sp) != (None,) * len(sp) for sp in specs.values()]
+        if any(split) and not all(tuple(sp) == (None, "model") + (None,) * (len(sp) - 2)
+                                  for sp in specs.values()):
+            raise ValueError(f"decode: a dense cache split other than its sequence "
+                             f"over 'model': {specs}")
+        CACHE_LEAVES["split" if any(split) else "whole"] += len(specs)
+        if not any(split):
+            return None
+        mesh = self.cache_layout.mesh
+        return col.Part(mesh.group("model"), mesh.coord("model"),
+                        mesh.axis_size("model"))
 
 
 def _embed_tokens(params, token, tiered, part=None):
@@ -706,11 +725,13 @@ def init_cache(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16, *,
 
 def _decode_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
                        tiered_moe=None, router: list | None = None,
-                       kv_src=None, ep_axes=None, parts=None):
+                       kv_src=None, ep_axes=None, parts=None, seq=None):
     """One decoder block over the full cache (the reference's
     ``_decode_attn_block``): GQA with the sliding window on ``attn_local``
     positions, or MLA's absorbed decode, then the cross step over
-    ``kv_src`` when given; ``parts`` as in :func:`_paged_attn_block`."""
+    ``kv_src`` when given; ``parts`` as in :func:`_paged_attn_block`;
+    ``seq``: the cache is the rank's block of the sequence, split over
+    that Part of 'model' (:func:`repro_torch.models.attention.gqa_decode`)."""
     parts = parts or {}
     h = apply_norm(cfg.norm, p["ln1"], x_t)
     if cfg.mla is not None:
@@ -718,14 +739,14 @@ def _decode_attn_block(p, cfg: ArchConfig, kind: str, x_t, cache, pos,
                             rope_theta=cfg.rope_theta,
                             q_lora=cfg.mla.q_lora, kv_lora=cfg.mla.kv_lora,
                             d_nope=cfg.mla.d_nope, d_rope=cfg.mla.d_rope,
-                            d_v=cfg.mla.d_v, part=parts.get("attn"))
+                            d_v=cfg.mla.d_v, part=parts.get("attn"), seq=seq)
     else:
         o = attn.gqa_decode(p["attn"], h, cache, pos, h=cfg.n_heads,
                             hkv=cfg.n_kv_heads, dh=cfg.head_dim,
                             rope_theta=cfg.rope_theta,
                             window=cfg.window if kind == "attn_local" else 0,
                             softcap=cfg.attn_softcap, scale=cfg.attn_scale,
-                            part=parts.get("attn"))
+                            part=parts.get("attn"), seq=seq)
     return _block_tail(p, cfg, kind, x_t, o, tiered_moe, router, kv_src, ep_axes,
                        parts.get("ffn"), parts.get("xattn"))
 
@@ -746,11 +767,14 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
 
     Over a mesh ``params`` and ``cache`` are the rank's blocks:
     ``layout`` gathers a group's params before it runs (as
-    :func:`repro_torch.models.transformer.forward`'s), ``cache_layout``
-    (specs without their data axes) a block's cache, which is written back
-    to the rank's blocks after it (the reference's partitioner gathers the
-    sequence-split cache a layer at a time); every arch computes its share
-    over 'model', the cross step's too (:func:`decode_step_paged`)."""
+    :func:`repro_torch.models.transformer.forward`'s) and ``cache_layout``
+    (specs without their data axes) says how each block's cache rests.
+    Where its sequence is split over 'model' (``cache_pspecs`` wherever the
+    length divides the ranks) the block's core attends over the rank's
+    block of it and the ranks merge their softmax statistics, as XLA's
+    partitioner runs the reference's program; a recurrent state is the
+    rank's rows.  Every arch computes its share over 'model', the cross
+    step's too (:func:`decode_step_paged`)."""
     check_ported(cfg)
     mb = _MeshBlocks(layout, cache_layout)
     params = _top(params, layout)
@@ -759,18 +783,15 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
     x = _embed(cfg, params, token, tiered, head)
     for j, (lp, lc) in enumerate(zip(params.get("prologue", []),
                                      cache.get("prologue", []))):
-        lc, write_back = mb.cache(lc, None if cache_layout is None
-                                  else cache_layout.specs["prologue"][j])
+        seq = mb.seq(None if cache_layout is None else cache_layout.specs["prologue"][j])
         x = _decode_attn_block(lp, cfg, "attn", x, lc, pos, ep_axes=ep_axes,
-                               parts=mb.parts(f"prologue/{j}"))
-        write_back()
+                               parts=mb.parts(f"prologue/{j}"), seq=seq)
     routers = []
     for g in range(cfg.n_groups):
         router = []
         for i, kind in enumerate(cfg.pattern):
             p = mb.params(_take(params["blocks"][i], g), i)
-            c, write_back = mb.cache(_take(cache["blocks"][i], g),
-                                     None if mb.gc is None else mb.gc[i])
+            c = _take(cache["blocks"][i], g)
             parts = _body_parts(cfg, layout, i)
             if kind in RECURRENT_KINDS:
                 x = _recurrent_block(p, cfg, kind, x, c, part=parts.get("mix"))
@@ -781,8 +802,7 @@ def decode_step(cfg: ArchConfig, params, cache, token, *, aux_embeds=None,
                     p, cfg, kind, x, c, pos,
                     tiered_moe=_tiered_moe_for(cfg, tiered, i, g), router=router,
                     kv_src=_cross_source(cfg, kind, aux_embeds), ep_axes=ep_axes,
-                    parts=parts)
-            write_back()
+                    parts=parts, seq=mb.seq(None if mb.gc is None else mb.gc[i]))
         routers.append(router)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = gather_logits(logits_apply(params["embed"], x, cfg.final_softcap, head),

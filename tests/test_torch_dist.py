@@ -35,15 +35,21 @@ meshless path where it has one:
   two ranks each, sLSTM by channels), every recurrent decode state within
   1e-5 max(1, max |ref|) of the reference's;
 * the dry run's prefill and dense-cache decode cells on values, the same
-  archs and meshes, partitioned over 'model': logits and cache within
-  1e-5 of the meshless run and the reference's, greedy ids bitwise;
+  archs and meshes, partitioned over 'model', the dense cache's sequence
+  split over 'model' and attended a rank's block at a time (every
+  attention block's, none whole): logits and cache within 1e-5 of the
+  meshless run and the reference's, greedy ids bitwise;
 * each partitioned layer over 4 'model' ranks (attention, MLPs, the head
   and loss, MLA, the shared expert, and the recurrent mixers: Mamba2 by
   heads, mLSTM by heads and within a head, sLSTM by channels; cross
   attention by heads, query rows, head columns and whole, and the
   encoder's bidirectional attention by head columns) within 1e-5 of the
   reference's layer and its gradients (cross attention's ``kv_src``'s
-  too);
+  too); the dense-cache decode cores (GQA with gemma2's window and
+  softcap, MLA) over each rank's block of the cache's sequence within
+  1e-5 of the reference's over the whole cache, each rank's block after
+  the write bitwise the meshless write's (the reference's slice but the
+  written row, within 1e-5);
 * ``moe_apply_ep`` on (2, 4) with capacity factor 8: ids bitwise the
   reference's ``moe_apply_ep(ep_axes=None)``, y and every gradient (x,
   router, the expert stacks, the shared expert) within 1e-5 of the
@@ -193,6 +199,16 @@ TP_CASES = {
     # and a MoE layer's shared expert
     "mla": ("mla", dict(s=8)),
     "mla-decode": ("mla-decode", dict(s=1)),
+    # the dense-cache decode cores over the rank's block of a 16-position
+    # (MLA: 8) cache split over the 4 ranks, the softmax statistics merged:
+    # GQA with biases, gemma2's window (5) and softcap at position 13, the
+    # window crossing the border of the last two ranks' blocks; GQA at
+    # position 2, three ranks' blocks wholly masked; MLA at position 5
+    "attn-decode-split": ("attn-decode", dict(h=4, hkv=2, dh=8, bias=True, window=5,
+                                              softcap=5.0, scale=0.3, pos=13)),
+    "attn-decode-split-first": ("attn-decode", dict(h=4, hkv=2, dh=8, bias=False,
+                                                    pos=2)),
+    "mla-decode-split": ("mla-decode", dict(s=1, split=True)),
     "shared-expert": ("shared", dict()),
     # the recurrent mixers over two chunks of 4: Mamba2 by heads (4 heads in
     # 2 groups; in_proj's 84 columns in blocks of 21 across its z | x | B | C
@@ -245,7 +261,7 @@ def _tp_inputs(case):
             return p, n(b, c["s"], d), n(b, c["s"], d), dict(m)
         smax = 8
         cache = {"c_kv": n(b, smax, m["kv_lora"]), "k_rope": n(b, smax, m["d_rope"]),
-                 "pos": 5}
+                 "pos": 5, "split": c.get("split", False)}
         return p, n(b, 1, d), cache, dict(m)
     if kind == "mamba2":
         m = MAMBA_DIMS
@@ -278,7 +294,7 @@ def _tp_inputs(case):
         else:
             p["w_gate"] = n(d, f)
         return p, n(b, 5, d), n(b, 5, d), dict(mlp=c["mlp"])
-    h, hkv, dh, s = c["h"], c["hkv"], c["dh"], c["s"]
+    h, hkv, dh, s = c["h"], c["hkv"], c["dh"], c.get("s", 1)
     p = {"wq": n(d, h * dh), "wk": n(d, hkv * dh), "wv": n(d, hkv * dh),
          "wo": n(h * dh, d)}
     if c["bias"]:
@@ -286,6 +302,12 @@ def _tp_inputs(case):
     if kind == "cross":                # kv_src rides in kw
         return p, n(b, s, d), n(b, s, d), dict(h=h, hkv=hkv, dh=dh,
                                                kv=n(b, CROSS_KEYS, d))
+    if kind == "attn-decode":          # the dense cache rides in ct
+        smax = 16
+        cache = {"k": n(b, smax, hkv, dh), "v": n(b, smax, hkv, dh), "pos": c["pos"]}
+        return p, n(b, 1, d), cache, dict(h=h, hkv=hkv, dh=dh, window=c.get("window", 0),
+                                          softcap=c.get("softcap", 0.0),
+                                          scale=c.get("scale"))
     kw = dict(h=h, hkv=hkv, dh=dh, window=c.get("window", 0),
               softcap=c.get("softcap", 0.0), scale=c.get("scale"),
               causal=c.get("causal", True))
@@ -547,9 +569,10 @@ def test_sharded_paged_decode_matches_reference(world, arch, mesh):
 def test_dry_run_serving_cells_match_meshless_and_reference(world, arch, mesh):
     """launch/specs.py's prefill_32k and decode_32k callables on values over
     the mesh (params gathered a group at a time and partitioned over
-    'model', the dense cache's 'model'-split sequence gathered a block at
-    a time and written back): every rank's logits and final cache equal to
-    the meshless run's and to the reference's, greedy ids bitwise."""
+    'model', each block's core over the rank's block of the dense cache's
+    'model'-split sequence, the softmax statistics merged over the ranks):
+    every rank's logits and final cache equal to the meshless run's and to
+    the reference's, greedy ids bitwise."""
     cfg = j_smoke(arch)
     params = jax.tree.map(jnp.asarray, _f32_params(arch))
     inp = _cell_inputs(arch, mesh)
@@ -580,25 +603,61 @@ def test_dry_run_serving_cells_match_meshless_and_reference(world, arch, mesh):
             == int(np.asarray(cache["pos"])) == tokens.shape[1]
 
 
+@pytest.mark.parametrize("arch,mesh", DECODE_CASES, ids=DECODE_IDS)
+def test_dry_run_decode_cells_attend_the_split_cache(world, arch, mesh):
+    """The decode_32k cell over the mesh attends every attention block's
+    cache as the rank's block of its 'model'-split sequence (16 positions
+    over 4 or 2 ranks), none whole: its leaves (2 a block: K and V, MLA's
+    latent and rope key) counted once a step in every attention block
+    (the dense prologue's too); xlstm has none."""
+    cfg = j_smoke(arch)
+    blocks = sum(k not in ("mamba", "mlstm", "slstm") for k in cfg.pattern) * cfg.n_groups
+    blocks += cfg.moe.n_dense_prologue if cfg.moe else 0
+    steps = _cell_inputs(arch, mesh)["tokens"].shape[1]
+    for rank in range(tw.WORLD):
+        got = _result(world, f"cells_{arch}@{mesh}", rank)["mesh"]["cache_leaves"]
+        assert got == {"split": 2 * blocks * steps, "whole": 0}, (rank, got)
+
+
 @pytest.mark.parametrize("case", list(TP_CASES))
 def test_partitioned_layers_match_reference(world, case):
     """Each partitioned form over 4 'model' ranks against the reference's
     layer on the whole weights: the output and every gradient (the
     weights' blocks gathered, the replicated biases' and norms' and the
     input's as each rank holds them) within 1e-5 of ``jax.grad``, on every
-    rank; MLA's decode (no gradient) its output and the latent and rope
-    key it wrote into the cache within 1e-5."""
+    rank.  The dense-cache decodes (no gradient): the output within 1e-5 of
+    the reference's over the whole cache; MLA's whole-cache form (the
+    cache replicated) the latent and rope key it wrote within 1e-5; the
+    split forms (each rank holding its block of the cache's sequence)
+    every rank's block after the write bitwise the port's meshless
+    ``gqa_decode`` / ``mla_decode``'s and that slice of the reference's new
+    cache, but the written row, which is within 1e-5 of it (XLA's and
+    torch's float32 projection and RoPE round apart by ulps)."""
     kind, _ = TP_CASES[case]
     p, x, ct, kw = _tp_inputs(case)
     jp, jx = jax.tree.map(jnp.asarray, p), jnp.asarray(x)
-    if kind == "mla-decode":
-        cache = {k: jnp.asarray(ct[k]) for k in ("c_kv", "k_rope")}
-        y, cache = j_attn.mla_decode(jp, jx, cache, ct["pos"], **kw)
+    if kind in ("mla-decode", "attn-decode"):
+        keys = ("c_kv", "k_rope") if kind == "mla-decode" else ("k", "v")
+        cache = {k: jnp.asarray(ct[k]) for k in keys}
+        layer = j_attn.mla_decode if kind == "mla-decode" else j_attn.gqa_decode
+        y, cache = layer(jp, jx, cache, ct["pos"], **kw)
+        split = kind == "attn-decode" or ct["split"]
         for rank in range(tw.WORLD):
             res = _result(world, f"tp_{case}", rank)
-            for key, want in (("y", y), ("c_kv", cache["c_kv"]),
-                              ("k_rope", cache["k_rope"])):
-                assert np.abs(res[key] - np.asarray(want)).max() <= 1e-5, (rank, key)
+            assert np.abs(res["y"] - np.asarray(y)).max() <= 1e-5, rank
+            for key in keys:
+                want = np.asarray(cache[key])
+                if not split:
+                    assert np.abs(res[key] - want).max() <= 1e-5, (rank, key)
+                    continue
+                block = np.split(want, 4, axis=1)[res["coord"]]
+                at = ct["pos"] - res["coord"] * block.shape[1]
+                rows = [i for i in range(block.shape[1]) if i != at]
+                np.testing.assert_array_equal(res[key][:, rows], block[:, rows],
+                                              err_msg=f"rank {rank} {key}")
+                assert np.abs(res[key] - block).max() <= 1e-5, (rank, key)
+                np.testing.assert_array_equal(res[key], res[f"{key}_meshless"],
+                                              err_msg=f"rank {rank} {key}")
         return
     if kind == "head":
         def f(p, x):

@@ -419,8 +419,11 @@ def test_one_model_rank_is_the_meshless_arithmetic(world, arch):
     Adafactor (from blocks), every param bitwise the meshless step's (the
     expert-parallel body off: its ``enter`` regroups x's gradient sum, so
     with it the params agree to ~1e-7, as the cases above hold); the
-    partitioned paged prefill and decode, dense prefill and prefill, the
-    experts expert-parallel, every logit and cache leaf bitwise."""
+    partitioned paged prefill and decode, dense prefill (its cache's
+    sequence split over the one rank, every attention block attending its
+    block of it) and prefill, the experts expert-parallel, every logit and
+    cache leaf bitwise."""
     res = _result(world, f"one_rank_{arch}")
     assert res["adamw"] == 0 and res["adafactor"] == 0, res
     assert res["serve"] == 0 and res["n_serve"] > 10, res
+    assert (res["dense_split"] > 0) == (arch != XLSTM), res

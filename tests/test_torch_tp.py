@@ -25,10 +25,10 @@ Held: the port's FLOPs a rank within 5% of the reference's a device on the
 before the partitioned forms llama's were 4.00x on 2 x 4 and 16.0x on
 1 x 16, kimi-k2's 2.38x and 7.85x, deepseek-v3's 2.92x and 10.55x); every
 collective the port issues over more than one rank is in its census, by
-op, with its bytes.  The decode step's core attends replicated on
-gathered q, k and v, MLA's on the gathered absorbed query
-(``models/attention.py``): its per-rank FLOPs exceed the reference's by
-exactly the core's (n - 1) / n share.
+op, with its bytes.  The decode step's core attends over the rank's
+block of the sequence-split cache, with q, k and v gathered whole, MLA's
+with the absorbed query gathered over the heads (``models/attention.py``):
+its per-rank FLOPs equal the reference's within 1e-3 of the core.
 """
 import json
 import os
@@ -286,10 +286,12 @@ def test_every_collective_the_port_issues_is_in_its_census(runs, arch, mesh):
 
 
 def test_decode_core_is_replicated_over_model(runs):
-    """On 8 x 1 the decode step's FLOPs a rank equal the reference's; on
-    2 x 4 the port's exceed them by the attention core's (n - 1) / n share
-    (the core runs whole on every 'model' rank, the projections, MLP and
-    head split as the reference's)."""
+    """(Named for the replicated core this test first pinned.) On 8 x 1 the
+    decode step's FLOPs a rank equal the reference's; on
+    2 x 4 too, within 1e-3 of the attention core: each 'model' rank's core
+    attends over its block of the sequence-split cache (the projections,
+    MLP and head split as the reference's).  Before, the core ran whole on
+    every rank, over by its (n - 1) / n share (1.0857x the reference's)."""
     ref, port = runs(LLAMA, "8x1", "decode")
     assert abs(port["flops_per_device"] - ref["flops_per_device"]) \
         <= 1e-6 * ref["flops_per_device"]
@@ -297,29 +299,32 @@ def test_decode_core_is_replicated_over_model(runs):
     rows, n, layers, width = 4, 4, 2, 24 * 128       # a data rank's rows
     core = layers * 2 * (2 * rows * CACHE * width)   # QK^T and PV over the cache
     extra = port["flops_per_device"] - ref["flops_per_device"]
-    assert abs(extra - core * (n - 1) / n) <= 1e-3 * core, (extra, core)
+    assert abs(extra) <= 1e-3 * core, (extra, core)
     print(f"decode step FLOPs a rank on 2 x 4: port {port['flops_per_device']:.6g}, "
           f"reference {ref['flops_per_device']:.6g}, ratio "
-          f"{port['flops_per_device'] / ref['flops_per_device']:.4f}; the core "
-          f"{core:.6g} a rank against {core / n:.6g} ({n:.1f}x)")
+          f"{port['flops_per_device'] / ref['flops_per_device']:.6f}; the core "
+          f"{core:.6g}, a rank's share {core / n:.6g}")
 
 
 def test_mla_decode_core_is_replicated_over_model(runs):
-    """deepseek-v3's dense-cache decode on 2 x 4 (MLA, the experts
-    expert-parallel as the dry run's cell): the port's FLOPs a rank exceed
-    the reference's by exactly the absorbed core's (n - 1) / n share, its
-    latent scores, rope scores and latent output over the cache, the rest
-    (the projections, the heads' absorption, the shared expert, the
-    experts, the head) split as the reference's."""
+    """(Named for the replicated core this test first pinned.)
+    deepseek-v3's dense-cache decode on 2 x 4 (MLA, the experts
+    expert-parallel as the dry run's cell): the port's FLOPs a rank equal
+    the reference's within 1e-3 of the absorbed core (its latent scores,
+    rope scores and latent output over the cache), each rank's core over
+    its block of the sequence-split cache with every head; the rest (the
+    projections, the heads' absorption, the shared expert, the experts,
+    the head) split as the reference's."""
     ref, port = runs(DEEPSEEK, "2x4", "decode")
     rows, n, layers, heads = 4, 4, 2, 128
     kv_lora, d_rope = 512, 64
     core = layers * 2 * rows * heads * CACHE * (2 * kv_lora + d_rope)
     extra = port["flops_per_device"] - ref["flops_per_device"]
-    assert abs(extra - core * (n - 1) / n) <= 1e-3 * core, (extra, core)
+    assert abs(extra) <= 1e-3 * core, (extra, core)
     print(f"deepseek-v3 decode step FLOPs a rank on 2 x 4: port "
-          f"{port['flops_per_device']:.6g}, reference {ref['flops_per_device']:.6g}; "
-          f"the core {core:.6g} a rank against {core / n:.6g}")
+          f"{port['flops_per_device']:.6g}, reference {ref['flops_per_device']:.6g}, "
+          f"ratio {port['flops_per_device'] / ref['flops_per_device']:.6f}; the core "
+          f"{core:.6g}, a rank's share {core / n:.6g}")
 
 
 @pytest.mark.parametrize("window", [0, 5])

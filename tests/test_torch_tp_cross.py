@@ -22,10 +22,11 @@ Held: the train step's FLOPs a rank within 1e-4 of the reference's a
 device on 8 x 1 and within 5% on 2 x 4 and 1 x 16 (before the partitioned
 cross and encoder forms both archs' were 4.000x and 16.000x); every
 collective the port issues over more than one rank in its census; the
-dense-cache decode with ``aux_embeds`` (a 512-token cache) on 2 x 4 within
-5% of the reference's, over it by exactly the self-attention cores'
-(n - 1) / n share, which runs replicated on gathered q, k and v as the
-dense decoders' does (the cross step's core splits by heads there).
+dense-cache decode with ``aux_embeds`` (a 512-token cache) on 2 x 4 equal
+to the reference's within 1e-3 of the self-attention cores: each core
+attends over the rank's block of the sequence-split cache, as the
+reference's partitioned core (the cross step's core splits by heads
+there).
 """
 import textwrap
 
@@ -100,11 +101,12 @@ def test_every_collective_the_port_issues_is_in_its_census(runs, arch, mesh):
 @pytest.mark.parametrize("arch", [VISION, WHISPER])
 def test_decode_flops_per_rank_match_the_partitioned_reference(runs, arch):
     """The dense-cache decode step over ``aux_embeds`` on 2 x 4: within 5%
-    of the reference's FLOPs a device, and over it by exactly the
-    self-attention cores' (n - 1) / n share (QK^T and PV over the cache for
-    a data rank's rows in every block, a ``cross`` block's too, replicated
-    over 'model'); the cross step's projections of every ``aux_embeds``
-    position and its core split by heads as the reference's."""
+    of the reference's FLOPs a device, and no more over it than 1e-3 of the
+    self-attention cores (QK^T and PV over the cache for a data rank's rows
+    in every block, a ``cross`` block's too): each rank attends over its
+    block of the sequence-split cache; the cross step's projections of
+    every ``aux_embeds`` position and its core split by heads as the
+    reference's."""
     ref, port = runs(arch, "2x4", "decode")
     want, got = ref["flops_per_device"], port["flops_per_device"]
     rows, n = 4, 4
@@ -112,7 +114,7 @@ def test_decode_flops_per_rank_match_the_partitioned_reference(runs, arch):
     core = layers * 2 * (2 * rows * CACHE * width)
     extra = got - want
     print(f"{arch} decode on 2 x 4: port {got:.6g}, reference {want:.6g} FLOP a rank "
-          f"({got / want:.6f}); over by {extra:.6g}, the replicated self-attention "
-          f"cores' share {core * (n - 1) / n:.6g}")
+          f"({got / want:.6f}); over by {extra:.6g}, the self-attention cores "
+          f"{core:.6g}, a rank's share {core / n:.6g}")
     assert abs(got - want) <= 0.05 * want, (got, want)
-    assert abs(extra - core * (n - 1) / n) <= 1e-3 * core, (extra, core)
+    assert abs(extra) <= 1e-3 * core, (extra, core)

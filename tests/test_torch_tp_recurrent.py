@@ -21,8 +21,8 @@ where the reference's exceed the port's by exactly one dot a Mamba2 or
 mLSTM layer in its backward;
 every collective the port issues over more than one rank in its census;
 the dense-cache decode (a 512-token cache) within 5% on 2 x 4, zamba2's
-plus at most its shared attention core's (n - 1) / n share, which runs
-replicated on gathered q, k and v as the dense decoders' does.
+shared attention core over the rank's block of the sequence-split cache,
+as the reference's partitioned core.
 """
 import textwrap
 
@@ -102,9 +102,10 @@ def test_every_collective_the_port_issues_is_in_its_census(runs, arch, mesh):
 @pytest.mark.parametrize("arch", [ZAMBA, XLSTM])
 def test_decode_flops_per_rank_match_the_partitioned_reference(runs, arch):
     """The dense-cache decode step: equal on 8 x 1; on 2 x 4 within 5% of
-    the reference's FLOPs a device, zamba2's plus at most its shared
-    attention core's (n - 1) / n share (one block, QK^T and PV over the
-    cache for a data rank's rows, replicated over 'model')."""
+    the reference's FLOPs a device, zamba2's shared attention core (one
+    block, QK^T and PV for a data rank's rows) over the rank's quarter of
+    the cache's sequence, as the reference's: equal within 1e-3 of the
+    core."""
     ref, port = runs(arch, "8x1", "decode")
     assert abs(port["flops_per_device"] - ref["flops_per_device"]) \
         <= 1e-4 * ref["flops_per_device"]
@@ -113,5 +114,8 @@ def test_decode_flops_per_rank_match_the_partitioned_reference(runs, arch):
     rows, n, width = 4, 4, 32 * 80
     core = 2 * (2 * rows * CACHE * width) if arch == ZAMBA else 0
     print(f"{arch} decode on 2 x 4: port {got:.6g}, reference {want:.6g} FLOP a rank "
-          f"({got / want:.6f}); the replicated core's share {core * (n - 1) / n:.6g}")
-    assert abs(got - want) <= 0.05 * want + core * (n - 1) / n, (got, want)
+          f"({got / want:.6f}); the whole core {core:.6g}, the rank's share "
+          f"{core / n:.6g}")
+    assert abs(got - want) <= 0.05 * want, (got, want)
+    if arch == ZAMBA:
+        assert abs(got - want) <= 1e-3 * core, (got - want, core)

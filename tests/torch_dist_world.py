@@ -319,11 +319,13 @@ def check_cell_serving(meshes, params, tokens, prompt, arch="llama3.2-3b",
     config, B 2) on values, float32, over ``mesh`` and without one.
     Over the mesh the params rest under the cell's specs and each group
     gathers them and computes its share over 'model' (``layout``); decode
-    runs over the dense cache, its sequence split over 'model', gathered a
-    block at a time and written back (``cache_layout``), one teacher-forced
-    token column a step until the cache is full.  Returns the prefill's
-    and every step's logits (rows gathered over 'data') and the final
-    cache's first body block, gathered."""
+    runs over the dense cache, its sequence split over 'model', each
+    block's core attending over the rank's block of it and the ranks
+    merging their softmax statistics (``cache_layout``; nothing of the
+    cache gathered), one teacher-forced token column a step until the
+    cache is full.  Returns the prefill's and every step's logits (rows
+    gathered over 'data'), the final cache's first body block, gathered,
+    and the mesh arm's ``decode.CACHE_LEAVES`` counts."""
     import torch
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.dist.collectives import all_gather
@@ -349,8 +351,10 @@ def check_cell_serving(meshes, params, tokens, prompt, arch="llama3.2-3b",
             batch = _place(batch, pre["specs"][1], m)
             column = lambda t: shard(_t(tokens[:, t:t + 1]), tspec, m)
         res = {"prefill": _np(rows(pre["fn"](pp, batch)))}
+        before = dict(dec.CACHE_LEAVES)
         res["logits"] = np.stack([_np(rows(cell["fn"](pp, cache, column(t))))
                                   for t in range(s)])
+        res["cache_leaves"] = {k: v - before[k] for k, v in dec.CACHE_LEAVES.items()}
         blk = cache["blocks"][0]
         for k in blk:
             res[k] = _np(gather(blk[k], cspec["blocks"][0][k], m) if m else blk[k])
@@ -367,9 +371,11 @@ def check_partitioned_layers(meshes, kind, p, x, ct, kw):
     ``ct``'s labels under its mask plus sum(embedding * x), the logits
     gathered whole; "mla-decode": MLA's absorbed decode over ``ct``'s
     dense cache at ``ct["pos"]``, the output and the cache it wrote, no
-    gradients; "mamba2", "mlstm", "slstm": a recurrent mixer, its
-    replicated leaves and the weights whose dim does not divide the ranks
-    whole; "cross": cross attention over ``kw["kv"]``, whose gradient is
+    gradients; "attn-decode": GQA's, over the rank's block of the
+    cache's sequence, with the meshless decode's write of that block, and
+    "mla-decode" over it where ``ct["split"]``; "mamba2", "mlstm",
+    "slstm": a recurrent mixer, its replicated leaves and the weights whose
+    dim does not divide the ranks whole; "cross": cross attention over ``kw["kv"]``, whose gradient is
     returned too); the blocks' gradients gathered over 'model'."""
     import torch
     from repro_torch.dist.collectives import Part, all_gather
@@ -388,12 +394,22 @@ def check_partitioned_layers(meshes, kind, p, x, ct, kw):
     if kind == "cross":
         kw = dict(kw)
         kv = _t(kw.pop("kv")).requires_grad_()
-    if kind == "mla-decode":
-        cache = {k: _t(ct[k]).clone() for k in ("c_kv", "k_rope")}
+    if kind in ("mla-decode", "attn-decode"):
+        keys = ("c_kv", "k_rope") if kind == "mla-decode" else ("k", "v")
+        layer = attention.mla_decode if kind == "mla-decode" else attention.gqa_decode
+        split = kind == "attn-decode" or ct["split"]
+        pos = torch.tensor(ct["pos"])
+        cache = {k: (part.block(_t(ct[k]), 1) if split else _t(ct[k])).clone()
+                 for k in keys}
         with torch.no_grad():
-            y = attention.mla_decode(local, xt, cache, torch.tensor(ct["pos"]),
-                                     part=part, **kw)
-        return {"y": _np(y), "c_kv": _np(cache["c_kv"]), "k_rope": _np(cache["k_rope"])}
+            y = layer(local, xt, cache, pos, part=part, seq=part if split else None, **kw)
+        out = {"y": _np(y), "coord": part.rank, **{k: _np(cache[k]) for k in keys}}
+        if split:                      # the meshless decode's write, the rank's block
+            whole = {k: _t(ct[k]).clone() for k in keys}
+            with torch.no_grad():
+                layer(_tree_t(p), xt, whole, pos, **kw)
+            out.update({f"{k}_meshless": _np(part.block(whole[k], 1)) for k in keys})
+        return out
     if kind == "head":
         logits = layers.logits_apply(local, xt, kw["softcap"], part)
         loss = layers.cross_entropy(logits, _t(ct["labels"]).long(), _t(ct["mask"]), part)
@@ -556,7 +572,10 @@ def check_one_rank(meshes, arch, params, batches, prompt, aux=None):
     expert-parallel body off (its ``enter`` regroups x's gradient sum),
     against the meshless step; then, the experts expert-parallel,
     ``prefill_paged`` of ``prompt`` and 4 greedy paged decode steps,
-    ``prefill_dense`` and ``prefill`` with ``layout`` (over ``aux``, a
+    ``prefill_dense`` (the dense cache under ``cache_pspecs``, its sequence
+    split over the one 'model' rank: ``cache_layout``; the attention-cache
+    leaves attended split returned as "dense_split") and ``prefill`` with
+    ``layout`` (over ``aux``, a
     cross-attention arch's patches or frames; an encoder arch's ``encode``d
     first, its output compared too) against the meshless calls.  Returns,
     per arm, the count of leaves (params; logits and cache leaves) that
@@ -565,7 +584,8 @@ def check_one_rank(meshes, arch, params, batches, prompt, aux=None):
     import torch.distributed as dist
     from repro_torch.ckpt.manager import tree_leaves
     from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.dist.sharding import param_pspecs
+    from repro_torch.dist.sharding import (DP_AXES, Layout, cache_pspecs, drop_axes,
+                                           param_pspecs, tree_map_with_path)
     from repro_torch.models import decode as dec
     from repro_torch.optim.optimizers import OptConfig
     from repro_torch.train import step as ts
@@ -613,7 +633,16 @@ def check_one_rank(meshes, arch, params, batches, prompt, aux=None):
             t = lg[:, -1].argmax(-1, keepdim=True)
         got += tree_leaves(cache)
         dense = dec.init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
-        last, dense, _ = dec.prefill_dense(cfg, p, dense, tok, **kw, **xkw)
+        dkw = {}
+        if kw:                         # the sequence split over the one 'model' rank
+            cspecs = cache_pspecs(dense, mesh)
+            dense = _place(dense, cspecs, mesh)
+            dkw = dict(cache_layout=Layout(mesh, tree_map_with_path(
+                lambda _, sp: drop_axes(sp, DP_AXES), cspecs)))
+            before = dec.CACHE_LEAVES["split"]
+        last, dense, _ = dec.prefill_dense(cfg, p, dense, tok, **kw, **xkw, **dkw)
+        if kw:
+            out["dense_split"] = dec.CACHE_LEAVES["split"] - before
         got += [last] + tree_leaves(dense)
         got.append(dec.prefill(cfg, p, tok, **kw,
                                **({} if aux is None else dict(aux_embeds=_t(aux))))[0])
