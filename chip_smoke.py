@@ -321,7 +321,22 @@ Phases, one summary line each:
                 to the timed one) must replay bitwise on the CPU from the
                 sketch before them; prints ms per block, a profile of 16
                 neomem blocks (device busy share, top kernels) and the
-                cost of the sketch's O(S^2) first-occurrence dedup.
+                cost of the sketch's O(S^2) first-occurrence dedup;
+  15. examples — the four example twins (examples/*_torch.py) on the card
+                through their main: (a) quickstart (8,192 pages, 128 steps)
+                and profile_embeddings (256,000-row vocabulary, 96 steps of
+                4,096 zipf tokens) at their own sizes, every integer (the
+                printed records, placement tables, θ trace, counts) equal
+                to a CPU run of the same twin; (b) serve_longctx at the
+                reference's smoke shape (llama3.2-3b-smoke: the grouped
+                attention kernel at group 2, dk 16, checked and timed in
+                PHASE kernels), the kv and embeddings resources' feed
+                replayed on the CPU (replay_feed); (c) train_tiered_moe at
+                the reference's ~100M-parameter MoE CFG, batch 8, sequence
+                256, EXAMPLE_STEPS steps: losses finite and falling, the
+                router streams replayed through the twin's experts resource
+                on the CPU, the step-EXAMPLE_CKPT checkpoint restored
+                bitwise.
 The line before the last is a JSON object with every kernel's numbers (its
 launches in PHASE main, the head-tiled attention kernel's in PHASE mla, and
 per phase, PHASE async's apart from moe's: the simulator phases launch no
@@ -539,6 +554,14 @@ PAPER_STREAM = dict(n_pages=1 << 22, block=1 << 14, n_blocks=256, seed=11)
 PAPER_KW = dict(fast_ratio=1 / 3, sketch_width=PAPER_W, sketch_depth=2)
 PAPER_QUOTA = 256
 PAPER_REPLAY = 16       # blocks at the end of neomem's last clear interval replayed
+# PHASE examples: the four example twins through their main; (c) takes the
+# reference's 200 steps of batch 8 x 256 tokens and restores its step-100
+# checkpoint; (b)'s ring is serve_longctx's (4 rows, 8 slots of 16 tokens),
+# its attention the smoke config's group 2 at dk 16 (PHASE kernels)
+EXAMPLE_STEPS = 200
+EXAMPLE_CKPT = 100
+EXAMPLE_REPLAY = 16     # (c): last steps' router streams replayed on the CPU
+EXAMPLE_ATTN = (4, 4, 2, 16, 8, 16)      # B, H, Hkv, dk, P, T
 # datasheet memory bandwidth (bytes/s), float32 non-tensor peak and dense
 # TF32 tensor-core peak (flop/s)
 CARDS = (("H200", 4.8e12, 67e12, 495e12), ("H100 NVL", 3.9e12, 60e12, 417e12),
@@ -777,6 +800,7 @@ def check_attention(torch, pa_ops, pa_ref, rates, gen):
     bms, by = bound_ms(nbytes, nops, rates)
     check_dense_arch_attention(torch, pa_ops, pa_ref, rates)
     check_ssm_attention(torch, pa_ops, pa_ref, rates)
+    check_example_attention(torch, pa_ops, pa_ref, rates)
     return dict(name="paged_attn", route="cuda",
                 source="src/repro_torch/csrc/paged_attn.cu",
                 replaces="src/repro/kernels/paged_attn/paged_attn.py:34",
@@ -823,6 +847,28 @@ def check_ssm_attention(torch, pa_ops, pa_ref, rates) -> None:
                                  torch.bfloat16, lens)
         time_attention(torch, pa_ops, pa_ref, rates, checked, "paged_attn",
                        "paged_attn at group 1, dk 80 (zamba2-2.7b)")
+
+
+def check_example_attention(torch, pa_ops, pa_ref, rates) -> None:
+    """PHASE examples (b)'s ring (serve_longctx: llama3.2-3b-smoke's 4 query
+    heads over 2 kv heads, dk = dv = 16: 32-byte rows, TMA boxes 32 bytes
+    wide, one 16-byte chunk a lane of the score's 8 and 8 of the 32 column
+    pairs of p @ V), checked and timed: an empty row, one with only a
+    part-filled current slot, a ragged one and the prompt's 3 full pages
+    with a part-filled fourth, also with junk past the lengths."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, h, hkv, d, p, t = EXAMPLE_ATTN
+    lens = np.zeros((b, p), int)
+    lens[1, 2] = 5
+    lens[2] = np.random.default_rng(3).integers(0, t + 1, p)
+    lens[3, :3] = t
+    lens[3, 3] = 7
+    attention_case(torch, pa_ops, pa_ref, gen, b, h, hkv, d, d, p, t,
+                   torch.bfloat16, lens, junk=True)
+    checked = attention_case(torch, pa_ops, pa_ref, gen, b, h, hkv, d, d, p, t,
+                             torch.bfloat16, lens)
+    time_attention(torch, pa_ops, pa_ref, rates, checked, "paged_attn",
+                   "paged_attn at group 2, dk 16 (serve_longctx)")
 
 
 def check_mla_attention(torch, pa_ops, pa_ref, _lib, rates, gen):
@@ -2395,23 +2441,17 @@ def draw_moe_params(torch, phase="moe"):
     return cfg, params
 
 
-def record_experts(eng, n_experts: int, names=("experts",)) -> list:
-    """Record what the resources ``names`` take, in order: every observed
-    block (resource, pages, touch pages) and every daemon tick's promotion
-    batches; each raw router id must be an expert or -1."""
+def record_feed(daemon, names) -> list:
+    """Record what the resources ``names`` of ``daemon`` take, in order:
+    every observed block (resource, pages, touch pages) and every daemon
+    tick's promotion batches."""
     log = []
-    h = eng.daemon["experts"]
-    encode, tick = h.resource.encode_stream, eng.daemon.tick
-
-    def encoding(router):
-        r = router.cpu()
-        if not bool((((r >= 0) & (r < n_experts)) | (r == -1)).all()):
-            raise AssertionError(f"router ids outside [0, {n_experts}) and -1")
-        return encode(router)
+    tick = daemon.tick
 
     def observing(name, observe):
         def recorded(state, pages, *, touch_pages=None, **kw):
-            log.append(("observe", name, pages.cpu(), touch_pages.cpu()))
+            log.append(("observe", name, pages.cpu(),
+                        None if touch_pages is None else touch_pages.cpu()))
             return observe(state, pages, touch_pages=touch_pages, **kw)
         return recorded
 
@@ -2423,9 +2463,24 @@ def record_experts(eng, n_experts: int, names=("experts",)) -> list:
                              for n in names}))
         return events
     for name in names:
-        eng.daemon[name].mem.observe = observing(name, eng.daemon[name].mem.observe)
-    h.resource.encode_stream, eng.daemon.tick = encoding, ticking
+        daemon[name].mem.observe = observing(name, daemon[name].mem.observe)
+    daemon.tick = ticking
     return log
+
+
+def record_experts(eng, n_experts: int, names=("experts",)) -> list:
+    """``record_feed`` of the engine's daemon; each raw router id must be an
+    expert or -1."""
+    h = eng.daemon["experts"]
+    encode = h.resource.encode_stream
+
+    def encoding(router):
+        r = router.cpu()
+        if not bool((((r >= 0) & (r < n_experts)) | (r == -1)).all()):
+            raise AssertionError(f"router ids outside [0, {n_experts}) and -1")
+        return encode(router)
+    h.resource.encode_stream = encoding
+    return record_feed(eng.daemon, names)
 
 
 def record_epochs(eng) -> dict:
@@ -2453,25 +2508,27 @@ def record_epochs(eng) -> dict:
     return epochs
 
 
-def replay_experts(torch, eng, log, names=("experts",), epochs=None) -> dict:
-    """The recorded feed of the resources ``names`` through a fresh CPU
-    daemon of the port that holds them alone (placement only): every
-    promotion batch, the placement tables, the θ traces and the sketches
-    must equal the card's, and the card must have moved exactly the rows
-    the batches name.  The daemon's budget is the sum of its resources'
-    quotas, so each resource's share is its own demand capped by its quota
-    whatever the others ask, and these resources alone replay the card's
-    three-resource daemon.  Under the async plane (``epochs`` from
+def replay_feed(torch, daemon, log, names, epochs=None, reads=False):
+    """The recorded feed (:func:`record_feed`) of the resources ``names``
+    through a fresh CPU daemon of the port that holds them alone (placement
+    only): every promotion batch, the placement tables, the θ traces, the
+    promotion, demotion and ping-pong counts (with ``reads`` the hit counts
+    too) and the sketches must equal the card's, and the card must have
+    moved exactly the rows the batches name.  The daemon's budget is the sum
+    of its resources' quotas, so each resource's share is its own demand
+    capped by its quota whatever the others ask, and these resources alone
+    replay a daemon of more.  Under the async plane (``epochs`` from
     :func:`record_epochs`, the card's daemon finalized) each replayed
     resource binds a payload of one-byte rows, so that it runs the async
-    plane, and its commit probe is patched to commit each epoch at the
-    tick at which the card's did."""
+    plane, and its commit probe is patched to commit each epoch at the tick
+    at which the card's did.  Returns (the CPU daemon, rows moved up and
+    down per resource, promotion batches per resource)."""
     import copy
     import dataclasses
     from repro_torch.tiering.daemon import NeoMemDaemon
-    cpu = NeoMemDaemon(eng.daemon.dp, device="cpu")
+    cpu = NeoMemDaemon(daemon.dp, device="cpu")
     for name in names:
-        h = eng.daemon[name]
+        h = daemon[name]
         res = copy.copy(h.resource)
         res.spec = dataclasses.replace(res.spec, row_shape=None)
         ch = cpu.register(res, seeds=h.state.prof.sketch.seeds.cpu())
@@ -2485,7 +2542,7 @@ def replay_experts(torch, eng, log, names=("experts",), epochs=None) -> dict:
                 return 0
             ch.mem.commit_migration = at_card_ticks
     rows = {n: 0 for n in names}
-    batches = 0
+    batches = {n: 0 for n in names}
     for kind, *rest in log:
         if kind == "observe":
             name, pages, touch = rest
@@ -2505,11 +2562,13 @@ def replay_experts(torch, eng, log, names=("experts",), epochs=None) -> dict:
             if got is not None:
                 up = (ev.promoted >= 0) & (ev.victims >= 0)
                 rows[name] += int(up.sum()) + int((up & (ev.evicted >= 0)).sum())
-                batches += name == "experts"
+                batches[name] += 1
     cpu.finalize()
-    stats = eng.tier_stats()
+    card, replayed = daemon.snapshot(), cpu.snapshot()
+    counts = ("promoted", "demoted", "ping_pong") + (
+        ("fast_reads", "slow_reads") if reads else ())
     for name in names:
-        h, ch = eng.daemon[name], cpu[name]
+        h, ch = daemon[name], cpu[name]
         for field in ("page_slot", "slot_page"):
             if not torch.equal(getattr(ch.state.tier, field),
                                getattr(h.state.tier, field).cpu()):
@@ -2517,23 +2576,33 @@ def replay_experts(torch, eng, log, names=("experts",), epochs=None) -> dict:
         if ch.stats.theta_trace != h.stats.theta_trace:
             raise AssertionError(f"{name}: θ trace {h.stats.theta_trace} vs "
                                  f"{ch.stats.theta_trace} on the CPU")
+        got, want = ({k: row[name][k] for k in counts} for row in (card, replayed))
+        if got != want:
+            raise AssertionError(f"{name}: counts {got} vs {want} on the CPU")
         for field in ("counts", "epochs", "hot", "cur_epoch", "n_seen"):
             if not torch.equal(getattr(ch.state.prof.sketch, field),
                                getattr(h.state.prof.sketch, field).cpu()):
                 raise AssertionError(f"{name}: sketch {field} differs from the CPU "
                                      "replay")
-        moved = stats[name]["migration_bytes"]
+        moved = card[name]["migration_bytes"]
         if moved != rows[name] * h.mem.row_bytes or (
                 epochs is not None and ch.stats.migration_epochs
-                != stats[name]["migration_epochs"]):
+                != card[name]["migration_epochs"]):
             raise AssertionError(f"{name}: {moved} B moved in "
-                                 f"{stats[name]['migration_epochs']} epochs for "
+                                 f"{card[name]['migration_epochs']} epochs for "
                                  f"{rows[name]} rows of {h.mem.row_bytes} B")
+    return cpu, rows, batches
+
+
+def replay_experts(torch, eng, log, names=("experts",), epochs=None) -> dict:
+    """:func:`replay_feed` of the engine's daemon, whose expert rows must be
+    the layer's [w_gate | w_in | w_out] in bf16."""
+    cpu, rows, batches = replay_feed(torch, eng.daemon, log, names, epochs)
     h = eng.daemon["experts"]
     if h.mem.row_bytes != 3 * eng.cfg.d_model * eng.cfg.moe.expert_ff * 2:
         raise AssertionError(f"experts: rows of {h.mem.row_bytes} B")
     return {"blocks": sum(e[:2] == ("observe", "experts") for e in log),
-            "epochs": batches, "rows": rows["experts"],
+            "epochs": batches["experts"], "rows": rows["experts"],
             "promoted": int((cpu["experts"].state.tier.slot_page >= 0).sum()),
             "theta": list(h.stats.theta_trace)}
 
@@ -4672,6 +4741,198 @@ def dist_path(torch, counters, smi, device="cuda") -> tuple[dict, dict]:
     return launches, dict(full, **dec, slices=slices)
 
 
+# -- PHASE examples: the four example twins on the card -------------------------
+
+def load_twin(name: str):
+    """``examples/<name>_torch.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def hold_twin(name: str, card: dict, cpu: dict) -> None:
+    """A tiering twin's results on the card equal to its CPU run's: the
+    printed records, the placement tables, the θ trace and the counts."""
+    for key in ("records", "resident", "theta_trace", "counters"):
+        if card.get(key) != cpu.get(key):
+            raise AssertionError(f"examples (a) {name}: {key} {card.get(key)} on the "
+                                 f"card, {cpu.get(key)} on the CPU")
+    for key in ("page_slot", "slot_page"):
+        if not np.array_equal(card[key], cpu[key]):
+            raise AssertionError(f"examples (a) {name}: {key} differs from the CPU")
+
+
+def examples_tiering(torch, counters, smi, device="cuda") -> dict:
+    """(a) quickstart and profile_embeddings at their own sizes, each on the
+    card (update, mark and histogram launched) and on the CPU, equal."""
+    out = {}
+    for name in ("quickstart", "profile_embeddings"):
+        mod = load_twin(name)
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        card = mod.main(device)
+        card_s = time.perf_counter() - t0
+        launches = read_counts(torch, counters, f"examples (a) {name}",
+                               required=counters[SKETCH_COUNTERS])
+        cpu = mod.main("cpu")
+        hold_twin(name, card, cpu)
+        out[name] = launches
+        last = card["records"][-1]
+        print(f"examples (a): {name} at its own size in {card_s:.2f} s on the card, "
+              f"every integer equal to the CPU run (last record {last}, "
+              f"{card['counters']}, θ trace of {len(card['theta_trace'])}); "
+              f"launches {json.dumps(launches)} on {smi}")
+    return out
+
+
+def examples_serve(torch, counters, smi, device="cuda") -> dict:
+    """(b) serve_longctx at the reference's smoke shape on the card: tokens
+    of the expected shape in the vocabulary, logits-fed page mass summing to
+    1, the grouped attention kernel launched at group 2 and dk 16, the kv
+    and embeddings resources' feed replayed on the CPU (placement, θ,
+    counts and hit counts, sketches, bytes moved)."""
+    mod = load_twin("serve_longctx")
+    feed = {}
+    names = ("embeddings", "kv")
+
+    def on_engine(eng):
+        feed["log"] = record_feed(eng.daemon, names)
+    zero_counts(counters)
+    res = mod.main(device, on_engine=on_engine)
+    launches = read_counts(torch, counters, "examples (b)")
+    eng, tokens = res["engine"], res["tokens"]
+    cfg = eng.cfg
+    if tokens.shape != (mod.BATCH, mod.NEW) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"examples (b): tokens {tokens.shape} outside the vocabulary")
+    if (cfg.n_heads // cfg.n_kv_heads, cfg.head_dim) != (2, 16):
+        raise AssertionError(f"examples (b): group {cfg.n_heads // cfg.n_kv_heads}, "
+                             f"dk {cfg.head_dim}")
+    sums = eng._last_kv_mass.sum(dim=1)
+    if not bool(((sums - 1).abs() < 1e-4).all()):
+        raise AssertionError(f"examples (b): page mass sums {sums.tolist()} != 1")
+    _, rows, batches = replay_feed(torch, eng.daemon, feed["log"], names, reads=True)
+    stats = res["tier_stats"]
+    print(f"examples (b): serve_longctx (B {mod.BATCH}, {mod.PROMPT}-token prompts, "
+          f"{mod.NEW} tokens) in {res['seconds']:.2f} s, "
+          f"{mod.BATCH * mod.NEW / res['seconds']:.1f} tokens/s; feed of "
+          f"{sum(e[0] == 'observe' for e in feed['log'])} blocks replayed on the CPU "
+          f"(batches {batches}, rows {rows}); hit rates "
+          f"{ {n: round(r['hit_rate'], 4) for n, r in stats.items()} }, bytes moved "
+          f"{ {n: r['migration_bytes'] for n, r in stats.items()} }; launches "
+          f"{json.dumps(launches)} on {smi}")
+    return launches
+
+
+def examples_train(torch, counters, smi, device="cuda", steps=EXAMPLE_STEPS,
+                   shape=(8, 256)) -> dict:
+    """(c) train_tiered_moe at the reference's CFG, batch 8, sequence 256,
+    EXAMPLE_STEPS steps, in a fresh checkpoint directory under build/: every
+    loss finite and the last 20 steps' mean below the first 20's; the last
+    EXAMPLE_REPLAY steps' router streams, logged, replayed through the
+    twin's experts resource on the CPU from the card's state before them
+    (its tensors, pending queue, telemetry and the daemon's tick; the
+    plain sketch's O(S^2) dedup takes ~0.5 s a step's 16,384 ids on the
+    CPU): placement, θ, counts equal; the step-EXAMPLE_CKPT checkpoint
+    restored bitwise equal to the params after that step."""
+    import copy
+    import shutil
+    from repro_torch.ckpt.manager import CheckpointManager, tree_leaves, tree_unflatten
+    mod = load_twin("train_tiered_moe")
+    ckpt = ROOT / "build" / "examples_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    streams, snap, start = [], [], {}
+    # the checkpoint restored: the twin's step-100 save (after step 100),
+    # or in a shorter run its final one (after the last step)
+    saved = EXAMPLE_CKPT if steps > EXAMPLE_CKPT else steps
+    at = EXAMPLE_CKPT if steps > EXAMPLE_CKPT else steps - 1
+    # the replay starts from the experts resource as the card left it
+    # before the last EXAMPLE_REPLAY steps (the whole run if it is shorter)
+    first = max(steps - EXAMPLE_REPLAY, 0)
+
+    def on_step(s, params, loss, router, experts):
+        if s >= first:
+            streams.append(router.cpu())
+        if s == first - 1:
+            start.update(state=tree_unflatten(experts.state, [
+                x.cpu().clone() for x in tree_leaves(experts.state)]),
+                         pending=experts.mem._pending.copy(),
+                         stats=copy.deepcopy(experts.stats), tick=s + 1)
+        if s == at:
+            snap.extend(x.detach().cpu().clone() for x in tree_leaves(params))
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    try:
+        res = mod.main(steps=steps, batch=shape[0], seq=shape[1], ckpt=str(ckpt),
+                       device=device, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(torch, counters, "examples (c)",
+                               required=counters[SKETCH_COUNTERS])
+        losses = np.asarray(res["losses"])
+        if res["start"] != 0 or len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"examples (c): {len(losses)} losses from step "
+                                 f"{res['start']}, finite {np.isfinite(losses).all()}")
+        w = min(20, steps // 2)
+        if not losses[-w:].mean() < losses[:w].mean():
+            raise AssertionError(f"examples (c): the loss did not fall: {losses[:w].mean()}"
+                                 f" -> {losses[-w:].mean()}")
+        daemon, experts = mod.tiered_experts("cpu")
+        if start:
+            experts.state, experts.stats = start["state"], start["stats"]
+            experts.mem._pending, daemon._tick = start["pending"], start["tick"]
+        for router in streams:
+            experts.observe(router)
+            daemon.tick()
+        card, cpu = res["experts"], experts
+        for field in ("page_slot", "slot_page"):
+            if not torch.equal(getattr(card.state.tier, field).cpu(),
+                               getattr(cpu.state.tier, field)):
+                raise AssertionError(f"examples (c): experts {field} differs from the "
+                                     "CPU replay")
+        counts = ("fast_reads", "slow_reads", "promoted", "demoted", "ping_pong")
+        got, want = ({k: h.snapshot()[k] for k in counts} for h in (card, cpu))
+        if got != want or card.stats.theta_trace != cpu.stats.theta_trace:
+            raise AssertionError(f"examples (c): experts {got}, θ {card.stats.theta_trace}"
+                                 f" vs {want}, {cpu.stats.theta_trace} on the CPU")
+        mgr = CheckpointManager(str(ckpt))
+        restored = tree_leaves(mgr.restore(saved, res["params"]))
+        if len(restored) != len(snap) or not all(
+                torch.equal(a.cpu(), b) for a, b in zip(restored, snap)):
+            raise AssertionError(f"examples (c): the step-{saved} checkpoint "
+                                 "does not restore bitwise")
+        kept = sorted(int(d.name.split("_")[1]) for d in ckpt.iterdir())
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    n_params = sum(x.numel() for x in snap)
+    print(f"examples (c): train_tiered_moe, {n_params / 1e6:.1f} M params, "
+          f"{steps} steps of {shape[0]} x {shape[1]} tokens in {wall:.1f} s "
+          f"({steps * shape[0] * shape[1] / wall:,.0f} tokens/s with the daemon and "
+          f"checkpoints), loss {losses[0]:.3f} -> {losses[-1]:.3f} (first / last "
+          f"{w} steps' mean {losses[:w].mean():.3f} / {losses[-w:].mean():.3f}); the "
+          f"experts resource's integers equal to the CPU replay of the last "
+          f"{len(streams)} router streams from the card's state before them ({got}, "
+          f"θ {card.stats.theta_trace[-3:]}), residency per "
+          f"group {res['residency'].tolist()}; checkpoints {kept}, step "
+          f"{saved} restored bitwise ({len(snap)} leaves); launches "
+          f"{json.dumps(launches)} on {smi}")
+    return launches
+
+
+def examples_path(torch, counters, smi, device="cuda", **train_kw) -> dict:
+    """PHASE examples: (a) ``examples_tiering``, (b) ``examples_serve``, (c)
+    ``examples_train`` (``train_kw``: its steps and shape); the phase's
+    launches are their sum."""
+    parts = list(examples_tiering(torch, counters, smi, device).values())
+    parts.append(examples_serve(torch, counters, smi, device))
+    release(torch)
+    parts.append(examples_train(torch, counters, smi, device, **train_kw))
+    release(torch)
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
 def _tree_map(fn, tree):
     """``fn`` over every tensor of a tree of dicts and lists."""
     if isinstance(tree, dict):
@@ -4838,6 +5099,11 @@ def main() -> int:
         phases[phase] = path(torch, counters, smi)
         print(f"PHASE {phase}: ok in {time.perf_counter() - t0:.1f} s, launches "
               f"{json.dumps(phases[phase])} on {smi}")
+    t0 = time.perf_counter()
+    phases["examples"] = examples_path(torch, counters, smi)
+    print(f"PHASE examples: ok in {time.perf_counter() - t0:.1f} s, the four example "
+          f"twins on the card equal to their CPU runs and replays, launches "
+          f"{json.dumps(phases['examples'])} on {smi}")
     by_name = {"paged_attn": "paged_attention_raw",
                "paged_attn_mla": "paged_attention_head_tiled",
                "neoprof_update": "sketch_update_kernel",

@@ -5,15 +5,12 @@ Public API, the names of the reference's ``repro.core``:
   NeoProfParams/NeoProfState/Commands .... the device-side profiler unit
   PolicyParams/PolicyState/update_threshold ... Algorithm 1
   TierParams/TierState + promote/touch ... two-tier page placement
+  NeoMemDaemon ........................... orchestration cadences (legacy shim)
   run_sim/WORKLOADS ...................... paper-evaluation simulator
 
 The tiering surface (TieredResource / TieredMemory / the multiplexed daemon /
 TierStats) lives in :mod:`repro_torch.tiering`; the most-used names are
-served here lazily from there.  The reference's ``repro.core.daemon``, a
-deprecation shim of a single-resource daemon over ``TieredMemory``, has no
-counterpart: nothing of the port calls it, so ``DaemonParams`` and
-``NeoMemDaemon`` are the multiplexed daemon's, from
-:mod:`repro_torch.tiering`.
+served here lazily from there.
 """
 from repro_torch.core.sketch import (  # noqa: F401
     SketchParams, SketchState, sketch_init, sketch_update, sketch_query,
@@ -30,13 +27,13 @@ from repro_torch.core.tiering import (  # noqa: F401
     TierParams, TierState, tier_init, touch, promote, migrate_data,
     drain_period_stats, lookup,
 )
+from repro_torch.core.daemon import DaemonParams, NeoMemDaemon  # noqa: F401
 from repro_torch.core.simulator import (  # noqa: F401
     MemModel, SimResult, WORKLOADS, run_sim, geomean_speedup,
 )
 _TIERING_EXPORTS = (
     "ResourceSpec", "TierStats", "TieredMemory", "TieredMemoryState",
     "TieredResource", "make_resource", "register_resource", "resource_kinds",
-    "DaemonParams", "NeoMemDaemon",
 )
 
 

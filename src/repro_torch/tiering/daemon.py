@@ -96,6 +96,11 @@ class ResourceHandle:
         self.state = self.mem.observe(self.state, stream,
                                       touch_pages=stream[:cap], **kw)
 
+    def observe_pages(self, pages, *, touch_pages=None, **kw) -> None:
+        """Feed an already-encoded page-id stream (bypasses the encoder)."""
+        self.state = self.mem.observe(self.state, pages,
+                                      touch_pages=touch_pages, **kw)
+
     def lookup(self, page_ids):
         return lookup(self.state, page_ids)
 

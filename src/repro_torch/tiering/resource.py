@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Protocol, runtime_checkable
+from typing import Callable, Protocol, runtime_checkable
 
 import torch
 
@@ -91,14 +91,17 @@ class TieredResource(Protocol):
 
 
 class StreamResource:
-    """Convenience base: a spec whose bytes the data plane moves, so the
-    resource's own migration hook has nothing to do."""
+    """Convenience base: spec + optional ``migrate_fn`` data-movement hook,
+    called with each promotion batch's (promoted pages, victim slots)."""
 
-    def __init__(self, spec: ResourceSpec):
+    def __init__(self, spec: ResourceSpec,
+                 migrate_fn: Callable[[torch.Tensor, torch.Tensor], None] | None = None):
         self.spec = spec
+        self.migrate_fn = migrate_fn
 
     def apply_migration(self, promoted_pages, victim_slots) -> None:
-        pass
+        if self.migrate_fn is not None:
+            self.migrate_fn(promoted_pages, victim_slots)
 
 
 # Registry: resource kind -> class, so owners look resources up by name.

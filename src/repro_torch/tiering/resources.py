@@ -30,8 +30,9 @@ class KVPagesResource(StreamResource):
     ``mass_threshold``: the pages the model actually pulled from.
     """
 
-    def __init__(self, spec: ResourceSpec, mass_threshold: float = 0.02):
-        super().__init__(spec)
+    def __init__(self, spec: ResourceSpec, mass_threshold: float = 0.02,
+                 migrate_fn=None):
+        super().__init__(spec, migrate_fn)
         self.mass_threshold = mass_threshold
 
     def encode_stream(self, page_mass: torch.Tensor,
@@ -47,8 +48,8 @@ class ExpertStreamResource(StreamResource):
     """MoE expert weights: the stream is the router's token->expert ids,
     page = group * n_experts + expert."""
 
-    def __init__(self, spec: ResourceSpec, n_experts: int):
-        super().__init__(spec)
+    def __init__(self, spec: ResourceSpec, n_experts: int, migrate_fn=None):
+        super().__init__(spec, migrate_fn)
         self.n_experts = n_experts
 
     def encode_stream(self, router_streams: torch.Tensor) -> torch.Tensor:
@@ -73,8 +74,8 @@ class EmbedRowsResource(StreamResource):
     page its row-block ``token // rows_per_page`` (-1 tokens stay -1)."""
 
     def __init__(self, spec: ResourceSpec,
-                 rows_per_page: int = EMBED_ROWS_PER_PAGE):
-        super().__init__(spec)
+                 rows_per_page: int = EMBED_ROWS_PER_PAGE, migrate_fn=None):
+        super().__init__(spec, migrate_fn)
         self.rows_per_page = rows_per_page
 
     def encode_stream(self, tokens: torch.Tensor) -> torch.Tensor:

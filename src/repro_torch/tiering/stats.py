@@ -119,3 +119,29 @@ def hit_rate(tier: TierState, stats: TierStats) -> float:
     f = stats.fast_reads + int(tier.fast_reads)
     s = stats.slow_reads + int(tier.slow_reads)
     return f / max(f + s, 1)
+
+
+class LegacyDaemonStateView:
+    """The old ``DaemonState`` attribute surface, read from a TierStats.
+
+    Shared by the deprecation shims (``core/daemon.py``,
+    ``core/adapters/base.py``) so the legacy field mapping exists once.
+    """
+
+    def __init__(self, stats: TierStats, tick_fn=None):
+        self._stats = stats
+        self._tick_fn = tick_fn
+
+    @property
+    def tick(self) -> int:
+        return self._tick_fn() if self._tick_fn is not None else 0
+
+    total_fast = property(lambda self: self._stats.fast_reads)
+    total_slow = property(lambda self: self._stats.slow_reads)
+    total_promoted = property(lambda self: self._stats.promoted)
+    total_ping_pong = property(lambda self: self._stats.ping_pong)
+    migrated_this_period = property(
+        lambda self: self._stats.migrated_this_period)
+    theta_trace = property(lambda self: self._stats.theta_trace)
+    bw_trace = property(lambda self: self._stats.bw_trace)
+    pp_trace = property(lambda self: self._stats.pp_trace)

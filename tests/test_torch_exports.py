@@ -3,8 +3,10 @@
 ``repro_torch.tiering`` / ``repro_torch.core``.
 
 The reference's import lists are read as text, so that this file imports no
-JAX.  ``repro.core.daemon`` (a deprecation shim) has no counterpart in the
-port: its two names are served from ``repro_torch.tiering``."""
+JAX.  Each name resolves to the port's counterpart of the reference module it
+comes from: ``repro_torch.core``'s ``DaemonParams`` and ``NeoMemDaemon`` are
+the legacy single-resource daemon's (``repro_torch.core.daemon``), the
+tiering package's the multiplexed daemon's."""
 import ast
 import os
 import subprocess
@@ -17,7 +19,6 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 REFERENCE = ROOT / "src" / "repro"
-SHIM = "repro.core.daemon"
 
 
 def reference_exports(package: str) -> dict[str, str]:
@@ -42,7 +43,8 @@ def test_reference_lists_parsed():
     tiering, core = reference_exports("tiering"), reference_exports("core")
     assert len(tiering) >= 30 and len(core) >= 35
     assert {"NeoMemDaemon", "KVPagesResource", "hit_rate"} <= set(tiering)
-    assert core["NeoMemDaemon"] == SHIM and core["TieredMemory"] == "repro.tiering"
+    assert core["NeoMemDaemon"] == core["DaemonParams"] == "repro.core.daemon"
+    assert core["TieredMemory"] == "repro.tiering"
 
 
 @pytest.mark.parametrize("package,name,module", CASES,
@@ -50,13 +52,8 @@ def test_reference_lists_parsed():
 def test_reference_export_resolves_on_port(package, name, module):
     import importlib
     port = importlib.import_module(f"repro_torch.{package}")
-    value = getattr(port, name)
-    if module == SHIM:
-        import repro_torch.tiering
-        assert value is getattr(repro_torch.tiering, name)
-    else:
-        port_module = importlib.import_module(module.replace("repro", "repro_torch", 1))
-        assert value is getattr(port_module, name)
+    port_module = importlib.import_module(module.replace("repro", "repro_torch", 1))
+    assert getattr(port, name) is getattr(port_module, name)
 
 
 _PROBE = """

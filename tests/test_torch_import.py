@@ -11,8 +11,9 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
+TWINS = sorted((ROOT / "examples").glob("*_torch.py"))
 PORT_SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + TWINS
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
 _PROBE = """
@@ -93,4 +94,30 @@ def test_distribution_layer_imports_touch_no_process_group_or_device():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", _DIST_PROBE], env=env,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_SHIM_PROBE = """
+import importlib.util, sys
+import repro_torch.core.adapters.base, repro_torch.core.adapters.kv_tier
+import repro_torch.core.adapters.expert_cache, repro_torch.core.adapters.embed_cache
+import repro_torch.core.daemon
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[-1][:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_legacy_shims_and_example_twins_import_no_jax_or_reference():
+    """The legacy shims (``core/daemon.py``, ``core/adapters/*``) and the four
+    example twins load neither JAX nor the reference."""
+    assert [p.name for p in TWINS] == [
+        "profile_embeddings_torch.py", "quickstart_torch.py",
+        "serve_longctx_torch.py", "train_tiered_moe_torch.py"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _SHIM_PROBE, *map(str, TWINS)],
+                          env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
