@@ -1376,6 +1376,50 @@ def replay_resource(torch, h, blocks) -> None:
                   what=f"{h.name} sketch")
 
 
+def check_members(torch, eng, rows) -> None:
+    """The engine's deprecated ``kv_tier`` is its daemon's "kv" handle,
+    ``daemon.hit_rates()`` each ``tier_stats()`` row's ``hit_rate``, and
+    ``layers.mlp_init`` / ``embed_init`` on the card give the CPU call's tree
+    (keys, shapes, dtypes), their weights bitwise the CPU's arithmetic on
+    the card generator's own draws, moved to the CPU (torch's CUDA and CPU
+    generators draw different numbers from one seed), and zero biases."""
+    from repro_torch.models import layers
+    if eng.kv_tier is not eng.daemon["kv"]:
+        raise AssertionError("main: kv_tier is not the daemon's kv handle")
+    rates = eng.daemon.hit_rates()
+    if rates != {n: r["hit_rate"] for n, r in rows.items()}:
+        raise AssertionError(f"main: hit_rates {rates} != tier_stats rows {rows}")
+    d, f, v, seed = 64, 256, 512, 7
+    cases = [(f"mlp_init {kind}",
+              lambda dev, gen, kind=kind: layers.mlp_init(
+                  gen, d, f, kind, lead=(2,), device=dev),
+              [("w_in", (2, d, f), d ** -0.5)]
+              + ([] if kind == "gelu" else [("w_gate", (2, d, f), d ** -0.5)])
+              + [("w_out", (2, f, d), f ** -0.5)])
+             for kind in ("swiglu", "geglu", "gelu")]
+    cases.append(("embed_init",
+                  lambda dev, gen: layers.embed_init(gen, v, d, device=dev),
+                  [("table", (v, d), d ** -0.5)]))
+    tree = lambda p: {k: (tuple(x.shape), x.dtype) for k, x in p.items()}
+    for what, init, draws in cases:
+        got = init("cuda", torch.Generator(device="cuda").manual_seed(seed))
+        cpu = init("cpu", torch.Generator().manual_seed(seed))
+        if tree(got) != tree(cpu) or any(x.device.type != "cuda" for x in got.values()):
+            raise AssertionError(f"main: {what} on the card {tree(got)} != {tree(cpu)}")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for name, shape, std in draws:
+            raw = torch.randn(shape, generator=gen, device="cuda",
+                              dtype=torch.float32).cpu()
+            if not torch.equal(got[name].cpu(), (raw * std).to(layers.DTYPE)):
+                raise AssertionError(f"main: {what} {name} differs from the CPU's")
+        if any(bool(got[k].any()) for k in set(got) - {n for n, _, _ in draws}):
+            raise AssertionError(f"main: {what} has a nonzero bias")
+    print(f"main: kv_tier is daemon['kv']; hit_rates {json.dumps(rates)} equal "
+          "tier_stats' rows; layers.mlp_init (swiglu, geglu, gelu) and embed_init "
+          "on the card: the CPU call's tree, weights bitwise the CPU's arithmetic "
+          "on the card generator's draws")
+
+
 def main_path(torch, counters, cfg, params):
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
@@ -1404,7 +1448,9 @@ def main_path(torch, counters, cfg, params):
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
     tokens = np.stack(out, axis=1)
     assert tokens.shape == (4, 64) and (tokens >= 0).all() and (tokens < cfg.vocab).all()
-    stats = eng.tier_stats()["kv"]
+    rows = eng.tier_stats()
+    stats = rows["kv"]
+    check_members(torch, eng, rows)
     logits = eng._advance(torch.as_tensor(tok, device="cuda")[:, None])
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite logits")
@@ -1986,6 +2032,9 @@ def serve_arm(torch, counters, cfg, params, smi, arm, serve, prompts, new,
     torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(cfg, params, ServeConfig(
         **dict(serve, resources=tuple(serve["resources"]))), device=device)
+    if eng.kv_tier is not (eng.daemon["kv"] if serve.get("paged") else None):
+        raise AssertionError(f"{phase} {cfg.name}: the {arm} arm's kv_tier is "
+                             f"{eng.kv_tier!r}")
     blocks = record_blocks(eng.daemon["embeddings"])
     zero_counts(counters)
     run = drive_arm(torch, eng, prompts, new, feed, aux)
@@ -2014,7 +2063,7 @@ def serve_arm(torch, counters, cfg, params, smi, arm, serve, prompts, new,
           f"tokens/s, {1e3 * run['decode_s'] / steps:.2f} ms/step, embeddings "
           f"hit rate {run['stats']['hit_rate']:.3f}, peak device memory "
           f"{run['peak_gib']:.2f} GiB, launches {json.dumps(run['launches'])} "
-          f"on {smi}")
+          f"on {smi}; kv_tier {'None' if eng.kv_tier is None else 'daemon[kv]'}")
     if arm == "dense":
         name, label = PROFILE_RANGES.get(phase, (None, None))
         profile_dense(torch, eng, run["tokens"][:, -1].cpu().numpy(),

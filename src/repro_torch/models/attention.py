@@ -73,38 +73,12 @@ past ``pos`` adds exactly 0.  With one rank in the part every form is the
 meshless arithmetic, op for op (the split cache's share is exactly 1)."""
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.dist import collectives as col
-from repro_torch.models.layers import DTYPE, _col_bias, apply_rope
+from repro_torch.models.layers import DTYPE, _col_bias, _normal, apply_rope
 
 NEG_INF = -1e30
-
-_WHOLE_DRAW = 1 << 30     # elements above which a tensor is drawn in slices
-_DRAW_SLICE = 1 << 28     # float32 elements drawn at once in that case
-
-
-def _normal(shape, std, generator, device, dtype):
-    """N(0, std^2) weights in ``dtype``, drawn in float32 from ``generator``.
-    A tensor of more than 2^30 elements (kimi-k2's expert stacks, 5.6 G
-    elements each) is filled 2^28 elements at a time, scaled in place, so
-    the float32 temporaries stay at 1 GiB instead of twice the tensor.  On
-    the meta device: the shape alone."""
-    if torch.device(device).type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
-    n = math.prod(shape)
-    if n <= _WHOLE_DRAW:
-        return (torch.randn(shape, generator=generator, device=device,
-                            dtype=torch.float32) * std).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=device)
-    flat = out.view(-1)
-    for lo in range(0, n, _DRAW_SLICE):
-        part = torch.randn((min(_DRAW_SLICE, n - lo),), generator=generator,
-                           device=device, dtype=torch.float32)
-        flat[lo:lo + part.numel()].copy_(part.mul_(std))
-    return out
 
 
 def gqa_init(generator: torch.Generator, d, h, hkv, dh, *, groups: int = 0,

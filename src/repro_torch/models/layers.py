@@ -18,12 +18,38 @@ arithmetic, op for op.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives as col
 
 DTYPE = torch.bfloat16
+
+_WHOLE_DRAW = 1 << 30     # elements above which a tensor is drawn in slices
+_DRAW_SLICE = 1 << 28     # float32 elements drawn at once in that case
+
+
+def _normal(shape, std, generator, device, dtype):
+    """N(0, std^2) weights in ``dtype``, drawn in float32 from ``generator``.
+    A tensor of more than 2^30 elements (kimi-k2's expert stacks, 5.6 G
+    elements each) is filled 2^28 elements at a time, scaled in place, so
+    the float32 temporaries stay at 1 GiB instead of twice the tensor.  On
+    the meta device: the shape alone."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    n = math.prod(shape)
+    if n <= _WHOLE_DRAW:
+        return (torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32) * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for lo in range(0, n, _DRAW_SLICE):
+        part = torch.randn((min(_DRAW_SLICE, n - lo),), generator=generator,
+                           device=device, dtype=torch.float32)
+        flat[lo:lo + part.numel()].copy_(part.mul_(std))
+    return out
 
 
 def rmsnorm(p, x, eps=1e-6, plus_one: bool = False):
@@ -84,6 +110,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # -- MLP / embedding / logits -------------------------------------------------
 
+def mlp_init(gen: torch.Generator, d: int, f: int, kind: str = "swiglu", *,
+             lead: tuple = (), device="cuda", dtype=DTYPE) -> dict:
+    """An MLP's weights with the reference's init scales, drawn from ``gen``
+    (``w_in``, then ``w_gate``, then ``w_out``): swiglu and geglu gate
+    ``w_in`` (d, f) with ``w_gate`` (d, f), std d^-1/2, before ``w_out``
+    (f, d), std f^-1/2; "gelu" has ``w_in`` and ``w_out`` with zero biases
+    ``b_in`` (f,) and ``b_out`` (d,).  ``lead`` stacks layers on leading
+    axes."""
+    if kind == "gelu":
+        return {"w_in": _normal(lead + (d, f), d ** -0.5, gen, device, dtype),
+                "b_in": torch.zeros(lead + (f,), dtype=dtype, device=device),
+                "w_out": _normal(lead + (f, d), f ** -0.5, gen, device, dtype),
+                "b_out": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+    return {"w_in": _normal(lead + (d, f), d ** -0.5, gen, device, dtype),
+            "w_gate": _normal(lead + (d, f), d ** -0.5, gen, device, dtype),
+            "w_out": _normal(lead + (f, d), f ** -0.5, gen, device, dtype)}
+
+
 def mlp_apply(p, x, kind: str = "swiglu", part=None):
     """swiglu and geglu (tanh-approximate GELU, as ``jax.nn.gelu(...,
     approximate=True)``) gate ``w_in``'s product with ``w_gate``'s; "gelu"
@@ -107,6 +151,12 @@ def _col_bias(b, part):
     """A replicated bias of a column-parallel product: the rank's block,
     entering the region (its gradient summed over the ranks' blocks)."""
     return b if part is None else part.block(col.enter(b, part.group), -1)
+
+
+def embed_init(gen: torch.Generator, v: int, d: int, *, device="cuda",
+               dtype=DTYPE) -> dict:
+    """The (v, d) embedding table (tied to the head), std d^-1/2."""
+    return {"table": _normal((v, d), d ** -0.5, gen, device, dtype)}
 
 
 def embed_apply(p, tokens, part=None):

@@ -34,8 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives as col
-from repro_torch.models.attention import _normal
-from repro_torch.models.layers import DTYPE, _col_bias
+from repro_torch.models.layers import DTYPE, _col_bias, _normal
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -49,8 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives as col
-from repro_torch.models.attention import _normal
-from repro_torch.models.layers import DTYPE, mlp_apply
+from repro_torch.models.layers import DTYPE, _normal, mlp_apply
 from repro_torch.tiering.migrate import lookup_rows
 
 
@@ -59,7 +58,7 @@ def moe_init(generator: torch.Generator, d, e, f, *, shared_f: int = 0,
     """Router (float32) and expert weights with the reference's init scales;
     ``groups > 0`` stacks ``groups`` layers on a leading axis.  The expert
     stacks of a full-width model are drawn a slice at a time
-    (:func:`repro_torch.models.attention._normal`)."""
+    (:func:`repro_torch.models.layers._normal`)."""
     lead = (groups,) if groups else ()
     s_in, s_out = d ** -0.5, f ** -0.5
     p = {

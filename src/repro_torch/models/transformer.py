@@ -42,11 +42,12 @@ from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives as col
 from repro_torch.dist.sharding import entry_axes, per_group
-from repro_torch.models.attention import (_normal, cross_apply, gqa_apply,
-                                          gqa_init, mla_apply, mla_init)
-from repro_torch.models.layers import (DTYPE, apply_norm, cross_entropy,
-                                       embed_apply, logits_apply, make_norm,
-                                       mlp_apply)
+from repro_torch.models.attention import (cross_apply, gqa_apply, gqa_init,
+                                          mla_apply, mla_init)
+from repro_torch.models.layers import (DTYPE, _normal, apply_norm,
+                                       cross_entropy, embed_apply, embed_init,
+                                       logits_apply, make_norm, mlp_apply,
+                                       mlp_init)
 from repro_torch.models.mamba2 import mamba2_apply, mamba2_init
 from repro_torch.models.moe import moe_apply_ep, moe_init
 from repro_torch.models.xlstm import (mlstm_apply, mlstm_init, slstm_apply,
@@ -92,19 +93,6 @@ def check_ported(cfg: ArchConfig) -> None:
             "ported to repro_torch: only the dense GQA family, the MoE family "
             "(GQA or MLA), the Mamba2 hybrid, the xLSTM family, the vision "
             "family and the encoder-decoder family are")
-
-
-def _mlp(gen, d, f, kind, lead, device):
-    """``mlp_init``'s params: swiglu and geglu gate ``w_in`` with
-    ``w_gate``; "gelu" has ``w_in`` and ``w_out`` with zero biases."""
-    if kind == "gelu":
-        return {"w_in": _normal(lead + (d, f), d ** -0.5, gen, device, DTYPE),
-                "b_in": torch.zeros(lead + (f,), dtype=DTYPE, device=device),
-                "w_out": _normal(lead + (f, d), f ** -0.5, gen, device, DTYPE),
-                "b_out": torch.zeros(lead + (d,), dtype=DTYPE, device=device)}
-    return {"w_in": _normal(lead + (d, f), d ** -0.5, gen, device, DTYPE),
-            "w_gate": _normal(lead + (d, f), d ** -0.5, gen, device, DTYPE),
-            "w_out": _normal(lead + (f, d), f ** -0.5, gen, device, DTYPE)}
 
 
 def _mixer(gen, cfg: ArchConfig, kind: str, groups: int, device):
@@ -153,7 +141,7 @@ def _block(gen, cfg: ArchConfig, kind: str, groups: int, device):
                                            dtype=torch.float32, device=device)
     else:
         width = cfg.moe.dense_ff if kind == "attn_dense" else cfg.d_ff
-        p["ffn"] = _mlp(gen, d, width, cfg.mlp, lead, device)
+        p["ffn"] = mlp_init(gen, d, width, cfg.mlp, lead=lead, device=device)
     if kind in ("cross", "dec"):
         p["lnx"] = make_norm(cfg.norm, lead + (d,), device)
         p["xattn"] = gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
@@ -184,8 +172,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda"):
         params["encoder"] = [_block(gen, cfg, "enc", 0, device)
                              for _ in range(cfg.encoder_layers)]
         params["enc_norm"] = make_norm(cfg.norm, (cfg.d_model,), device)
-    params["embed"] = {"table": _normal((cfg.vocab, cfg.d_model),
-                                        cfg.d_model ** -0.5, gen, device, DTYPE)}
+    params["embed"] = embed_init(gen, cfg.vocab, cfg.d_model, device=device)
     if cfg.mtp:
         d = cfg.d_model
         params["mtp"] = {

@@ -42,8 +42,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.dist import collectives as col
-from repro_torch.models.attention import _normal
-from repro_torch.models.layers import DTYPE, _col_bias
+from repro_torch.models.layers import DTYPE, _col_bias, _normal
 from repro_torch.models.mamba2 import softplus
 
 M_INIT = -1e30      # the stabiliser's initial value (the reference's -inf stand-in)

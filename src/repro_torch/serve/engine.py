@@ -67,7 +67,7 @@ from repro_torch.convert import tensor_from_numpy
 from repro_torch.models import decode as dec
 from repro_torch.models.transformer import encode
 from repro_torch.serve.clock import TickClock
-from repro_torch.tiering.daemon import NeoMemDaemon
+from repro_torch.tiering.daemon import NeoMemDaemon, ResourceHandle
 from repro_torch.tiering.memory import DaemonParams
 from repro_torch.tiering.migrate import segment_page_ids
 from repro_torch.tiering.resource import ResourceSpec
@@ -1014,3 +1014,8 @@ class ServeEngine:
         for h in self.daemon.resources.values():
             h.stats.decode_s = self._decode_s
         return self.daemon.snapshot()
+
+    @property
+    def kv_tier(self) -> ResourceHandle | None:
+        """Deprecated: the KV resource handle (None when not paged)."""
+        return self.daemon["kv"] if "kv" in self.daemon else None

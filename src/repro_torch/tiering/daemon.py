@@ -304,6 +304,9 @@ class NeoMemDaemon:
     def stats(self) -> dict[str, TierStats]:
         return {n: h.stats for n, h in self.resources.items()}
 
+    def hit_rates(self) -> dict[str, float]:
+        return {n: h.hit_rate() for n, h in self.resources.items()}
+
     def snapshot(self) -> dict[str, dict]:
         """Per-resource flat telemetry rows (benchmark / logging schema)."""
         return {n: h.snapshot() for n, h in self.resources.items()}

@@ -174,6 +174,54 @@ def test_mlp_apply_matches_reference(kind):
                                rtol=0)
 
 
+@pytest.mark.parametrize("kind", ["swiglu", "geglu", "gelu"])
+def test_mlp_init_matches_reference_tree(kind):
+    """``mlp_init``: the reference's keys, shapes and dtypes (bf16 by
+    default, float32 when asked), zero biases, each matrix's std within 5%
+    of the reference's scale (d^-1/2 into the hidden width, f^-1/2 out of
+    it) and of the reference's own draw; ``lead`` stacks layers in front.
+    The draws themselves differ (a ``torch.Generator``, not ``jax.random``)."""
+    d, f = 64, 256
+    for j_dtype, t_dtype in ((jnp.bfloat16, None), (jnp.float32, torch.float32)):
+        ref = j_layers.mlp_init(jax.random.PRNGKey(0), d, f, kind, dtype=j_dtype)
+        kw = {} if t_dtype is None else {"dtype": t_dtype}
+        gen = torch.Generator().manual_seed(0)
+        port = t_layers.mlp_init(gen, d, f, kind, device="cpu", **kw)
+        assert set(port) == set(ref)
+        for name, leaf in ref.items():
+            t = port[name]
+            assert tuple(t.shape) == leaf.shape, name
+            assert str(t.dtype).split(".")[-1] == str(leaf.dtype), name
+            if name.startswith("b_"):
+                assert bool((t == 0).all()), name
+                continue
+            scale = (d if name != "w_out" else f) ** -0.5
+            std = float(t.float().std())
+            assert abs(std - scale) < 0.05 * scale, (name, std, scale)
+            ref_std = float(np.asarray(leaf, np.float32).std())
+            assert abs(std - ref_std) < 0.05 * ref_std, (name, std, ref_std)
+    stacked = t_layers.mlp_init(torch.Generator().manual_seed(0), d, f, kind,
+                                lead=(3,), device="cpu")
+    assert {k: tuple(v.shape) for k, v in stacked.items()} == \
+        {k: (3,) + tuple(v.shape) for k, v in port.items()}
+
+
+def test_embed_init_matches_reference_tree():
+    """``embed_init``: the reference's ``table`` (v, d), bf16 by default,
+    std within 5% of d^-1/2 and of the reference's own draw."""
+    v, d = 512, 64
+    ref = j_layers.embed_init(jax.random.PRNGKey(0), v, d)
+    port = t_layers.embed_init(torch.Generator().manual_seed(0), v, d, device="cpu")
+    assert set(port) == set(ref) == {"table"}
+    t = port["table"]
+    assert tuple(t.shape) == ref["table"].shape
+    assert str(t.dtype).split(".")[-1] == str(ref["table"].dtype)
+    std = float(t.float().std())
+    assert abs(std - d ** -0.5) < 0.05 * d ** -0.5, std
+    ref_std = float(np.asarray(ref["table"], np.float32).std())
+    assert abs(std - ref_std) < 0.05 * ref_std, (std, ref_std)
+
+
 def _flatten(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():

@@ -41,8 +41,8 @@ from repro.tiering import resources as j_resources  # noqa: E402
 from repro_torch.configs import registry as t_registry  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import tiering as t_tiering  # noqa: E402
-from repro_torch.models import attention as t_attention  # noqa: E402
 from repro_torch.models import decode as t_dec  # noqa: E402
+from repro_torch.models import layers as t_layers  # noqa: E402
 from repro_torch.models import moe as t_moe  # noqa: E402
 from repro_torch.models import transformer as t_tr  # noqa: E402
 from repro_torch.tiering import migrate as t_migrate  # noqa: E402
@@ -457,10 +457,10 @@ def test_init_params_matches_reference_layout():
 def test_large_tensors_draw_in_slices(monkeypatch):
     """Above the whole-draw size a tensor is filled slice by slice: the same
     numbers from the same seed, at the init scale."""
-    monkeypatch.setattr(t_attention, "_WHOLE_DRAW", 1000)
-    monkeypatch.setattr(t_attention, "_DRAW_SLICE", 300)
-    draw = [t_attention._normal((7, 50, 40), 0.1, torch.Generator().manual_seed(3),
-                                "cpu", torch.bfloat16) for _ in range(2)]
+    monkeypatch.setattr(t_layers, "_WHOLE_DRAW", 1000)
+    monkeypatch.setattr(t_layers, "_DRAW_SLICE", 300)
+    draw = [t_layers._normal((7, 50, 40), 0.1, torch.Generator().manual_seed(3),
+                             "cpu", torch.bfloat16) for _ in range(2)]
     assert torch.equal(*draw)
     assert abs(float(draw[0].float().std()) - 0.1) < 0.005
 

@@ -205,6 +205,47 @@ def test_daemon_kv_loop_matches_reference(device_tier_probe):
         {k: v for k, v in row_j.items() if k not in wall}
 
 
+def test_daemon_hit_rates_match_reference(device_tier_probe):
+    """``hit_rates()`` of a daemon holding a "kv" and an "embeddings"
+    resource, both fed the same streams as the reference's: equal to the
+    reference's after every tick, a Python float per resource, and equal to
+    each ``snapshot()`` row's ``hit_rate`` (the undrained period counters
+    folded in)."""
+    spec_j, spec_t = _kv_specs()
+    ekw = dict(n_pages=16, hot_slots=4, quota_pages=2, sketch_width=1 << 10)
+    dp = dict(migration_interval=2, threshold_update_period=4, clear_interval=12)
+    dj = j_tm.NeoMemDaemon(j_tm.DaemonParams(**dp))
+    dt = t_daemon.NeoMemDaemon(t_memory.DaemonParams(**dp), device="cpu")
+    for rj, rt in ((j_tm.KVPagesResource(spec_j, mass_threshold=0.1),
+                    t_resources.KVPagesResource(spec_t, mass_threshold=0.1)),
+                   (j_tm.EmbedRowsResource(j_tm.ResourceSpec("embeddings", **ekw),
+                                           rows_per_page=8),
+                    t_resources.EmbedRowsResource(
+                        t_resource.ResourceSpec("embeddings", **ekw),
+                        rows_per_page=8))):
+        hj = dj.register(rj)
+        dt.register(rt, seeds=sketch_seeds_from_jax(hj.state.prof.sketch.seeds))
+    rng = np.random.default_rng(5)
+    hot_pages = np.array([3, 7, 8, 20])
+    for step in range(24):
+        ids = np.where(rng.random(6) < 0.85,
+                       rng.choice(np.r_[hot_pages, rng.integers(0, 32, 4)], 6),
+                       -1).astype(np.int32)
+        mass = rng.dirichlet(np.ones(6) * 0.5).astype(np.float32)
+        tokens = np.minimum(rng.geometric(0.04, 10) - 1, 127).astype(np.int32)
+        dj.observe("kv", jnp.asarray(mass), jnp.asarray(ids))
+        dt.observe("kv", torch.from_numpy(mass), torch.from_numpy(ids))
+        dj.observe("embeddings", jnp.asarray(tokens))
+        dt.observe("embeddings", torch.from_numpy(tokens))
+        dj.tick()
+        dt.tick()
+        got = dt.hit_rates()
+        assert got == dj.hit_rates(), step
+        assert all(type(v) is float for v in got.values())
+        assert got == {n: row["hit_rate"] for n, row in dt.snapshot().items()}
+    assert 0 < got["kv"] < 1 and 0 < got["embeddings"] < 1, got
+
+
 @pytest.mark.parametrize("threshold", [0.0, 0.02, 0.25])
 def test_kv_encode_stream_matches_reference(threshold):
     """The kv page stream: resident ids whose mass share reaches the
